@@ -1,0 +1,435 @@
+"""``compile_experiment``: lower one ``ExperimentSpec`` to a runnable ``Plan``.
+
+Counterpart of ``repro.api.plan`` for this slice of the port: the CNN
+family on the sequential engines (``fl/scan``, the FL baseline, and
+``sl/scan``, Algorithm 3), a fraction cut, an fp32 or int8 link (the int8
+boundary on the fused CUDA kernel or the two-op plain path), and the UAV
+mission budget. The run surface is the reference's:
+
+    plan = compile_experiment(spec, device="cuda")
+    state = plan.init()
+    state, rec = plan.run_round(state)          # one RoundRecord per round
+    metrics = plan.evaluate(state)
+
+Every energy/FLOP/link constant is hoisted at compile time (the paper's
+Eq. 8/9 accounting); ``run_round`` multiplies the per-client constants by
+the steps that ran. Spec fields outside the slice raise
+``NotImplementedError`` naming their ROADMAP item; nothing falls back.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.energy import RTX_A5000
+from ..core.split import (SplitStep, cut_index_for_fraction,
+                          init_stages, make_fl_round, make_multi_client_round,
+                          to_port_layout)
+from ..core.trajectory import TourPlan, plan_tour
+from ..data.partition import (partition_dirichlet, partition_iid,
+                              partition_non_iid)
+from ..data.synthetic import SyntheticPestImages
+from ..fleet.link import FleetLink
+from ..kernels.dispatch import LINK_KERNELS, resolve_link_kernel
+from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
+from ..optim.optimizers import adamw
+from .records import RoundRecord
+from .runtime import (classification_metrics, client_coords,
+                      client_step_time_s, count_fl_step_flops,
+                      count_sl_step_flops, roofline_s, round_batches)
+from .spec import ExperimentSpec
+
+# time billed to the FL server per round: aggregation only (the
+# reference's constant, repro/api/plan.py FL_SERVER_AGG_S)
+FL_SERVER_AGG_S = 1e-3
+
+# held-out evaluation runs in chunks of this many images
+EVAL_CHUNK = 64
+
+
+@dataclasses.dataclass
+class PlanState:
+    """Mutable run state threaded through ``run_round``."""
+    round: int
+    engine_state: Any
+    rng: np.random.RandomState      # minibatch sampling stream
+    last_metrics: Optional[dict] = None
+
+
+class Plan:
+    """A compiled experiment. Built by ``compile_experiment``.
+
+    ``params0`` is the list of per-stage parameter dicts (keys are the
+    reference's pytree paths, e.g. ``"conv.w"``) that ``init()`` loads;
+    assign ``convert.from_reference(...)`` to it before ``init()`` to start
+    from the reference's parameters."""
+
+    def __init__(self, spec: ExperimentSpec, *, device, arrays, parts,
+                 stages, params0, tour: Optional[TourPlan], cut_of_client,
+                 flops: dict, edges, consts, engine):
+        self.spec = spec
+        self.device = device
+        self.engine_label = f"{spec.engine.kind}/{spec.engine.client_axis}"
+        self.x_train, self.y_train, self.x_test, self.y_test = arrays
+        self.parts = parts
+        self.stages = stages
+        self.params0 = params0
+        self.tour = tour
+        self.rounds_budget = tour.rounds if tour is not None else None
+        self.num_rounds = (min(spec.global_rounds, tour.rounds)
+                           if tour is not None else spec.global_rounds)
+        self.cut_of_client = list(cut_of_client)
+        self.flops = flops            # {"full": f} | {cut: (client, server, sd)}
+        self.edges = edges
+        (self._t_client, self._t_server, self._link_bytes, self._link_time,
+         self._link_energy, self._server_base_s) = consts
+        self._engine = engine
+        self._x_test = torch.from_numpy(np.ascontiguousarray(
+            self.x_test)).to(device)
+
+    # ---- lifecycle --------------------------------------------------------
+
+    def init(self) -> PlanState:
+        """Fresh run state from ``params0``; the batch stream is one
+        ``RandomState(spec.seed)`` as in the reference."""
+        return PlanState(round=0,
+                         engine_state=self._engine.init_state(self.params0),
+                         rng=np.random.RandomState(self.spec.seed))
+
+    def round_batches(self, state: PlanState):
+        """One round's (clients, local_steps, ...) batch stacks on the
+        plan's device, in the engine's format (FL: ``(bx, by)``; SL: dict)."""
+        bx, by = round_batches(self.x_train, self.y_train, self.parts,
+                               self.spec.batch_size, self.spec.local_steps,
+                               state.rng, shrink=self.spec.data.shrink_batches)
+        bx = torch.from_numpy(np.ascontiguousarray(bx)).to(self.device)
+        by = torch.from_numpy(by.astype(np.int64)).to(self.device)
+        if self.spec.engine.kind == "fl":
+            return bx, by
+        return {"inputs": bx, "targets": by}
+
+    def run_round(self, state: PlanState, batches=None, *,
+                  with_eval: bool = True) -> tuple[PlanState, RoundRecord]:
+        """Execute one global round; returns (state, RoundRecord)."""
+        if batches is None:
+            batches = self.round_batches(state)
+        losses = self._engine.run(state.engine_state, batches)
+        rec = self._assemble_record(state, losses.cpu().numpy(),
+                                    with_eval=with_eval)
+        state.round += 1
+        return state, rec
+
+    def _assemble_record(self, state: PlanState, loss_c, *,
+                         with_eval: bool) -> RoundRecord:
+        """The analytic energy/link bill of one executed round (every
+        client active: this slice has no dropout)."""
+        n = self.spec.clients.num_clients
+        steps = self.spec.local_steps
+        active = np.arange(n)
+        # losses: FL (clients, steps); SL (steps, clients)
+        loss = float(loss_c.mean())
+        uav = 0.0
+        if self.tour is not None:
+            uav = float(self.tour.e_first if state.round == 0
+                        else self.tour.e_per_round)
+        p_edge = np.asarray([e.power_w for e in self.edges])
+        t_cli = float(self._t_client[active].sum() * steps)
+        e_cli = float(sum(self._t_client[c] * steps * p_edge[c]
+                          for c in active))
+        t_srv = float(self._t_server[active].sum() * steps
+                      + self._server_base_s)
+        if with_eval:
+            state.last_metrics = self.evaluate(state)
+            accuracy = state.last_metrics["accuracy"]
+        else:
+            accuracy = float("nan")
+        return RoundRecord(
+            round=state.round, loss=loss, accuracy=accuracy,
+            link_bytes=float(self._link_bytes[active].sum() * steps),
+            link_time_s=float(self._link_time[active].sum() * steps),
+            link_energy_j=float(self._link_energy[active].sum() * steps),
+            client_time_s=t_cli, client_energy_j=e_cli,
+            server_time_s=t_srv,
+            server_energy_j=t_srv * RTX_A5000.power_w,
+            uav_energy_j=uav, active_clients=len(active),
+            engine=self.engine_label, cohort_pids=(), metrics={})
+
+    @torch.no_grad()
+    def evaluate(self, state: PlanState) -> dict:
+        """Held-out classification metrics of the current global model."""
+        model = self._engine.global_model(state.engine_state)
+        logits = torch.cat([
+            model(to_port_layout(self._x_test[i:i + EVAL_CHUNK]))
+            for i in range(0, len(self._x_test), EVAL_CHUNK)])
+        return classification_metrics(logits, self.y_test,
+                                      self.spec.model.num_classes)
+
+    def run(self, rounds: Optional[int] = None, *, with_eval: bool = True
+            ) -> tuple[PlanState, list[RoundRecord]]:
+        """Init + run ``rounds`` (default: the mission-budgeted count)."""
+        num = self.num_rounds if rounds is None else rounds
+        state = self.init()
+        records = []
+        for _ in range(num):
+            state, rec = self.run_round(state, with_eval=with_eval)
+            records.append(rec)
+        return state, records
+
+
+# ---------------------------------------------------------------------------
+# engines: init_state(params0) / run(state, batches) -> losses tensor /
+#          global_model(state) -> the module to evaluate
+# ---------------------------------------------------------------------------
+
+def _load(stages, params):
+    """A deep copy of ``stages`` as one module, loaded with ``params``."""
+    model = copy.deepcopy(nn.Sequential(*stages))
+    with torch.no_grad():
+        for stage, p in zip(model, params):
+            stage.body.load_state_dict(p)
+    return model
+
+
+class _FLEngine:
+    """``fl/scan``: the global model; each client trains a copy from it
+    with a fresh AdamW, FedAvg at the end of the round."""
+
+    def __init__(self, spec, stages):
+        self.stages = stages
+        self.round_fn = make_fl_round(
+            lambda model, bx, by: cross_entropy_loss(
+                model(to_port_layout(bx)), by),
+            adamw(spec.lr))
+
+    def init_state(self, params0):
+        return _load(self.stages, params0)
+
+    def run(self, model, batches):
+        return self.round_fn(model, batches)
+
+    def global_model(self, model):
+        return model
+
+
+@dataclasses.dataclass
+class SLState:
+    clients: list            # per-client prefix modules
+    server: nn.Module        # the one shared server suffix
+    client_opts: list
+    server_opt: Any
+
+
+class _SLScanEngine:
+    """``sl/scan``: sequential Algorithm 3 with one shared server model
+    updated per client visit, homogeneous cut ``k``."""
+
+    def __init__(self, spec, stages, k, link: FleetLink):
+        self.spec, self.stages, self.k = spec, stages, k
+        step = SplitStep(
+            client_fwd=lambda client, xx: client(to_port_layout(xx)),
+            server_loss=lambda server, sm, yy: (
+                cross_entropy_loss(server(sm), yy), {}),
+            link_constraint=link.boundary())
+        self.round_fn = make_multi_client_round(
+            step, local_rounds=spec.local_steps)
+
+    def init_state(self, params0):
+        n = self.spec.clients.num_clients
+        clients = [_load(self.stages[:self.k], params0[:self.k])
+                   for _ in range(n)]
+        server = _load(self.stages[self.k:], params0[self.k:])
+        make_opt = adamw(self.spec.lr)
+        return SLState(clients=clients, server=server,
+                       client_opts=[make_opt(c.parameters()) for c in clients],
+                       server_opt=make_opt(server.parameters()))
+
+    def run(self, st: SLState, batches):
+        return self.round_fn(st.clients, st.server, st.client_opts,
+                             st.server_opt, batches)
+
+    def global_model(self, st: SLState):
+        # every client row holds the FedAvg'd prefix after a round
+        return nn.Sequential(st.clients[0], st.server)
+
+
+# ---------------------------------------------------------------------------
+# compilation
+# ---------------------------------------------------------------------------
+
+def _resolve_data(spec: ExperimentSpec, data):
+    if data is not None or spec.data.kind == "arrays":
+        if data is None:
+            raise ValueError("DataSpec(kind='arrays') needs data=(x_train, "
+                             "y_train, x_test, y_test) at compile time")
+        return tuple(np.asarray(a) for a in data)
+    gen = SyntheticPestImages(num_classes=spec.model.num_classes,
+                              image_size=spec.data.image_size, seed=spec.seed)
+    n_train = spec.data.n_train or max(24 * spec.clients.num_clients,
+                                       12 * spec.model.num_classes)
+    n_test = spec.data.n_test or max(n_train // 4, 48)
+    x_train, y_train = gen.sample(np.random.default_rng([spec.seed, 0]),
+                                  n_train)
+    x_test, y_test = gen.sample(np.random.default_rng([spec.seed, 1]), n_test)
+    return x_train, y_train, x_test, y_test
+
+
+def _resolve_parts(spec: ExperimentSpec, y_train: np.ndarray) -> list:
+    n = spec.clients.num_clients
+    if spec.data.partition == "dirichlet":
+        return partition_dirichlet(y_train, n, alpha=spec.data.dirichlet_alpha,
+                                   seed=spec.seed, min_size=1)
+    if spec.data.partition == "iid":
+        return partition_iid(len(y_train), n, seed=spec.seed)
+    return partition_non_iid(y_train, n, spec.data.classes_per_client,
+                             num_classes=spec.model.num_classes,
+                             seed=spec.seed)
+
+
+def _not_in_slice(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 {item})")
+
+
+def _validate(spec: ExperimentSpec):
+    """The reference's checks for the fields this slice runs, and a
+    refusal for every field it does not."""
+    eng, cli = spec.engine, spec.clients
+    if cli.num_clients < 1:
+        raise ValueError(f"ClientSpec.num_clients must be >= 1, got "
+                         f"{cli.num_clients}")
+    if not 0.0 <= cli.dropout_rate < 1.0:
+        raise ValueError(f"ClientSpec.dropout_rate must be in [0, 1), got "
+                         f"{cli.dropout_rate}")
+    if eng.kind not in ("fl", "sl"):
+        raise ValueError(f"engine.kind must be 'fl' or 'sl', got {eng.kind!r}")
+    if eng.client_axis not in ("scan", "vmap", "shard_map"):
+        raise ValueError(f"engine.client_axis must be 'scan', 'vmap' or "
+                         f"'shard_map', got {eng.client_axis!r}")
+    if spec.model.family not in ("cnn", "transformer"):
+        raise ValueError(f"unknown model family {spec.model.family!r}")
+    if eng.link_kernel not in LINK_KERNELS:
+        raise ValueError(f"EngineSpec.link_kernel must be one of "
+                         f"{LINK_KERNELS}, got {eng.link_kernel!r}")
+    if eng.link_kernel != "xla" and spec.link_policy.compress != "int8":
+        raise ValueError("EngineSpec.link_kernel fuses the int8 boundary; "
+                         "it needs LinkPolicy(compress='int8')")
+    if spec.data.kind not in ("synthetic", "arrays", "tokens"):
+        raise ValueError(f"DataSpec.kind must be 'synthetic', 'arrays' or "
+                         f"'tokens', got {spec.data.kind!r}")
+    if spec.data.partition not in ("classes", "dirichlet", "iid"):
+        raise ValueError(f"DataSpec.partition must be 'classes', 'dirichlet' "
+                         f"or 'iid', got {spec.data.partition!r}")
+    if spec.cut_policy.mode not in ("fraction", "adaptive"):
+        raise ValueError(spec.cut_policy.mode)
+    # ---- outside this slice: refused, never run some other way ----
+    if spec.model.family == "transformer" or spec.data.kind == "tokens":
+        _not_in_slice("the transformer family (split LM)", "item 13")
+    if spec.model.name not in CNN_BUILDERS:
+        raise ValueError(f"unknown CNN {spec.model.name!r}")
+    if spec.model.attn_impl != "xla":
+        raise ValueError("ModelSpec.attn_impl selects the transformer "
+                         "attention kernel; CNN stage lists have no "
+                         "attention to dispatch")
+    if eng.client_axis != "scan":
+        _not_in_slice(f"client_axis={eng.client_axis!r} (fleet engines)",
+                      "item 9" if eng.client_axis == "vmap" else "item 16")
+    if eng.server_mesh is not None:
+        _not_in_slice("EngineSpec.server_mesh", "item 16")
+    if cli.dropout_rate > 0:
+        _not_in_slice("ClientSpec.dropout_rate (client dropout)", "item 9")
+    if cli.population is not None:
+        _not_in_slice("ClientSpec.population (cohort sampling)", "item 10")
+    if spec.cut_policy.mode == "adaptive":
+        _not_in_slice("CutPolicy(mode='adaptive')", "item 11")
+    if spec.scenario is not None:
+        _not_in_slice("ExperimentSpec.scenario", "item 14")
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("compile_experiment runs on a CUDA device by "
+                           "default and none is available; pass "
+                           "device='cpu' to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be CUDA or the CPU, got {device}")
+    return device
+
+
+def compile_experiment(spec: ExperimentSpec, *, data=None,
+                       device="cuda") -> Plan:
+    """Lower ``spec`` to a ``Plan`` on ``device`` (CUDA unless the caller
+    asks for the CPU). ``data`` is an optional ``(x_train, y_train, x_test,
+    y_test)`` tuple of NHWC numpy arrays (required for
+    ``DataSpec(kind='arrays')``)."""
+    _validate(spec)
+    device = _resolve_device(device)
+    n = spec.clients.num_clients
+    arrays = _resolve_data(spec, data)
+    x_train, y_train, _, _ = arrays
+    parts = _resolve_parts(spec, y_train)
+    edges = [spec.clients.edge_profiles[i % len(spec.clients.edge_profiles)]
+             for i in range(n)]
+    link = FleetLink(config=spec.link_policy.config(),
+                     kernel=resolve_link_kernel(spec.engine.link_kernel,
+                                                device))
+
+    tour = None
+    if spec.mission is not None:
+        coords = client_coords(spec.mission.farm_acres, n, seed=spec.seed)
+        tour = plan_tour(coords, np.zeros(2), params=spec.mission.uav,
+                         hover_s_per_stop=spec.mission.hover_s_per_stop,
+                         comm_s_per_stop=spec.mission.comm_s_per_stop)
+
+    # ---- model + params (the port's own initializer; see init_stages) ----
+    stages = CNN_BUILDERS[spec.model.name](spec.model.num_classes)
+    init_stages(torch.Generator().manual_seed(spec.seed), stages)
+    params0 = [{k: v.detach().clone() for k, v in s.body.state_dict().items()}
+               for s in stages]
+    for s in stages:
+        s.to(device=device, memory_format=torch.channels_last)
+    sample_x = torch.from_numpy(np.ascontiguousarray(
+        x_train[:spec.batch_size])).to(device)
+    sample_y = torch.from_numpy(
+        y_train[:spec.batch_size].astype(np.int64)).to(device)
+
+    # ---- per-client constants -------------------------------------------
+    t_client = np.zeros(n)
+    t_server = np.zeros(n)
+    link_bytes = np.zeros(n)
+    link_time = np.zeros(n)
+    link_energy = np.zeros(n)
+    server_base_s = 0.0
+    flops: dict = {}
+    if spec.engine.kind == "fl":
+        cut_of_client: list[int] = []
+        step_flops = count_fl_step_flops(stages, sample_x, sample_y)
+        flops["full"] = step_flops
+        for c in range(n):
+            t_client[c] = client_step_time_s(step_flops, edges[c])
+        server_base_s = FL_SERVER_AGG_S
+        engine = _FLEngine(spec, stages)
+    else:
+        k = cut_index_for_fraction(stages, spec.cut_policy.fraction)
+        cut_of_client = [k] * n
+        fl_client, fl_server, smashed = count_sl_step_flops(
+            stages[:k], stages[k:], sample_x, sample_y)
+        flops[k] = (fl_client, fl_server, smashed)
+        for cid in range(n):
+            t_client[cid] = client_step_time_s(fl_client, edges[cid])
+            t_server[cid] = roofline_s(fl_server, RTX_A5000)
+            link_bytes[cid] = link.step_wire_bytes(smashed)
+            link_time[cid] = link.step_time_s(smashed)
+            link_energy[cid] = link.step_energy_j(smashed)
+        engine = _SLScanEngine(spec, stages, k, link)
+    consts = (t_client, t_server, link_bytes, link_time, link_energy,
+              server_base_s)
+    return Plan(spec, device=device, arrays=arrays, parts=parts,
+                stages=stages, params0=params0, tour=tour,
+                cut_of_client=cut_of_client, flops=flops, edges=edges,
+                consts=consts, engine=engine)

@@ -1,0 +1,55 @@
+"""Carry the reference's parameters over to the port.
+
+``from_reference`` takes ``Plan.params0`` of a ``repro`` CNN plan as numpy
+(one nested dict per stage, e.g. ``jax.tree_util.tree_map(np.asarray,
+plan.params0)``) and returns the port's ``params0``: one flat dict per stage
+keyed by the reference's pytree path (``"conv.w"``, ``"gn.scale"``, ...).
+
+- conv kernels, HWIO -> OIHW (depthwise ``(3, 3, 1, C)`` -> ``(C, 1, 3, 3)``);
+- linear ``w`` stays (in, out): the port's ``Linear`` computes ``x @ w``;
+- GroupNorm ``scale``/``bias`` and biases as they are.
+
+The result is checked against the port's model of ``model_name``: every
+stage must get exactly the keys and shapes the port's stage has.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.cnn import CNN_BUILDERS
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _flatten(v, path + ".")
+        else:
+            yield path, v
+
+
+def _to_port(a) -> torch.Tensor:
+    a = np.asarray(a, dtype=np.float32)
+    if a.ndim == 4:                       # HWIO -> OIHW
+        a = a.transpose(3, 2, 0, 1)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def from_reference(stages_params, model_name: str) -> list[dict]:
+    """Reference per-stage param pytrees (numpy) -> port ``params0``."""
+    params = [{k: _to_port(v) for k, v in _flatten(p)} for p in stages_params]
+    linear_w = [v for v in params[-1].values() if v.dim() == 2]
+    if len(linear_w) != 1:
+        raise ValueError("the last stage must hold exactly one linear head")
+    stages = CNN_BUILDERS[model_name](linear_w[0].shape[1])
+    if len(stages) != len(params):
+        raise ValueError(f"{model_name} has {len(stages)} stages, the "
+                         f"reference params {len(params)}")
+    for stage, p in zip(stages, params):
+        want = {k: tuple(v.shape) for k, v in stage.body.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in p.items()}
+        if want != got:
+            raise ValueError(f"stage {stage.name}: reference params {got} do "
+                             f"not match the port's {want}")
+    return params

@@ -1,0 +1,196 @@
+"""Split learning core — paper Algorithm 3 (SplitFed pattern) in PyTorch.
+
+Counterpart of ``repro.core.split`` for stage lists (the paper's CNNs). A
+model is a list of ``Stage`` modules; ``partition_stages`` cuts it into a
+client prefix and a server suffix at a layer fraction.
+
+The split train step is one autograd graph, as the reference's one
+differentiable program: client forward -> link boundary (straight-through
+int8 compressor, or nothing) -> server forward + loss; one ``backward``
+fills the client and server gradients, which is exactly the distributed
+backward of Algorithm 3 (the cut gradient flows back through the link).
+
+The round builders are plain Python loops where the reference has
+``lax.scan``: sequential Algorithm 3 (local steps outside, clients inside,
+one shared server updated per client visit, FedAvg of the client prefixes
+at the end) and the FL baseline (each client from the global model with a
+fresh optimizer, FedAvg at the end). Losses stay on the device until the
+round ends, so a round syncs with the host once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import torch
+from torch import nn
+
+from .fedavg import fedavg_mean, fedavg_modules_
+
+
+class Stage(nn.Module):
+    """One cut-able unit of a backbone. ``body`` holds the parameters under
+    the reference's pytree keys; ``depth`` is the number of paper-layers it
+    stands for (the weight of cut placement)."""
+
+    def __init__(self, name: str, body: nn.Module, depth: int = 1):
+        super().__init__()
+        self.name, self.depth = name, depth
+        self.body = body
+
+    def forward(self, x):
+        return self.body(x)
+
+
+def init_stages(generator: torch.Generator, stages: Sequence[Stage]):
+    """Initialize every stage's parameters in place from ``generator``, in
+    module order (he-normal convs, lecun-normal linears, zero biases, unit
+    GroupNorm scales). The reference draws from threefry, so the values
+    differ from ``repro``'s; parity runs import the reference's instead."""
+    for stage in stages:
+        for mod in stage.modules():
+            reset = getattr(mod, "reset_parameters", None)
+            if reset is not None:
+                reset(generator)
+
+
+def to_port_layout(x_nhwc: torch.Tensor) -> torch.Tensor:
+    """NHWC input (the reference's layout) -> NCHW in channels_last memory.
+    For a contiguous NHWC tensor this is a free view."""
+    return x_nhwc.permute(0, 3, 1, 2)
+
+
+def apply_stages(stages: Sequence[nn.Module], x: torch.Tensor) -> torch.Tensor:
+    for s in stages:
+        x = s(x)
+    return x
+
+
+def cut_index_for_fraction(stages: Sequence[Stage], client_fraction: float) -> int:
+    """Smallest prefix whose depth-share >= client_fraction (paper's SL_{a,b}:
+    client holds a% of layers). Always leaves >=1 stage per side."""
+    total = sum(s.depth for s in stages)
+    acc = 0
+    for i, s in enumerate(stages):
+        acc += s.depth
+        if acc / total >= client_fraction - 1e-9:
+            return min(max(i + 1, 1), len(stages) - 1)
+    return len(stages) - 1
+
+
+def partition_stages(stages: Sequence[Stage], client_fraction: float
+                     ) -> tuple[list, list, int]:
+    """Returns (client_stages, server_stages, k)."""
+    k = cut_index_for_fraction(stages, client_fraction)
+    return list(stages[:k]), list(stages[k:]), k
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitStep:
+    """One split-learning step over a client and a server module (the
+    reference's vanilla variant: labels are consumed server-side).
+
+    client_fwd(client, inputs)             -> smashed
+    server_loss(server, smashed, targets)  -> (loss, aux)
+    """
+    client_fwd: Callable
+    server_loss: Callable
+    link_constraint: Optional[Callable] = None   # smashed -> smashed
+
+    def loss_fn(self, client, server, batch):
+        inputs, targets = batch["inputs"], batch["targets"]
+        smashed = self.client_fwd(client, inputs)
+        if self.link_constraint is not None:
+            smashed = self.link_constraint(smashed)
+        loss, aux = self.server_loss(server, smashed, targets)
+        aux = dict(aux)
+        aux["smashed_elems"] = smashed.numel()
+        return loss, aux
+
+    def grads(self, client, server, batch):
+        """Forward + one joint backward; the gradients land in ``.grad`` of
+        both modules' parameters. Returns (detached loss, aux)."""
+        client.zero_grad(set_to_none=True)
+        server.zero_grad(set_to_none=True)
+        loss, aux = self.loss_fn(client, server, batch)
+        loss.backward()
+        return loss.detach(), aux
+
+
+def make_split_train_step(step: SplitStep):
+    """f(client, server, opt_c, opt_s, batch) -> metrics dict."""
+
+    def train_step(client, server, opt_c, opt_s, batch):
+        loss, aux = step.grads(client, server, batch)
+        opt_c.step()
+        opt_s.step()
+        return {"loss": loss, **aux}
+
+    return train_step
+
+
+def make_multi_client_round(step: SplitStep, *, local_rounds: int):
+    """One global round of Algorithm 3 over ``len(clients)`` clients.
+
+    ``clients``/``client_opts`` are per-client prefix modules and their
+    optimizers; ``server``/``server_opt`` the one shared server model,
+    updated once per client visit (the UAV visits clients one at a time).
+    ``batches`` holds tensors with leading (clients, local_rounds) axes.
+    Returns the losses, a (local_rounds, clients) tensor; the client
+    prefixes are FedAvg'd in place at the end (optimizer states stay per
+    client, as in the reference)."""
+    train_step = make_split_train_step(step)
+
+    def global_round(clients, server, client_opts, server_opt, batches):
+        losses = []
+        for r in range(local_rounds):
+            row = []
+            for c, (client, opt_c) in enumerate(zip(clients, client_opts)):
+                batch = {k: v[c, r] for k, v in batches.items()}
+                row.append(train_step(client, server, opt_c, server_opt,
+                                      batch)["loss"])
+            losses.append(torch.stack(row))
+        fedavg_modules_(clients)
+        return torch.stack(losses)
+
+    return global_round
+
+
+def make_fl_round(loss_fn: Callable, make_opt: Callable):
+    """One global round of the FL baseline.
+
+    ``loss_fn(model, bx, by) -> loss``; ``make_opt(params)`` builds a fresh
+    optimizer. Every client starts from the global params held by ``model``
+    with a fresh optimizer state, runs its local minibatches, and the round
+    ends with the FedAvg of the client models written back into ``model``.
+    ``batches`` is ``(bx, by)`` with leading (clients, local_steps) axes.
+    Returns the losses, a (clients, local_steps) tensor."""
+
+    def global_round(model: nn.Module, batches):
+        bx, by = batches
+        params = list(model.parameters())
+        global_params = [p.detach().clone() for p in params]
+        client_params = []
+        losses = []
+        for c in range(bx.shape[0]):
+            with torch.no_grad():
+                for p, g in zip(params, global_params):
+                    p.copy_(g)
+            opt = make_opt(params)
+            row = []
+            for s in range(bx.shape[1]):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model, bx[c, s], by[c, s])
+                loss.backward()
+                opt.step()
+                row.append(loss.detach())
+            losses.append(torch.stack(row))
+            client_params.append([p.detach().clone() for p in params])
+        mean = fedavg_mean({i: torch.stack([cp[i] for cp in client_params])
+                            for i in range(len(params))})
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                p.copy_(mean[i])
+        return torch.stack(losses)
+
+    return global_round

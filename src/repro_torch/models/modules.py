@@ -1,0 +1,115 @@
+"""Layers of the CNN backbones: conv, linear, GroupNorm, SAME padding.
+
+Counterpart of the conv/linear/norm part of ``repro.models.modules``. The
+reference is NHWC with HWIO kernels; here tensors are NCHW (kept in
+``torch.channels_last`` memory, so an NHWC view is free) and conv kernels
+OIHW. Parameter names follow the reference's pytree keys (``w``, ``b``,
+``scale``, ``bias``) so ``repro_torch.convert`` maps one onto the other.
+
+Padding is the reference's ``"SAME"``: out = ceil(in / stride), and the
+total padding is split ``lo = total // 2``, ``hi = total - lo``. On stride-2
+layers that is asymmetric ((0, 1) for a 3x3 kernel), which ``padding=k//2``
+would get wrong; ``same_pad`` pads explicitly in that case.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pad_amounts(size: int, k: int, stride: int) -> tuple[int, int]:
+    """(lo, hi) padding of one spatial axis under XLA's ``"SAME"``."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def same_pad(x: torch.Tensor, k: int, stride: int, *, value: float = 0.0):
+    """``(x, symmetric_pad)``: when both axes pad symmetrically, x is
+    returned as is with that padding for the layer to apply itself;
+    otherwise x comes back padded explicitly (with ``value``) and 0."""
+    (hl, hh) = same_pad_amounts(x.shape[-2], k, stride)
+    (wl, wh) = same_pad_amounts(x.shape[-1], k, stride)
+    if hl == hh and wl == wh:
+        return x, (hl, wl)
+    return F.pad(x, (wl, wh, hl, hh), value=value), (0, 0)
+
+
+class Conv2d(nn.Module):
+    """SAME-padded conv, OIHW weight ``w`` (+ optional bias ``b``);
+    he-normal init over fan_in = k*k*cin/groups, as ``conv_init``."""
+
+    def __init__(self, k: int, cin: int, cout: int, *, stride: int = 1,
+                 groups: int = 1, bias: bool = False):
+        super().__init__()
+        self.k, self.stride, self.groups = k, stride, groups
+        self.w = nn.Parameter(torch.empty(cout, cin // groups, k, k))
+        self.b = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator):
+        fan_in = self.w.shape[1] * self.k * self.k
+        with torch.no_grad():
+            self.w.normal_(0.0, math.sqrt(2.0 / max(fan_in, 1)),
+                           generator=generator)
+            if self.b is not None:
+                self.b.zero_()
+
+    def forward(self, x):
+        x, pad = same_pad(x, self.k, self.stride)
+        return F.conv2d(x, self.w, self.b, stride=self.stride, padding=pad,
+                        groups=self.groups)
+
+
+class Linear(nn.Module):
+    """``x @ w + b`` with ``w`` stored (in, out) as the reference stores it;
+    lecun-normal init, zero bias."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = True):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out))
+        self.b = nn.Parameter(torch.zeros(d_out)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.w.normal_(0.0, 1.0 / math.sqrt(max(self.w.shape[0], 1)),
+                           generator=generator)
+            if self.b is not None:
+                self.b.zero_()
+
+    def forward(self, x):
+        y = x @ self.w
+        return y if self.b is None else y + self.b
+
+
+def gn_groups(c: int) -> int:
+    """The reference's GroupNorm grouping rule (``models/cnn.py:34``)."""
+    return c // 8 if c % 8 == 0 else (c // 4 if c % 4 == 0 else 1)
+
+
+class GroupNorm(nn.Module):
+    """Spatial GroupNorm over (C/G, H, W) per group, in f32, eps 1e-5 —
+    the batch-stat-free stand-in for BatchNorm of the reference's CNNs."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.groups = gn_groups(c)
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.groups, self.scale.float(),
+                         self.bias.float(), eps=1e-5)
+        return y.to(x.dtype)
+
+
+def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """``reduce_window(max, SAME)``: pads with -inf, as the reference."""
+    x, pad = same_pad(x, k, stride, value=-math.inf)
+    return F.max_pool2d(x, k, stride=stride, padding=pad)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)

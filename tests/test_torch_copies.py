@@ -1,0 +1,186 @@
+"""The port's copies of the reference's framework-neutral modules agree with it.
+
+Energy, link and UAV models, partitioners, the deployment and tour planners,
+the host half of the runtime, the record type and the spec layer: the same
+inputs give equal outputs (exactly; these are the same arithmetic).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+import repro.api as R
+import repro.api.records as ref_records
+import repro.api.runtime as ref_runtime
+import repro.core.deployment as ref_deployment
+import repro.core.energy as ref_energy
+import repro.core.link as ref_link
+import repro.core.trajectory as ref_trajectory
+import repro.core.uav_energy as ref_uav
+import repro.data.partition as ref_partition
+import repro_torch.api as T
+import repro_torch.api.records as records
+import repro_torch.api.runtime as runtime
+import repro_torch.core.deployment as deployment
+import repro_torch.core.energy as energy
+import repro_torch.core.link as link
+import repro_torch.core.trajectory as trajectory
+import repro_torch.core.uav_energy as uav
+import repro_torch.data.partition as partition
+
+PROFILES = ("RTX_A5000", "JETSON_AGX_ORIN", "TPU_V5E")
+
+
+def test_energy_profiles_and_scaling():
+    for a in PROFILES:
+        assert (dataclasses.asdict(getattr(energy, a))
+                == dataclasses.asdict(getattr(ref_energy, a)))
+        for b in PROFILES:
+            args = (0.37, getattr(energy, a), getattr(energy, b))
+            ref_args = (0.37, getattr(ref_energy, a), getattr(ref_energy, b))
+            assert energy.scale_time(*args) == ref_energy.scale_time(*ref_args)
+    assert (energy.roofline_time(3e9, 2e8, energy.RTX_A5000)
+            == ref_energy.roofline_time(3e9, 2e8, ref_energy.RTX_A5000))
+    assert energy.CO2_G_PER_J == ref_energy.CO2_G_PER_J
+
+
+@pytest.mark.parametrize("compress", ["none", "int8"])
+def test_link_config_bytes_time_energy(compress):
+    cfg = link.LinkConfig(rate_bps=50e6, compress=compress, radio_power_w=3.0)
+    ref = ref_link.LinkConfig(rate_bps=50e6, compress=compress,
+                              radio_power_w=3.0)
+    for nbytes, item, block in [(4096.0, 4, 8), (1.6e6, 4, 32),
+                                (3e5, 2, 256)]:
+        for fn in ("wire_bytes", "roundtrip_bytes", "transfer_time_s",
+                   "transfer_energy_j"):
+            assert (getattr(cfg, fn)(nbytes, item, scale_block=block)
+                    == getattr(ref, fn)(nbytes, item, scale_block=block))
+    assert link.smashed_bytes(8, 4, 4, 32) == ref_link.smashed_bytes(8, 4, 4,
+                                                                     32)
+
+
+def test_uav_energy_model():
+    p, r = uav.DEFAULT_UAV, ref_uav.DEFAULT_UAV
+    assert dataclasses.asdict(p) == dataclasses.asdict(r)
+    for v in (0.0, 5.0, 10.0, 17.5):
+        assert p.xi_m(v) == r.xi_m(v)
+    assert p.xi_h == r.xi_h and p.reception_range(60.0) == \
+        r.reception_range(60.0)
+    assert (uav.tour_energy(1234.5, 6, params=p)
+            == ref_uav.tour_energy(1234.5, 6, params=r))
+
+
+def test_partitions():
+    labels = np.random.RandomState(1).randint(0, 12, size=200)
+    for got, want in [
+            (partition.partition_non_iid(labels, 4, 3, num_classes=12,
+                                         seed=2),
+             ref_partition.partition_non_iid(labels, 4, 3, num_classes=12,
+                                             seed=2)),
+            (partition.partition_dirichlet(labels, 5, alpha=0.3, seed=3,
+                                           min_size=4),
+             ref_partition.partition_dirichlet(labels, 5, alpha=0.3, seed=3,
+                                               min_size=4)),
+            (partition.partition_iid(200, 6, seed=4),
+             ref_partition.partition_iid(200, 6, seed=4))]:
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert (partition.population_partition_count(10 ** 6, 500)
+            == ref_partition.population_partition_count(10 ** 6, 500))
+
+
+def test_tour_planning_on_six_points():
+    pts = np.random.RandomState(5).uniform(0, 600, size=(6, 2))
+    base = np.zeros(2)
+    for fn in ("plan_tour", "greedy_tour_plan"):
+        got = getattr(trajectory, fn)(pts, base, hover_s_per_stop=20.0)
+        want = getattr(ref_trajectory, fn)(pts, base, hover_s_per_stop=20.0)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert trajectory.held_karp(pts) == ref_trajectory.held_karp(pts)
+    assert (trajectory.budget_rounds(1.9e6, 1e5, 3e4, 2e3)
+            == ref_trajectory.budget_rounds(1.9e6, 1e5, 3e4, 2e3))
+
+
+def test_deployment():
+    coords = deployment.random_sensors(10.0, 30, seed=6)
+    np.testing.assert_array_equal(coords,
+                                  ref_deployment.random_sensors(10.0, 30,
+                                                                seed=6))
+    got = deployment.deploy_edge_devices(coords, 60.0)
+    want = ref_deployment.deploy_edge_devices(coords, 60.0)
+    np.testing.assert_array_equal(got.edge_indices, want.edge_indices)
+    np.testing.assert_array_equal(got.assignment, want.assignment)
+    assert deployment.field_side_meters(250.0) == \
+        ref_deployment.field_side_meters(250.0)
+
+
+def test_runtime_host_half():
+    x = np.arange(40 * 2, dtype=np.float32).reshape(40, 2)
+    y = np.arange(40) % 5
+    parts = [np.arange(0, 13), np.arange(13, 40)]
+    bx, by = runtime.round_batches(x, y, parts, 4, 3,
+                                   np.random.RandomState(9))
+    rbx, rby = ref_runtime.round_batches(x, y, parts, 4, 3,
+                                         np.random.RandomState(9))
+    np.testing.assert_array_equal(bx, np.asarray(rbx))
+    np.testing.assert_array_equal(by, np.asarray(rby))
+    np.testing.assert_array_equal(runtime.client_coords(100.0, 7, seed=1),
+                                  ref_runtime.client_coords(100.0, 7, seed=1))
+    for f in (1e6, 3.3e9):
+        assert runtime.client_step_time_s(f) == \
+            ref_runtime.client_step_time_s(f)
+        assert (runtime.roofline_s(f, energy.JETSON_AGX_ORIN)
+                == ref_runtime.roofline_s(f, ref_energy.JETSON_AGX_ORIN))
+    assert (runtime.mission_max_link_s(30.0, 10.0, 3)
+            == ref_runtime.mission_max_link_s(30.0, 10.0, 3))
+    logits = np.random.RandomState(2).standard_normal((50, 6))
+    labels = np.random.RandomState(3).randint(0, 6, size=50)
+    assert (runtime.classification_metrics(logits, labels, 6)
+            == ref_runtime.classification_metrics(logits, labels, 6))
+
+
+def test_round_record():
+    fields = [f.name for f in dataclasses.fields(records.RoundRecord)]
+    assert fields == [f.name for f in
+                      dataclasses.fields(ref_records.RoundRecord)]
+    kw = dict(round=1, loss=np.float32(0.5), accuracy=0.25, link_bytes=8.0,
+              link_time_s=1e-3, link_energy_j=2e-3, client_energy_j=1.0,
+              server_energy_j=2.0, uav_energy_j=3.0, cohort_pids=(1, 2))
+    assert (records.RoundRecord(**kw).to_dict()
+            == ref_records.RoundRecord(**kw).to_dict())
+
+
+def _specs(api):
+    return [api.ExperimentSpec(),
+            api.ExperimentSpec(engine=api.EngineSpec(kind="fl")),
+            api.ExperimentSpec(link_policy=api.LinkPolicy(compress="int8"),
+                               mission=api.MissionSpec()),
+            api.ExperimentSpec(cut_policy=api.CutPolicy(mode="adaptive"),
+                               engine=api.EngineSpec(client_axis="vmap"),
+                               clients=api.ClientSpec(num_clients=4,
+                                                      population=100))]
+
+
+def _plain(v):
+    """A default value with dataclasses (the two packages' distinct
+    classes) turned into dicts."""
+    if dataclasses.is_dataclass(v):
+        return dataclasses.asdict(v)
+    if isinstance(v, tuple):
+        return tuple(_plain(x) for x in v)
+    return v
+
+
+def test_spec_fields_defaults_and_describe():
+    for got, want in zip(_specs(T), _specs(R)):
+        assert got.describe() == want.describe()
+    for cls in ("ModelSpec", "DataSpec", "ClientSpec", "CutPolicy",
+                "LinkPolicy", "EngineSpec", "MissionSpec", "ExperimentSpec"):
+        got = [(f.name, f.default) for f in
+               dataclasses.fields(getattr(T, cls))]
+        want = [(f.name, f.default) for f in
+                dataclasses.fields(getattr(R, cls))]
+        assert [g[0] for g in got] == [w[0] for w in want], cls
+        for (name, g), (_, w) in zip(got, want):
+            assert _plain(g) == _plain(w), name

@@ -1,0 +1,157 @@
+"""Shared helpers for the PyTorch port's parity tests (``test_torch_*.py``).
+
+Other test modules import this one (``from test_torch_harness import ...``,
+as they import ``_hypothesis_compat``); its own tests below pin the
+helpers. Inputs and parameters are made with numpy from a seed and handed
+to both packages: the JAX reference (``repro``) and the port
+(``repro_torch``). The reference runs on the CPU. Tests that need the
+card are in ``test_torch_cuda.py``, which imports no jax.
+"""
+import math
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import flops as ref_flops
+from repro.core.split import init_stages as ref_init_stages
+from repro.models.cnn import CNN_BUILDERS as REF_BUILDERS
+from repro_torch.convert import from_reference
+from repro_torch.models.cnn import CNN_BUILDERS as PORT_BUILDERS
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # several workers share the machine's cores
+    torch.set_num_threads(2)
+
+RECORD_LINK_FIELDS = ("link_time_s", "link_energy_j")
+
+
+def reference_params(name: str, seed: int = 0, num_classes: int = 12):
+    """(reference stages, numpy params) of a reference backbone. The
+    params take the reference's tree structure (from ``eval_shape`` of its
+    initializer) and are drawn with numpy: weights at fan-in scale, and
+    non-trivial GroupNorm scales and biases so every term is exercised."""
+    stages = REF_BUILDERS[name](num_classes)
+    shapes = jax.eval_shape(
+        lambda: ref_init_stages(jax.random.PRNGKey(0), stages))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, s):
+        key = jax.tree_util.keystr(path)
+        if len(s.shape) >= 2:
+            fan_in = math.prod(s.shape[:-1])
+            return (rng.standard_normal(s.shape)
+                    / np.sqrt(fan_in)).astype(np.float32)
+        base = 1.0 if key.endswith("['scale']") else 0.0
+        return (base + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+
+    return stages, jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def port_stages(name: str, params_np, num_classes: int = 12):
+    """The port's stages of ``name`` loaded with the reference's params."""
+    stages = PORT_BUILDERS[name](num_classes)
+    for stage, p in zip(stages, from_reference(params_np, name)):
+        stage.body.load_state_dict(p)
+        stage.to(memory_format=torch.channels_last)
+    return stages
+
+
+def _contractions(jaxpr) -> float:
+    total = 0.0
+    for eqn in jaxpr.eqns:
+        name = eqn.primitive.name
+        if name == "dot_general":
+            total += ref_flops._dot_general_flops(eqn)
+        elif name == "conv_general_dilated":
+            total += ref_flops._conv_flops(eqn)
+        elif name == "scan":
+            total += (float(eqn.params.get("length", 1))
+                      * _contractions(eqn.params["jaxpr"].jaxpr))
+        else:
+            for sub, reps in ref_flops._subjaxprs(eqn.params):
+                total += reps * _contractions(getattr(sub, "jaxpr", sub))
+    return total
+
+
+def jax_contraction_flops(fn, *args) -> float:
+    """The reference's analytic jaxpr walk restricted to ``dot_general`` and
+    ``conv_general_dilated`` (2 * out * K each): the contraction FLOPs of
+    ``fn(*args)``."""
+    return _contractions(jax.make_jaxpr(fn)(*args).jaxpr)
+
+
+def assert_records_match(ref_recs, port_recs, *, ref_flops_pair,
+                         port_flops_pair, server_base_s, n_test,
+                         loss_atol=1e-3):
+    """Record-stream parity: loss within ``loss_atol``, accuracy within one
+    test sample, link bytes exact, link time/energy within 1e-9 relative,
+    the rest by the billing arithmetic: every client field scales by the
+    client FLOP ratio and every server field (less ``server_base_s``) by
+    the server FLOP ratio, within 1e-6."""
+    assert len(ref_recs) == len(port_recs)
+    (ref_c, ref_s), (port_c, port_s) = ref_flops_pair, port_flops_pair
+    for r, p in zip(ref_recs, port_recs):
+        assert p.round == r.round and p.engine == r.engine
+        assert abs(p.loss - r.loss) <= loss_atol, (p.loss, r.loss)
+        assert abs(p.accuracy - r.accuracy) <= 1.0 / n_test + 1e-12
+        assert p.link_bytes == r.link_bytes
+        for f in RECORD_LINK_FIELDS:
+            assert getattr(p, f) == pytest.approx(getattr(r, f), rel=1e-9)
+        assert p.active_clients == r.active_clients
+        assert p.uav_energy_j == r.uav_energy_j
+        for f in ("client_time_s", "client_energy_j"):
+            assert getattr(p, f) / getattr(r, f) == pytest.approx(
+                port_c / ref_c, rel=1e-6)
+        if ref_s:
+            for f, base in (("server_time_s", server_base_s),
+                            ("server_energy_j", server_base_s * 230.0)):
+                assert (getattr(p, f) - base) / (getattr(r, f) - base) == \
+                    pytest.approx(port_s / ref_s, rel=1e-6)
+        else:
+            assert p.server_time_s == pytest.approx(r.server_time_s,
+                                                    rel=1e-12)
+            assert p.server_energy_j == pytest.approx(r.server_energy_j,
+                                                      rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# tests of the helpers
+# ---------------------------------------------------------------------------
+
+def test_reference_params_follow_the_reference_tree():
+    stages, params = reference_params("tinycnn", seed=3)
+    want = jax.eval_shape(lambda: ref_init_stages(jax.random.PRNGKey(0),
+                                                  stages))
+    assert (jax.tree_util.tree_structure(params)
+            == jax.tree_util.tree_structure(want))
+    for a, s in zip(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(want)):
+        assert a.shape == s.shape and a.dtype == np.float32
+    again = reference_params("tinycnn", seed=3)[1]
+    for a, b in zip(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(again)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_port_stages_carry_the_reference_weights():
+    _, params = reference_params("tinycnn")
+    stages = port_stages("tinycnn", params)
+    w_ref = params[0]["conv"]["w"]                    # HWIO
+    w_port = stages[0].body.conv.w.detach().numpy()   # OIHW
+    np.testing.assert_array_equal(w_port, w_ref.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(stages[-1].body.w.detach().numpy(),
+                                  params[-1]["w"])
+
+
+def test_contraction_walk_counts_a_matmul_and_a_conv():
+    a = np.ones((4, 6), np.float32)
+    b = np.ones((6, 5), np.float32)
+    assert jax_contraction_flops(lambda x, y: x @ y, a, b) == 2 * 4 * 5 * 6
+    x = np.ones((2, 8, 8, 3), np.float32)
+    w = np.ones((3, 3, 3, 4), np.float32)
+    conv = lambda x, w: jax.lax.conv_general_dilated(  # noqa: E731
+        x, w, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    assert jax_contraction_flops(conv, x, w) == 2 * (2 * 8 * 8 * 4) * 27
