@@ -1,10 +1,16 @@
 """``compile_experiment``: lower one ``ExperimentSpec`` to a runnable ``Plan``.
 
-Counterpart of ``repro.api.plan`` for this slice of the port: the CNN
-family on the sequential engines (``fl/scan``, the FL baseline, and
-``sl/scan``, Algorithm 3), a fraction cut, an fp32 or int8 link (the int8
-boundary on the fused CUDA kernel or the two-op plain path), and the UAV
-mission budget. The run surface is the reference's:
+Counterpart of ``repro.api.plan`` for the slices ported so far:
+
+- the CNN family on the sequential engines (``fl/scan``, the FL baseline,
+  and ``sl/scan``, Algorithm 3);
+- the transformer family (the split LM, ``fleet.hetero.lm_split_program``)
+  on ``sl/scan``, its attention on the kernel path ``ModelSpec.attn_impl``
+  resolves to (the hand-written flash kernel for ``"pallas"``);
+
+each with a fraction cut, an fp32 or int8 link (the int8 boundary on the
+fused CUDA kernel or the two-op plain path), and the UAV mission budget.
+The run surface is the reference's:
 
     plan = compile_experiment(spec, device="cuda")
     state = plan.init()
@@ -13,7 +19,7 @@ mission budget. The run surface is the reference's:
 
 Every energy/FLOP/link constant is hoisted at compile time (the paper's
 Eq. 8/9 accounting); ``run_round`` multiplies the per-client constants by
-the steps that ran. Spec fields outside the slice raise
+the steps that ran. Spec fields outside the slices raise
 ``NotImplementedError`` naming their ROADMAP item; nothing falls back.
 """
 from __future__ import annotations
@@ -29,27 +35,32 @@ from torch import nn
 from ..core.energy import RTX_A5000
 from ..core.split import (SplitStep, cut_index_for_fraction,
                           init_stages, make_fl_round, make_multi_client_round,
-                          to_port_layout)
+                          stack_cut_index, to_port_layout)
 from ..core.trajectory import TourPlan, plan_tour
 from ..data.partition import (partition_dirichlet, partition_iid,
                               partition_non_iid)
-from ..data.synthetic import SyntheticPestImages
+from ..data.synthetic import SyntheticPestImages, synthetic_tokens
+from ..fleet.hetero import lm_split_program, lm_split_step
 from ..fleet.link import FleetLink
-from ..kernels.dispatch import LINK_KERNELS, resolve_link_kernel
+from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
+                                resolve_link_kernel)
 from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
 from ..optim.optimizers import adamw
 from .records import RoundRecord
-from .runtime import (classification_metrics, client_coords,
-                      client_step_time_s, count_fl_step_flops,
-                      count_sl_step_flops, roofline_s, round_batches)
+from .runtime import (client_coords, client_step_time_s, count_fl_step_flops,
+                      count_sl_step_flops, count_split_step_flops,
+                      metrics_from_predictions, roofline_s, round_batches)
 from .spec import ExperimentSpec
 
 # time billed to the FL server per round: aggregation only (the
 # reference's constant, repro/api/plan.py FL_SERVER_AGG_S)
 FL_SERVER_AGG_S = 1e-3
 
-# held-out evaluation runs in chunks of this many images
+# held-out evaluation runs in chunks of this many images (CNNs) or
+# sequences (the split LM: one chunk of 8 x 1024 positions of SmolLM-135M's
+# 49,152-way logits is 1.6 GB in f32; all 16 test sequences at once, 3.2 GB)
 EVAL_CHUNK = 64
+LM_EVAL_CHUNK = 8
 
 
 @dataclasses.dataclass
@@ -64,14 +75,16 @@ class PlanState:
 class Plan:
     """A compiled experiment. Built by ``compile_experiment``.
 
-    ``params0`` is the list of per-stage parameter dicts (keys are the
-    reference's pytree paths, e.g. ``"conv.w"``) that ``init()`` loads;
-    assign ``convert.from_reference(...)`` to it before ``init()`` to start
-    from the reference's parameters."""
+    ``params0`` is what ``init()`` loads: for a CNN the list of per-stage
+    parameter dicts (keys are the reference's pytree paths, e.g.
+    ``"conv.w"``), for the split LM the (client, server) state dicts. Assign
+    ``convert.from_reference(...)`` / ``convert.lm_from_reference(...)`` to
+    it before ``init()`` to start from the reference's parameters."""
 
     def __init__(self, spec: ExperimentSpec, *, device, arrays, parts,
                  stages, params0, tour: Optional[TourPlan], cut_of_client,
-                 flops: dict, edges, consts, engine):
+                 flops: dict, edges, consts, engine, num_classes: int,
+                 eval_chunk: int):
         self.spec = spec
         self.device = device
         self.engine_label = f"{spec.engine.kind}/{spec.engine.client_axis}"
@@ -89,8 +102,9 @@ class Plan:
         (self._t_client, self._t_server, self._link_bytes, self._link_time,
          self._link_energy, self._server_base_s) = consts
         self._engine = engine
-        self._x_test = torch.from_numpy(np.ascontiguousarray(
-            self.x_test)).to(device)
+        self._num_classes = num_classes
+        self._eval_chunk = eval_chunk
+        self._x_test = _to_device(self.x_test, device)
 
     # ---- lifecycle --------------------------------------------------------
 
@@ -107,7 +121,7 @@ class Plan:
         bx, by = round_batches(self.x_train, self.y_train, self.parts,
                                self.spec.batch_size, self.spec.local_steps,
                                state.rng, shrink=self.spec.data.shrink_batches)
-        bx = torch.from_numpy(np.ascontiguousarray(bx)).to(self.device)
+        bx = _to_device(bx, self.device)
         by = torch.from_numpy(by.astype(np.int64)).to(self.device)
         if self.spec.engine.kind == "fl":
             return bx, by
@@ -161,13 +175,16 @@ class Plan:
 
     @torch.no_grad()
     def evaluate(self, state: PlanState) -> dict:
-        """Held-out classification metrics of the current global model."""
-        model = self._engine.global_model(state.engine_state)
-        logits = torch.cat([
-            model(to_port_layout(self._x_test[i:i + EVAL_CHUNK]))
-            for i in range(0, len(self._x_test), EVAL_CHUNK)])
-        return classification_metrics(logits, self.y_test,
-                                      self.spec.model.num_classes)
+        """Held-out classification metrics of the current global model (for
+        the split LM: next-token prediction at every position). Logits stay
+        on the device chunk by chunk; only the argmax goes to the host."""
+        chunk = self._eval_chunk
+        pred = torch.cat([
+            self._engine.predict(state.engine_state,
+                                 self._x_test[i:i + chunk]).reshape(-1)
+            for i in range(0, len(self._x_test), chunk)])
+        return metrics_from_predictions(pred.cpu().numpy(), self.y_test,
+                                        self._num_classes)
 
     def run(self, rounds: Optional[int] = None, *, with_eval: bool = True
             ) -> tuple[PlanState, list[RoundRecord]]:
@@ -181,9 +198,18 @@ class Plan:
         return state, records
 
 
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy batch on ``device``; integer arrays (token ids) as int64,
+    the index type of the embedding lookup."""
+    t = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+    if not t.is_floating_point():
+        t = t.long()
+    return t.to(device)
+
+
 # ---------------------------------------------------------------------------
 # engines: init_state(params0) / run(state, batches) -> losses tensor /
-#          global_model(state) -> the module to evaluate
+#          predict(state, inputs) -> predicted classes (on the device)
 # ---------------------------------------------------------------------------
 
 def _load(stages, params):
@@ -193,6 +219,13 @@ def _load(stages, params):
         for stage, p in zip(model, params):
             stage.body.load_state_dict(p)
     return model
+
+
+def _load_module(module: nn.Module, state_dict: dict) -> nn.Module:
+    """A deep copy of ``module`` loaded with ``state_dict``."""
+    out = copy.deepcopy(module)
+    out.load_state_dict(state_dict)
+    return out
 
 
 class _FLEngine:
@@ -212,8 +245,8 @@ class _FLEngine:
     def run(self, model, batches):
         return self.round_fn(model, batches)
 
-    def global_model(self, model):
-        return model
+    def predict(self, model, x):
+        return model(to_port_layout(x)).argmax(dim=-1)
 
 
 @dataclasses.dataclass
@@ -226,23 +259,23 @@ class SLState:
 
 class _SLScanEngine:
     """``sl/scan``: sequential Algorithm 3 with one shared server model
-    updated per client visit, homogeneous cut ``k``."""
+    updated per client visit, homogeneous cut. ``load_client(params0)`` /
+    ``load_server(params0)`` build one tier's module from the plan's
+    ``params0``; ``logits(client, server, inputs)`` is the evaluation
+    forward (no link: the reference evaluates the model itself)."""
 
-    def __init__(self, spec, stages, k, link: FleetLink):
-        self.spec, self.stages, self.k = spec, stages, k
-        step = SplitStep(
-            client_fwd=lambda client, xx: client(to_port_layout(xx)),
-            server_loss=lambda server, sm, yy: (
-                cross_entropy_loss(server(sm), yy), {}),
-            link_constraint=link.boundary())
+    def __init__(self, spec, step: SplitStep, *, load_client, load_server,
+                 logits):
+        self.spec = spec
+        self.load_client, self.load_server = load_client, load_server
+        self.logits = logits
         self.round_fn = make_multi_client_round(
             step, local_rounds=spec.local_steps)
 
     def init_state(self, params0):
         n = self.spec.clients.num_clients
-        clients = [_load(self.stages[:self.k], params0[:self.k])
-                   for _ in range(n)]
-        server = _load(self.stages[self.k:], params0[self.k:])
+        clients = [self.load_client(params0) for _ in range(n)]
+        server = self.load_server(params0)
         make_opt = adamw(self.spec.lr)
         return SLState(clients=clients, server=server,
                        client_opts=[make_opt(c.parameters()) for c in clients],
@@ -252,9 +285,9 @@ class _SLScanEngine:
         return self.round_fn(st.clients, st.server, st.client_opts,
                              st.server_opt, batches)
 
-    def global_model(self, st: SLState):
-        # every client row holds the FedAvg'd prefix after a round
-        return nn.Sequential(st.clients[0], st.server)
+    def predict(self, st: SLState, x):
+        # every client holds the FedAvg'd prefix after a round
+        return self.logits(st.clients[0], st.server, x).argmax(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +300,17 @@ def _resolve_data(spec: ExperimentSpec, data):
             raise ValueError("DataSpec(kind='arrays') needs data=(x_train, "
                              "y_train, x_test, y_test) at compile time")
         return tuple(np.asarray(a) for a in data)
+    if spec.data.kind == "tokens":
+        # the LM stream: inputs are tokens[:, :-1], targets the next token
+        vocab = spec.model.arch.vocab
+        n_train = spec.data.n_train or max(24 * spec.clients.num_clients, 96)
+        n_test = spec.data.n_test or max(n_train // 4, 32)
+        seq = spec.data.seq_len
+        toks_tr = synthetic_tokens(np.random.default_rng([spec.seed, 0]),
+                                   n_train, seq + 1, vocab)
+        toks_te = synthetic_tokens(np.random.default_rng([spec.seed, 1]),
+                                   n_test, seq + 1, vocab)
+        return toks_tr[:, :-1], toks_tr[:, 1:], toks_te[:, :-1], toks_te[:, 1:]
     gen = SyntheticPestImages(num_classes=spec.model.num_classes,
                               image_size=spec.data.image_size, seed=spec.seed)
     n_train = spec.data.n_train or max(24 * spec.clients.num_clients,
@@ -295,9 +339,38 @@ def _not_in_slice(what: str, item: str):
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1 {item})")
 
 
+def _validate_transformer(spec: ExperimentSpec):
+    """The reference's checks of a transformer spec (``repro/api/plan.py:
+    545-571``), then the port's refusals for what it has not ported."""
+    eng, arch = spec.engine, spec.model.arch
+    if arch is None:
+        raise ValueError("ModelSpec(family='transformer') needs arch="
+                         "ArchConfig (the stacked attention blocks to split)")
+    if arch.n_experts:
+        raise ValueError("MoE stacks can't split through the stacked-block "
+                         "interface (see transformer_block_apply)")
+    if eng.kind != "sl":
+        raise ValueError("the transformer family trains split (sl); the "
+                         "full-model FL baseline is a CNN-family path")
+    if spec.cut_policy.mode != "fraction":
+        raise ValueError("transformer cuts are fraction-placed "
+                         "(stack_cut_index); adaptive per-client cuts are a "
+                         "CNN-stage path for now")
+    if spec.data.kind != "tokens":
+        raise ValueError("transformer specs train on DataSpec(kind='tokens')")
+    if spec.data.partition != "iid":
+        raise ValueError("token streams carry no label classes to skew; use "
+                         "DataSpec(partition='iid')")
+    if eng.server_mesh is not None:
+        raise ValueError("server_mesh tier specs are wired for the CNN stage "
+                         "path only")
+    if arch.ssm_kind or arch.attn_period or arch.enc_dec:
+        _not_in_slice(f"the {arch.name} stack ({arch.family})", "item 17")
+
+
 def _validate(spec: ExperimentSpec):
-    """The reference's checks for the fields this slice runs, and a
-    refusal for every field it does not."""
+    """The reference's checks for the fields the port runs, and a refusal
+    for every field it does not."""
     eng, cli = spec.engine, spec.clients
     if cli.num_clients < 1:
         raise ValueError(f"ClientSpec.num_clients must be >= 1, got "
@@ -312,6 +385,17 @@ def _validate(spec: ExperimentSpec):
                          f"'shard_map', got {eng.client_axis!r}")
     if spec.model.family not in ("cnn", "transformer"):
         raise ValueError(f"unknown model family {spec.model.family!r}")
+    if spec.model.family == "transformer":
+        _validate_transformer(spec)
+    elif spec.model.name not in CNN_BUILDERS:
+        raise ValueError(f"unknown CNN {spec.model.name!r}")
+    if spec.model.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"ModelSpec.attn_impl must be one of {ATTN_IMPLS}, "
+                         f"got {spec.model.attn_impl!r}")
+    if spec.model.attn_impl != "xla" and spec.model.family != "transformer":
+        raise ValueError("ModelSpec.attn_impl selects the transformer "
+                         "attention kernel; CNN stage lists have no "
+                         "attention to dispatch")
     if eng.link_kernel not in LINK_KERNELS:
         raise ValueError(f"EngineSpec.link_kernel must be one of "
                          f"{LINK_KERNELS}, got {eng.link_kernel!r}")
@@ -321,20 +405,16 @@ def _validate(spec: ExperimentSpec):
     if spec.data.kind not in ("synthetic", "arrays", "tokens"):
         raise ValueError(f"DataSpec.kind must be 'synthetic', 'arrays' or "
                          f"'tokens', got {spec.data.kind!r}")
+    if spec.data.kind == "tokens" and spec.model.family != "transformer":
+        raise ValueError("DataSpec(kind='tokens') is the transformer "
+                         "family's pipeline; CNN specs train on 'synthetic' "
+                         "or 'arrays'")
     if spec.data.partition not in ("classes", "dirichlet", "iid"):
         raise ValueError(f"DataSpec.partition must be 'classes', 'dirichlet' "
                          f"or 'iid', got {spec.data.partition!r}")
     if spec.cut_policy.mode not in ("fraction", "adaptive"):
         raise ValueError(spec.cut_policy.mode)
-    # ---- outside this slice: refused, never run some other way ----
-    if spec.model.family == "transformer" or spec.data.kind == "tokens":
-        _not_in_slice("the transformer family (split LM)", "item 13")
-    if spec.model.name not in CNN_BUILDERS:
-        raise ValueError(f"unknown CNN {spec.model.name!r}")
-    if spec.model.attn_impl != "xla":
-        raise ValueError("ModelSpec.attn_impl selects the transformer "
-                         "attention kernel; CNN stage lists have no "
-                         "attention to dispatch")
+    # ---- outside the ported slices: refused, never run some other way ----
     if eng.client_axis != "scan":
         _not_in_slice(f"client_axis={eng.client_axis!r} (fleet engines)",
                       "item 9" if eng.client_axis == "vmap" else "item 16")
@@ -365,7 +445,8 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
                        device="cuda") -> Plan:
     """Lower ``spec`` to a ``Plan`` on ``device`` (CUDA unless the caller
     asks for the CPU). ``data`` is an optional ``(x_train, y_train, x_test,
-    y_test)`` tuple of NHWC numpy arrays (required for
+    y_test)`` tuple of numpy arrays: NHWC images and labels, or (for the
+    split LM) token and next-token arrays (required for
     ``DataSpec(kind='arrays')``)."""
     _validate(spec)
     device = _resolve_device(device)
@@ -386,18 +467,6 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
                          hover_s_per_stop=spec.mission.hover_s_per_stop,
                          comm_s_per_stop=spec.mission.comm_s_per_stop)
 
-    # ---- model + params (the port's own initializer; see init_stages) ----
-    stages = CNN_BUILDERS[spec.model.name](spec.model.num_classes)
-    init_stages(torch.Generator().manual_seed(spec.seed), stages)
-    params0 = [{k: v.detach().clone() for k, v in s.body.state_dict().items()}
-               for s in stages]
-    for s in stages:
-        s.to(device=device, memory_format=torch.channels_last)
-    sample_x = torch.from_numpy(np.ascontiguousarray(
-        x_train[:spec.batch_size])).to(device)
-    sample_y = torch.from_numpy(
-        y_train[:spec.batch_size].astype(np.int64)).to(device)
-
     # ---- per-client constants -------------------------------------------
     t_client = np.zeros(n)
     t_server = np.zeros(n)
@@ -406,6 +475,62 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
     link_energy = np.zeros(n)
     server_base_s = 0.0
     flops: dict = {}
+    stages = None
+    num_classes, eval_chunk = spec.model.num_classes, EVAL_CHUNK
+    sample_x = _to_device(x_train[:spec.batch_size], device)
+    sample_y = torch.from_numpy(
+        y_train[:spec.batch_size].astype(np.int64)).to(device)
+
+    if spec.model.family == "transformer":
+        cfg = spec.model.arch
+        k = stack_cut_index(cfg.n_layers, spec.cut_policy.fraction)
+        impl = resolve_attn_impl(spec.model.attn_impl, device)
+        prog = lm_split_program(cfg, torch.Generator().manual_seed(spec.seed),
+                                k, link_boundary=link.boundary("bsd"),
+                                attn_impl=impl)
+        params0 = tuple({key: v.detach().clone()
+                         for key, v in m.state_dict().items()}
+                        for m in (prog.client, prog.server))
+        client, server = prog.client.to(device), prog.server.to(device)
+        # the dispatch-level FLOP counter cannot see inside a kernel launch:
+        # a "pallas" plan is billed through the plain attention of the "ref"
+        # seam, the same O(S^2) work, so its bill does not depend on the
+        # kernel
+        count_step, _ = lm_split_step(
+            cfg, attn_impl="ref" if impl == "pallas" else impl)
+        fl_client, fl_server, smashed = count_split_step_flops(
+            count_step, client, server, sample_x, sample_y)
+        engine = _SLScanEngine(
+            spec, prog.step,
+            load_client=lambda p: _load_module(client, p[0]),
+            load_server=lambda p: _load_module(server, p[1]),
+            logits=lambda c, s_, x: prog.server_logits(
+                s_, prog.step.client_fwd(c, x)))
+        num_classes, eval_chunk = cfg.vocab, LM_EVAL_CHUNK
+    else:
+        # the port's own initializer; see init_stages
+        stages = CNN_BUILDERS[spec.model.name](spec.model.num_classes)
+        init_stages(torch.Generator().manual_seed(spec.seed), stages)
+        params0 = [{key: v.detach().clone()
+                    for key, v in st.body.state_dict().items()}
+                   for st in stages]
+        for st in stages:
+            st.to(device=device, memory_format=torch.channels_last)
+        if spec.engine.kind == "sl":
+            k = cut_index_for_fraction(stages, spec.cut_policy.fraction)
+            fl_client, fl_server, smashed = count_sl_step_flops(
+                stages[:k], stages[k:], sample_x, sample_y)
+            step = SplitStep(
+                client_fwd=lambda client, xx: client(to_port_layout(xx)),
+                server_loss=lambda server, sm, yy: (
+                    cross_entropy_loss(server(sm), yy), {}),
+                link_constraint=link.boundary("nchw"))
+            engine = _SLScanEngine(
+                spec, step,
+                load_client=lambda p: _load(stages[:k], p[:k]),
+                load_server=lambda p: _load(stages[k:], p[k:]),
+                logits=lambda c, s_, x: s_(c(to_port_layout(x))))
+
     if spec.engine.kind == "fl":
         cut_of_client: list[int] = []
         step_flops = count_fl_step_flops(stages, sample_x, sample_y)
@@ -415,10 +540,7 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
         server_base_s = FL_SERVER_AGG_S
         engine = _FLEngine(spec, stages)
     else:
-        k = cut_index_for_fraction(stages, spec.cut_policy.fraction)
         cut_of_client = [k] * n
-        fl_client, fl_server, smashed = count_sl_step_flops(
-            stages[:k], stages[k:], sample_x, sample_y)
         flops[k] = (fl_client, fl_server, smashed)
         for cid in range(n):
             t_client[cid] = client_step_time_s(fl_client, edges[cid])
@@ -426,10 +548,10 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
             link_bytes[cid] = link.step_wire_bytes(smashed)
             link_time[cid] = link.step_time_s(smashed)
             link_energy[cid] = link.step_energy_j(smashed)
-        engine = _SLScanEngine(spec, stages, k, link)
     consts = (t_client, t_server, link_bytes, link_time, link_energy,
               server_base_s)
     return Plan(spec, device=device, arrays=arrays, parts=parts,
                 stages=stages, params0=params0, tour=tour,
                 cut_of_client=cut_of_client, flops=flops, edges=edges,
-                consts=consts, engine=engine)
+                consts=consts, engine=engine, num_classes=num_classes,
+                eval_chunk=eval_chunk)

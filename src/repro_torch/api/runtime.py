@@ -6,10 +6,13 @@
                                packages draw the same batches
   * ``client_step_time_s``   — A5000-roofline seconds scaled to an edge
                                profile via paper Eq. (9)
-  * ``count_fl_step_flops`` / ``count_sl_step_flops`` — the symmetric
-                               per-step FLOP accounting, on the port's own
-                               counter (``core.flops``)
-  * ``classification_metrics`` — the paper's Fig. 3 radar metrics
+  * ``count_fl_step_flops`` / ``count_sl_step_flops`` /
+    ``count_split_step_flops`` — the symmetric per-step FLOP accounting, on
+                               the port's own counter (``core.flops``)
+  * ``metrics_from_predictions`` — the paper's Fig. 3 radar metrics of
+                               predicted labels, from class counts
+                               (``bincount``), so a vocabulary of 49,152
+                               classes costs a few array passes
 """
 from __future__ import annotations
 
@@ -114,38 +117,61 @@ def count_sl_step_flops(client_stages, server_stages, bx, by):
             count_flops(server_step, cut_grad, by), smashed)
 
 
+def count_split_step_flops(step, client, server, bx, by):
+    """``count_sl_step_flops`` for any ``SplitStep`` over a client and a
+    server module (the split LM): the same symmetric accounting, driven
+    through the step's own ``client_fwd`` / ``server_loss``. The link
+    boundary is excluded on both sides. Returns (client_flops,
+    server_flops, SmashedSpec of the smashed tensor as it is)."""
+    cp, sp = list(client.parameters()), list(server.parameters())
+    with torch.no_grad():
+        sm = step.client_fwd(client, bx)
+    smashed = SmashedSpec(shape=tuple(sm.shape), itemsize=sm.element_size())
+    cut_grad = torch.zeros_like(sm)
+
+    def client_step(xx, ct):
+        out = step.client_fwd(client, xx)
+        torch.autograd.grad(out, cp, grad_outputs=ct)
+
+    def server_step(s, yy):
+        s = s.detach().requires_grad_(True)
+        loss, _ = step.server_loss(server, s, yy)
+        torch.autograd.grad(loss, sp + [s])
+
+    return (count_flops(client_step, bx, cut_grad),
+            count_flops(server_step, cut_grad, by), smashed)
+
+
 def accuracy_from_logits(logits: torch.Tensor, labels: torch.Tensor):
     """Scalar held-out accuracy, on the logits' device."""
     return (logits.argmax(dim=-1) == labels).float().mean()
 
 
-def classification_metrics(logits, labels, num_classes: int) -> dict:
-    """Accuracy / macro precision / recall / F1 / multiclass MCC of the
-    logits (a tensor or array) against integer labels, on the host."""
-    if isinstance(logits, torch.Tensor):
-        logits = logits.detach().float().cpu().numpy()
-    pred = np.asarray(logits).argmax(-1)
-    y = np.asarray(labels)
-    acc = float((pred == y).mean())
-    precs, recs, f1s = [], [], []
-    for c in range(num_classes):
-        tp = float(((pred == c) & (y == c)).sum())
-        fp = float(((pred == c) & (y != c)).sum())
-        fn = float(((pred != c) & (y == c)).sum())
-        p = tp / (tp + fp) if tp + fp else 0.0
-        r = tp / (tp + fn) if tp + fn else 0.0
-        precs.append(p)
-        recs.append(r)
-        f1s.append(2 * p * r / (p + r) if p + r else 0.0)
-    n = len(y)
+def metrics_from_predictions(pred, labels, num_classes: int) -> dict:
+    """Accuracy / macro precision / recall / F1 / multiclass MCC of integer
+    predictions against integer labels: the reference's
+    ``classification_metrics`` per-class loop (``repro/api/runtime.py:187``)
+    in counts: per class tp = bincount of the hits, tp + fp = bincount of the
+    predictions, tp + fn = bincount of the labels; the same float64
+    arithmetic per class, so the same numbers."""
+    pred = np.asarray(pred).reshape(-1)
+    y = np.asarray(labels).reshape(-1)
+    hit = pred == y
+    acc = float(hit.mean())
+    tp = np.bincount(y[hit], minlength=num_classes).astype(float)
     t_k = np.bincount(y, minlength=num_classes).astype(float)
     p_k = np.bincount(pred, minlength=num_classes).astype(float)
-    c = float((pred == y).sum())
+    with np.errstate(divide="ignore", invalid="ignore"):
+        p = np.where(p_k > 0, tp / p_k, 0.0)
+        r = np.where(t_k > 0, tp / t_k, 0.0)
+        f1 = np.where(p + r > 0, 2 * p * r / (p + r), 0.0)
+    n = len(y)
+    c = float(hit.sum())
     s2 = n * n
     num = c * n - float(t_k @ p_k)
     den = np.sqrt(max(s2 - float(p_k @ p_k), 0.0)) * \
         np.sqrt(max(s2 - float(t_k @ t_k), 0.0))
     mcc = num / den if den else 0.0
-    return {"accuracy": acc, "precision": float(np.mean(precs)),
-            "recall": float(np.mean(recs)), "f1": float(np.mean(f1s)),
+    return {"accuracy": acc, "precision": float(np.mean(p)),
+            "recall": float(np.mean(r)), "f1": float(np.mean(f1)),
             "mcc": float(mcc)}

@@ -2,13 +2,12 @@
 
 Re-declaration of ``repro.api.spec`` for the port: the same dataclasses,
 fields, defaults and ``describe()`` strings, so one spec reads the same in
-both packages. The reference types two fields with modules the port does
-not carry (``ModelSpec.arch``: ``configs.base.ArchConfig``;
-``ExperimentSpec.scenario``: ``sim.scenario.ScenarioSpec``); here they are
-opaque optional fields, and ``compile_experiment`` refuses a spec that sets
-them (the transformer family and the scenario layer are later slices).
-The engine lowering table is in ``repro.api.spec``'s docstring; the port
-lowers ``fl/scan`` and ``sl/scan`` so far (``repro_torch.api.plan``).
+both packages. ``ModelSpec.arch`` takes the port's
+``repro_torch.configs.base.ArchConfig``; ``ExperimentSpec.scenario`` is an
+opaque optional field that ``compile_experiment`` refuses (the scenario
+layer is a later slice). The engine lowering table is in
+``repro.api.spec``'s docstring; the port lowers ``fl/scan`` and ``sl/scan``
+so far (``repro_torch.api.plan``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """Carry the reference's parameters over to the port.
 
+CNNs: ``from_reference``. The split LM: ``lm_from_reference``.
+
 ``from_reference`` takes ``Plan.params0`` of a ``repro`` CNN plan as numpy
 (one nested dict per stage, e.g. ``jax.tree_util.tree_map(np.asarray,
 plan.params0)``) and returns the port's ``params0``: one flat dict per stage
@@ -18,6 +20,10 @@ import numpy as np
 import torch
 
 from .models.cnn import CNN_BUILDERS
+
+# numpy has no bfloat16; jax's arrays of it come as ml_dtypes' type, whose
+# bits are moved as int16 and viewed as torch.bfloat16
+_BF16_NAME = "bfloat16"
 
 
 def _flatten(tree, prefix=""):
@@ -53,3 +59,47 @@ def from_reference(stages_params, model_name: str) -> list[dict]:
             raise ValueError(f"stage {stage.name}: reference params {got} do "
                              f"not match the port's {want}")
     return params
+
+
+def _leaf(a) -> torch.Tensor:
+    """A reference leaf as a torch tensor of the same dtype (bf16 kept)."""
+    a = np.asarray(a)
+    if a.dtype.name == _BF16_NAME:
+        return torch.from_numpy(np.array(a.view(np.int16),
+                                         copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _unstack(tree) -> dict:
+    """``{"blocks": stacked, **rest}`` -> flat state dict with the layer
+    axis unstacked into ``blocks.{i}.<path>``."""
+    out = {}
+    for path, a in _flatten(tree):
+        if path.startswith("blocks."):
+            for i, row in enumerate(np.asarray(a)):
+                out[f"blocks.{i}.{path[len('blocks.'):]}"] = _leaf(row)
+        else:
+            out[path] = _leaf(a)
+    return out
+
+
+def lm_from_reference(params_c0, params_s0, cfg) -> tuple[dict, dict]:
+    """The reference's split-LM params (``Plan.params0`` of a transformer
+    plan, as numpy: ``({"embed", "blocks"}, {"blocks", "head"})`` with the
+    blocks stacked on a leading layer axis) -> the port's ``params0``: the
+    (client, server) state dicts of ``fleet.hetero.LMClient`` /
+    ``LMServer``, every leaf in its own dtype. Checked against the port's
+    modules for ``cfg``: the same keys, shapes and dtypes."""
+    from .fleet.hetero import lm_modules
+    port = (_unstack(params_c0), _unstack(params_s0))
+    k = sum(1 for key in port[0] if key.endswith(".ln1.scale"))
+    with torch.device("meta"):
+        modules = lm_modules(cfg, k)
+    for name, module, got in zip(("client", "server"), modules, port):
+        want = {key: (tuple(v.shape), v.dtype)
+                for key, v in module.state_dict().items()}
+        have = {key: (tuple(v.shape), v.dtype) for key, v in got.items()}
+        if want != have:
+            raise ValueError(f"{name} tier: reference params {have} do not "
+                             f"match the port's {want}")
+    return port

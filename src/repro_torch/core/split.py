@@ -1,8 +1,9 @@
 """Split learning core — paper Algorithm 3 (SplitFed pattern) in PyTorch.
 
-Counterpart of ``repro.core.split`` for stage lists (the paper's CNNs). A
-model is a list of ``Stage`` modules; ``partition_stages`` cuts it into a
-client prefix and a server suffix at a layer fraction.
+Counterpart of ``repro.core.split``. A CNN is a list of ``Stage`` modules;
+``partition_stages`` cuts it into a client prefix and a server suffix at a
+layer fraction. A transformer stack is an ``nn.ModuleList`` of blocks;
+``stack_cut_index`` places its cut and ``split_stack`` slices it there.
 
 The split train step is one autograd graph, as the reference's one
 differentiable program: client forward -> link boundary (straight-through
@@ -20,6 +21,7 @@ round ends, so a round syncs with the host once.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -83,6 +85,18 @@ def partition_stages(stages: Sequence[Stage], client_fraction: float
     """Returns (client_stages, server_stages, k)."""
     k = cut_index_for_fraction(stages, client_fraction)
     return list(stages[:k]), list(stages[k:]), k
+
+
+def stack_cut_index(n_layers: int, client_fraction: float) -> int:
+    """Cut index for a homogeneous stack: ceil(fraction * n_layers), kept in
+    [1, n_layers - 1]."""
+    return max(1, min(n_layers - 1, int(math.ceil(client_fraction * n_layers))))
+
+
+def split_stack(blocks: nn.ModuleList, k: int
+                ) -> tuple[nn.ModuleList, nn.ModuleList]:
+    """The first ``k`` blocks and the rest (the same module objects)."""
+    return nn.ModuleList(blocks[:k]), nn.ModuleList(blocks[k:])
 
 
 @dataclasses.dataclass(frozen=True)

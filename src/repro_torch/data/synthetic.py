@@ -6,6 +6,12 @@ colour + pixel noise, 12 classes like the Kaggle Agricultural Pests set),
 drawn from numpy generators seeded by ``seed``. The reference draws its
 images from threefry, so the two packages' synthetic images differ; parity
 runs hand both the same arrays through ``DataSpec(kind="arrays")``.
+
+``synthetic_tokens`` is the token stream of the transformer family, with the
+reference's law (``repro/data/synthetic.py:75``): Zipf-like ranks, and with
+probability 0.5 a copy of the token ``copy_period`` positions back. It too
+draws from a numpy generator, not threefry; parity runs pass the
+reference's arrays through ``compile_experiment(data=...)``.
 """
 from __future__ import annotations
 
@@ -56,3 +62,14 @@ class SyntheticPestImages:
         img += 0.15 * rng.standard_normal(img.shape, dtype=np.float32)
         return np.clip(img, 0.0, 1.0).astype(np.float32), labels
 
+
+def synthetic_tokens(rng: np.random.Generator, batch: int, seq_len: int,
+                     vocab: int, *, copy_period: int = 16) -> np.ndarray:
+    """(batch, seq_len) int32 tokens: ranks floor(u^-0.9 - 1) mod vocab with
+    u ~ U[1e-6, 1), and tokens[t] = ranks[t - copy_period] (cyclically) with
+    probability 0.5, so a small model gets below ln(vocab) quickly."""
+    u = rng.uniform(1e-6, 1.0, size=(batch, seq_len))
+    ranks = np.floor(u ** -0.9 - 1.0).astype(np.int64) % vocab
+    copy_mask = rng.random((batch, seq_len)) < 0.5
+    rolled = np.roll(ranks, copy_period, axis=1)
+    return np.where(copy_mask, rolled, ranks).astype(np.int32)

@@ -2,14 +2,20 @@
 
 Counterpart of ``repro.fleet.link``. The boundary is the straight-through
 int8 compressor of ``kernels.quant.ops`` on the kernel path the plan
-resolved (``"fused"`` or ``"xla"``). The reference is NHWC, so it quantizes
-rows of the smashed tensor's CHANNEL axis; the port's smashed tensor is
-NCHW in channels_last memory, so the boundary takes the free NHWC view,
-quantizes its (N*H*W, C) rows, and hands back NCHW.
+resolved (``"fused"`` or ``"xla"``). The reference quantizes rows of the
+smashed tensor's last axis in its own layout; the boundary's ``layout``
+says how the port's smashed tensor maps onto that:
+
+- ``"nchw"`` (the CNNs): the reference is NHWC, so rows run over the
+  CHANNEL axis. The port's smashed tensor is NCHW in channels_last memory,
+  so the boundary takes the free NHWC view, quantizes its (N*H*W, C) rows,
+  and hands back NCHW;
+- ``"bsd"`` (the split LM): the (B, S, d_model) residual stream is in the
+  reference's layout already; its (B*S, d) rows are quantized as they are.
 
 Byte accounting follows ``core.link.LinkConfig.wire_bytes``: 1 byte per
-element plus one f32 scale per quantizer row, ``scale_block`` = the channel
-count (the NHWC shape's last dim).
+element plus one f32 scale per quantizer row, ``scale_block`` = the last
+dim of the reference's shape (channels, or d_model).
 """
 from __future__ import annotations
 
@@ -19,11 +25,13 @@ from typing import Callable, Optional
 
 from ..core.link import LinkConfig
 
+BOUNDARY_LAYOUTS = ("nchw", "bsd")
+
 
 @dataclasses.dataclass(frozen=True)
 class SmashedSpec:
-    """Shape (NHWC, the reference's layout) and element size of the smashed
-    tensor — what ``jax.eval_shape`` gives the reference's link constants."""
+    """Shape (in the reference's layout: NHWC, or (B, S, d)) and element
+    size of the smashed tensor — what ``jax.eval_shape`` gives the reference's link constants."""
     shape: tuple
     itemsize: int
 
@@ -43,12 +51,18 @@ class FleetLink:
     def compressed(self) -> bool:
         return self.config.compress == "int8"
 
-    def boundary(self) -> Optional[Callable]:
-        """The smashed-tensor boundary fn, or None for an uncompressed link."""
+    def boundary(self, layout: str = "nchw") -> Optional[Callable]:
+        """The smashed-tensor boundary fn for a smashed tensor in ``layout``
+        (``"nchw"`` or ``"bsd"``), or None for an uncompressed link."""
+        if layout not in BOUNDARY_LAYOUTS:
+            raise ValueError(f"layout must be one of {BOUNDARY_LAYOUTS}, got "
+                             f"{layout!r}")
         if not self.compressed:
             return None
         from ..kernels.quant.ops import make_link_compress
         compress = make_link_compress(kernel=self.kernel)
+        if layout == "bsd":
+            return compress
 
         def nchw_boundary(smashed):
             return compress(smashed.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)

@@ -1,6 +1,8 @@
-"""Layers of the CNN backbones: conv, linear, GroupNorm, SAME padding.
+"""Layers of the CNN backbones and the transformer blocks.
 
-Counterpart of the conv/linear/norm part of ``repro.models.modules``. The
+Counterpart of ``repro.models.modules``: conv, linear, GroupNorm and SAME
+padding for the CNNs; RMSNorm, LayerNorm, the SwiGLU and GELU FFNs and
+rotary embeddings for the transformer family. The
 reference is NHWC with HWIO kernels; here tensors are NCHW (kept in
 ``torch.channels_last`` memory, so an NHWC view is free) and conv kernels
 OIHW. Parameter names follow the reference's pytree keys (``w``, ``b``,
@@ -64,24 +66,29 @@ class Conv2d(nn.Module):
 
 
 class Linear(nn.Module):
-    """``x @ w + b`` with ``w`` stored (in, out) as the reference stores it;
-    lecun-normal init, zero bias."""
+    """``x @ w + b`` with ``w`` stored (in, out) in ``dtype``, as the
+    reference stores it, and cast to the input's dtype at use
+    (``linear_apply``); lecun-normal init drawn in f32, zero bias."""
 
-    def __init__(self, d_in: int, d_out: int, *, bias: bool = True):
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.w = nn.Parameter(torch.empty(d_in, d_out))
-        self.b = nn.Parameter(torch.zeros(d_out)) if bias else None
+        self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype)) if bias \
+            else None
 
     def reset_parameters(self, generator: torch.Generator):
         with torch.no_grad():
-            self.w.normal_(0.0, 1.0 / math.sqrt(max(self.w.shape[0], 1)),
-                           generator=generator)
+            w = torch.empty(self.w.shape).normal_(
+                0.0, 1.0 / math.sqrt(max(self.w.shape[0], 1)),
+                generator=generator)
+            self.w.copy_(w)
             if self.b is not None:
                 self.b.zero_()
 
     def forward(self, x):
-        y = x @ self.w
-        return y if self.b is None else y + self.b
+        y = x @ self.w.to(x.dtype)
+        return y if self.b is None else y + self.b.to(x.dtype)
 
 
 def gn_groups(c: int) -> int:
@@ -113,3 +120,94 @@ def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
 
 def relu6(x):
     return torch.clamp(x, 0.0, 6.0)
+
+
+# ---------------------------------------------------------------------------
+# transformer layers
+# ---------------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    """``rmsnorm_apply``: computed in f32, cast back to the input's dtype."""
+
+    def __init__(self, d: int, *, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """``layernorm_apply``: computed in f32, cast back to the input's dtype."""
+
+    def __init__(self, d: int, *, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(d, dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def gelu(x):
+    """``jax.nn.gelu(approximate=True)``: the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+class SwiGLU(nn.Module):
+    """``swiglu_ffn``: down(silu(gate(x)) * up(x)), no biases."""
+
+    def __init__(self, d: int, d_ff: int, *, dtype: torch.dtype):
+        super().__init__()
+        self.gate = Linear(d, d_ff, bias=False, dtype=dtype)
+        self.up = Linear(d, d_ff, bias=False, dtype=dtype)
+        self.down = Linear(d_ff, d, bias=False, dtype=dtype)
+
+    def forward(self, x):
+        return self.down(silu(self.gate(x)) * self.up(x))
+
+
+class GeluFFN(nn.Module):
+    """``gelu_ffn``: down(gelu(up(x))), with biases."""
+
+    def __init__(self, d: int, d_ff: int, *, dtype: torch.dtype):
+        super().__init__()
+        self.up = Linear(d, d_ff, bias=True, dtype=dtype)
+        self.down = Linear(d_ff, d, bias=True, dtype=dtype)
+
+    def forward(self, x):
+        return self.down(gelu(self.up(x)))
+
+
+def rope_freqs(head_dim: int, *, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotate-half rotary embedding. x (..., T, H, D); positions (..., T)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta=theta, device=x.device)
+    ang = positions[..., None].float() * freqs          # (..., T, D/2)
+    cos = torch.cos(ang)[..., None, :]                    # over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

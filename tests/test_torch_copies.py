@@ -1,8 +1,10 @@
 """The port's copies of the reference's framework-neutral modules agree with it.
 
 Energy, link and UAV models, partitioners, the deployment and tour planners,
-the host half of the runtime, the record type and the spec layer: the same
-inputs give equal outputs (exactly; these are the same arithmetic).
+the host half of the runtime (its metrics in class counts against the
+reference's per-class loop), the record type, the spec layer and the ten
+architecture configs: the same inputs give equal outputs (exactly; these
+are the same arithmetic).
 """
 import dataclasses
 
@@ -136,7 +138,7 @@ def test_runtime_host_half():
             == ref_runtime.mission_max_link_s(30.0, 10.0, 3))
     logits = np.random.RandomState(2).standard_normal((50, 6))
     labels = np.random.RandomState(3).randint(0, 6, size=50)
-    assert (runtime.classification_metrics(logits, labels, 6)
+    assert (runtime.metrics_from_predictions(logits.argmax(-1), labels, 6)
             == ref_runtime.classification_metrics(logits, labels, 6))
 
 
@@ -184,3 +186,46 @@ def test_spec_fields_defaults_and_describe():
         assert [g[0] for g in got] == [w[0] for w in want], cls
         for (name, g), (_, w) in zip(got, want):
             assert _plain(g) == _plain(w), name
+
+
+def test_arch_configs_field_for_field():
+    import repro.configs as ref_configs
+    import repro_torch.configs as configs
+    import torch
+    assert list(configs.ARCHS) == list(ref_configs.ARCHS)
+    for name, cfg in configs.ARCHS.items():
+        ref = ref_configs.ARCHS[name]
+        assert ([f.name for f in dataclasses.fields(cfg)]
+                == [f.name for f in dataclasses.fields(ref)])
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref), name
+        assert (dataclasses.asdict(cfg.reduced())
+                == dataclasses.asdict(ref.reduced())), name
+        assert cfg.hd == ref.hd
+        assert (cfg.param_dtype == torch.bfloat16) == \
+            (ref.param_dtype.__name__ == "bfloat16")
+        for i in range(cfg.n_layers):
+            assert cfg.is_moe_layer(i) == ref.is_moe_layer(i)
+            assert cfg.is_attn_layer(i) == ref.is_attn_layer(i)
+        assert configs.get_config(name) is cfg
+    assert ({k: dataclasses.asdict(v) for k, v in configs.INPUT_SHAPES.items()}
+            == {k: dataclasses.asdict(v)
+                for k, v in ref_configs.INPUT_SHAPES.items()})
+    assert (dataclasses.asdict(configs.SplitConfig())
+            == dataclasses.asdict(ref_configs.SplitConfig()))
+
+
+@pytest.mark.parametrize("num_classes,n", [(6, 50), (64, 1000), (2048, 3000)])
+def test_vectorised_metrics_equal_the_reference_loop(num_classes, n):
+    """``metrics_from_predictions`` (class counts by ``bincount``) gives the
+    reference's per-class loop's numbers exactly, rare and absent classes
+    included."""
+    rng = np.random.RandomState(num_classes)
+    labels = np.minimum(rng.zipf(1.3, size=n) - 1, num_classes - 1)
+    pred = np.where(rng.uniform(size=n) < 0.4, labels,
+                    rng.randint(0, num_classes, size=n))
+    logits = np.zeros((n, num_classes), np.float32)
+    logits[np.arange(n), pred] = 1.0
+    want = ref_runtime.classification_metrics(logits, labels, num_classes)
+    assert runtime.metrics_from_predictions(pred, labels, num_classes) == want
+    assert runtime.metrics_from_predictions(
+        logits.argmax(-1), labels, num_classes) == want

@@ -99,3 +99,47 @@ def test_counter_rules_on_single_ops():
     assert float(total) == a.numel() and total.contraction == 0
     assert float(count_flops(lambda: torch.relu(a))) == a.numel()
     assert float(count_flops(lambda: a.permute(1, 0).reshape(-1))) == 0
+
+
+# the split LM (smollm_135m.reduced(), cut 1 of 2, batch 4 x 64 tokens):
+# port total / reference XLA flops_of per attention path (client, server)
+LM_TOTAL_RATIOS = {"xla": (0.997348, 0.997415), "ref": (0.996897, 0.997043)}
+
+
+@pytest.mark.parametrize("impl", list(LM_TOTAL_RATIOS))
+def test_lm_split_step_flops_against_reference(impl, monkeypatch):
+    """Contractions equal the reference's dot_general count exactly; the
+    totals stand at the recorded ratio to XLA's count."""
+    import jax
+    from repro.configs import smollm_135m as ref_smollm
+    from repro.fleet.hetero import lm_split_program as ref_lm_split_program
+    from repro_torch.api.runtime import count_split_step_flops
+    from repro_torch.configs import smollm_135m
+    from repro_torch.convert import lm_from_reference
+    from repro_torch.fleet.hetero import lm_modules, lm_split_step
+
+    cfg, ref_cfg, k = smollm_135m.reduced(), ref_smollm.reduced(), 1
+    prog = ref_lm_split_program(ref_cfg, jax.random.PRNGKey(0), k,
+                                attn_impl=impl)
+    rng = np.random.RandomState(0)
+    bx, by = (rng.randint(0, cfg.vocab, (4, 64)).astype(np.int32)
+              for _ in range(2))
+    ref_args = (prog.step, prog.params_c0, prog.params_s0, jnp.asarray(bx),
+                jnp.asarray(by))
+    want = ref_runtime.count_split_step_flops(*ref_args)[:2]
+    monkeypatch.setattr(ref_runtime, "flops_of", jax_contraction_flops)
+    want_contraction = ref_runtime.count_split_step_flops(*ref_args)[:2]
+
+    client, server = lm_modules(cfg, k)
+    sd_c, sd_s = lm_from_reference(*jax.tree_util.tree_map(
+        np.asarray, (prog.params_c0, prog.params_s0)), cfg)
+    client.load_state_dict(sd_c, assign=True)
+    server.load_state_dict(sd_s, assign=True)
+    step, _ = lm_split_step(cfg, attn_impl=impl)
+    c, s, smashed = count_split_step_flops(
+        step, client, server, torch.tensor(bx).long(),
+        torch.tensor(by).long())
+    assert smashed.shape == (4, 64, cfg.d_model) and smashed.itemsize == 4
+    assert [c.contraction, s.contraction] == list(want_contraction)
+    ratios = (float(c) / want[0], float(s) / want[1])
+    assert ratios == pytest.approx(LM_TOTAL_RATIOS[impl], abs=1e-6)

@@ -45,6 +45,8 @@ def test_importing_the_port_leaves_jax_out():
     out = _run("import sys\n"
                "import repro_torch.api, repro_torch.convert\n"
                "import repro_torch.kernels.quant.ops\n"
+               "import repro_torch.fleet.hetero, repro_torch.configs\n"
+               "import repro_torch.kernels.attn.ops\n"
                "import chip_smoke\n"
                "print(sorted(m for m in sys.modules\n"
                "             if m.split('.')[0] in ('jax', 'repro')))")

@@ -18,6 +18,7 @@ from test_torch_harness import assert_records_match
 
 import repro.api as R
 import repro_torch.api as T
+from repro_torch import configs
 from repro_torch.api.plan import FL_SERVER_AGG_S
 from repro_torch.convert import from_reference
 
@@ -125,21 +126,43 @@ def test_default_device_is_cuda_and_refuses_without_it():
         T.compile_experiment(_spec(T, "sl"), data=_data())
 
 
+def _lm(arch, **kw):
+    """Spec fields of a split LM on ``arch`` (a port ArchConfig)."""
+    return dict(model=T.ModelSpec(family="transformer", arch=arch),
+                data=T.DataSpec(kind="tokens", partition="iid", seq_len=8),
+                **kw)
+
+
+_REFUSED = (NotImplementedError, "ROADMAP queue 1")
 OUT_OF_SLICE = {
-    "vmap": dict(engine=T.EngineSpec(client_axis="vmap")),
-    "shard_map": dict(engine=T.EngineSpec(client_axis="shard_map")),
-    "server_mesh": dict(engine=T.EngineSpec(server_mesh=(1, 1))),
-    "dropout": dict(clients=T.ClientSpec(dropout_rate=0.5)),
-    "population": dict(clients=T.ClientSpec(num_clients=4, population=8)),
-    "adaptive": dict(cut_policy=T.CutPolicy(mode="adaptive")),
-    "scenario": dict(scenario=object()),
-    "transformer": dict(model=T.ModelSpec(family="transformer")),
+    "vmap": (dict(engine=T.EngineSpec(client_axis="vmap")), _REFUSED),
+    "shard_map": (dict(engine=T.EngineSpec(client_axis="shard_map")),
+                  _REFUSED),
+    "server_mesh": (dict(engine=T.EngineSpec(server_mesh=(1, 1))), _REFUSED),
+    "dropout": (dict(clients=T.ClientSpec(dropout_rate=0.5)), _REFUSED),
+    "population": (dict(clients=T.ClientSpec(num_clients=4, population=8)),
+                   _REFUSED),
+    "adaptive": (dict(cut_policy=T.CutPolicy(mode="adaptive")), _REFUSED),
+    "scenario": (dict(scenario=object()), _REFUSED),
+    # the transformer family runs now, but only on a stack it is given
+    "transformer": (dict(model=T.ModelSpec(family="transformer")),
+                    (ValueError, "needs arch=")),
+    # the split LM runs on sl/scan; the fleet engines are item 9
+    "lm-vmap": (_lm(configs.smollm_135m.reduced(),
+                    engine=T.EngineSpec(client_axis="vmap")),
+                (NotImplementedError, "queue 1 item 9")),
+    # MoE stacks: the reference's own refusal
+    "lm-moe": (_lm(configs.deepseek_moe_16b.reduced()),
+               (ValueError, "MoE stacks")),
+    # recurrent and hybrid stacks: item 17
+    "lm-rwkv": (_lm(configs.rwkv6_7b.reduced()),
+                (NotImplementedError, "queue 1 item 17")),
 }
 
 
 @pytest.mark.parametrize("field", list(OUT_OF_SLICE))
 def test_fields_outside_the_slice_are_refused(field):
-    spec = T.ExperimentSpec(data=T.DataSpec(kind="arrays"),
-                            **OUT_OF_SLICE[field])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    fields, (exc, match) = OUT_OF_SLICE[field]
+    spec = T.ExperimentSpec(**{"data": T.DataSpec(kind="arrays"), **fields})
+    with pytest.raises(exc, match=match):
         T.compile_experiment(spec, data=_data(), device="cpu")
