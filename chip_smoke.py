@@ -9,14 +9,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card over the
-   shapes of its sweep and its main paths' shapes: the int8 link kernel bit
-   for bit (NaN positions included), the flash attention kernel within the
-   reference's own tolerances (f32 2e-5, bf16 3e-2), and its gradient
-   (kernel forward + closed-form backward) against autograd through the
-   plain version;
+   shapes of its sweep and its main paths' shapes: the int8 link kernel and
+   the wire format's quantize/dequantize pair bit for bit (NaN positions
+   included), the flash attention kernel within the reference's own
+   tolerances (f32 2e-5, bf16 3e-2), and its gradient (kernel forward +
+   closed-form backward) against autograd through the plain version; the
+   WKV scan kernel within the reference's atol/rtol 1e-4, its final state
+   S_T too, and its gradient against autograd of the plain version;
 4. each kernel's time at its main paths' shapes, beside its plain
    version's time, its bound and, where one PyTorch call computes the same
-   function, that call's time;
+   function, that call's time; the memory-bound int8 kernels are timed
+   with the L2 cold (inputs rotated through 256 MiB), as their bytes bound
+   assumes;
 5. the CNN path: ``sl/scan`` (Algorithm 3) on MobileNetV2 at 224x224,
    4 clients, batch 16, 2 local steps, 2 rounds, int8 link on the fused
    kernel, UAV mission; with the kernel's launch count over exactly that
@@ -31,7 +35,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    with both kernels' launch counts over exactly that run, the "pallas"
    plan's FLOP bill against the "ref" plan's, one profiled round, and a
    reduced SmolLM on the card held against the same run on the CPU;
-8. one JSON line listing the kernels, then the card, then the result line.
+8. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
+   width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
+   of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
+   parameters drawn on the card; with the WKV kernel's launch count over
+   exactly those steps (4 x 3), the peak memory, one profiled step, and a
+   reduced RWKV of head size 64 on the card held against the same run on
+   the CPU; the wire-format pair's launch counts cover paths 5 to 8;
+9. one JSON line listing the kernels, then the card, then the result line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
 exits non-zero before printing any result.
@@ -63,6 +74,13 @@ FLASH_D = (32, 64, 128)
 FLASH_WINDOWS = (None, 16, 100)
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_MAIN = (8, 9, 1024, 64)      # SmolLM-135M attention at batch 8
+# the WKV kernel's sweep (at B, H = 2, 3) and the rwkv6-7b training shape
+WKV_T = (1, 7, 64, 1000, 1024)
+WKV_HD = (16, 32, 64)
+WKV_MAIN = (4, 64, 1024, 64)
+WKV_TOL = 1e-4                     # atol and rtol, the reference's own
+L2_ROTATE_BYTES = 256 * 2 ** 20    # > 5x the H100's 50 MB L2
+RWKV_LAYERS = 4                    # of rwkv6-7b's 32: the only cut
 
 
 def card_line() -> str:
@@ -159,25 +177,63 @@ def device_ms(fn, iters=200) -> float:
     return time_ms(graph.replay, iters=5, warmup=1) / iters
 
 
+def device_ms_cold(fn, make_inputs, nbytes: int) -> float:
+    """Per-call device time of ``fn(*inputs)`` with the L2 cold: ``n`` input
+    sets from ``make_inputs()``, enough that the ``n * nbytes`` bytes the
+    calls move (inputs and outputs) exceed ``L2_ROTATE_BYTES``, called in
+    turn inside one CUDA graph with every output kept alive. Each call then
+    reads and writes memory that no call since its last turn touched, so a
+    memory-bound kernel is timed against device memory, as its bound is."""
+    n = max(2, -(-L2_ROTATE_BYTES // nbytes))
+    sets = [make_inputs() for _ in range(n)]
+    for ins in sets[:2]:
+        fn(*ins)                  # warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*ins) for ins in sets]
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = time_ms(graph.replay, iters=20, warmup=2) / n
+    del graph, outs, sets
+    torch.cuda.empty_cache()
+    return ms
+
+
+def cold_and_warm(label: str, kernel, plain, make_inputs, nbytes: int,
+                  bound_ms: float) -> dict:
+    """A memory-bound kernel and its plain version at L2-cold device time
+    (``device_ms_cold``; in turns kernel, plain, plain, kernel, each keeping
+    its best), which is what the bytes bound compares with; beside them the
+    kernel's L2-resident time (one input replayed, ``device_ms``) and both
+    eager times."""
+    k1, p1, p2, k2 = (device_ms_cold(kernel, make_inputs, nbytes),
+                      device_ms_cold(plain, make_inputs, nbytes),
+                      device_ms_cold(plain, make_inputs, nbytes),
+                      device_ms_cold(kernel, make_inputs, nbytes))
+    kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+    ins = make_inputs()
+    warm_ms = device_ms(lambda: kernel(*ins))
+    print(f"[time] {label}, device time per call, L2 cold (CUDA graph over "
+          f"inputs rotated through {L2_ROTATE_BYTES / 2 ** 20:.0f} MiB): "
+          f"kernel {kernel_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain "
+          f"{plain_ms:.6f} ms ({p1:.6f}, {p2:.6f}); bound {bound_ms:.6f} ms "
+          f"(bytes: {nbytes / 1e6:.2f} MB at 3.35 TB/s), kernel at "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it; L2-resident (one input "
+          f"replayed): kernel {warm_ms:.6f} ms; eager per call (host dispatch "
+          f"included): kernel {time_ms(lambda: kernel(*ins)):.6f} ms, plain "
+          f"{time_ms(lambda: plain(*ins)):.6f} ms")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
 def time_quant_kernel(dev, m=MAIN_M, d=MAIN_D) -> dict:
     from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
                                                 quant_dequant_int8_plain)
-    x = torch.randn(m, d, device=dev)
-    kernel = lambda: quant_dequant_int8(x)            # noqa: E731
-    plain = lambda: quant_dequant_int8_plain(x)       # noqa: E731
-    # in turns: kernel, plain, plain, kernel; each keeps its best
-    k1, p1, p2, k2 = (device_ms(kernel), device_ms(plain), device_ms(plain),
-                      device_ms(kernel))
-    kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
-    bound_ms = 2 * m * d * 4 / HBM_BYTES_PER_S * 1e3
-    print(f"[time] quant_dequant_int8 M={m} D={d} f32, device "
-          f"time per call (CUDA graph): kernel {kernel_ms:.6f} ms "
-          f"({k1:.6f}, {k2:.6f}), plain {plain_ms:.6f} ms ({p1:.6f}, "
-          f"{p2:.6f}), bound {bound_ms:.6f} ms (bytes)")
-    print(f"[time] quant_dequant_int8 eager per call (host dispatch "
-          f"included): kernel {time_ms(kernel):.6f} ms, plain "
-          f"{time_ms(plain):.6f} ms")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    nbytes = 2 * m * d * 4                      # x read, the f32 result written
+    return cold_and_warm(f"quant_dequant_int8 M={m} D={d} f32",
+                         quant_dequant_int8, quant_dequant_int8_plain,
+                         lambda: (torch.randn(m, d, device=dev),), nbytes,
+                         nbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def check_flash_kernel(dev) -> dict:
@@ -303,6 +359,174 @@ def time_flash_kernel(dev) -> dict:
             "library_ms": lib_ms}
 
 
+def check_wire_kernels(dev) -> float:
+    """``quantize_int8`` / ``dequantize_int8`` against their plain versions,
+    bit for bit: codes, scales (NaN in the same places) and the
+    dequantized rows in f32 and bf16, over the fused kernel's sweep, the two
+    link shapes, and rows holding NaN, inf and zeros. Returns the largest
+    |kernel - plain| over the dequantized values (0 when bit-equal)."""
+    from repro_torch.kernels.quant.int8 import dequantize_int8, quantize_int8
+    from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
+                                               quantize_int8_ref)
+    g = torch.Generator(device=dev).manual_seed(2)
+    shapes = [(m, d) for m in SWEEP_M for d in SWEEP_D] + [
+        (MAIN_M, MAIN_D), (LM_M, LM_D)]
+    cases = 0
+    max_err = 0.0
+    for m, d in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(m, d, device=dev, generator=g)
+                 * torch.rand(m, 1, device=dev, generator=g) * 10).to(dtype)
+            if m >= 4:                         # NaN, inf and all-zero rows
+                x[1, 0] = float("nan")
+                x[2, d - 1] = float("inf")
+                x[3, :] = 0.0
+            codes, scales = quantize_int8(x)
+            want_c, want_s = quantize_int8_ref(x)
+            torch.cuda.synchronize()
+            if not (codes.dtype == torch.int8 and torch.equal(codes, want_c)
+                    and same(scales, want_s)):
+                raise AssertionError(f"quantize_int8 kernel != plain at M={m} "
+                                     f"D={d} {dtype}")
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = dequantize_int8(codes, scales, out_dtype=out_dtype)
+                want = dequantize_int8_ref(codes, scales, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                if not (got.dtype == out_dtype and same(got, want)):
+                    raise AssertionError(f"dequantize_int8 kernel != plain at "
+                                         f"M={m} D={d} {out_dtype}")
+                max_err = max(max_err, float(
+                    (got.float() - want.float()).nan_to_num(0.0).abs().max()))
+                cases += 1
+    print(f"[check] quantize_int8/dequantize_int8: {cases} cases bit-equal to "
+          f"the plain versions (codes, scales, f32/bf16 rows; NaN, inf and "
+          f"zero rows included), the link shapes ({MAIN_M}, {MAIN_D}) and "
+          f"({LM_M}, {LM_D}) among them")
+    return max_err
+
+
+def wkv_inputs(shape, dev, g):
+    """The reference test's law (tests/test_kernels.py:276-283): r, k, v
+    0.5 N(0, 1); w sigmoid(N(0, 1)); u 0.3 N(0, 1)."""
+    b, h, t, hd = shape
+    r, k, v = (0.5 * torch.randn(shape, device=dev, generator=g)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(shape, device=dev, generator=g))
+    u = 0.3 * torch.randn(h, hd, device=dev, generator=g)
+    return r, k, v, w, u
+
+
+def check_wkv_kernel(dev) -> float:
+    """The WKV kernel against its plain version over T x hd at (B, H) = (2,
+    3) and at the rwkv6-7b shape ``WKV_MAIN``, y and the final state S_T,
+    within atol/rtol ``WKV_TOL``; then ``ops.wkv``'s gradient (kernel
+    forward + recomputed plain backward) against autograd of the plain
+    version. Returns the largest |kernel - plain| over y and S_T."""
+    from repro_torch.kernels.rwkv.ops import wkv
+    from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = [(2, 3, t, hd) for t in WKV_T for hd in WKV_HD] + [WKV_MAIN]
+    max_err = 0.0
+    for shape in shapes:
+        ins = wkv_inputs(shape, dev, g)
+        y, st = rwkv6_scan(*ins, return_state=True)
+        want_y, want_s = rwkv6_scan_ref(*ins, return_state=True)
+        torch.cuda.synchronize()
+        for name, got, want in (("y", y, want_y), ("S_T", st, want_s)):
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=WKV_TOL, rtol=WKV_TOL):
+                raise AssertionError(f"rwkv6_scan kernel != plain at {shape} "
+                                     f"({name}): max_abs_err {err}")
+            max_err = max(max_err, err)
+        if shape == WKV_MAIN:
+            print(f"[check] rwkv6_scan at the main path's shape {WKV_MAIN} "
+                  f"f32: max_abs_err y {float((y - want_y).abs().max()):.3e}, "
+                  f"S_T {float((st - want_s).abs().max()):.3e} (atol/rtol "
+                  f"{WKV_TOL:g})")
+        del ins, y, st, want_y, want_s
+    print(f"[check] rwkv6_scan: {len(shapes)} shapes (T {WKV_T} x hd "
+          f"{WKV_HD}, and {WKV_MAIN}) within atol/rtol {WKV_TOL:g} of the "
+          f"plain version, y and S_T; max_abs_err {max_err:.3e}")
+    gmax = 0.0
+    for shape in ((2, 3, 64, 64), (1, 2, 100, 32)):
+        ins = wkv_inputs(shape, dev, g)
+        grads = []
+        for fn in (wkv, rwkv6_scan_ref):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            y, st = fn(*leaves, return_state=True)
+            ((y * torch.cos(y)).sum() + (st * st).sum()).backward()
+            grads.append([t.grad for t in leaves])
+        for got, want in zip(*grads):
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=WKV_TOL, rtol=WKV_TOL):
+                raise AssertionError(f"wkv gradient differs at {shape}: "
+                                     f"{err}")
+            gmax = max(gmax, err)
+    print(f"[check] wkv gradients (kernel forward + recomputed plain "
+          f"backward) vs autograd of the plain version, y and S_T: "
+          f"max_abs_err {gmax:.3e} (atol/rtol {WKV_TOL:g})")
+    return max_err
+
+
+def time_wire_kernels(dev, m, d) -> dict:
+    """quantize_int8 and dequantize_int8 at (m, d) f32 beside their plain
+    versions; both move m*d*(4 + 1) + 4*m bytes."""
+    from repro_torch.kernels.quant.int8 import dequantize_int8, quantize_int8
+    from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
+                                               quantize_int8_ref)
+    nbytes = m * d * 5 + 4 * m
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def x_only():
+        return (torch.randn(m, d, device=dev),)
+
+    def codes_and_scales():
+        return quantize_int8(torch.randn(m, d, device=dev))
+
+    return {name: cold_and_warm(f"{name} M={m} D={d} f32", kernel, plain,
+                                make, nbytes, bound_ms)
+            for name, kernel, plain, make in (
+                ("quantize_int8", quantize_int8, quantize_int8_ref, x_only),
+                ("dequantize_int8", dequantize_int8, dequantize_int8_ref,
+                 codes_and_scales))}
+
+
+def time_wkv_kernel(dev) -> dict:
+    """The WKV kernel at the rwkv6-7b shape beside its plain version (a
+    loop of about 6 small kernels per step). No single PyTorch call
+    computes this function. The bound: bytes 5*B*H*T*hd*4 (r, k, v, w read,
+    y written) at 3.35 TB/s, against operations B*H*T*(5*hd^2 + 3*hd) (the
+    least a step needs: kv, the w*S + kv update and r.S as FMAs, the bonus
+    as (r . (u*k)) v) at 67 TFLOP/s FP32."""
+    from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    g = torch.Generator(device=dev).manual_seed(4)
+    ins = wkv_inputs(WKV_MAIN, dev, g)
+    kernel = lambda: rwkv6_scan(*ins)                 # noqa: E731
+    plain = lambda: rwkv6_scan_ref(*ins)              # noqa: E731
+    k1, p1, p2, k2 = (device_ms(kernel, iters=20), device_ms(plain, iters=1),
+                      device_ms(plain, iters=1), device_ms(kernel, iters=20))
+    kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+    b, h, t, hd = WKV_MAIN
+    nbytes = 5 * b * h * t * hd * 4
+    flops = b * h * t * (5 * hd * hd + 3 * hd)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[time] rwkv6_scan {WKV_MAIN} f32, device time per call (CUDA "
+          f"graph): kernel {kernel_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain "
+          f"{plain_ms:.6f} ms ({p1:.6f}, {p2:.6f}); bound {bound_ms:.6f} ms "
+          f"(bytes: {nbytes / 1e6:.1f} MB = {bytes_ms:.6f} ms; operations: "
+          f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s = {ops_ms:.6f} ms); kernel "
+          f"at {100 * bound_ms / kernel_ms:.1f}% of its bound")
+    print(f"[time] rwkv6_scan eager per call (host dispatch included): "
+          f"kernel {time_ms(kernel, iters=20, warmup=3):.6f} ms, plain "
+          f"{time_ms(plain, iters=2, warmup=1):.6f} ms")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def main_spec(api, kind: str, rounds: int):
     return api.ExperimentSpec(
         model=api.ModelSpec(name="mobilenetv2", num_classes=12),
@@ -334,18 +558,23 @@ def run_plan(plan, label: str):
     return state, records
 
 
-def profile_round(plan, state, label: str, top: int = 12):
-    """One more round under ``torch.profiler``: the device's busy share of
-    the round's wall time and the kernels that take the most device time.
-    (Profiling slows the host side, so the busy share is a lower bound.)"""
+def profile_call(fn, label: str, what: str, top: int = 12, cpu=True):
+    """``fn()`` once under ``torch.profiler``: the device's busy share of its
+    wall time and the kernels that take the most device time. (Profiling
+    slows the host side, so the busy share is a lower bound.) ``cpu=False``
+    traces the device alone: the busy share needs no host operator events,
+    and a call of ~100,000 small kernels takes a minute to read back with
+    them."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        plan.run_round(state)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    t_read = time.perf_counter()
     per_kernel: dict = {}
     for e in prof.events():              # device-side events: the kernels
         if (e.device_type == torch.autograd.DeviceType.CUDA
@@ -358,9 +587,10 @@ def profile_round(plan, state, label: str, top: int = 12):
         print(f"[profile] {label}: the profiler recorded no device time "
               f"(device busy share not measured)")
         return
-    print(f"[profile] {label}: round wall {wall_us / 1e3:.3f} ms under the "
+    print(f"[profile] {label}: {what} wall {wall_us / 1e3:.3f} ms under the "
           f"profiler, device busy {busy_us / 1e3:.3f} ms "
-          f"({100 * busy_us / wall_us:.1f}%)")
+          f"({100 * busy_us / wall_us:.1f}%); trace read in "
+          f"{time.perf_counter() - t_read:.1f} s")
     for t_us, key, count in sorted(rows, reverse=True)[:top]:
         print(f"[profile] {label}: {t_us / 1e3:9.3f} ms "
               f"{100 * t_us / busy_us:5.1f}%  x{count:<5d} {key[:90]}")
@@ -444,7 +674,7 @@ def run_lm_path(api) -> dict:
           f"step)")
     if lm.num_rounds != 2 or launches != want:
         raise AssertionError(f"split-LM path launches {launches}, want {want}")
-    profile_round(lm, lm_state, "lm")
+    profile_call(lambda: lm.run_round(lm_state), "lm", "round")
     del lm, lm_state
     torch.cuda.empty_cache()
 
@@ -473,6 +703,94 @@ def run_lm_path(api) -> dict:
     return launches
 
 
+def run_rwkv_path() -> int:
+    """rwkv6-7b at full width, cut to ``RWKV_LAYERS`` layers, through the
+    port's trainer: 3 steps of 4 x 1024 tokens with the WKV launch count
+    over exactly those steps, the peak memory, one profiled step, and a
+    reduced RWKV of head size 64 on the card against the same run on the
+    CPU. Returns the launch count."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    from repro_torch.launch.train import cuda_hardware_profile, train, \
+        train_step
+    from repro_torch.models.transformer import default_cut_layer, model_init
+    from repro_torch.optim import AdamW
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(rwkv6_7b, n_layers=RWKV_LAYERS)
+    steps, batch, seq = 3, 4, 1024
+    print(f"[rwkv] {cfg.name} at full width (d {cfg.d_model}, "
+          f"{cfg.d_model // cfg.hd} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}), cut to {cfg.n_layers} of "
+          f"{rwkv6_7b.n_layers} layers (the only cut from the published "
+          f"model); batch {batch} x {seq} tokens, {steps} steps")
+    torch.cuda.reset_peak_memory_stats()
+    rwkv6_scan.launches = 0
+    t0 = time.perf_counter()
+    losses = train(cfg, steps=steps, batch=batch, seq=seq, lr=3e-4,
+                   client_fraction=0.15, device=dev, log_every=1,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rwkv6_scan.launches
+    want = cfg.n_layers * steps
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[rwkv] losses {losses}; train() took {wall:.2f} s (init "
+          f"included); peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({peak} bytes); rwkv6_scan launches over the {steps} steps: "
+          f"{launches} (want {cfg.n_layers} layers x {steps} steps = {want})")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        raise AssertionError(f"rwkv: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"rwkv path launched the WKV kernel {launches} "
+                             f"times, want {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("RWKV training run")
+
+    # one more step under the profiler, on a fresh model after a warm step
+    cut = default_cut_layer(cfg, 0.15)
+    model = model_init(cfg, torch.Generator(device=dev).manual_seed(1),
+                       cut_layer=cut)
+    opt = AdamW(model.parameters(), 3e-4, weight_decay=0.01)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), device=dev,
+                           generator=g)
+    batch_ = {"tokens": tokens, "labels": tokens}
+    train_step(cfg, model, opt, batch_, cut_layer=cut)
+    profile_call(lambda: train_step(cfg, model, opt, batch_, cut_layer=cut),
+                 "rwkv", "step", cpu=False)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("RWKV profiled step")
+
+    small = dataclasses.replace(rwkv6_7b.reduced(), head_dim=64)
+    kw = dict(steps=2, batch=2, seq=64, lr=3e-4, client_fraction=0.15,
+              log_every=1, hardware=cuda_hardware_profile(dev))
+    gpu = train(small, device=dev, generator=torch.Generator().manual_seed(0),
+                **kw)
+    cpu = train(small, device="cpu",
+                generator=torch.Generator().manual_seed(0), **kw)
+    if any(abs(a - b) > 1e-3 for a, b in zip(gpu, cpu)) or len(gpu) != 2:
+        raise AssertionError(f"reduced RWKV on the card {gpu} != on the CPU "
+                             f"{cpu}")
+    print(f"[check] reduced RWKV (hd 64) trained on the card == on the CPU: "
+          f"losses {gpu} vs {cpu} (atol 1e-3)")
+    return launches
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: str):
+    """The script's elapsed host time at the end of a phase."""
+    print(f"[phase] {phase} done at {time.perf_counter() - T_START:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -495,15 +813,30 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
+    stamp("build")
+
     max_err = check_quant_kernel(dev)
+    wire_err = check_wire_kernels(dev)
     flash_err = check_flash_kernel(dev)
+    wkv_err = check_wkv_kernel(dev)
+    stamp("kernel checks")
     time_quant_kernel(dev)
     timing = time_quant_kernel(dev, LM_M, LM_D)
+    time_wire_kernels(dev, MAIN_M, MAIN_D)
+    wire_timing = time_wire_kernels(dev, LM_M, LM_D)
     flash_timing = time_flash_kernel(dev)
+    wkv_timing = time_wkv_kernel(dev)
+    stamp("kernel times")
 
     import repro_torch.api as api
-    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.kernels.quant.int8 import (dequantize_int8,
+                                                quant_dequant_int8,
+                                                quantize_int8)
 
+    # the wire pair's counts cover every main path (CNN, split LM, RWKV)
+    # and nothing else: the checks and times above come before the reset
+    quantize_int8.launches = 0
+    dequantize_int8.launches = 0
     t0 = time.perf_counter()
     sl = api.compile_experiment(main_spec(api, "sl", rounds=2))
     print(f"[sl] compiled in {time.perf_counter() - t0:.2f} s: cut after "
@@ -519,12 +852,12 @@ def main() -> int:
     if sl.num_rounds != 2 or launches != want:
         raise AssertionError(f"main path launched the kernel {launches} "
                              f"times over {sl.num_rounds} rounds, want {want}")
-    profile_round(sl, sl_state, "sl")
+    profile_call(lambda: sl.run_round(sl_state), "sl", "round")
     check_against_cpu(api)
 
     fl = api.compile_experiment(main_spec(api, "fl", rounds=1))
     fl_state, fl_recs = run_plan(fl, "fl")
-    profile_round(fl, fl_state, "fl")
+    profile_call(lambda: fl.run_round(fl_state), "fl", "round")
     sl_client = sl_recs[0].client_energy_j
     fl_client = fl_recs[0].client_energy_j
     print(f"[fl] client energy per round: SL {sl_client:.6g} J < "
@@ -532,10 +865,29 @@ def main() -> int:
     if not sl_client < fl_client:
         raise AssertionError("SL client energy is not below FL's")
 
+    stamp("CNN paths")
     lm_launches = run_lm_path(api)
+    stamp("split-LM path")
+    rwkv_launches = run_rwkv_path()
+    stamp("RWKV path")
+    wire_launches = {"quantize_int8": quantize_int8.launches,
+                     "dequantize_int8": dequantize_int8.launches}
+    print(f"[paths] wire-format pair launches over the CNN, split-LM and "
+          f"RWKV paths: {wire_launches} (no path of the port calls them)")
 
-    # launches: the counts over the split-LM path's run, the path both
-    # kernels are on (the CNN path's int8 count is checked above)
+    # launches: the counts over the split-LM path's run for the two kernels
+    # on it (the CNN path's int8 count is checked above), over the RWKV
+    # path's 3 steps for the WKV kernel, over all three paths for the
+    # wire-format pair
+    wire = [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/quant_int8.cu",
+             "replaces": f"src/repro/kernels/quant/int8.py:{line}",
+             "launches": wire_launches[name], "max_abs_err": wire_err,
+             "ms": wire_timing[name]["ms"],
+             "plain_ms": wire_timing[name]["plain_ms"],
+             "bound_ms": wire_timing[name]["bound_ms"], "bound_by": "bytes",
+             "library_ms": None}
+            for name, line in (("quantize_int8", 27), ("dequantize_int8", 36))]
     kernels = [{"name": "quant_dequant_int8", "route": "cuda",
                 "source": "src/repro_torch/csrc/quant_int8.cu",
                 "replaces": "src/repro/kernels/quant/int8.py:40",
@@ -553,7 +905,15 @@ def main() -> int:
                 "plain_ms": flash_timing["plain_ms"],
                 "bound_ms": flash_timing["bound_ms"],
                 "bound_by": "operations",
-                "library_ms": flash_timing["library_ms"]}]
+                "library_ms": flash_timing["library_ms"]},
+               *wire,
+               {"name": "rwkv6_scan", "route": "cuda",
+                "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+                "replaces": "src/repro/kernels/rwkv/scan.py:28",
+                "launches": rwkv_launches, "max_abs_err": wkv_err,
+                "ms": wkv_timing["ms"], "plain_ms": wkv_timing["plain_ms"],
+                "bound_ms": wkv_timing["bound_ms"],
+                "bound_by": wkv_timing["bound_by"], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

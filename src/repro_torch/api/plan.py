@@ -365,7 +365,11 @@ def _validate_transformer(spec: ExperimentSpec):
         raise ValueError("server_mesh tier specs are wired for the CNN stage "
                          "path only")
     if arch.ssm_kind or arch.attn_period or arch.enc_dec:
-        _not_in_slice(f"the {arch.name} stack ({arch.family})", "item 17")
+        # the reference's lm_split_program builds "attn" groups only
+        # (repro/fleet/hetero.py:225); an RWKV stack trains through
+        # repro_torch.launch.train
+        _not_in_slice(f"a split-LM plan of the {arch.name} stack "
+                      f"({arch.family})", "item 17")
 
 
 def _validate(spec: ExperimentSpec):

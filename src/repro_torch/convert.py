@@ -1,6 +1,8 @@
 """Carry the reference's parameters over to the port.
 
-CNNs: ``from_reference``. The split LM: ``lm_from_reference``.
+CNNs: ``from_reference``. The split LM: ``lm_from_reference``. The whole
+transformer model of ``models.transformer`` (the trainer's):
+``model_from_reference``.
 
 ``from_reference`` takes ``Plan.params0`` of a ``repro`` CNN plan as numpy
 (one nested dict per stage, e.g. ``jax.tree_util.tree_map(np.asarray,
@@ -103,3 +105,40 @@ def lm_from_reference(params_c0, params_s0, cfg) -> tuple[dict, dict]:
             raise ValueError(f"{name} tier: reference params {have} do not "
                              f"match the port's {want}")
     return port
+
+
+def model_from_reference(params, cfg, cut_layer=None):
+    """The reference's ``model_init(cfg, key, cut_layer=cut_layer)`` tree,
+    as numpy (``{"embed": {"table"}, "final_norm", "groups": [one tree per
+    group, every leaf stacked on a leading layer axis], "head"}`` with the
+    head only when the embedding is not tied) -> the port's
+    ``models.transformer.Model``, each leaf in its own dtype (bf16 kept),
+    the layers unstacked into ``groups.{g}.{layer}.<path>``. Checked
+    against the port's model of ``cfg``: the same keys, shapes and
+    dtypes."""
+    from .models.transformer import Model, build_groups
+    flat = {}
+    for key, tree in params.items():
+        if key == "groups":
+            for gi, group in enumerate(tree):
+                for path, a in _flatten(group):
+                    for li, row in enumerate(np.asarray(a)):
+                        flat[f"groups.{gi}.{li}.{path}"] = _leaf(row)
+        else:
+            for path, a in _flatten(tree, key + "."):
+                flat[path] = _leaf(a)
+    with torch.device("meta"):
+        model = Model(cfg, build_groups(cfg, cut_layer=cut_layer))
+    want = {k: (tuple(v.shape), v.dtype)
+            for k, v in model.state_dict().items()}
+    have = {k: (tuple(v.shape), v.dtype) for k, v in flat.items()}
+    if want != have:
+        missing = sorted(set(want) - set(have))
+        extra = sorted(set(have) - set(want))
+        wrong = sorted(k for k in set(want) & set(have) if want[k] != have[k])
+        raise ValueError(f"reference params do not match the port's model: "
+                         f"missing {missing[:8]}, extra {extra[:8]}, shape "
+                         f"or dtype differs at "
+                         f"{[(k, have[k], want[k]) for k in wrong[:8]]}")
+    model.load_state_dict(flat, assign=True)
+    return model

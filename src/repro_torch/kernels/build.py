@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # every kernel source of the package; build_all() compiles them in parallel
-KERNEL_SOURCES = ("quant_int8", "flash_attn")
+KERNEL_SOURCES = ("quant_int8", "flash_attn", "rwkv6_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

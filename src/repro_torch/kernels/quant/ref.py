@@ -11,11 +11,13 @@ from .int8 import row_scale
 
 
 def quantize_int8_ref(x: torch.Tensor):
-    """x (..., D) -> (codes int8 (..., D), scales f32 (..., 1))."""
+    """x (..., D) -> (codes int8 (..., D), scales f32 (..., 1)). A NaN code
+    (a row holding NaN or inf) becomes 0, as XLA converts NaN to an
+    integer; torch leaves that conversion to the device."""
     x = x.float()
     scale = row_scale(x)
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
+    q = torch.clamp(torch.round(x / scale), -127, 127).nan_to_num(0.0)
+    return q.to(torch.int8), scale
 
 
 def dequantize_int8_ref(codes: torch.Tensor, scales: torch.Tensor, *,

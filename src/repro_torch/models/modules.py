@@ -1,8 +1,11 @@
 """Layers of the CNN backbones and the transformer blocks.
 
 Counterpart of ``repro.models.modules``: conv, linear, GroupNorm and SAME
-padding for the CNNs; RMSNorm, LayerNorm, the SwiGLU and GELU FFNs and
-rotary embeddings for the transformer family. The
+padding for the CNNs; RMSNorm, LayerNorm, the per-head GroupNorm of the
+RWKV time mix, the token embedding (and its tied head), the SwiGLU and GELU
+FFNs, rotary embeddings and the initializers for the transformer family.
+Initializers draw in f32 from a ``torch.Generator`` on the parameter's own
+device, then cast to the parameter's dtype. The
 reference is NHWC with HWIO kernels; here tensors are NCHW (kept in
 ``torch.channels_last`` memory, so an NHWC view is free) and conv kernels
 OIHW. Parameter names follow the reference's pytree keys (``w``, ``b``,
@@ -79,10 +82,8 @@ class Linear(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator):
         with torch.no_grad():
-            w = torch.empty(self.w.shape).normal_(
-                0.0, 1.0 / math.sqrt(max(self.w.shape[0], 1)),
-                generator=generator)
-            self.w.copy_(w)
+            self.w.copy_(lecun_normal(generator, self.w.shape,
+                                      device=self.w.device))
             if self.b is not None:
                 self.b.zero_()
 
@@ -123,8 +124,69 @@ def relu6(x):
 
 
 # ---------------------------------------------------------------------------
+# initializers (``normal_init``, ``lecun_normal``)
+# ---------------------------------------------------------------------------
+
+def normal_init(generator: torch.Generator, shape, *,
+                dtype: torch.dtype = torch.float32, stddev: float = 0.02,
+                device=None) -> torch.Tensor:
+    """N(0, stddev^2) drawn in f32 from ``generator``, cast to ``dtype``."""
+    x = torch.empty(tuple(shape), device=device or generator.device)
+    return x.normal_(0.0, stddev, generator=generator).to(dtype)
+
+
+def lecun_normal(generator: torch.Generator, shape, *,
+                 dtype: torch.dtype = torch.float32,
+                 device=None) -> torch.Tensor:
+    """N(0, 1/fan_in) with fan_in = shape[-2] (a 2-D (in, out) weight)."""
+    return normal_init(generator, shape, dtype=dtype, device=device,
+                       stddev=1.0 / math.sqrt(max(shape[-2], 1)))
+
+
+# ---------------------------------------------------------------------------
 # transformer layers
 # ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """Token embedding ``table`` (V, d) (``embed_init``: N(0, 0.02^2));
+    ``forward`` looks tokens up (``embed_apply``), ``logits`` is the tied
+    head ``x @ table.T`` in x's dtype (``embed_logits``)."""
+
+    def __init__(self, vocab: int, d: int, *,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(vocab, d, dtype=dtype))
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.table.copy_(normal_init(generator, self.table.shape,
+                                         device=self.table.device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.table[ids.long()]
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.table.to(x.dtype).T
+
+
+class HeadGroupNorm(nn.Module):
+    """``groupnorm_apply`` over the last axis: (..., C) split into
+    ``groups`` groups of C/groups channels (the RWKV heads), each normalized
+    with f32 moments (biased variance, eps 1e-5), then ``* scale + bias`` in
+    f32 and cast back to the input's dtype."""
+
+    def __init__(self, c: int, groups: int, *,
+                 dtype: torch.dtype = torch.float32, eps: float = 1e-5):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.scale = nn.Parameter(torch.ones(c, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(c, dtype=dtype))
+
+    def forward(self, x):
+        y = F.group_norm(x.float().reshape(-1, x.shape[-1]), self.groups,
+                         self.scale.float(), self.bias.float(), eps=self.eps)
+        return y.reshape(x.shape).to(x.dtype)
+
 
 class RMSNorm(nn.Module):
     """``rmsnorm_apply``: computed in f32, cast back to the input's dtype."""

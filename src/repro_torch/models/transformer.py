@@ -1,19 +1,26 @@
-"""Transformer layer groups: the dense ``"attn"`` kind, in PyTorch.
+"""Transformer layer groups and the whole model, in PyTorch.
 
-Counterpart of the ``"attn"`` part of ``repro.models.transformer``. A group
-is a homogeneous run of layers; where the reference stacks each leaf on a
-leading layer axis and scans, the port keeps one ``AttnLayer`` module per
-layer in an ``nn.ModuleList`` and loops. Parameter names are the
-reference's pytree paths (``ln1.scale``, ``attn.wq.w``, ``ffn.gate.w``, ...)
-so ``repro_torch.convert.lm_from_reference`` maps one onto the other.
+Counterpart of ``repro.models.transformer`` for the ``"attn"`` (dense) and
+``"rwkv"`` (RWKV-6) group kinds: the group plan (``build_groups``,
+``_split_at``, ``default_cut_layer``), one module per layer, the model
+(``model_init``: embedding, groups tagged client or server, final norm, a
+head only when the embedding is not tied) and the full-sequence
+``model_forward`` / ``lm_loss``. A group is a homogeneous run of layers;
+where the reference stacks each leaf on a leading layer axis and scans,
+the port keeps one layer module per layer in an ``nn.ModuleList`` and
+loops. Parameter names are the reference's pytree paths (``ln1.scale``,
+``attn.wq.w``, ``mix.w_lora_a``, ...) so ``repro_torch.convert`` maps one
+onto the other.
 
-The other group kinds (``rwkv``, ``jamba``, ``enc``, ``xdec``) and MoE FFNs
-are not ported yet: they raise ``NotImplementedError`` (ROADMAP queue 1
-item 17). The reference's ``shard_act`` has no counterpart on one card.
+The other group kinds (``jamba``, ``enc``, ``xdec``), MoE FFNs and the
+modality frontends are not ported yet: they raise ``NotImplementedError``
+(ROADMAP queue 1 item 17). The reference's ``shard_act`` has no
+counterpart on one card.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -23,6 +30,8 @@ from ..configs.base import ArchConfig
 from ..kernels.attn.ops import attention
 from . import modules as M
 from .attention import chunked_causal_attention
+from .ssm import (RWKV6ChannelMix, RWKV6TimeMix, rwkv6_apply,
+                  rwkv6_ffn_apply)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,13 +43,81 @@ class GroupSpec:
     tier: str = "server"      # client | server  (split-learning tier)
 
 
+def build_groups(cfg: ArchConfig, *,
+                 cut_layer: Optional[int] = None) -> list[GroupSpec]:
+    """Homogeneous layer groups; optionally split at ``cut_layer``. The
+    reference's plan for every config (ported kinds or not)."""
+    groups: list[GroupSpec] = []
+    if cfg.enc_dec:
+        groups.append(GroupSpec("enc", cfg.n_enc_layers, 0))
+        groups.append(GroupSpec("xdec", cfg.n_layers, cfg.n_enc_layers))
+    elif cfg.ssm_kind == "rwkv6" and cfg.attn_period == 0:
+        groups.append(GroupSpec("rwkv", cfg.n_layers, 0))
+    elif cfg.ssm_kind == "mamba" and cfg.attn_period > 0:
+        if cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                             f"attn_period {cfg.attn_period}")
+        groups.append(GroupSpec("jamba", cfg.n_layers // cfg.attn_period, 0))
+    else:
+        # attention stack; break where the moe-ness changes (deepseek layer 0)
+        flags = [cfg.is_moe_layer(i) for i in range(cfg.n_layers)]
+        start = 0
+        for i in range(1, cfg.n_layers + 1):
+            if i == cfg.n_layers or flags[i] != flags[start]:
+                groups.append(GroupSpec("attn", i - start, start,
+                                        moe=flags[start]))
+                start = i
+    if cut_layer is not None:
+        groups = _split_at(groups, cut_layer, cfg)
+    return groups
+
+
+def _split_at(groups: list[GroupSpec], cut_layer: int,
+              cfg: ArchConfig) -> list[GroupSpec]:
+    """Split the group list at an absolute layer index and tag tiers. For
+    enc-dec the cut lives in the encoder; for jamba it snaps to a
+    super-block boundary."""
+    out: list[GroupSpec] = []
+    for g in groups:
+        per = cfg.attn_period if g.kind == "jamba" else 1
+        lo, hi = g.layer_offset, g.layer_offset + g.count * per
+        if cut_layer <= lo:
+            out.append(dataclasses.replace(g, tier="server"))
+        elif cut_layer >= hi:
+            out.append(dataclasses.replace(g, tier="client"))
+        else:
+            k = max(1, round((cut_layer - lo) / per))
+            k = min(k, g.count - 1) if g.count > 1 else g.count
+            if k > 0:
+                out.append(dataclasses.replace(g, count=k, tier="client"))
+            if g.count - k > 0:
+                out.append(dataclasses.replace(
+                    g, count=g.count - k, layer_offset=lo + k * per,
+                    tier="server"))
+    return out
+
+
+def default_cut_layer(cfg: ArchConfig, client_fraction: float) -> int:
+    """Paper SL_{a,b}: the client holds a fraction of the layers. MoE archs
+    clamp the cut at the first MoE layer (experts stay server-side), except
+    where every layer is MoE."""
+    n = cfg.n_enc_layers if cfg.enc_dec else cfg.n_layers
+    k = max(1, min(n - 1, int(math.ceil(client_fraction * n))))
+    if cfg.n_experts and not cfg.enc_dec:
+        fm = next((i for i in range(cfg.n_layers) if cfg.is_moe_layer(i)), n)
+        if fm == 0:
+            return k
+        k = min(k, fm)
+    return k
+
+
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to repro_torch yet "
                               f"(ROADMAP queue 1 item 17)")
 
 
 def _check_group(g: GroupSpec):
-    if g.kind != "attn":
+    if g.kind not in LAYERS:
         _not_ported(f"the {g.kind!r} layer group")
     if g.moe:
         _not_ported("the MoE FFN")
@@ -71,20 +148,52 @@ class AttnLayer(nn.Module):
         self.ffn = (M.GeluFFN if cfg.ffn == "gelu" else M.SwiGLU)(
             d, cfg.d_ff, dtype=dt)
 
+    def reset_parameters(self, generator: torch.Generator):
+        for mod in self.modules():
+            if isinstance(mod, M.Linear):
+                mod.reset_parameters(generator)
+
+
+class RWKVLayer(nn.Module):
+    """[ln1 -> RWKV-6 time mix -> residual] + [ln2 -> channel mix ->
+    residual] (``_rwkv_layer_init``)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.ln1 = _norm(cfg)
+        self.mix = RWKV6TimeMix(cfg.d_model, head_size=cfg.hd, dtype=dt)
+        self.ln2 = _norm(cfg)
+        self.ffn = RWKV6ChannelMix(cfg.d_model, cfg.d_ff, dtype=dt)
+
+    def reset_parameters(self, generator: torch.Generator):
+        self.mix.reset_parameters(generator)
+        self.ffn.reset_parameters(generator)
+
+
+LAYERS = {"attn": AttnLayer, "rwkv": RWKVLayer}
+
 
 def group_init(generator: torch.Generator, cfg: ArchConfig,
                g: GroupSpec) -> nn.ModuleList:
-    """``g.count`` fresh layers, initialized in order from ``generator``
-    (lecun-normal weights drawn in f32 and stored in ``cfg.param_dtype``,
-    unit norm scales, zero biases). The reference draws from threefry, so
-    the values differ from ``repro``'s; parity runs import the reference's
-    instead."""
-    _check_group(g)
-    layers = nn.ModuleList(AttnLayer(cfg) for _ in range(g.count))
-    for mod in layers.modules():
-        if isinstance(mod, M.Linear):
-            mod.reset_parameters(generator)
+    """``g.count`` fresh layers of ``g.kind``, created on the generator's
+    device and initialized in order from ``generator`` (weights drawn in
+    f32 and stored in ``cfg.param_dtype``, unit norm scales, zero biases).
+    The reference draws from threefry, so the values differ from
+    ``repro``'s; parity runs import the reference's instead."""
+    with torch.device(generator.device):
+        layers = group_modules(cfg, g)
+    for layer in layers:
+        layer.reset_parameters(generator)
     return layers
+
+
+def group_modules(cfg: ArchConfig, g: GroupSpec) -> nn.ModuleList:
+    """``g.count`` layers of ``g.kind`` on the current default device,
+    parameters uninitialized (``group_init`` draws them; on the meta device
+    they give shapes)."""
+    _check_group(g)
+    return nn.ModuleList(LAYERS[g.kind](cfg) for _ in range(g.count))
 
 
 def _attn_block(cfg: ArchConfig, p: AttnLayer, x: torch.Tensor, positions,
@@ -124,10 +233,117 @@ def group_apply(cfg: ArchConfig, g: GroupSpec, layers, x: torch.Tensor, aux,
                 *, positions, window: Optional[int],
                 attn_impl: str = "xla"):
     """Full-sequence pass (train/prefill) over the group's layers.
-    Returns (x, aux)."""
+    Returns (x, aux). RWKV layers start from the zero state: the time mix's
+    new state is dropped, and the channel mix's ``x_prev`` is zero."""
     _check_group(g)
+    if g.kind == "rwkv":
+        for layer in layers:
+            mix, _ = rwkv6_apply(layer.mix, layer.ln1(x), head_size=cfg.hd)
+            x = x + mix
+            hf = layer.ln2(x)
+            x = x + rwkv6_ffn_apply(layer.ffn, hf, torch.zeros_like(hf[:, 0]))
+        return x, aux
     for layer in layers:
         x = _attn_block(cfg, layer, x, positions, window=window,
                         attn_impl=attn_impl)
         x, aux = _ffn_block(cfg, layer, x, aux, moe=g.moe)
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# model assembly
+# ---------------------------------------------------------------------------
+
+def vocab_padded(cfg: ArchConfig) -> int:
+    """The vocab padded to a multiple of 16 (whisper's 51865 -> 51872), as
+    the reference shards it. Padded ids never appear as labels."""
+    return -(-cfg.vocab // 16) * 16
+
+
+class Model(nn.Module):
+    """``model_init``'s tree as a module: ``embed.table`` (V_pad, d),
+    ``final_norm``, ``groups`` (one ``ModuleList`` of layers per
+    ``GroupSpec`` of ``build_groups(cfg, cut_layer)``, in order; their
+    tiers are in ``specs``) and, when the embedding is not tied,
+    ``head.w`` (d, V_pad). Given a ``generator``, the embedding, then each
+    group's layers (``group_init``), then the head are drawn from it in
+    that order; without one the parameters stay uninitialized (``convert``
+    builds the model so on the meta device, for shapes)."""
+
+    def __init__(self, cfg: ArchConfig, specs: list[GroupSpec],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.enc_dec:
+            _not_ported("the encoder-decoder stack")
+        if cfg.frontend != "none":
+            _not_ported(f"the {cfg.frontend!r} frontend")
+        self.specs = list(specs)
+        self.embed = M.Embed(vocab_padded(cfg), cfg.d_model,
+                             dtype=cfg.param_dtype)
+        if generator is not None:
+            self.embed.reset_parameters(generator)
+        self.final_norm = _norm(cfg)
+        self.groups = nn.ModuleList(
+            group_modules(cfg, g) if generator is None
+            else group_init(generator, cfg, g) for g in self.specs)
+        self.head = (None if cfg.tie_embeddings else
+                     M.Linear(cfg.d_model, vocab_padded(cfg), bias=False,
+                              dtype=cfg.param_dtype))
+        if generator is not None and self.head is not None:
+            self.head.reset_parameters(generator)
+
+
+def model_init(cfg: ArchConfig, generator: torch.Generator, *,
+               cut_layer: Optional[int] = None, device=None) -> Model:
+    """``model_init``: the model of ``cfg`` cut at ``cut_layer``, drawn
+    from ``generator`` on its own device (a CUDA generator draws on the
+    card), then moved to ``device`` when one is given."""
+    with torch.device(generator.device):
+        model = Model(cfg, build_groups(cfg, cut_layer=cut_layer), generator)
+    return model if device is None else model.to(device)
+
+
+def _embed_inputs(cfg: ArchConfig, model: Model, batch: dict):
+    """Token embedding and positions; text only (a ``Model`` refuses a
+    frontend). Returns (x, positions)."""
+    tokens = batch["tokens"]
+    x = model.embed(tokens)
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    return x, positions
+
+
+def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
+                  window="cfg", cut_layer: Optional[int] = None):
+    """Full-sequence forward. Returns (logits (B, S, V_pad), aux). Attention
+    groups take the chunked plain path (``attn_impl="xla"``), as the
+    reference's ``model_forward`` does; RWKV groups the WKV kernel."""
+    if window == "cfg":
+        window = cfg.swa_window
+    specs = build_groups(cfg, cut_layer=cut_layer)
+    if specs != model.specs:
+        raise ValueError(f"the model was built for groups {model.specs}, "
+                         f"not {specs} (cut_layer={cut_layer})")
+    x, positions = _embed_inputs(cfg, model, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g, layers in zip(specs, model.groups):
+        x, aux = group_apply(cfg, g, layers, x, aux, positions=positions,
+                             window=window)
+    x = model.final_norm(x)
+    logits = (model.embed.logits(x) if model.head is None
+              else model.head(x))
+    return logits, aux
+
+
+def lm_loss(cfg: ArchConfig, model: Model, batch: dict, *, window="cfg",
+            cut_layer: Optional[int] = None):
+    """Next-token cross entropy (+ router aux): f32 log-softmax over the
+    padded vocab. Returns (loss, {"ce", "aux"})."""
+    logits, aux = model_forward(cfg, model, batch, window=window,
+                                cut_layer=cut_layer)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp[:, :-1], -1, labels[:, 1:, None])[..., 0]
+    ce = -ll.mean()
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux}

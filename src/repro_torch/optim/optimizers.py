@@ -79,6 +79,23 @@ class SGD(torch.optim.Optimizer):
                 p.add_((-group["lr"] * d).to(p.dtype))
 
 
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """``clip_by_global_norm``: scale every gradient by
+    ``min(1, max_norm / (gnorm + 1e-12))``, with gnorm the f32 square root
+    of the sum of all squares, computed in f32 and cast back to each
+    gradient's dtype. ``grads`` is a list of tensors, updated in place
+    (``None`` entries are skipped). Returns gnorm (an f32 0-d tensor)."""
+    grads = [g for g in grads if g is not None]
+    if not grads:
+        return torch.zeros(())
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+    for g in grads:
+        g.copy_((g.float() * scale).to(g.dtype))
+    return gnorm
+
+
 def adamw(lr: float = 1e-3, **kw):
     """Factory ``params -> AdamW`` (the reference's ``adamw(lr)`` builds an
     (init, update) pair; here the optimizer binds to its params)."""

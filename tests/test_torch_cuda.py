@@ -17,8 +17,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attn.flash import (flash_attention,
                                             flash_attention_fwd,
                                             flash_attention_plain)
-from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
-                                            quant_dequant_int8_plain)
+from repro_torch.kernels.quant.int8 import (dequantize_int8,
+                                            quant_dequant_int8,
+                                            quant_dequant_int8_plain,
+                                            quantize_int8)
+from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
+                                           quantize_int8_ref)
+from repro_torch.kernels.rwkv.ops import wkv
+from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
+from repro_torch.kernels.rwkv.scan import rwkv6_scan
 
 
 def hopper_available() -> bool:
@@ -153,3 +160,94 @@ def test_lm_main_path_launches_the_flash_kernel(hopper):
     assert flash_attention.launches == 3 * (steps + evals)
     assert quant_dequant_int8.launches == steps
     assert all(torch.isfinite(torch.tensor(r.loss)) for r in recs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wire_pair_is_bit_equal_to_plain(hopper, dtype):
+    g = torch.Generator(device=hopper).manual_seed(0)
+    for m, d in [(1, 8), (7, 16), (509, 32), (12544, 32), (8192, 576)]:
+        x = (torch.randn(m, d, device=hopper, generator=g) * 3).to(dtype)
+        x[0, 0] = float("nan")
+        before = (quantize_int8.launches, dequantize_int8.launches)
+        codes, scales = quantize_int8(x)
+        want_c, want_s = quantize_int8_ref(x)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = dequantize_int8(codes, scales, out_dtype=out_dtype)
+            want = dequantize_int8_ref(codes, scales, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype and _same(got, want)
+        assert torch.equal(codes, want_c) and _same(scales, want_s)
+        assert (quantize_int8.launches, dequantize_int8.launches) == \
+            (before[0] + 1, before[1] + 2)
+
+
+def _wkv_inputs(shape, dev, g):
+    b, h, t, hd = shape
+    r, k, v = (0.5 * torch.randn(shape, device=dev, generator=g)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(shape, device=dev, generator=g))
+    return r, k, v, w, 0.3 * torch.randn(h, hd, device=dev, generator=g)
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_matches_plain(hopper):
+    g = torch.Generator(device=hopper).manual_seed(0)
+    for shape in [(1, 1, 1, 16), (2, 3, 7, 32), (2, 2, 100, 48),
+                  (1, 4, 1024, 64)]:
+        ins = _wkv_inputs(shape, hopper, g)
+        before = rwkv6_scan.launches
+        y, st = rwkv6_scan(*ins, return_state=True)
+        want_y, want_s = rwkv6_scan_ref(*ins, return_state=True)
+        torch.cuda.synchronize()
+        assert rwkv6_scan.launches == before + 1
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(st, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wkv_gradient_matches_autograd_of_plain(hopper):
+    g = torch.Generator(device=hopper).manual_seed(1)
+    ins = _wkv_inputs((2, 3, 64, 64), hopper, g)
+    grads = []
+    for fn in (wkv, rwkv6_scan_ref):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, st = fn(*leaves, return_state=True)
+        ((y * torch.cos(y)).sum() + (st * st).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wkv_wrapper_rejects_what_the_kernel_does_not_take(hopper):
+    ins = _wkv_inputs((1, 2, 8, 64), hopper,
+                      torch.Generator(device=hopper).manual_seed(2))
+    before = rwkv6_scan.launches
+    bad_cases = [
+        [a.to(torch.bfloat16) for a in ins],                  # dtype
+        [a[..., :40].contiguous() if a.dim() == 4 else a[:, :40].contiguous()
+         for a in ins],                                       # hd 40
+        [a.repeat(1, 1, 1, 2) if a.dim() == 4 else a.repeat(1, 2)
+         for a in ins],                                       # hd 128
+        [a.transpose(2, 3) if a.dim() == 4 else a for a in ins],
+    ]
+    for bad in bad_cases:
+        with pytest.raises(ValueError):
+            rwkv6_scan(*bad)
+    assert rwkv6_scan.launches == before
+
+
+@pytest.mark.cuda
+def test_rwkv_train_step_launches_the_wkv_kernel_per_layer(hopper):
+    import dataclasses
+
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(rwkv6_7b.reduced(), head_dim=64)
+    rwkv6_scan.launches = 0
+    losses = train(cfg, steps=2, batch=2, seq=32, log_every=1,
+                   device=hopper,
+                   generator=torch.Generator(device=hopper).manual_seed(0))
+    assert rwkv6_scan.launches == cfg.n_layers * 2
+    assert all(torch.isfinite(torch.tensor(losses)))

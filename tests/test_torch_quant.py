@@ -2,7 +2,9 @@
 
 On the CPU the port's ``quant_dequant_int8`` runs its plain version, which
 must be bit-equal to ``repro.kernels.quant.int8.quant_dequant_int8`` in
-interpret mode; the two-op path must be bit-equal to what the reference's
+interpret mode, as ``quantize_int8`` / ``dequantize_int8`` (the wire
+format's halves) must be to the reference's two Pallas kernels, ragged M
+and NaN/inf rows included; the two-op path must be bit-equal to what the reference's
 two-op path computes (``quant_dequant(use_pallas=False)``, jitted). The CUDA
 kernel against the plain version is in ``test_torch_cuda.py`` (on a Hopper
 card) and ``chip_smoke.py``.
@@ -15,13 +17,16 @@ import torch
 
 from repro.fleet.link import FleetLink as RefFleetLink
 from repro.core.link import LinkConfig as RefLinkConfig
+from repro.kernels.quant.int8 import dequantize_int8 as ref_dequantize
 from repro.kernels.quant.int8 import quant_dequant_int8 as ref_fused
+from repro.kernels.quant.int8 import quantize_int8 as ref_quantize_kernel
 from repro.kernels.quant.ops import quant_dequant as ref_quant_dequant
 from repro.kernels.quant.ref import quantize_int8_ref as ref_quantize
 from repro_torch.core.link import LinkConfig
 from repro_torch.fleet.link import FleetLink, SmashedSpec
 from repro_torch.kernels.dispatch import resolve_link_kernel
-from repro_torch.kernels.quant.int8 import quant_dequant_int8
+from repro_torch.kernels.quant.int8 import (dequantize_int8,
+                                            quant_dequant_int8, quantize_int8)
 from repro_torch.kernels.quant.ops import make_link_compress, quant_dequant
 from repro_torch.kernels.quant.ref import quantize_int8_ref
 
@@ -90,6 +95,54 @@ def test_nan_inf_and_zero_rows_match_pallas_interpret(residual):
     np.testing.assert_array_equal(got, want)    # NaN positions included
     if not residual:
         np.testing.assert_array_equal(got[4], np.zeros(32, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 32, 576])
+@pytest.mark.parametrize("m", [1, 7, 300, 509])
+def test_wire_pair_plain_is_bit_equal_to_pallas_interpret(m, d, dtype):
+    """Codes, scales and the dequantized rows (f32 and bf16) of the plain
+    versions against ``quantize_int8`` / ``dequantize_int8`` in interpret
+    mode; M = 300 and 509 are ragged against the kernels' 256-row blocks."""
+    xj, _, xt, _ = _inputs(m, d, dtype, seed=3)
+    want_q, want_s = ref_quantize_kernel(xj, interpret=True)
+    q, scales = quantize_int8(xt)
+    assert q.dtype == torch.int8 and scales.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want_s))
+    for jdt, tdt in DTYPES.values():
+        want = ref_dequantize(want_q, want_s, out_dtype=jdt, interpret=True)
+        got = dequantize_int8(q, scales, out_dtype=tdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_wire_pair_nan_inf_and_zero_rows_match_pallas_interpret():
+    xj, _, _, _ = _inputs(6, 32, "float32", seed=2)
+    x = np.array(xj)
+    x[1, 5] = np.nan
+    x[3, 0] = np.inf
+    x[4, :] = 0.0
+    want_q, want_s = ref_quantize_kernel(jnp.asarray(x), interpret=True)
+    q, scales = quantize_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want_s))
+    assert (q[1] == 0).all() and np.isnan(scales[1, 0])
+    want = ref_dequantize(want_q, want_s, interpret=True)
+    np.testing.assert_array_equal(dequantize_int8(q, scales).numpy(),
+                                  np.asarray(want))
+
+
+def test_wire_pair_wrappers_take_only_cpu_or_cuda_tensors():
+    for fn, args in ((quantize_int8, (torch.empty(4, 8, device="meta"),)),
+                     (dequantize_int8, (torch.empty(4, 8, dtype=torch.int8,
+                                                    device="meta"),
+                                        torch.empty(4, 1, device="meta")))):
+        with pytest.raises(ValueError, match="not on meta"):
+            fn(*args)
+    before = (quantize_int8.launches, dequantize_int8.launches)
+    dequantize_int8(*quantize_int8(torch.ones(4, 8)))
+    assert (quantize_int8.launches, dequantize_int8.launches) == before
 
 
 def test_straight_through_backward_is_identity():
