@@ -7,20 +7,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit (``nvidia-smi``); TF32 off for convs
    and matmuls, so float32 means float32;
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), with each kernel's
+   registers and spills from ``ptxas`` and the count of tensor-core MMA
+   instructions (HMMA) in the flash kernels' SASS (``cuobjdump``);
 3. each kernel against its plain PyTorch version on the card over the
    shapes of its sweep and its main paths' shapes: the int8 link kernel and
    the wire format's quantize/dequantize pair bit for bit (NaN positions
    included), the flash attention kernel within the reference's own
-   tolerances (f32 2e-5, bf16 3e-2), and its gradient (kernel forward +
-   closed-form backward) against autograd through the plain version; the
+   tolerances (f32 2e-5, bf16 3e-2), a case with fully masked rows
+   (finite everywhere, the rows that see a key equal), and its gradient
+   (kernel forward + closed-form backward) against autograd through the
+   plain version; the
    WKV scan kernel within the reference's atol/rtol 1e-4, its final state
    S_T too, and its gradient against autograd of the plain version;
 4. each kernel's time at its main paths' shapes, beside its plain
    version's time, its bound and, where one PyTorch call computes the same
    function, that call's time; the memory-bound int8 kernels are timed
    with the L2 cold (inputs rotated through 256 MiB), as their bytes bound
-   assumes;
+   assumes; the flash kernel's bound is its 3xTF32 tensor-core work, and
+   it is timed in bf16 beside SDPA too (informational);
 5. the CNN path: ``sl/scan`` (Algorithm 3) on MobileNetV2 at 224x224,
    4 clients, batch 16, 2 local steps, 2 rounds, int8 link on the fused
    kernel, UAV mission; with the kernel's launch count over exactly that
@@ -52,6 +57,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -63,6 +70,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12            # H100 SXM FP32 rate outside tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor-core rate
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 SWEEP_M = (1, 7, 509, 2048, 12544)
 SWEEP_D = (8, 16, 32, 256)
 MAIN_M, MAIN_D = 12544, 32         # MobileNetV2 cut at batch 16, 224x224
@@ -74,6 +83,9 @@ FLASH_D = (32, 64, 128)
 FLASH_WINDOWS = (None, 16, 100)
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_MAIN = (8, 9, 1024, 64)      # SmolLM-135M attention at batch 8
+# S, Sk, window of a causal case with fully masked rows: rows from
+# Sk + window - 1 = 115 on see no key
+FLASH_MASKED = (1024, 100, 16)
 # the WKV kernel's sweep (at B, H = 2, 3) and the rwkv6-7b training shape
 WKV_T = (1, 7, 64, 1000, 1024)
 WKV_HD = (16, 32, 64)
@@ -290,6 +302,33 @@ def check_flash_kernel(dev) -> dict:
                                  f"{FLASH_MAIN} {name}: {err}")
         errs[name] = max(errs[name], err)
         cases += 1
+    # fully masked rows: finite everywhere (no NaN from 0/0), and the rows
+    # that see a key equal the plain version; the rows that see none differ
+    # by design (the kernel: the mean over its live tiles or 0; the plain
+    # version: the mean over all Sk values; ROADMAP queue 3)
+    s, sk, window = FLASH_MASKED
+    qp = torch.arange(s, device=dev)[:, None]
+    kp = torch.arange(sk, device=dev)[None, :]
+    sees = ((qp >= kp) & (qp - kp < window)).any(dim=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(2, 3, s, 64, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(2, 3, sk, 64, device=dev, generator=g).to(dtype)
+                for _ in range(2))
+        got = flash_attention_fwd(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        err = float((got.float() - want.float())[:, :, sees].abs().max())
+        finite = bool(torch.isfinite(got.float()).all())
+        print(f"[check] flash_attention fully masked rows (S {s}, Sk {sk}, "
+              f"window {window}, causal) {name}: all finite {finite}; "
+              f"{int(sees.sum())} rows that see a key: max_abs_err {err:.3e} "
+              f"(atol {FLASH_ATOL[name]:g})")
+        if not (finite and err <= FLASH_ATOL[name]):
+            raise AssertionError(f"flash_attention with fully masked rows "
+                                 f"{name}: finite {finite}, err {err}")
+        errs[name] = max(errs[name], err)
+        cases += 1
     print(f"[check] flash_attention: {cases} cases within the reference's "
           f"tolerances of the plain version; max_abs_err f32 "
           f"{errs['float32']:.3e} (atol 2e-5), bf16 {errs['bfloat16']:.3e} "
@@ -323,7 +362,11 @@ def check_flash_kernel(dev) -> dict:
 def time_flash_kernel(dev) -> dict:
     """The flash kernel at the split LM's shape (f32, causal) beside its
     plain version and ``F.scaled_dot_product_attention(is_causal=True)``,
-    the library yardstick (timed here only; the port never calls it)."""
+    the library yardstick (timed here only; the port never calls it), in
+    turns; then the same shape in bf16, kernel beside SDPA (informational:
+    no path runs it). The f32 bound is the 3xTF32 tensor-core work the
+    kernel does (3 TF32 products per f32 product); the FP32 bound of the
+    first, SIMT version is printed beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels.attn.flash import (flash_attention_fwd,
                                                 flash_attention_plain)
@@ -340,21 +383,40 @@ def time_flash_kernel(dev) -> dict:
     kernel_ms, plain_ms, lib_ms = min(k1, k2), min(p1, p2), min(l1, l2)
     flops = 2.0 * b * h * d * s * (s + 1)      # causal halves of 2 products
     nbytes = 4 * b * h * s * d * 4             # q, k, v read; out written
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    bound_ms = max(tf32_ms, bytes_ms)
     print(f"[time] flash_attention {FLASH_MAIN} f32 causal, device time per "
           f"call (CUDA graph): kernel {kernel_ms:.6f} ms ({k1:.6f}, "
           f"{k2:.6f}), plain {plain_ms:.6f} ms ({p1:.6f}, {p2:.6f}), SDPA "
-          f"{lib_ms:.6f} ms ({l1:.6f}, {l2:.6f}); bound {bound_ms:.6f} ms "
-          f"(operations: {flops / 1e9:.3f} GFLOP at 67 TFLOP/s = "
-          f"{ops_ms:.6f} ms; bytes: {nbytes / 1e6:.1f} MB = "
-          f"{bytes_ms:.6f} ms); kernel at "
-          f"{100 * bound_ms / kernel_ms:.1f}% of its bound")
+          f"{lib_ms:.6f} ms ({l1:.6f}, {l2:.6f}); kernel/SDPA "
+          f"{kernel_ms / lib_ms:.3f}; bound {bound_ms:.6f} ms (operations, "
+          f"3xTF32: 3 x {flops / 1e9:.3f} GFLOP at 495 TFLOP/s = "
+          f"{tf32_ms:.6f} ms; bytes: {nbytes / 1e6:.1f} MB = "
+          f"{bytes_ms:.6f} ms), kernel at {100 * bound_ms / kernel_ms:.1f}% "
+          f"of it; the first version's FP32 bound {fp32_ms:.6f} ms "
+          f"({flops / 1e9:.3f} GFLOP at 67 TFLOP/s)")
     print(f"[time] flash_attention eager per call (host dispatch included): "
           f"kernel {time_ms(kernel, iters=20, warmup=3):.6f} ms, plain "
           f"{time_ms(plain, iters=20, warmup=3):.6f} ms, SDPA "
           f"{time_ms(sdpa, iters=20, warmup=3):.6f} ms")
+    del q, k, v
+    qb, kb, vb = (torch.randn(b, h, s, d, device=dev).to(torch.bfloat16)
+                  for _ in range(3))
+    kernel = lambda: flash_attention_fwd(qb, kb, vb, causal=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(                 # noqa: E731
+        qb, kb, vb, is_causal=True)
+    k1, l1, l2, k2 = (device_ms(kernel, iters=20), device_ms(sdpa, iters=20),
+                      device_ms(sdpa, iters=20), device_ms(kernel, iters=20))
+    bf_ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    bf_bytes_ms = nbytes / 2 / HBM_BYTES_PER_S * 1e3
+    print(f"[time] flash_attention {FLASH_MAIN} bf16 causal (no path runs "
+          f"it), device time per call (CUDA graph): kernel "
+          f"{min(k1, k2):.6f} ms ({k1:.6f}, {k2:.6f}), SDPA {min(l1, l2):.6f}"
+          f" ms ({l1:.6f}, {l2:.6f}); bound {max(bf_ops_ms, bf_bytes_ms):.6f}"
+          f" ms (operations {bf_ops_ms:.6f} ms at 989 TFLOP/s bf16, bytes "
+          f"{bf_bytes_ms:.6f} ms)")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "library_ms": lib_ms}
 
@@ -783,6 +845,57 @@ def run_rwkv_path() -> int:
     return launches
 
 
+def demangle(names):
+    """C++ names as ``c++filt`` prints them, or as they are without it."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def print_ptxas(logs: dict):
+    """Each kernel's registers, stack and spills from the ``-Xptxas=-v``
+    build logs (empty when the library was already built)."""
+    for lib, log in logs.items():
+        rows, name = [], None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = m.group(1)
+                rows.append([name, ""])
+            elif name and ("spill" in line or "registers" in line):
+                rows[-1][1] += line.strip().replace("ptxas info    : ", "") \
+                    + " "
+        for (_, props), pretty in zip(rows, demangle([r[0] for r in rows])):
+            print(f"[ptxas] {lib}: {pretty.replace('(anonymous namespace)::', '')}"
+                  f": {props.strip()}")
+
+
+def print_hmma(lib: str):
+    """The count of tensor-core MMA instructions (HMMA) in each kernel of
+    ``lib``'s SASS, from ``cuobjdump -sass``, where the toolkit has it."""
+    from repro_torch.kernels.build import library_path, nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print(f"[sass] {lib}: no cuobjdump beside nvcc")
+        return
+    sass = subprocess.run([tool, "-sass", str(library_path(lib))],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    for (_, n), pretty in zip(counts.items(), demangle(list(counts))):
+        print(f"[sass] {lib}: "
+              f"{pretty.replace('(anonymous namespace)::', '')}: {n} HMMA")
+
+
 T_START = time.perf_counter()
 
 
@@ -808,10 +921,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build_all()
     print(f"[setup] built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {name}: {line.strip()}")
+    print_ptxas(logs)
+    print_hmma("flash_attn")
 
     stamp("build")
 

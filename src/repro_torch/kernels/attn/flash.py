@@ -8,8 +8,11 @@ causal and sliding-window masks on absolute positions and q scaled by
 ``_FlashAttention``:
 
 - forward: on a CUDA tensor the kernel ``csrc/flash_attn.cu`` (see the note
-  there), on a CPU tensor ``flash_attention_plain``; any other device
-  raises, and nothing falls back;
+  there: both products on the tensor cores with ``mma.sync``, 3xTF32 for
+  float32 so that it keeps float32 accuracy, bf16 MMAs for bfloat16; k/v
+  tiles copied with ``cp.async`` into two stages; 128 query rows a block),
+  on a CPU tensor ``flash_attention_plain``; any other device raises, and
+  nothing falls back;
 - backward: the reference's closed form (``_flash_vjp_bwd``,
   ``flash.py:165-177``) in plain PyTorch on the saved q, k, v, o: the masked
   probabilities recomputed, dv, dp, delta = rowsum(dO * O), ds, dq, dk. The
@@ -29,6 +32,8 @@ from .ref import flash_attention_ref, masked_probs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+QUERY_TILE = 128     # query rows per block of the kernel (``kBQ``)
+MAX_GRID_Y = 65535   # the grid's y extent: one block row per query tile
 
 # The plain version of the kernel is the O(S^2) masked softmax of the
 # reference's oracle (``flash.py:139-151`` / ``ref.py``): the same function
@@ -65,6 +70,9 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention: q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention needs 16-byte aligned q, k, v (the "
+                         "kernel copies rows in 16-byte pieces)")
     if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention takes a head dim that is a "
                          f"multiple of 16 up to {MAX_HEAD_DIM}, got {d}")
@@ -72,8 +80,9 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention needs at least one key")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if -(-s // 64) > 65535:
-        raise ValueError(f"flash_attention: S={s} is too long for the grid")
+    if -(-s // QUERY_TILE) > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: S={s} is too long for the grid "
+                         f"({MAX_GRID_Y} tiles of {QUERY_TILE} query rows)")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -126,6 +126,71 @@ def test_flash_kernel_matches_plain(hopper, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_kernel_head_dim_128_ragged_keys(hopper, dtype, atol):
+    """D = 128 (one m16 tile a warp, 8 warps) with S = 131 queries over
+    Sk = 1024 keys: ragged on both axes."""
+    g = torch.Generator(device=hopper).manual_seed(3)
+    for causal, window in ((True, None), (False, None), (True, 100)):
+        q, k, v = (torch.randn(2, 3, n, 128, device=hopper, generator=g
+                               ).to(dtype) for n in (131, 1024, 1024))
+        got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_kernel_fully_masked_rows_are_finite(hopper, dtype, atol):
+    """S 1024 over Sk 100 keys, window 16, causal: rows from 115 on see no
+    key. Every output is finite; the rows that see a key equal the plain
+    version (the others differ by design: ROADMAP queue 3)."""
+    g = torch.Generator(device=hopper).manual_seed(4)
+    q, k, v = (torch.randn(2, 3, n, 64, device=hopper, generator=g
+                           ).to(dtype) for n in (1024, 100, 100))
+    got = flash_attention_fwd(q, k, v, causal=True, window=16)
+    want = flash_attention_plain(q, k, v, causal=True, window=16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got[:, :, :115].float(),
+                               want[:, :, :115].float(), atol=atol, rtol=0)
+    # what the kernel gives a row that sees no key (csrc/flash_attn.cu's
+    # note): the mean over the 64-key tiles its 128-row block does not skip,
+    # keys past Sk counted as zeros, or 0 when the block skips every tile.
+    # Block 0 loads tiles 0-1 (keys 0-127), block 1 tile 1 (keys 64-127),
+    # blocks 2.. none.
+    vf = v.float()
+    for rows, keys, slots in ((slice(115, 128), slice(0, 100), 128),
+                              (slice(128, 256), slice(64, 100), 64)):
+        mean = vf[:, :, keys].sum(dim=2, keepdim=True) / slots
+        torch.testing.assert_close(got[:, :, rows].float(),
+                                   mean.expand_as(got[:, :, rows]),
+                                   atol=atol, rtol=0)
+    assert not got[:, :, 256:].float().any()
+
+
+@pytest.mark.cuda
+def test_flash_one_call_is_one_launch(hopper):
+    """A differentiable call launches the forward kernel once; its backward
+    (the closed form in plain PyTorch) launches nothing."""
+    q, k, v = (torch.randn(1, 2, 300, 64, device=hopper, requires_grad=True)
+               for _ in range(3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(hopper):
     q = torch.randn(1, 2, 16, 64, device=hopper)
     before = flash_attention.launches
@@ -133,6 +198,20 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(hopper):
                 (q[..., :40].contiguous(),) * 3,
                 (q, q[:, :1].contiguous(), q[:, :1].contiguous())):
         with pytest.raises(ValueError):
+            flash_attention_fwd(*bad)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_inputs_not_16_byte_aligned(hopper):
+    """The kernel copies rows in 16-byte pieces: a contiguous view that
+    starts 4 bytes into its storage is refused before any launch."""
+    buf = torch.randn(1 * 2 * 16 * 64 + 1, device=hopper)
+    q = buf[1:].view(1, 2, 16, 64)
+    ok = torch.randn(1, 2, 16, 64, device=hopper)
+    before = flash_attention.launches
+    for bad in ((q, ok, ok), (ok, q, ok), (ok, ok, q)):
+        with pytest.raises(ValueError, match="aligned"):
             flash_attention_fwd(*bad)
     assert flash_attention.launches == before
 
