@@ -18,8 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (finite everywhere, the rows that see a key equal), and its gradient
    (kernel forward + closed-form backward) against autograd through the
    plain version; the
-   WKV scan kernel within the reference's atol/rtol 1e-4, its final state
-   S_T too, and its gradient against autograd of the plain version;
+   WKV scan kernel within the reference's atol/rtol 1e-4 at head sizes 16
+   to 256, its final state S_T too; the WKV backward kernel's five
+   gradients (with a cotangent of S_T, and with w holding exact zeros)
+   against autograd of the plain loop, and at the rwkv6-7b shape against
+   its plain closed form, within 1e-4;
 4. each kernel's time at its main paths' shapes, beside its plain
    version's time, its bound and, where one PyTorch call computes the same
    function, that call's time; the memory-bound int8 kernels are timed
@@ -44,9 +47,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
    parameters drawn on the card; with the WKV kernel's launch count over
-   exactly those steps (4 x 3), the peak memory, one profiled step, and a
-   reduced RWKV of head size 64 on the card held against the same run on
-   the CPU; the wire-format pair's launch counts cover paths 5 to 8;
+   exactly those steps (4 x 3 forward and 4 x 3 backward), the peak
+   memory, one profiled step, and the reduced rwkv6-7b (head size 256) on
+   the card held against the same run on the CPU; the wire-format pair's
+   launch counts cover paths 5 to 8;
 9. one JSON line listing the kernels, then the card, then the result line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
@@ -88,7 +92,7 @@ FLASH_MAIN = (8, 9, 1024, 64)      # SmolLM-135M attention at batch 8
 FLASH_MASKED = (1024, 100, 16)
 # the WKV kernel's sweep (at B, H = 2, 3) and the rwkv6-7b training shape
 WKV_T = (1, 7, 64, 1000, 1024)
-WKV_HD = (16, 32, 64)
+WKV_HD = (16, 32, 64, 128, 256)
 WKV_MAIN = (4, 64, 1024, 64)
 WKV_TOL = 1e-4                     # atol and rtol, the reference's own
 L2_ROTATE_BYTES = 256 * 2 ** 20    # > 5x the H100's 50 MB L2
@@ -478,15 +482,19 @@ def wkv_inputs(shape, dev, g):
     return r, k, v, w, u
 
 
-def check_wkv_kernel(dev) -> float:
+def check_wkv_kernel(dev) -> tuple:
     """The WKV kernel against its plain version over T x hd at (B, H) = (2,
     3) and at the rwkv6-7b shape ``WKV_MAIN``, y and the final state S_T,
-    within atol/rtol ``WKV_TOL``; then ``ops.wkv``'s gradient (kernel
-    forward + recomputed plain backward) against autograd of the plain
-    version. Returns the largest |kernel - plain| over y and S_T."""
+    within atol/rtol ``WKV_TOL``; then ``ops.wkv``'s gradients (forward
+    kernel + backward kernel) against autograd of the plain loop, with a
+    cotangent of S_T and with w holding exact zeros, at head sizes 32 to
+    256, and the backward kernel against its plain closed form at
+    ``WKV_MAIN``. Returns the largest |kernel - plain| of the forward (y,
+    S_T) and of the backward (the five gradients)."""
     from repro_torch.kernels.rwkv.ops import wkv
-    from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
-    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    from repro_torch.kernels.rwkv.ref import (rwkv6_scan_bwd_ref,
+                                              rwkv6_scan_ref)
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
     g = torch.Generator(device=dev).manual_seed(3)
     shapes = [(2, 3, t, hd) for t in WKV_T for hd in WKV_HD] + [WKV_MAIN]
     max_err = 0.0
@@ -510,25 +518,50 @@ def check_wkv_kernel(dev) -> float:
     print(f"[check] rwkv6_scan: {len(shapes)} shapes (T {WKV_T} x hd "
           f"{WKV_HD}, and {WKV_MAIN}) within atol/rtol {WKV_TOL:g} of the "
           f"plain version, y and S_T; max_abs_err {max_err:.3e}")
+
+    def check(label, got, want, shape):
+        errs = []
+        for name, a, b in zip("rkvwu", got, want):
+            err = float((a - b).abs().max())
+            if not torch.allclose(a, b, atol=WKV_TOL, rtol=WKV_TOL):
+                raise AssertionError(f"wkv gradient d{name} != {label} at "
+                                     f"{shape}: max_abs_err {err}")
+            errs.append(err)
+        return max(errs)
+
     gmax = 0.0
-    for shape in ((2, 3, 64, 64), (1, 2, 100, 32)):
-        ins = wkv_inputs(shape, dev, g)
+    grad_shapes = [(2, 3, 64, 64), (1, 2, 100, 32), (2, 3, 40, 48),
+                   (1, 2, 50, 128), (2, 2, 37, 256)]
+    for n, shape in enumerate(grad_shapes):
+        ins = list(wkv_inputs(shape, dev, g))
+        if n % 2 == 0:                      # decays that underflowed to 0
+            ins[3][..., ::5] = 0.0
+            ins[3][..., 1::7] = 1e-30
         grads = []
         for fn in (wkv, rwkv6_scan_ref):
             leaves = [t.clone().requires_grad_(True) for t in ins]
             y, st = fn(*leaves, return_state=True)
             ((y * torch.cos(y)).sum() + (st * st).sum()).backward()
             grads.append([t.grad for t in leaves])
-        for got, want in zip(*grads):
-            err = float((got - want).abs().max())
-            if not torch.allclose(got, want, atol=WKV_TOL, rtol=WKV_TOL):
-                raise AssertionError(f"wkv gradient differs at {shape}: "
-                                     f"{err}")
-            gmax = max(gmax, err)
-    print(f"[check] wkv gradients (kernel forward + recomputed plain "
-          f"backward) vs autograd of the plain version, y and S_T: "
-          f"max_abs_err {gmax:.3e} (atol/rtol {WKV_TOL:g})")
-    return max_err
+        gmax = max(gmax, check("autograd of the plain loop", *grads, shape))
+    print(f"[check] wkv gradients (forward kernel + backward kernel) vs "
+          f"autograd of the plain loop, y and S_T cotangents, w with exact "
+          f"zeros in {(len(grad_shapes) + 1) // 2} of {len(grad_shapes)} "
+          f"shapes {grad_shapes}: max_abs_err {gmax:.3e} (atol/rtol "
+          f"{WKV_TOL:g})")
+    ins = wkv_inputs(WKV_MAIN, dev, g)
+    gy = torch.randn(WKV_MAIN, device=dev, generator=g)
+    b, h, _, hd = WKV_MAIN
+    gs = torch.randn((b, h, hd, hd), device=dev, generator=g)
+    _, _, ckpt = rwkv6_scan(*ins, checkpoints=True)
+    got = rwkv6_scan_bwd(*ins, gy, gs, ckpt)
+    want = rwkv6_scan_bwd_ref(*ins, gy, gs, ckpt)
+    torch.cuda.synchronize()
+    main_err = check("the plain closed form", got, want, WKV_MAIN)
+    print(f"[check] rwkv6_scan_bwd at the main path's shape {WKV_MAIN} f32, "
+          f"with G_T, vs its plain closed form on the same checkpoints: "
+          f"max_abs_err {main_err:.3e} (atol/rtol {WKV_TOL:g})")
+    return max_err, max(gmax, main_err)
 
 
 def time_wire_kernels(dev, m, d) -> dict:
@@ -562,7 +595,7 @@ def time_wkv_kernel(dev) -> dict:
     least a step needs: kv, the w*S + kv update and r.S as FMAs, the bonus
     as (r . (u*k)) v) at 67 TFLOP/s FP32."""
     from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
-    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    from repro_torch.kernels.rwkv.scan import CHECKPOINT_EVERY, rwkv6_scan
     g = torch.Generator(device=dev).manual_seed(4)
     ins = wkv_inputs(WKV_MAIN, dev, g)
     kernel = lambda: rwkv6_scan(*ins)                 # noqa: E731
@@ -585,6 +618,50 @@ def time_wkv_kernel(dev) -> dict:
     print(f"[time] rwkv6_scan eager per call (host dispatch included): "
           f"kernel {time_ms(kernel, iters=20, warmup=3):.6f} ms, plain "
           f"{time_ms(plain, iters=2, warmup=1):.6f} ms")
+    ckpt_ms = device_ms(lambda: rwkv6_scan(*ins, checkpoints=True),
+                        iters=20)
+    print(f"[time] rwkv6_scan {WKV_MAIN} writing the backward's checkpoints "
+          f"every {CHECKPOINT_EVERY} steps (as a training step runs it): "
+          f"{ckpt_ms:.6f} ms device")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_wkv_bwd(dev) -> dict:
+    """The WKV backward kernel at the rwkv6-7b shape (no cotangent of S_T,
+    as in training) beside its plain closed form on the same checkpoints.
+    No single PyTorch call computes it. The bound: bytes 9*B*H*T*hd*4 (r, k,
+    v, w, gy read, dr, dk, dv, dw written) plus the checkpoints read once,
+    at 3.35 TB/s, against operations 14*hd^2 per (b, h, t) at 67 TFLOP/s
+    FP32 (recomputing S: 3 hd^2; dr, dk, dv, dw: 2 hd^2 each; the G update:
+    3 hd^2)."""
+    from repro_torch.kernels.rwkv.ref import rwkv6_scan_bwd_ref
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
+    g = torch.Generator(device=dev).manual_seed(5)
+    ins = wkv_inputs(WKV_MAIN, dev, g)
+    gy = torch.randn(WKV_MAIN, device=dev, generator=g)
+    _, _, ckpt = rwkv6_scan(*ins, checkpoints=True)
+    args = (*ins, gy, None, ckpt)
+    kernel = lambda: rwkv6_scan_bwd(*args)            # noqa: E731
+    plain = lambda: rwkv6_scan_bwd_ref(*args)         # noqa: E731
+    k1, p1, p2, k2 = (device_ms(kernel, iters=10), device_ms(plain, iters=1),
+                      device_ms(plain, iters=1), device_ms(kernel, iters=10))
+    kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+    b, h, t, hd = WKV_MAIN
+    nbytes = 9 * b * h * t * hd * 4 + ckpt.numel() * 4
+    flops = 14 * b * h * t * hd * hd
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[time] rwkv6_scan_bwd {WKV_MAIN} f32, device time per call (CUDA "
+          f"graph): kernel {kernel_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain "
+          f"{plain_ms:.6f} ms ({p1:.6f}, {p2:.6f}); bound {bound_ms:.6f} ms "
+          f"(bytes: {nbytes / 1e6:.1f} MB = {bytes_ms:.6f} ms, checkpoints "
+          f"{ckpt.numel() * 4 / 1e6:.1f} MB of it; operations: "
+          f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s = {ops_ms:.6f} ms); kernel "
+          f"at {100 * bound_ms / kernel_ms:.1f}% of its bound")
+    print(f"[time] rwkv6_scan_bwd eager per call (host dispatch included): "
+          f"kernel {time_ms(kernel, iters=10, warmup=2):.6f} ms")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -767,15 +844,15 @@ def run_lm_path(api) -> dict:
 
 def run_rwkv_path() -> int:
     """rwkv6-7b at full width, cut to ``RWKV_LAYERS`` layers, through the
-    port's trainer: 3 steps of 4 x 1024 tokens with the WKV launch count
-    over exactly those steps, the peak memory, one profiled step, and a
-    reduced RWKV of head size 64 on the card against the same run on the
-    CPU. Returns the launch count."""
+    port's trainer: 3 steps of 4 x 1024 tokens with the WKV forward and
+    backward launch counts over exactly those steps, the peak memory, one
+    profiled step, and the reduced rwkv6-7b (head size 256) on the card
+    against the same run on the CPU. Returns the launch counts."""
     import dataclasses
     import gc
 
     from repro_torch.configs import rwkv6_7b
-    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
     from repro_torch.launch.train import cuda_hardware_profile, train, \
         train_step
     from repro_torch.models.transformer import default_cut_layer, model_init
@@ -790,25 +867,27 @@ def run_rwkv_path() -> int:
           f"{rwkv6_7b.n_layers} layers (the only cut from the published "
           f"model); batch {batch} x {seq} tokens, {steps} steps")
     torch.cuda.reset_peak_memory_stats()
-    rwkv6_scan.launches = 0
+    rwkv6_scan.launches = rwkv6_scan_bwd.launches = 0
     t0 = time.perf_counter()
     losses = train(cfg, steps=steps, batch=batch, seq=seq, lr=3e-4,
                    client_fraction=0.15, device=dev, log_every=1,
                    generator=torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = rwkv6_scan.launches
+    launches = {"rwkv6_scan": rwkv6_scan.launches,
+                "rwkv6_scan_bwd": rwkv6_scan_bwd.launches}
     want = cfg.n_layers * steps
     peak = torch.cuda.max_memory_allocated()
     print(f"[rwkv] losses {losses}; train() took {wall:.2f} s (init "
           f"included); peak memory {peak / 2 ** 30:.2f} GiB "
-          f"({peak} bytes); rwkv6_scan launches over the {steps} steps: "
-          f"{launches} (want {cfg.n_layers} layers x {steps} steps = {want})")
+          f"({peak} bytes); WKV launches over the {steps} steps: "
+          f"{launches} (want {cfg.n_layers} layers x {steps} steps = {want} "
+          f"each)")
     if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
         raise AssertionError(f"rwkv: losses {losses}")
-    if launches != want:
-        raise AssertionError(f"rwkv path launched the WKV kernel {launches} "
-                             f"times, want {want}")
+    if set(launches.values()) != {want}:
+        raise AssertionError(f"rwkv path launched the WKV kernels "
+                             f"{launches} times, want {want} each")
     gc.collect()
     torch.cuda.empty_cache()
     stamp("RWKV training run")
@@ -830,7 +909,7 @@ def run_rwkv_path() -> int:
     torch.cuda.empty_cache()
     stamp("RWKV profiled step")
 
-    small = dataclasses.replace(rwkv6_7b.reduced(), head_dim=64)
+    small = rwkv6_7b.reduced()
     kw = dict(steps=2, batch=2, seq=64, lr=3e-4, client_fraction=0.15,
               log_every=1, hardware=cuda_hardware_profile(dev))
     gpu = train(small, device=dev, generator=torch.Generator().manual_seed(0),
@@ -840,8 +919,8 @@ def run_rwkv_path() -> int:
     if any(abs(a - b) > 1e-3 for a, b in zip(gpu, cpu)) or len(gpu) != 2:
         raise AssertionError(f"reduced RWKV on the card {gpu} != on the CPU "
                              f"{cpu}")
-    print(f"[check] reduced RWKV (hd 64) trained on the card == on the CPU: "
-          f"losses {gpu} vs {cpu} (atol 1e-3)")
+    print(f"[check] reduced rwkv6-7b (hd {small.hd}) trained on the card "
+          f"== on the CPU: losses {gpu} vs {cpu} (atol 1e-3)")
     return launches
 
 
@@ -929,7 +1008,7 @@ def main() -> int:
     max_err = check_quant_kernel(dev)
     wire_err = check_wire_kernels(dev)
     flash_err = check_flash_kernel(dev)
-    wkv_err = check_wkv_kernel(dev)
+    wkv_err, wkv_bwd_err = check_wkv_kernel(dev)
     stamp("kernel checks")
     time_quant_kernel(dev)
     timing = time_quant_kernel(dev, LM_M, LM_D)
@@ -937,6 +1016,7 @@ def main() -> int:
     wire_timing = time_wire_kernels(dev, LM_M, LM_D)
     flash_timing = time_flash_kernel(dev)
     wkv_timing = time_wkv_kernel(dev)
+    wkv_bwd_timing = time_wkv_bwd(dev)
     stamp("kernel times")
 
     import repro_torch.api as api
@@ -988,7 +1068,7 @@ def main() -> int:
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), over the RWKV
-    # path's 3 steps for the WKV kernel, over all three paths for the
+    # path's 3 steps for the WKV kernels, over all three paths for the
     # wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
@@ -1021,10 +1101,22 @@ def main() -> int:
                {"name": "rwkv6_scan", "route": "cuda",
                 "source": "src/repro_torch/csrc/rwkv6_scan.cu",
                 "replaces": "src/repro/kernels/rwkv/scan.py:28",
-                "launches": rwkv_launches, "max_abs_err": wkv_err,
+                "launches": rwkv_launches["rwkv6_scan"],
+                "max_abs_err": wkv_err,
                 "ms": wkv_timing["ms"], "plain_ms": wkv_timing["plain_ms"],
                 "bound_ms": wkv_timing["bound_ms"],
-                "bound_by": wkv_timing["bound_by"], "library_ms": None}]
+                "bound_by": wkv_timing["bound_by"], "library_ms": None},
+               {"name": "rwkv6_scan_bwd", "route": "cuda",
+                "source": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                # the reference's gradient: JAX's autodiff of this oracle's
+                # lax.scan (its Pallas kernel has no backward)
+                "replaces": "src/repro/kernels/rwkv/ref.py:9",
+                "launches": rwkv_launches["rwkv6_scan_bwd"],
+                "max_abs_err": wkv_bwd_err,
+                "ms": wkv_bwd_timing["ms"],
+                "plain_ms": wkv_bwd_timing["plain_ms"],
+                "bound_ms": wkv_bwd_timing["bound_ms"],
+                "bound_by": wkv_bwd_timing["bound_by"], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

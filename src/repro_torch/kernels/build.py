@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a``, loaded with ``ctypes``. The
 library lands in ``repro_torch/_build/`` (ignored by git) under a name keyed
-by a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. No ``--use_fast_math``: the kernels rely on IEEE
-division and separately rounded multiply/add to match their plain versions
-bit for bit.
+by a hash of the source, the headers in ``csrc`` and the flags, so an edited
+source is rebuilt and an unchanged one is reused. No ``--use_fast_math``:
+the kernels rely on IEEE division and separately rounded multiply/add to
+match their plain versions bit for bit.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # every kernel source of the package; build_all() compiles them in parallel
-KERNEL_SOURCES = ("quant_int8", "flash_attn", "rwkv6_scan")
+KERNEL_SOURCES = ("quant_int8", "flash_attn", "rwkv6_scan",
+                  "rwkv6_scan_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -47,8 +48,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Keyed by the source, every header beside it and the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.h")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -4,48 +4,46 @@ Counterpart of ``repro.kernels.rwkv.ops.wkv``. ``wkv`` keeps the kernel's
 (B, H, T, hd) contract and goes through ``_WKV``:
 
 - forward: ``scan.rwkv6_scan``, the CUDA kernel on a CUDA tensor and its
-  plain version on a CPU tensor;
-- backward: the plain version recomputed under autograd and differentiated,
-  which is what the reference's autodiff of ``lax.scan`` computes (its
-  Pallas kernel has no backward). It holds one call's per-step
-  intermediates while it runs; a backward kernel is later work.
+  plain version on a CPU tensor; when an input needs a gradient it also
+  keeps the state every ``scan.CHECKPOINT_EVERY`` steps;
+- backward: ``scan.rwkv6_scan_bwd``, the backward kernel on a CUDA tensor
+  and its plain closed form ``ref.rwkv6_scan_bwd_ref`` on a CPU tensor,
+  both recomputing the states from those checkpoints. This is what the
+  reference's autodiff of ``lax.scan`` computes (its Pallas kernel has no
+  backward).
 """
 from __future__ import annotations
 
 import torch
 
-from .ref import rwkv6_scan_ref
-from .scan import rwkv6_scan
+from .scan import rwkv6_scan, rwkv6_scan_bwd
 
 
 class _WKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u, return_state):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(r, k, v, w, u)
-        ctx.return_state = return_state
-        return rwkv6_scan(r, k, v, w, u, return_state=return_state)
+        if not any(ctx.needs_input_grad[:5]):
+            return rwkv6_scan(r, k, v, w, u, return_state=return_state)
+        y, state, ckpt = rwkv6_scan(r, k, v, w, u, return_state=return_state,
+                                    checkpoints=True)
+        ctx.save_for_backward(r, k, v, w, u, ckpt)
+        return (y, state) if return_state else y
 
     @staticmethod
     def backward(ctx, gy, gs=None):
-        wanted = [i for i, need in enumerate(ctx.needs_input_grad[:5])
-                  if need]
-        pairs = [(i, g) for i, g in enumerate((gy, gs)) if g is not None]
-        grads = [None] * 6
-        if not wanted or not pairs:
-            return tuple(grads)
-        saved = ctx.saved_tensors
-        ins = [t.detach().requires_grad_(i in wanted)
-               for i, t in enumerate(saved)]
-        with torch.enable_grad():
-            out = rwkv6_scan_ref(*ins, return_state=True)
-            got = torch.autograd.grad([out[i] for i, _ in pairs],
-                                      [ins[i] for i in wanted],
-                                      [g for _, g in pairs],
-                                      allow_unused=True)
-        for i, g in zip(wanted, got):     # None: S_T alone needs no r or u
-            grads[i] = None if g is None else g.to(saved[i].dtype)
-        return tuple(grads)
+        if gy is None and gs is None:
+            return (None,) * 6
+        *saved, ckpt = ctx.saved_tensors
+        need = list(ctx.needs_input_grad[:5])
+        if gy is None:        # S_T alone: it depends on neither r nor u
+            need[0] = need[4] = False
+            gy = torch.zeros(saved[0].shape, dtype=torch.float32,
+                             device=saved[0].device)
+        grads = rwkv6_scan_bwd(*saved, gy.contiguous(),
+                               None if gs is None else gs.contiguous(), ckpt)
+        return tuple(g.to(t.dtype) if n else None
+                     for g, t, n in zip(grads, saved, need)) + (None,)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

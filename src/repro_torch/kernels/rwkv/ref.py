@@ -1,35 +1,111 @@
-"""Plain PyTorch RWKV-6 WKV scan (the kernel's plain version).
+"""Plain PyTorch RWKV-6 WKV scan and its backward (the kernels' plain
+versions).
 
-Counterpart of ``repro.kernels.rwkv.ref.rwkv6_scan_ref``: a loop over time
-with an f32 (B, H, hd, hd) state that starts from zero.
+``rwkv6_scan_ref`` is the counterpart of
+``repro.kernels.rwkv.ref.rwkv6_scan_ref``: a loop over time with an f32
+(B, H, hd, hd) state that starts from zero. It can also keep the state
+every ``CHECKPOINT_EVERY`` steps, as the forward kernel does for the
+backward.
+
+``rwkv6_scan_bwd_ref`` is the closed-form vector-Jacobian product of the
+scan, the algorithm of ``csrc/rwkv6_scan_bwd.cu``: from those checkpoints
+it recomputes each segment's states and sweeps back in time. It is not
+autograd; the reference's gradient is JAX's autodiff of its ``lax.scan``.
 """
 from __future__ import annotations
 
 import torch
 
+# the state is kept every CHECKPOINT_EVERY steps for the backward, which
+# recomputes each segment from it: 268 MB a call at (4, 64, 1024, 64). The
+# kernels have the same number compiled in (csrc/rwkv6_scan.h).
+CHECKPOINT_EVERY = 16
+
 
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor, *,
-                   return_state: bool = False):
+                   return_state: bool = False, checkpoints: bool = False):
     """r/k/v/w (B, H, T, hd); u (H, hd) -> y (B, H, T, hd) f32, and with
     ``return_state`` also the final state S_T (B, H, hd, hd) f32:
 
         kv  = k_t^T v_t
         y_t = r_t (S + diag(u) kv)
         S   = diag(w_t) S + kv
+
+    With ``checkpoints`` it returns ``(y, S_T or None, checkpoints)``, the
+    checkpoints (B, H, ceil(T / C), hd, hd) f32 being the states after 0,
+    C, 2C, ... steps, C = ``CHECKPOINT_EVERY``.
     """
     rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
     b, h, t, hd = rf.shape
     uu = u.float()[None, :, :, None]
     S = rf.new_zeros((b, h, hd, hd))
-    ys = []
+    ys, ckpts = [], []
     # unbind, not indexing, along T: the backward of T index ops would
     # build and add a full (B, H, T, hd) gradient per step (O(T^2) bytes);
     # unbind's backward stacks the T slices once
     steps = zip(*(a.unbind(2) for a in (rf, kf, vf, wf)))
-    for r_t, k_t, v_t, w_t in steps:                          # (B,H,hd) each
+    for i, (r_t, k_t, v_t, w_t) in enumerate(steps):          # (B,H,hd) each
+        if checkpoints and i % CHECKPOINT_EVERY == 0:
+            ckpts.append(S)
         kv = k_t[..., :, None] * v_t[..., None, :]            # (B,H,hd,hd)
         ys.append(torch.einsum("bhi,bhij->bhj", r_t, S + uu * kv))
         S = w_t[..., :, None] * S + kv
     y = torch.stack(ys, dim=2) if ys else rf.new_zeros((b, h, 0, hd))
+    if checkpoints:
+        ck = (torch.stack(ckpts, dim=2) if ckpts
+              else rf.new_zeros((b, h, 0, hd, hd)))
+        return y, (S if return_state else None), ck
     return (y, S) if return_state else y
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor,
+                       gs, checkpoints: torch.Tensor):
+    """The gradients (dr, dk, dv, dw (B, H, T, hd), du (H, hd)), all f32, of
+    ``rwkv6_scan_ref`` for the cotangents ``gy`` of y and ``gs`` of S_T
+    (None: 0), from the ``checkpoints`` it kept every ``CHECKPOINT_EVERY``
+    steps. Going back in t, with G = dL/dS_t:
+
+        dr_t = S_{t-1} gy_t + u k_t (gy_t . v_t)
+        dk_t = G v_t + u r_t (gy_t . v_t)
+        dv_t = G^T k_t + gy_t sum(u r_t k_t)
+        dw_t = rowsum(G * S_{t-1})
+        du  += sum_b r_t k_t (gy_t . v_t)      (accumulated in f64)
+        G   <- diag(w_t) G + r_t^T gy_t
+
+    S_{t-1} is recomputed forward from the segment's checkpoint, never by
+    dividing by w (which may be 0).
+    """
+    rf, kf, vf, wf, gyf = (a.float() for a in (r, k, v, w, gy))
+    uf = u.float()[None]                                      # (1, H, hd)
+    b, h, t, hd = rf.shape
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros_like(u, dtype=torch.float64)     # a sum over B and T
+    G = (gs.float().clone() if gs is not None
+         else rf.new_zeros((b, h, hd, hd)))
+    C = CHECKPOINT_EVERY
+    for c in reversed(range(-(-t // C))):
+        t0 = c * C
+        n = min(C, t - t0)
+        states = [checkpoints[:, :, c].float()]               # S^(t0 + s)
+        for s in range(n - 1):
+            tt = t0 + s
+            states.append(wf[:, :, tt, :, None] * states[-1]
+                          + kf[:, :, tt, :, None] * vf[:, :, tt, None, :])
+        for s in reversed(range(n)):
+            tt = t0 + s
+            S = states[s]
+            r_t, k_t, v_t, w_t, gy_t = (a[:, :, tt]
+                                        for a in (rf, kf, vf, wf, gyf))
+            gv = (gy_t * v_t).sum(-1, keepdim=True)           # (B, H, 1)
+            dr[:, :, tt] = (torch.einsum("bhij,bhj->bhi", S, gy_t)
+                            + uf * k_t * gv)
+            dk[:, :, tt] = (torch.einsum("bhij,bhj->bhi", G, v_t)
+                            + uf * r_t * gv)
+            dv[:, :, tt] = (torch.einsum("bhij,bhi->bhj", G, k_t)
+                            + gy_t * (uf * r_t * k_t).sum(-1, keepdim=True))
+            dw[:, :, tt] = (G * S).sum(-1)
+            du += (r_t * k_t * gv).sum(0).double()
+            G = w_t[..., :, None] * G + r_t[..., :, None] * gy_t[..., None, :]
+    return dr, dk, dv, dw, du.float()

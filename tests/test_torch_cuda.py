@@ -24,8 +24,9 @@ from repro_torch.kernels.quant.int8 import (dequantize_int8,
 from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
                                            quantize_int8_ref)
 from repro_torch.kernels.rwkv.ops import wkv
-from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
-from repro_torch.kernels.rwkv.scan import rwkv6_scan
+from repro_torch.kernels.rwkv.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
+from repro_torch.kernels.rwkv.scan import (CHECKPOINT_EVERY, rwkv6_scan,
+                                           rwkv6_scan_bwd)
 
 
 def hopper_available() -> bool:
@@ -273,7 +274,8 @@ def _wkv_inputs(shape, dev, g):
 def test_wkv_kernel_matches_plain(hopper):
     g = torch.Generator(device=hopper).manual_seed(0)
     for shape in [(1, 1, 1, 16), (2, 3, 7, 32), (2, 2, 100, 48),
-                  (1, 4, 1024, 64)]:
+                  (1, 4, 1024, 64), (2, 2, 37, 80), (2, 3, 100, 128),
+                  (2, 1, 64, 256), (1, 2, 33, 256)]:
         ins = _wkv_inputs(shape, hopper, g)
         before = rwkv6_scan.launches
         y, st = rwkv6_scan(*ins, return_state=True)
@@ -299,34 +301,76 @@ def test_wkv_gradient_matches_autograd_of_plain(hopper):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 48, 64, 80, 128, 256])
+def test_wkv_backward_kernel_matches_plain_and_autograd(hopper, hd):
+    """The backward kernel against its plain closed form on the same
+    checkpoints and against autograd of the plain loop, all five
+    gradients, with and without a cotangent of S_T, a T that the
+    checkpoint interval does not divide, and w with exact zeros and values
+    near 1e-30; one launch per call."""
+    g = torch.Generator(device=hopper).manual_seed(4)
+    r, k, v, w, u = _wkv_inputs((2, 3, 2 * CHECKPOINT_EVERY + 5, hd), hopper,
+                                g)
+    w[..., ::5] = 0.0
+    w[..., 1::7] = 1e-30
+    gy = torch.randn(r.shape, device=hopper, generator=g)
+    for gs in (None, torch.randn((2, 3, hd, hd), device=hopper, generator=g)):
+        _, _, ckpt = rwkv6_scan(r, k, v, w, u, checkpoints=True)
+        before = rwkv6_scan_bwd.launches
+        got = rwkv6_scan_bwd(r, k, v, w, u, gy, gs, ckpt)
+        torch.cuda.synchronize()
+        assert rwkv6_scan_bwd.launches == before + 1
+        plain = rwkv6_scan_bwd_ref(r, k, v, w, u, gy, gs, ckpt)
+        leaves = [a.clone().requires_grad_(True) for a in (r, k, v, w, u)]
+        y, st = rwkv6_scan_ref(*leaves, return_state=True)
+        torch.autograd.backward([y, st] if gs is not None else [y],
+                                [gy, gs] if gs is not None else [gy])
+        for name, a, b_, leaf in zip("rkvwu", got, plain, leaves):
+            torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"{name}: {m}")
+            torch.testing.assert_close(a, leaf.grad, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
 def test_wkv_wrapper_rejects_what_the_kernel_does_not_take(hopper):
     ins = _wkv_inputs((1, 2, 8, 64), hopper,
                       torch.Generator(device=hopper).manual_seed(2))
-    before = rwkv6_scan.launches
+    before = rwkv6_scan.launches, rwkv6_scan_bwd.launches
     bad_cases = [
         [a.to(torch.bfloat16) for a in ins],                  # dtype
         [a[..., :40].contiguous() if a.dim() == 4 else a[:, :40].contiguous()
          for a in ins],                                       # hd 40
-        [a.repeat(1, 1, 1, 2) if a.dim() == 4 else a.repeat(1, 2)
-         for a in ins],                                       # hd 128
+        [torch.cat([a.repeat(1, 1, 1, 4), a[..., :16]], -1).contiguous()
+         if a.dim() == 4 else
+         torch.cat([a.repeat(1, 4), a[:, :16]], -1).contiguous()
+         for a in ins],                                       # hd 272
         [a.transpose(2, 3) if a.dim() == 4 else a for a in ins],
+        [a.transpose(-1, -2).contiguous().transpose(-1, -2)
+         for a in ins],                       # layout: same shape, strided
     ]
     for bad in bad_cases:
         with pytest.raises(ValueError):
             rwkv6_scan(*bad)
-    assert rwkv6_scan.launches == before
+        # checkpoints of the right shape, so only the bad input can refuse
+        b, h, t, hd = bad[0].shape
+        ckpt = torch.zeros((b, h, -(-t // CHECKPOINT_EVERY), hd, hd),
+                           device=hopper)
+        with pytest.raises(ValueError):
+            rwkv6_scan_bwd(*bad, bad[0], None, ckpt)
+    assert (rwkv6_scan.launches, rwkv6_scan_bwd.launches) == before
 
 
 @pytest.mark.cuda
 def test_rwkv_train_step_launches_the_wkv_kernel_per_layer(hopper):
-    import dataclasses
-
     from repro_torch.configs import rwkv6_7b
     from repro_torch.launch.train import train
-    cfg = dataclasses.replace(rwkv6_7b.reduced(), head_dim=64)
-    rwkv6_scan.launches = 0
+    cfg = rwkv6_7b.reduced()
+    assert cfg.hd == 256
+    rwkv6_scan.launches = rwkv6_scan_bwd.launches = 0
     losses = train(cfg, steps=2, batch=2, seq=32, log_every=1,
                    device=hopper,
                    generator=torch.Generator(device=hopper).manual_seed(0))
     assert rwkv6_scan.launches == cfg.n_layers * 2
+    assert rwkv6_scan_bwd.launches == cfg.n_layers * 2
     assert all(torch.isfinite(torch.tensor(losses)))

@@ -5,7 +5,12 @@ the time mix and the channel mix.
   Pallas ``rwkv6_scan`` in interpret mode and its oracle ``rwkv6_scan_ref``,
   at the shapes of ``tests/test_kernels.py:273`` and a ragged T, atol/rtol
   1e-4 (the reference's own tolerance for its kernel);
-- ``_WKV``'s gradient against ``jax.grad`` of ``rwkv6_scan_ref``, 1e-4;
+- ``_WKV``'s gradient (on the CPU: the backward kernel's plain closed
+  form ``rwkv6_scan_bwd_ref``, recomputing from checkpoints) against
+  ``jax.grad`` of ``rwkv6_scan_ref``, 1e-4, at head sizes 16 to 256, with
+  and without a cotangent of the final state S_T, at T = 1 and at T that
+  the checkpoint interval does not divide, and with w holding exact zeros
+  and values near 1e-30;
 - ``rwkv6_apply`` (output and the final state S_T the reference's
   ``lax.scan`` returns) and ``rwkv6_ffn_apply`` against the reference, with
   the reference's weights carried over by ``convert.model_from_reference``:
@@ -32,26 +37,70 @@ from repro_torch.configs import rwkv6_7b
 from repro_torch.convert import model_from_reference
 from repro_torch.kernels.rwkv.ops import wkv
 from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
-from repro_torch.kernels.rwkv.scan import rwkv6_scan
+from repro_torch.kernels.rwkv.scan import CHECKPOINT_EVERY, rwkv6_scan
 from repro_torch.models.ssm import (rwkv6_apply, rwkv6_empty_state,
                                     rwkv6_ffn_apply)
 
 # (B, H, T, hd): the reference test's shapes, then ragged and odd T
 SCAN_SHAPES = [(1, 1, 32, 8), (2, 2, 64, 16), (1, 3, 128, 32),
-               (2, 2, 37, 16), (1, 2, 1, 32)]
+               (2, 2, 37, 16), (1, 2, 1, 32), (1, 2, 20, 128),
+               (1, 1, 9, 256)]
 TOL = 1e-4
 
 
-def _scan_inputs(shape, seed=0):
+def _scan_inputs(shape, seed=0, w_zeros=False):
     """The reference test's law: r, k, v 0.5 N(0, 1); w sigmoid(N(0, 1));
-    u 0.3 N(0, 1); made with numpy."""
+    u 0.3 N(0, 1); made with numpy. ``w_zeros``: every 5th channel of w
+    exactly 0 and every 7th (from 1) 1e-30, as a decay exp(-exp(x))
+    underflows."""
     b, h, t, hd = shape
     rng = np.random.RandomState(seed + t)
     r, k, v = (0.5 * rng.standard_normal(shape).astype(np.float32)
                for _ in range(3))
     w = (1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))).astype(np.float32)
+    if w_zeros:
+        w[..., ::5] = 0.0
+        w[..., 1::7] = 1e-30
     u = (0.3 * rng.standard_normal((h, hd))).astype(np.float32)
     return r, k, v, w, u
+
+
+def _scan_f64(r, k, v, w, u):
+    """y and S_T of the recurrence in float64, a plain loop over numpy
+    inputs written here (neither the port's nor the reference's code), as
+    torch tensors that take gradients."""
+    leaves = [torch.from_numpy(a).double().requires_grad_(True)
+              for a in (r, k, v, w, u)]
+    rr, kk, vv, ww, uu = leaves
+    b, h, t, hd = rr.shape
+    S = rr.new_zeros((b, h, hd, hd))
+    ys = []
+    for i in range(t):
+        kv = kk[:, :, i, :, None] * vv[:, :, i, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", rr[:, :, i],
+                               S + uu[None, :, :, None] * kv))
+        S = ww[:, :, i, :, None] * S + kv
+    return leaves, torch.stack(ys, dim=2), S
+
+
+def _oracle_final_state(r, k, v, w, u):
+    """S_T (B, H, hd, hd) read through the reference's oracle, which returns
+    y alone: one more step with k = 0 gives y_T[j] = sum_i r_T[i] S_T[i][j],
+    so hd copies of the batch, copy m with r_T the m-th unit vector, read
+    row m of S_T."""
+    b, h, t, hd = r.shape
+
+    def copies(a, last):                      # -> (hd * B, H, T + 1, hd)
+        a = jnp.broadcast_to(a, (hd,) + a.shape)
+        last = jnp.broadcast_to(last, (hd, b, h, 1, hd))
+        return jnp.concatenate([a, last], axis=3).reshape(hd * b, h, t + 1,
+                                                          hd)
+
+    eye = jnp.eye(hd, dtype=jnp.float32)[:, None, None, None, :]
+    zero = jnp.zeros((hd, b, h, 1, hd), jnp.float32)
+    y = ref_scan_oracle(copies(r, eye), copies(k, zero), copies(v, zero),
+                        copies(w, zero + 1.0), u)
+    return y[:, :, t].reshape(hd, b, h, hd).transpose(1, 2, 0, 3)
 
 
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
@@ -80,21 +129,138 @@ def test_wkv_final_state_is_the_last_step_of_the_recurrence():
     torch.testing.assert_close(y_last, full[:, :, 12], atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 24, 16), (1, 3, 7, 32)])
-def test_wkv_gradient_matches_jax_grad_of_the_oracle(shape):
-    ins = _scan_inputs(shape, seed=5)
+def test_scan_checkpoints_are_the_states_every_interval():
+    """``checkpoints`` keeps S after 0, C, 2C, ... steps (C =
+    ``CHECKPOINT_EVERY``): each equals the final state of the scan cut
+    there, and the last one starts the ragged last segment."""
+    ins = [torch.from_numpy(a) for a in _scan_inputs((2, 2, 37, 16))]
+    y, st, ckpt = rwkv6_scan(*ins, return_state=True, checkpoints=True)
+    assert ckpt.shape == (2, 2, 3, 16, 16) and ckpt.dtype == torch.float32
+    torch.testing.assert_close(y, rwkv6_scan_ref(*ins), atol=0, rtol=0)
+    assert not ckpt[:, :, 0].any()
+    for c in (1, 2):
+        cut = [a[:, :, :c * CHECKPOINT_EVERY] if a.dim() == 4 else a
+               for a in ins]
+        _, want = rwkv6_scan_ref(*cut, return_state=True)
+        torch.testing.assert_close(ckpt[:, :, c], want, atol=0, rtol=0)
+    assert rwkv6_scan(*ins, checkpoints=True)[1] is None
+    _, st_only = rwkv6_scan(*ins, return_state=True)
+    torch.testing.assert_close(st, st_only, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape,final_state,w_zeros", [
+    ((2, 2, 24, 16), False, False), ((1, 3, 7, 32), False, False),
+    ((2, 2, 1, 16), True, False), ((1, 2, 37, 16), True, True),
+    ((1, 2, 20, 64), True, False), ((1, 2, 20, 64), False, True),
+    ((1, 1, 20, 128), True, False), ((1, 1, 1, 256), True, False)])
+def test_wkv_gradient_matches_jax_grad_of_the_oracle(shape, final_state,
+                                                     w_zeros):
+    """The loss sum(y cos y), plus sum(G_T * S_T) for a fixed random G_T
+    with ``final_state``; T = 1 and T = 20, 37 (not multiples of the
+    checkpoint interval 16) included."""
+    ins = _scan_inputs(shape, seed=5, w_zeros=w_zeros)
+    b, h, t, hd = shape
+    gs = np.random.RandomState(9).standard_normal(
+        (b, h, hd, hd)).astype(np.float32)
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in ins]
-    y = wkv(*leaves)
-    (y * torch.cos(y)).sum().backward()
+    y, st = wkv(*leaves, return_state=True)
+    loss = (y * torch.cos(y)).sum()
+    if final_state:
+        loss = loss + (st * torch.from_numpy(gs)).sum()
+    loss.backward()
 
     def loss(*a):
         yj = ref_scan_oracle(*a)
-        return jnp.sum(yj * jnp.cos(yj))
+        out = jnp.sum(yj * jnp.cos(yj))
+        if final_state:
+            out = out + jnp.sum(gs * _oracle_final_state(*a))
+        return out
 
     want = jax.block_until_ready(jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*ins))
     for name, got, w in zip("rkvwu", leaves, want):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), atol=TOL,
                                    rtol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shape,final_state", [
+    ((1, 1, 20, 128), True), ((1, 1, 20, 256), False),
+    ((1, 1, 20, 256), True)])
+def test_wkv_gradient_at_large_head_sizes_against_float64(shape,
+                                                           final_state):
+    """At hd 128 and 256, with the reference test's law and w holding exact
+    zeros and 1e-30, the port's gradient and ``jax.grad`` of the oracle are
+    each held against a float64 gradient (``_scan_f64``), and against each
+    other, at the file's TOL, for the loss sum(G_y * y) (plus sum(G_T * S_T)
+    with ``final_state``), G_y and G_T fixed and random: the
+    vector-Jacobian product the backward kernel computes.
+
+    The loss sum(y cos y) of the test above is not held here at T = 20: |y|
+    reaches 15 at hd 256, and its cotangent cos y - y sin y carries the
+    forward's f32 rounding of y into the gradient multiplied by up to
+    |2 sin y + y cos y| (17 there), so two f32 gradients with different
+    summation orders land apart by more than TOL although each forward is
+    within TOL (``test_wkv_plain_matches_pallas_interpret_and_oracle``).
+    That reading, the two f32 gradients' distance from float64 for that
+    loss in units of the tolerance, is printed and not asserted."""
+    ins = _scan_inputs(shape, seed=5, w_zeros=True)
+    b, h, t, hd = shape
+    rng = np.random.RandomState(11)
+    gy = rng.standard_normal(shape).astype(np.float32)
+    gs = rng.standard_normal((b, h, hd, hd)).astype(np.float32)
+
+    def port_grad(cot):                      # cot(y, S_T) -> loss, torch
+        leaves = [torch.from_numpy(a).requires_grad_(True) for a in ins]
+        cot(*wkv(*leaves, return_state=True)).backward()
+        return [a.grad.double() for a in leaves]
+
+    def oracle_grad(cot):                    # the same loss, in jax
+        def loss(*a):
+            st = _oracle_final_state(*a) if final_state else 0.0
+            return cot(ref_scan_oracle(*a), st)
+        got = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*ins)
+        return [torch.from_numpy(np.array(g)).double() for g in got]
+
+    def f64_grad(cot):
+        leaves, y, st = _scan_f64(*ins)
+        cot(y, st).backward()
+        return [a.grad for a in leaves]
+
+    def linear(y, st):
+        out = (y * _like(y, gy)).sum()
+        return out + (st * _like(st, gs)).sum() if final_state else out
+
+    def y_cos_y(y, st):
+        cos = torch.cos if isinstance(y, torch.Tensor) else jnp.cos
+        out = (y * cos(y)).sum()
+        return out + (st * _like(st, gs)).sum() if final_state else out
+
+    def tol_units(got, want):        # max |got - want| / (TOL + TOL |want|)
+        return max(float(((a - b).abs() / (TOL + TOL * b.abs())).max())
+                   for a, b in zip(got, want))
+
+    port, oracle, exact = (f(linear) for f in (port_grad, oracle_grad,
+                                               f64_grad))
+    for name, p, o, e in zip("rkvwu", port, oracle, exact):
+        torch.testing.assert_close(p, e, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"port {name}: {m}")
+        torch.testing.assert_close(o, e, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"reference {name}: {m}")
+        torch.testing.assert_close(p, o, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"{name}: {m}")
+    exact_c = f64_grad(y_cos_y)
+    print(f"[float64] {shape} G_T={final_state} torch threads "
+          f"{torch.get_num_threads()}: sum(G_y y) port "
+          f"{tol_units(port, exact):.3f}, reference "
+          f"{tol_units(oracle, exact):.3f} TOL from float64; sum(y cos y) "
+          f"port {tol_units(port_grad(y_cos_y), exact_c):.3f}, reference "
+          f"{tol_units(oracle_grad(y_cos_y), exact_c):.3f}")
+
+
+def _like(x, a):
+    """The numpy array ``a`` as the array kind of ``x`` (torch or jax)."""
+    if isinstance(x, torch.Tensor):
+        return torch.from_numpy(a).to(x.dtype)
+    return jnp.asarray(a)
 
 
 def test_wkv_gradient_through_the_final_state_alone():
