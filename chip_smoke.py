@@ -20,15 +20,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version; the
    WKV scan kernel within the reference's atol/rtol 1e-4 at head sizes 16
    to 256, its final state S_T too; the WKV backward kernel's five
-   gradients (with a cotangent of S_T, and with w holding exact zeros)
-   against autograd of the plain loop, and at the rwkv6-7b shape against
-   its plain closed form, within 1e-4;
+   gradients (with a cotangent of S_T, with w holding exact zeros, and at T
+   on the edges of its 4-step sub-segments and 16-step segments) against
+   autograd of the plain loop, and at the rwkv6-7b shape against its plain
+   closed form, within 1e-4, two calls there giving the same bits;
 4. each kernel's time at its main paths' shapes, beside its plain
    version's time, its bound and, where one PyTorch call computes the same
    function, that call's time; the memory-bound int8 kernels are timed
    with the L2 cold (inputs rotated through 256 MiB), as their bytes bound
    assumes; the flash kernel's bound is its 3xTF32 tensor-core work, and
-   it is timed in bf16 beside SDPA too (informational);
+   it is timed in bf16 beside SDPA too (informational); the WKV backward's
+   launch (blocks, threads, shared bytes, resident blocks a SM) is printed;
 5. the CNN path: ``sl/scan`` (Algorithm 3) on MobileNetV2 at 224x224,
    4 clients, batch 16, 2 local steps, 2 rounds, int8 link on the fused
    kernel, UAV mission; with the kernel's launch count over exactly that
@@ -530,8 +532,11 @@ def check_wkv_kernel(dev) -> tuple:
         return max(errs)
 
     gmax = 0.0
+    # T at the edges of the backward's 4-step sub-segments and 16-step
+    # segments among them: (2, 3, 17, 64), (1, 2, 5, 48)
     grad_shapes = [(2, 3, 64, 64), (1, 2, 100, 32), (2, 3, 40, 48),
-                   (1, 2, 50, 128), (2, 2, 37, 256)]
+                   (1, 2, 50, 128), (2, 2, 37, 256), (2, 3, 17, 64),
+                   (1, 2, 5, 48)]
     for n, shape in enumerate(grad_shapes):
         ins = list(wkv_inputs(shape, dev, g))
         if n % 2 == 0:                      # decays that underflowed to 0
@@ -561,6 +566,14 @@ def check_wkv_kernel(dev) -> tuple:
     print(f"[check] rwkv6_scan_bwd at the main path's shape {WKV_MAIN} f32, "
           f"with G_T, vs its plain closed form on the same checkpoints: "
           f"max_abs_err {main_err:.3e} (atol/rtol {WKV_TOL:g})")
+    again = rwkv6_scan_bwd(*ins, gy, gs, ckpt)       # hd 64: no atomics
+    torch.cuda.synchronize()
+    for name, a, b_ in zip("rkvwu", got, again):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"rwkv6_scan_bwd d{name} at {WKV_MAIN}: two "
+                                 f"calls on the same inputs differ")
+    print(f"[check] rwkv6_scan_bwd at {WKV_MAIN}: two calls give bit-equal "
+          f"gradients")
     return max_err, max(gmax, main_err)
 
 
@@ -636,7 +649,8 @@ def time_wkv_bwd(dev) -> dict:
     FP32 (recomputing S: 3 hd^2; dr, dk, dv, dw: 2 hd^2 each; the G update:
     3 hd^2)."""
     from repro_torch.kernels.rwkv.ref import rwkv6_scan_bwd_ref
-    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
+    from repro_torch.kernels.rwkv.scan import (rwkv6_scan, rwkv6_scan_bwd,
+                                               rwkv6_scan_bwd_launch_config)
     g = torch.Generator(device=dev).manual_seed(5)
     ins = wkv_inputs(WKV_MAIN, dev, g)
     gy = torch.randn(WKV_MAIN, device=dev, generator=g)
@@ -662,6 +676,15 @@ def time_wkv_bwd(dev) -> dict:
           f"at {100 * bound_ms / kernel_ms:.1f}% of its bound")
     print(f"[time] rwkv6_scan_bwd eager per call (host dispatch included): "
           f"kernel {time_ms(kernel, iters=10, warmup=2):.6f} ms")
+    cfg = rwkv6_scan_bwd_launch_config(b, h, hd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[launch] rwkv6_scan_bwd {WKV_MAIN}: {cfg['blocks']} blocks of "
+          f"{cfg['threads']} threads, {cfg['smem_bytes']} bytes of dynamic "
+          f"shared memory, {cfg['blocks_per_sm']} resident a SM x {sms} SMs "
+          f"= {cfg['blocks_per_sm'] * sms} slots")
+    if cfg["blocks_per_sm"] * sms < cfg["blocks"]:
+        raise AssertionError(f"rwkv6_scan_bwd at {WKV_MAIN} needs more than "
+                             f"one wave: {cfg}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -903,7 +926,7 @@ def run_rwkv_path() -> int:
     batch_ = {"tokens": tokens, "labels": tokens}
     train_step(cfg, model, opt, batch_, cut_layer=cut)
     profile_call(lambda: train_step(cfg, model, opt, batch_, cut_layer=cut),
-                 "rwkv", "step", cpu=False)
+                 "rwkv", "step", top=20, cpu=False)    # the WKV kernels too
     del model, opt
     gc.collect()
     torch.cuda.empty_cache()

@@ -65,6 +65,9 @@ def _bwd_library():
     lib.rwkv6_scan_bwd_chunks.restype = ctypes.c_int
     lib.rwkv6_scan_bwd_scratch_floats.argtypes = [ctypes.c_int64] * 3
     lib.rwkv6_scan_bwd_scratch_floats.restype = ctypes.c_int64
+    lib.rwkv6_scan_bwd_launch_config.argtypes = [ctypes.c_int64] * 3 \
+        + [ctypes.POINTER(ctypes.c_int64)]
+    lib.rwkv6_scan_bwd_launch_config.restype = ctypes.c_int
     return lib
 
 
@@ -167,9 +170,10 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         wants["gs"] = (gs, (b, h, hd, hd))
     for name, (a, shape) in wants.items():
         if (a is None or a.shape != shape or a.dtype != torch.float32
-                or a.device != r.device or not a.is_contiguous()):
-            raise ValueError(f"rwkv6_scan_bwd: {name} must be a contiguous "
-                             f"float32 {shape} on {r.device}")
+                or a.device != r.device or not a.is_contiguous()
+                or a.data_ptr() % 16):
+            raise ValueError(f"rwkv6_scan_bwd: {name} must be a contiguous, "
+                             f"16-byte aligned float32 {shape} on {r.device}")
     lib = _bwd_library()
     chunks = lib.rwkv6_scan_bwd_chunks(hd)
     new = torch.zeros if chunks > 1 else torch.empty     # > 1: atomicAdd
@@ -179,20 +183,36 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=r.device)
     if b * h == 0 or t == 0:
         return dr, dk, dv, dw, torch.zeros_like(u)
-    scratch = torch.empty(lib.rwkv6_scan_bwd_scratch_floats(b, h, hd),
-                          dtype=torch.float32, device=r.device)
+    n_scratch = lib.rwkv6_scan_bwd_scratch_floats(b, h, hd)  # 0 at hd <= 64
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=r.device)
+               if n_scratch else None)
     with torch.cuda.device(r.device):
         err = lib.rwkv6_scan_bwd_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), gy.data_ptr(), None if gs is None else gs.data_ptr(),
             checkpoints.data_ptr(), dr.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-            scratch.data_ptr(), b, h, t, hd, _stream(r.device))
+            None if scratch is None else scratch.data_ptr(), b, h, t, hd,
+            _stream(r.device))
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA error "
                            f"{err}")
     rwkv6_scan_bwd.launches += 1
     return dr, dk, dv, dw, du_part.sum(dim=(0, 1))
+
+
+def rwkv6_scan_bwd_launch_config(batch: int, n_heads: int, hd: int) -> dict:
+    """The launch ``rwkv6_scan_bwd`` makes on the current CUDA device for
+    (batch, n_heads, hd): ``blocks``, ``threads`` a block, ``smem_bytes`` of
+    dynamic shared memory and ``blocks_per_sm`` resident at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    cfg = (ctypes.c_int64 * 4)()
+    err = _bwd_library().rwkv6_scan_bwd_launch_config(batch, n_heads, hd, cfg)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd launch config for hd {hd} failed: "
+                           f"CUDA error {err}")
+    return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm"),
+                    cfg))
 
 
 # kernel launches since the last reset (CPU calls and failed launches do not

@@ -25,8 +25,11 @@ from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
                                            quantize_int8_ref)
 from repro_torch.kernels.rwkv.ops import wkv
 from repro_torch.kernels.rwkv.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
-from repro_torch.kernels.rwkv.scan import (CHECKPOINT_EVERY, rwkv6_scan,
-                                           rwkv6_scan_bwd)
+from repro_torch.kernels.rwkv.scan import (CHECKPOINT_EVERY, _bwd_library,
+                                           rwkv6_scan, rwkv6_scan_bwd,
+                                           rwkv6_scan_bwd_launch_config)
+
+SUB_SEGMENT = 4   # csrc/rwkv6_scan_bwd.cu's SUB: states held in registers
 
 
 def hopper_available() -> bool:
@@ -301,35 +304,61 @@ def test_wkv_gradient_matches_autograd_of_plain(hopper):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 48, 64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [16, 48, 64, 80, 96, 112, 128, 256])
 def test_wkv_backward_kernel_matches_plain_and_autograd(hopper, hd):
     """The backward kernel against its plain closed form on the same
     checkpoints and against autograd of the plain loop, all five
-    gradients, with and without a cotangent of S_T, a T that the
-    checkpoint interval does not divide, and w with exact zeros and values
-    near 1e-30; one launch per call."""
+    gradients, with and without a cotangent of S_T, at T = 1, 4, 5, 16,
+    17 and 37 (one step, the edges of the 4-step sub-segments and of the
+    16-step segments, and a T that the checkpoint interval does not
+    divide), and w with exact zeros and values near 1e-30; one launch per
+    call. At hd <= 64 (no atomics) a second call gives the same bits."""
     g = torch.Generator(device=hopper).manual_seed(4)
-    r, k, v, w, u = _wkv_inputs((2, 3, 2 * CHECKPOINT_EVERY + 5, hd), hopper,
-                                g)
-    w[..., ::5] = 0.0
-    w[..., 1::7] = 1e-30
-    gy = torch.randn(r.shape, device=hopper, generator=g)
-    for gs in (None, torch.randn((2, 3, hd, hd), device=hopper, generator=g)):
-        _, _, ckpt = rwkv6_scan(r, k, v, w, u, checkpoints=True)
-        before = rwkv6_scan_bwd.launches
-        got = rwkv6_scan_bwd(r, k, v, w, u, gy, gs, ckpt)
-        torch.cuda.synchronize()
-        assert rwkv6_scan_bwd.launches == before + 1
-        plain = rwkv6_scan_bwd_ref(r, k, v, w, u, gy, gs, ckpt)
-        leaves = [a.clone().requires_grad_(True) for a in (r, k, v, w, u)]
-        y, st = rwkv6_scan_ref(*leaves, return_state=True)
-        torch.autograd.backward([y, st] if gs is not None else [y],
-                                [gy, gs] if gs is not None else [gy])
-        for name, a, b_, leaf in zip("rkvwu", got, plain, leaves):
-            torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4,
-                                       msg=lambda m: f"{name}: {m}")
-            torch.testing.assert_close(a, leaf.grad, atol=1e-4, rtol=1e-4,
-                                       msg=lambda m: f"{name}: {m}")
+    for t in (1, SUB_SEGMENT, SUB_SEGMENT + 1, CHECKPOINT_EVERY,
+              CHECKPOINT_EVERY + 1, 2 * CHECKPOINT_EVERY + 5):
+        r, k, v, w, u = _wkv_inputs((2, 3, t, hd), hopper, g)
+        w[..., ::5] = 0.0
+        w[..., 1::7] = 1e-30
+        gy = torch.randn(r.shape, device=hopper, generator=g)
+        for gs in (None,
+                   torch.randn((2, 3, hd, hd), device=hopper, generator=g)):
+            _, _, ckpt = rwkv6_scan(r, k, v, w, u, checkpoints=True)
+            before = rwkv6_scan_bwd.launches
+            got = rwkv6_scan_bwd(r, k, v, w, u, gy, gs, ckpt)
+            torch.cuda.synchronize()
+            assert rwkv6_scan_bwd.launches == before + 1
+            if hd <= 64:
+                again = rwkv6_scan_bwd(r, k, v, w, u, gy, gs, ckpt)
+                torch.cuda.synchronize()
+                for name, a, b_ in zip("rkvwu", got, again):
+                    assert torch.equal(a, b_), f"d{name} at T {t} differs"
+            plain = rwkv6_scan_bwd_ref(r, k, v, w, u, gy, gs, ckpt)
+            leaves = [a.clone().requires_grad_(True) for a in (r, k, v, w, u)]
+            y, st = rwkv6_scan_ref(*leaves, return_state=True)
+            torch.autograd.backward([y, st] if gs is not None else [y],
+                                    [gy, gs] if gs is not None else [gy])
+            for name, a, b_, leaf in zip("rkvwu", got, plain, leaves):
+                # T = 1 without G_T: w reaches only S_T, so autograd
+                # leaves its gradient None, i.e. 0
+                want = (leaf.grad if leaf.grad is not None
+                        else torch.zeros_like(leaf))
+                torch.testing.assert_close(
+                    a, b_, atol=1e-4, rtol=1e-4,
+                    msg=lambda m: f"{name} at T {t}: {m}")
+                torch.testing.assert_close(
+                    a, want, atol=1e-4, rtol=1e-4,
+                    msg=lambda m: f"{name} at T {t}: {m}")
+
+
+@pytest.mark.cuda
+def test_wkv_backward_launch_config_is_one_wave_at_hd_64(hopper):
+    """At the rwkv6-7b shape every (b, h) of the backward is resident at
+    once: 256 blocks of 256 threads, 2 a SM, and no scratch."""
+    cfg = rwkv6_scan_bwd_launch_config(4, 64, 64)
+    sms = torch.cuda.get_device_properties(hopper).multi_processor_count
+    assert cfg["blocks"] == 256 and cfg["threads"] == 256
+    assert cfg["blocks_per_sm"] * sms >= cfg["blocks"]
+    assert _bwd_library().rwkv6_scan_bwd_scratch_floats(4, 64, 64) == 0
 
 
 @pytest.mark.cuda
@@ -358,6 +387,14 @@ def test_wkv_wrapper_rejects_what_the_kernel_does_not_take(hopper):
                            device=hopper)
         with pytest.raises(ValueError):
             rwkv6_scan_bwd(*bad, bad[0], None, ckpt)
+    # checkpoints the kernel copies 16 bytes at a time: 4 bytes off
+    _, _, ckpt = rwkv6_scan(*ins, checkpoints=True)
+    off = torch.zeros(ckpt.numel() + 1, device=hopper)[1:].view(ckpt.shape)
+    off.copy_(ckpt)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    before = rwkv6_scan.launches, rwkv6_scan_bwd.launches
+    with pytest.raises(ValueError):
+        rwkv6_scan_bwd(*ins, ins[0], None, off)
     assert (rwkv6_scan.launches, rwkv6_scan_bwd.launches) == before
 
 
