@@ -486,13 +486,16 @@ def wkv_inputs(shape, dev, g):
 
 def check_wkv_kernel(dev) -> tuple:
     """The WKV kernel against its plain version over T x hd at (B, H) = (2,
-    3) and at the rwkv6-7b shape ``WKV_MAIN``, y and the final state S_T,
-    within atol/rtol ``WKV_TOL``; then ``ops.wkv``'s gradients (forward
+    3) and at the rwkv6-7b shape ``WKV_MAIN``, within atol/rtol
+    ``WKV_TOL``: y and the final state S_T from the call without
+    checkpoints, and y, S_T and the checkpoints the backward starts from
+    from the call that writes them (as training runs it); two calls at
+    ``WKV_MAIN`` give the same bits. Then ``ops.wkv``'s gradients (forward
     kernel + backward kernel) against autograd of the plain loop, with a
     cotangent of S_T and with w holding exact zeros, at head sizes 32 to
     256, and the backward kernel against its plain closed form at
     ``WKV_MAIN``. Returns the largest |kernel - plain| of the forward (y,
-    S_T) and of the backward (the five gradients)."""
+    S_T, checkpoints) and of the backward (the five gradients)."""
     from repro_torch.kernels.rwkv.ops import wkv
     from repro_torch.kernels.rwkv.ref import (rwkv6_scan_bwd_ref,
                                               rwkv6_scan_ref)
@@ -503,23 +506,44 @@ def check_wkv_kernel(dev) -> tuple:
     for shape in shapes:
         ins = wkv_inputs(shape, dev, g)
         y, st = rwkv6_scan(*ins, return_state=True)
-        want_y, want_s = rwkv6_scan_ref(*ins, return_state=True)
+        yc, stc, ck = rwkv6_scan(*ins, return_state=True, checkpoints=True)
+        want_y, want_s, want_c = rwkv6_scan_ref(*ins, return_state=True,
+                                                checkpoints=True)
         torch.cuda.synchronize()
-        for name, got, want in (("y", y, want_y), ("S_T", st, want_s)):
+        errs = {}
+        for name, got, want in (("y", y, want_y), ("S_T", st, want_s),
+                                ("y with checkpoints", yc, want_y),
+                                ("S_T with checkpoints", stc, want_s),
+                                ("checkpoints", ck, want_c)):
             err = float((got - want).abs().max())
             if not torch.allclose(got, want, atol=WKV_TOL, rtol=WKV_TOL):
                 raise AssertionError(f"rwkv6_scan kernel != plain at {shape} "
                                      f"({name}): max_abs_err {err}")
+            errs[name] = err
             max_err = max(max_err, err)
         if shape == WKV_MAIN:
             print(f"[check] rwkv6_scan at the main path's shape {WKV_MAIN} "
-                  f"f32: max_abs_err y {float((y - want_y).abs().max()):.3e}, "
-                  f"S_T {float((st - want_s).abs().max()):.3e} (atol/rtol "
-                  f"{WKV_TOL:g})")
-        del ins, y, st, want_y, want_s
+                  f"f32: max_abs_err y {errs['y']:.3e}, S_T "
+                  f"{errs['S_T']:.3e}; writing checkpoints: y "
+                  f"{errs['y with checkpoints']:.3e}, S_T "
+                  f"{errs['S_T with checkpoints']:.3e}, checkpoints "
+                  f"{errs['checkpoints']:.3e} (atol/rtol {WKV_TOL:g})")
+            again = rwkv6_scan(*ins, return_state=True, checkpoints=True)
+            torch.cuda.synchronize()
+            for name, a, b_ in zip(("y", "S_T", "checkpoints"),
+                                   (yc, stc, ck), again):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f"rwkv6_scan {name} at {WKV_MAIN}: "
+                                         f"two calls on the same inputs "
+                                         f"differ")
+            print(f"[check] rwkv6_scan at {WKV_MAIN}: two calls give "
+                  f"bit-equal y, S_T and checkpoints")
+            del again
+        del ins, y, st, yc, stc, ck, want_y, want_s, want_c
     print(f"[check] rwkv6_scan: {len(shapes)} shapes (T {WKV_T} x hd "
           f"{WKV_HD}, and {WKV_MAIN}) within atol/rtol {WKV_TOL:g} of the "
-          f"plain version, y and S_T; max_abs_err {max_err:.3e}")
+          f"plain version, y and S_T with and without checkpoints, and the "
+          f"checkpoints; max_abs_err {max_err:.3e}")
 
     def check(label, got, want, shape):
         errs = []
@@ -606,9 +630,12 @@ def time_wkv_kernel(dev) -> dict:
     computes this function. The bound: bytes 5*B*H*T*hd*4 (r, k, v, w read,
     y written) at 3.35 TB/s, against operations B*H*T*(5*hd^2 + 3*hd) (the
     least a step needs: kv, the w*S + kv update and r.S as FMAs, the bonus
-    as (r . (u*k)) v) at 67 TFLOP/s FP32."""
+    as (r . (u*k)) v) at 67 TFLOP/s FP32. The call that training makes
+    also writes the checkpoints, B*H*ceil(T/16)*hd^2*4 bytes more: it is
+    timed beside its own bound, with the forward's launch."""
     from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
-    from repro_torch.kernels.rwkv.scan import CHECKPOINT_EVERY, rwkv6_scan
+    from repro_torch.kernels.rwkv.scan import (CHECKPOINT_EVERY, rwkv6_scan,
+                                               rwkv6_scan_launch_config)
     g = torch.Generator(device=dev).manual_seed(4)
     ins = wkv_inputs(WKV_MAIN, dev, g)
     kernel = lambda: rwkv6_scan(*ins)                 # noqa: E731
@@ -633,9 +660,22 @@ def time_wkv_kernel(dev) -> dict:
           f"{time_ms(plain, iters=2, warmup=1):.6f} ms")
     ckpt_ms = device_ms(lambda: rwkv6_scan(*ins, checkpoints=True),
                         iters=20)
+    ck_bytes = nbytes + b * h * -(-t // CHECKPOINT_EVERY) * hd * hd * 4
+    ck_bound_ms = max(ck_bytes / HBM_BYTES_PER_S * 1e3, ops_ms)
     print(f"[time] rwkv6_scan {WKV_MAIN} writing the backward's checkpoints "
           f"every {CHECKPOINT_EVERY} steps (as a training step runs it): "
-          f"{ckpt_ms:.6f} ms device")
+          f"{ckpt_ms:.6f} ms device; bound {ck_bound_ms:.6f} ms (bytes: "
+          f"{ck_bytes / 1e6:.1f} MB with the checkpoints); kernel at "
+          f"{100 * ck_bound_ms / ckpt_ms:.1f}% of that bound")
+    cfg = rwkv6_scan_launch_config(b, h, hd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[launch] rwkv6_scan {WKV_MAIN}: {cfg['blocks']} blocks of "
+          f"{cfg['threads']} threads, {cfg['smem_bytes']} bytes of dynamic "
+          f"shared memory, {cfg['blocks_per_sm']} resident a SM x {sms} SMs "
+          f"= {cfg['blocks_per_sm'] * sms} slots")
+    if cfg["blocks_per_sm"] * sms < cfg["blocks"]:
+        raise AssertionError(f"rwkv6_scan at {WKV_MAIN} needs more than one "
+                             f"wave: {cfg}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 

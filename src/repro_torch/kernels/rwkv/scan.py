@@ -47,12 +47,15 @@ def _library(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _library("rwkv6_scan").rwkv6_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _fwd_library():
+    lib = _library("rwkv6_scan")
+    lib.rwkv6_scan_launch.argtypes = [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    lib.rwkv6_scan_launch.restype = ctypes.c_int
+    lib.rwkv6_scan_launch_config.argtypes = [ctypes.c_int64] * 3 \
+        + [ctypes.POINTER(ctypes.c_int64)]
+    lib.rwkv6_scan_launch_config.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,11 +140,12 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if checkpoints else None)
     if b * h > 0 and t > 0:
         with torch.cuda.device(r.device):
-            err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              w.data_ptr(), u.data_ptr(), y.data_ptr(),
-                              None if state is None else state.data_ptr(),
-                              None if ckpt is None else ckpt.data_ptr(),
-                              b, h, t, hd, _stream(r.device))
+            err = _fwd_library().rwkv6_scan_launch(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), y.data_ptr(),
+                None if state is None else state.data_ptr(),
+                None if ckpt is None else ckpt.data_ptr(),
+                b, h, t, hd, _stream(r.device))
         if err != 0:
             raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                                f"{err}")
@@ -201,18 +205,30 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dr, dk, dv, dw, du_part.sum(dim=(0, 1))
 
 
-def rwkv6_scan_bwd_launch_config(batch: int, n_heads: int, hd: int) -> dict:
-    """The launch ``rwkv6_scan_bwd`` makes on the current CUDA device for
-    (batch, n_heads, hd): ``blocks``, ``threads`` a block, ``smem_bytes`` of
-    dynamic shared memory and ``blocks_per_sm`` resident at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def _launch_config(fn, name, batch, n_heads, hd) -> dict:
     cfg = (ctypes.c_int64 * 4)()
-    err = _bwd_library().rwkv6_scan_bwd_launch_config(batch, n_heads, hd, cfg)
+    err = fn(batch, n_heads, hd, cfg)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan_bwd launch config for hd {hd} failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{name} launch config for hd {hd} failed: CUDA "
+                           f"error {err}")
     return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm"),
                     cfg))
+
+
+def rwkv6_scan_launch_config(batch: int, n_heads: int, hd: int) -> dict:
+    """The launch ``rwkv6_scan(..., checkpoints=True)`` makes on the current
+    CUDA device for (batch, n_heads, hd): ``blocks``, ``threads`` a block,
+    ``smem_bytes`` of dynamic shared memory and ``blocks_per_sm`` resident
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return _launch_config(_fwd_library().rwkv6_scan_launch_config,
+                          "rwkv6_scan", batch, n_heads, hd)
+
+
+def rwkv6_scan_bwd_launch_config(batch: int, n_heads: int, hd: int) -> dict:
+    """The launch ``rwkv6_scan_bwd`` makes, as ``rwkv6_scan_launch_config``
+    gives the forward's."""
+    return _launch_config(_bwd_library().rwkv6_scan_bwd_launch_config,
+                          "rwkv6_scan_bwd", batch, n_heads, hd)
 
 
 # kernel launches since the last reset (CPU calls and failed launches do not

@@ -27,7 +27,8 @@ from repro_torch.kernels.rwkv.ops import wkv
 from repro_torch.kernels.rwkv.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 from repro_torch.kernels.rwkv.scan import (CHECKPOINT_EVERY, _bwd_library,
                                            rwkv6_scan, rwkv6_scan_bwd,
-                                           rwkv6_scan_bwd_launch_config)
+                                           rwkv6_scan_bwd_launch_config,
+                                           rwkv6_scan_launch_config)
 
 SUB_SEGMENT = 4   # csrc/rwkv6_scan_bwd.cu's SUB: states held in registers
 
@@ -287,6 +288,56 @@ def test_wkv_kernel_matches_plain(hopper):
         assert rwkv6_scan.launches == before + 1
         torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(st, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 48, 64, 128, 256])
+def test_wkv_kernel_checkpoints_match_plain(hopper, hd):
+    """The call that writes the backward's checkpoints: y, S_T and every
+    checkpoint within 1e-4 of the plain loop's, at T = 1, 15, 16, 17, 33
+    and 37 (one step, both edges of a 16-step segment, a T that the
+    interval does not divide), with w holding exact zeros and 1e-30."""
+    g = torch.Generator(device=hopper).manual_seed(6)
+    for t in (1, CHECKPOINT_EVERY - 1, CHECKPOINT_EVERY, CHECKPOINT_EVERY + 1,
+              2 * CHECKPOINT_EVERY + 1, 2 * CHECKPOINT_EVERY + 5):
+        r, k, v, w, u = _wkv_inputs((2, 3, t, hd), hopper, g)
+        w[..., ::5] = 0.0
+        w[..., 1::7] = 1e-30
+        got = rwkv6_scan(r, k, v, w, u, return_state=True, checkpoints=True)
+        want = rwkv6_scan_ref(r, k, v, w, u, return_state=True,
+                              checkpoints=True)
+        torch.cuda.synchronize()
+        assert got[2].shape == (2, 3, -(-t // CHECKPOINT_EVERY), hd, hd)
+        for name, a, b_ in zip(("y", "S_T", "checkpoints"), got, want):
+            torch.testing.assert_close(
+                a, b_, atol=1e-4, rtol=1e-4,
+                msg=lambda m: f"{name} at T {t}: {m}")
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_repeat_calls_are_bit_equal(hopper):
+    """No atomics: two calls on the same inputs give the same bits, with
+    and without the checkpoints, on both paths (hd 64 and 128)."""
+    g = torch.Generator(device=hopper).manual_seed(7)
+    for shape in [(2, 8, 300, 64), (1, 2, 100, 128)]:
+        ins = _wkv_inputs(shape, hopper, g)
+        for ckpt in (False, True):
+            first = rwkv6_scan(*ins, return_state=True, checkpoints=ckpt)
+            second = rwkv6_scan(*ins, return_state=True, checkpoints=ckpt)
+            torch.cuda.synchronize()
+            for a, b_ in zip(first, second):
+                if a is not None:
+                    assert torch.equal(a, b_), f"{shape} differs"
+
+
+@pytest.mark.cuda
+def test_wkv_forward_launch_config_is_one_wave_at_hd_64(hopper):
+    """At the rwkv6-7b shape every (b, h) of the forward is resident at
+    once: one block per (b, h), enough of them a SM for one wave."""
+    cfg = rwkv6_scan_launch_config(4, 64, 64)
+    sms = torch.cuda.get_device_properties(hopper).multi_processor_count
+    assert cfg["blocks"] == 256 and cfg["threads"] % 32 == 0
+    assert cfg["blocks_per_sm"] * sms >= cfg["blocks"]
 
 
 @pytest.mark.cuda
