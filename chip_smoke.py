@@ -13,11 +13,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. each kernel against its plain PyTorch version on the card over the
    shapes of its sweep and its main paths' shapes: the int8 link kernel and
    the wire format's quantize/dequantize pair bit for bit (NaN positions
-   included), the flash attention kernel within the reference's own
-   tolerances (f32 2e-5, bf16 3e-2), a case with fully masked rows
-   (finite everywhere, the rows that see a key equal), and its gradient
-   (kernel forward + closed-form backward) against autograd through the
-   plain version; the
+   included; widths that reach both paths of ``csrc/quant_int8.cu``, all
+   four dtype pairs, misaligned views), the int8 launch plans against
+   their Python mirror with a ``[launch]`` line at both link shapes (the
+   vector path, one wave at D = 32), the flash attention kernel within
+   the reference's own tolerances (f32 2e-5, bf16 3e-2), a case with
+   fully masked rows (finite everywhere, the rows that see a key equal),
+   and its gradient (kernel forward + closed-form backward) against
+   autograd through the plain version; the
    WKV scan kernel within the reference's atol/rtol 1e-4 at head sizes 16
    to 256, its final state S_T too; the WKV backward kernel's five
    gradients (with a cotangent of S_T, with w holding exact zeros, and at T
@@ -28,8 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    version's time, its bound and, where one PyTorch call computes the same
    function, that call's time; the memory-bound int8 kernels are timed
    with the L2 cold (inputs rotated through 256 MiB), as their bytes bound
-   assumes; the flash kernel's bound is its 3xTF32 tensor-core work, and
-   it is timed in bf16 beside SDPA too (informational); the WKV backward's
+   assumes, each beside a PyTorch copy of the same bytes timed the same
+   way (the floor a streaming kernel reaches); the flash kernel's bound
+   is its 3xTF32 tensor-core work, and it is timed in bf16 beside SDPA
+   too (informational); the WKV backward's
    launch (blocks, threads, shared bytes, resident blocks a SM) is printed;
 5. the CNN path: ``sl/scan`` (Algorithm 3) on MobileNetV2 at 224x224,
    4 clients, batch 16, 2 local steps, 2 rounds, int8 link on the fused
@@ -81,6 +86,15 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 SWEEP_M = (1, 7, 509, 2048, 12544)
 SWEEP_D = (8, 16, 32, 256)
 MAIN_M, MAIN_D = 12544, 32         # MobileNetV2 cut at batch 16, 224x224
+# row widths that reach every path of the int8 kernels (csrc/quant_int8.cu):
+# generic (3; 36 in bf16; 1028 and 2048 in f32: too many chunks), vector
+# with 16 lanes a row (36 f32), 32 lanes and 5 or 8 chunks a lane (576,
+# 1000; 2048 in bf16); and the widths whose launch plans are checked
+INT8_EXTRA_M = (7, 509, 2048)
+INT8_EXTRA_D = (3, 36, 576, 1000, 1028, 2048)
+INT8_PLAN_D = (1, 3, 4, 5, 8, 16, 32, 33, 36, 256, 576, 1000, 1024, 1028,
+               2048)
+INT8_DTYPES = (torch.float32, torch.bfloat16)
 LM_M, LM_D = 8 * 1024, 576         # SmolLM-135M cut: batch 8 x 1024 tokens
 # the flash kernel's sweep: S, head dims, masks; Sk != S in extra pairs
 FLASH_S = (1, 7, 100, 131, 257, 1024)
@@ -114,40 +128,74 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
 
 
+def int8_input(m, d, dtype, dev, g, misaligned=False, special=False):
+    """Rows of different magnitudes; ``misaligned``: a contiguous view 2 or
+    4 bytes past an allocation (the generic path); ``special``: a NaN, an
+    inf and an all-zero row where M allows."""
+    flat = torch.empty(m * d + 1, dtype=dtype, device=dev)
+    x = flat[int(misaligned):][:m * d].view(m, d)
+    x.copy_(torch.randn(m, d, device=dev, generator=g)
+            * torch.rand(m, 1, device=dev, generator=g) * 10)
+    if special and m >= 4:
+        x[1, 0] = float("nan")
+        x[2, d - 1] = float("inf")
+        x[3, :] = 0.0
+    return x
+
+
 def check_quant_kernel(dev) -> float:
+    """The fused kernel against its plain version, bit for bit (NaN
+    positions included): the sweep in all four (in, out) dtype pairs, with
+    and without a residual; the widths of ``INT8_EXTRA_D`` (every path)
+    with NaN, inf and zero rows; misaligned contiguous views; the split
+    LM's shape; and a NaN/inf case. Returns the largest |kernel - plain|."""
     from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
-                                                quant_dequant_int8_plain)
+                                                quant_dequant_int8_plain,
+                                                quant_int8_launch_plan)
     g = torch.Generator(device=dev).manual_seed(0)
     cases = 0
     max_err = 0.0
-    for m in SWEEP_M:
-        for d in SWEEP_D:
-            for dtype in (torch.float32, torch.bfloat16):
+
+    def check(x, r, out_dtype, what):
+        nonlocal cases, max_err
+        got = quant_dequant_int8(x, residual=r, out_dtype=out_dtype)
+        want = quant_dequant_int8_plain(x, residual=r, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        if got.dtype != out_dtype or not same(got, want):
+            raise AssertionError(f"quant_dequant_int8 kernel != plain at "
+                                 f"{what}")
+        max_err = max(max_err, float(
+            (got.float() - want.float()).nan_to_num(0.0).abs().max()))
+        cases += 1
+
+    shapes = ([(m, d, False) for m in SWEEP_M for d in SWEEP_D]
+              + [(m, d, True) for m in INT8_EXTRA_M for d in INT8_EXTRA_D])
+    paths = set()
+    for m, d, special in shapes:
+        for dtype in INT8_DTYPES:
+            for out_dtype in INT8_DTYPES:
                 for residual in (False, True):
-                    x = (torch.randn(m, d, device=dev, generator=g)
-                         * torch.rand(m, 1, device=dev, generator=g) * 10
-                         ).to(dtype)
+                    x = int8_input(m, d, dtype, dev, g, special=special)
                     r = (torch.randn(m, d, device=dev, generator=g).to(dtype)
                          if residual else None)
-                    got = quant_dequant_int8(x, residual=r)
-                    want = quant_dequant_int8_plain(x, residual=r)
-                    torch.cuda.synchronize()
-                    if not same(got, want):
-                        raise AssertionError(
-                            f"quant_dequant_int8 kernel != plain at M={m} "
-                            f"D={d} {dtype} residual={residual}")
-                    max_err = max(max_err, float(
-                        (got.float() - want.float()).abs().max()))
-                    cases += 1
-    for dtype in (torch.float32, torch.bfloat16):       # the split LM's cut
+                    paths.add(quant_int8_launch_plan(m, d, dtype)["path"])
+                    check(x, r, out_dtype, f"M={m} D={d} {dtype} -> "
+                          f"{out_dtype} residual={residual}")
+    for d in (32, 576):                        # contiguous, not aligned
+        for dtype in INT8_DTYPES:
+            for out_dtype in INT8_DTYPES:
+                x = int8_input(509, d, dtype, dev, g, misaligned=True,
+                               special=True)
+                r = int8_input(509, d, dtype, dev, g, misaligned=True)
+                if x.data_ptr() % 16 == 0 or quant_int8_launch_plan(
+                        509, d, dtype, aligned=False)["path"] != "generic":
+                    raise AssertionError("the misaligned view is aligned")
+                for res in (None, r):
+                    check(x, res, out_dtype, f"a misaligned view (509, {d}) "
+                          f"{dtype} -> {out_dtype} residual={res is not None}")
+    for dtype in INT8_DTYPES:                  # the split LM's cut
         x = torch.randn(LM_M, LM_D, device=dev, generator=g).to(dtype)
-        got, want = quant_dequant_int8(x), quant_dequant_int8_plain(x)
-        torch.cuda.synchronize()
-        if not same(got, want):
-            raise AssertionError(f"quant_dequant_int8 kernel != plain at "
-                                 f"M={LM_M} D={LM_D} {dtype}")
-        max_err = max(max_err, float((got.float() - want.float()).abs().max()))
-        cases += 1
+        check(x, None, dtype, f"M={LM_M} D={LM_D} {dtype}")
     x = torch.randn(64, 32, device=dev, generator=g)
     x[3, 5] = float("nan")
     x[9, 0] = float("inf")
@@ -157,7 +205,9 @@ def check_quant_kernel(dev) -> float:
     if not same(got, want) or not torch.isnan(got[3]).all():
         raise AssertionError("quant_dequant_int8: NaN/inf rows differ")
     print(f"[check] quant_dequant_int8: {cases + 1} cases bit-equal to the "
-          f"plain version (NaN and inf rows included)")
+          f"plain version (all four dtype pairs, with and without a "
+          f"residual; paths {sorted(paths)} and misaligned views; NaN, inf "
+          f"and zero rows included)")
     return max_err
 
 
@@ -219,17 +269,20 @@ def device_ms_cold(fn, make_inputs, nbytes: int) -> float:
 
 
 def cold_and_warm(label: str, kernel, plain, make_inputs, nbytes: int,
-                  bound_ms: float) -> dict:
+                  bound_ms: float, floor) -> dict:
     """A memory-bound kernel and its plain version at L2-cold device time
-    (``device_ms_cold``; in turns kernel, plain, plain, kernel, each keeping
-    its best), which is what the bytes bound compares with; beside them the
+    (``device_ms_cold``; in turns kernel, floor, plain, plain, floor,
+    kernel, each keeping its best), which is what the bytes bound compares
+    with; ``floor`` is a PyTorch copy that streams the same bytes, timed
+    the same way (informational: not the function); beside them the
     kernel's L2-resident time (one input replayed, ``device_ms``) and both
     eager times."""
-    k1, p1, p2, k2 = (device_ms_cold(kernel, make_inputs, nbytes),
-                      device_ms_cold(plain, make_inputs, nbytes),
-                      device_ms_cold(plain, make_inputs, nbytes),
-                      device_ms_cold(kernel, make_inputs, nbytes))
-    kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+    def cold(fn):
+        return device_ms_cold(fn, make_inputs, nbytes)
+
+    k1, f1, p1, p2, f2, k2 = (cold(kernel), cold(floor), cold(plain),
+                              cold(plain), cold(floor), cold(kernel))
+    kernel_ms, plain_ms, floor_ms = min(k1, k2), min(p1, p2), min(f1, f2)
     ins = make_inputs()
     warm_ms = device_ms(lambda: kernel(*ins))
     print(f"[time] {label}, device time per call, L2 cold (CUDA graph over "
@@ -237,21 +290,27 @@ def cold_and_warm(label: str, kernel, plain, make_inputs, nbytes: int,
           f"kernel {kernel_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain "
           f"{plain_ms:.6f} ms ({p1:.6f}, {p2:.6f}); bound {bound_ms:.6f} ms "
           f"(bytes: {nbytes / 1e6:.2f} MB at 3.35 TB/s), kernel at "
-          f"{100 * bound_ms / kernel_ms:.1f}% of it; L2-resident (one input "
-          f"replayed): kernel {warm_ms:.6f} ms; eager per call (host dispatch "
-          f"included): kernel {time_ms(lambda: kernel(*ins)):.6f} ms, plain "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it; same-bytes streaming "
+          f"floor {floor_ms:.6f} ms ({f1:.6f}, {f2:.6f}), kernel at "
+          f"{100 * floor_ms / kernel_ms:.1f}% of it; L2-resident "
+          f"(one input replayed): kernel {warm_ms:.6f} ms; eager per call "
+          f"(host dispatch included): kernel "
+          f"{time_ms(lambda: kernel(*ins)):.6f} ms, plain "
           f"{time_ms(lambda: plain(*ins)):.6f} ms")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def time_quant_kernel(dev, m=MAIN_M, d=MAIN_D) -> dict:
+    """The fused kernel at (m, d) f32 beside its plain version; its floor
+    is ``out.copy_(x)`` into a fresh f32 tensor, the same 2*m*d*4 bytes."""
     from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
                                                 quant_dequant_int8_plain)
     nbytes = 2 * m * d * 4                      # x read, the f32 result written
     return cold_and_warm(f"quant_dequant_int8 M={m} D={d} f32",
                          quant_dequant_int8, quant_dequant_int8_plain,
                          lambda: (torch.randn(m, d, device=dev),), nbytes,
-                         nbytes / HBM_BYTES_PER_S * 1e3)
+                         nbytes / HBM_BYTES_PER_S * 1e3,
+                         floor=lambda x: torch.empty_like(x).copy_(x))
 
 
 def check_flash_kernel(dev) -> dict:
@@ -430,33 +489,32 @@ def time_flash_kernel(dev) -> dict:
 def check_wire_kernels(dev) -> float:
     """``quantize_int8`` / ``dequantize_int8`` against their plain versions,
     bit for bit: codes, scales (NaN in the same places) and the
-    dequantized rows in f32 and bf16, over the fused kernel's sweep, the two
-    link shapes, and rows holding NaN, inf and zeros. Returns the largest
+    dequantized rows in f32 and bf16, over the fused kernel's sweep, the
+    widths of ``INT8_EXTRA_D``, the two link shapes, misaligned contiguous
+    views, and rows holding NaN, inf and zeros. Returns the largest
     |kernel - plain| over the dequantized values (0 when bit-equal)."""
     from repro_torch.kernels.quant.int8 import dequantize_int8, quantize_int8
     from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
                                                quantize_int8_ref)
     g = torch.Generator(device=dev).manual_seed(2)
-    shapes = [(m, d) for m in SWEEP_M for d in SWEEP_D] + [
-        (MAIN_M, MAIN_D), (LM_M, LM_D)]
+    shapes = ([(m, d, False) for m in SWEEP_M for d in SWEEP_D]
+              + [(m, d, False) for m in INT8_EXTRA_M for d in INT8_EXTRA_D]
+              + [(MAIN_M, MAIN_D, False), (LM_M, LM_D, False),
+                 (509, 32, True), (509, 576, True)])
     cases = 0
     max_err = 0.0
-    for m, d in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn(m, d, device=dev, generator=g)
-                 * torch.rand(m, 1, device=dev, generator=g) * 10).to(dtype)
-            if m >= 4:                         # NaN, inf and all-zero rows
-                x[1, 0] = float("nan")
-                x[2, d - 1] = float("inf")
-                x[3, :] = 0.0
+    for m, d, misaligned in shapes:
+        for dtype in INT8_DTYPES:
+            x = int8_input(m, d, dtype, dev, g, misaligned=misaligned,
+                           special=True)
             codes, scales = quantize_int8(x)
             want_c, want_s = quantize_int8_ref(x)
             torch.cuda.synchronize()
             if not (codes.dtype == torch.int8 and torch.equal(codes, want_c)
                     and same(scales, want_s)):
                 raise AssertionError(f"quantize_int8 kernel != plain at M={m} "
-                                     f"D={d} {dtype}")
-            for out_dtype in (torch.float32, torch.bfloat16):
+                                     f"D={d} {dtype} misaligned={misaligned}")
+            for out_dtype in INT8_DTYPES:
                 got = dequantize_int8(codes, scales, out_dtype=out_dtype)
                 want = dequantize_int8_ref(codes, scales, out_dtype=out_dtype)
                 torch.cuda.synchronize()
@@ -468,9 +526,65 @@ def check_wire_kernels(dev) -> float:
                 cases += 1
     print(f"[check] quantize_int8/dequantize_int8: {cases} cases bit-equal to "
           f"the plain versions (codes, scales, f32/bf16 rows; NaN, inf and "
-          f"zero rows included), the link shapes ({MAIN_M}, {MAIN_D}) and "
+          f"zero rows included; D {INT8_EXTRA_D} among the widths, "
+          f"misaligned views), the link shapes ({MAIN_M}, {MAIN_D}) and "
           f"({LM_M}, {LM_D}) among them")
     return max_err
+
+
+def check_int8_plans(dev):
+    """The library's launch plans (``quant_int8_device_plan``) equal to the
+    Python mirror (``quant_int8_launch_plan``) over ``INT8_PLAN_D`` x
+    dtypes x alignment x kernel; then a ``[launch]`` line for the fused
+    kernel and ``quantize_int8`` at both link shapes (f32, as the paths
+    call them), held equal to the mirror too. The vector path must take
+    both shapes, in one wave at the MobileNetV2 cut."""
+    from repro_torch.kernels.quant.int8 import (quant_int8_device_plan,
+                                                quant_int8_launch_plan)
+    n = 0
+    for d in INT8_PLAN_D:
+        for m in (1, 7, MAIN_M):
+            for in_dtype in INT8_DTYPES:
+                for out_dtype in INT8_DTYPES:
+                    for aligned in (True, False):
+                        for kernel, res in (("quant_dequant_int8", False),
+                                            ("quant_dequant_int8", True),
+                                            ("quantize_int8", False)):
+                            want = quant_int8_launch_plan(
+                                m, d, in_dtype, out_dtype, aligned, kernel)
+                            got = quant_int8_device_plan(
+                                m, d, in_dtype, out_dtype, aligned, kernel,
+                                res)
+                            if {k: got[k] for k in want} != want:
+                                raise AssertionError(
+                                    f"int8 launch plan for ({m}, {d}) "
+                                    f"{in_dtype} -> {out_dtype} aligned="
+                                    f"{aligned} {kernel} residual={res}: "
+                                    f"library {got}, mirror {want}")
+                            n += 1
+    print(f"[check] int8 launch plans: {n} from the library equal to the "
+          f"Python mirror")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kernel in ("quant_dequant_int8", "quantize_int8"):
+        for m, d in ((MAIN_M, MAIN_D), (LM_M, LM_D)):
+            p = quant_int8_device_plan(m, d, torch.float32, kernel=kernel)
+            want = quant_int8_launch_plan(m, d, torch.float32, kernel=kernel)
+            if {k: p[k] for k in want} != want:
+                raise AssertionError(f"{kernel} at ({m}, {d}): library plan "
+                                     f"{p}, mirror {want}")
+            waves = p["blocks"] / (p["blocks_per_sm"] * sms)
+            print(f"[launch] {kernel} ({m}, {d}) f32: {p['path']} path, G "
+                  f"{p['lanes_per_row']} lanes a row, V "
+                  f"{p['chunks_per_lane']} chunks a lane, "
+                  f"{p['rows_per_block']} rows a block, {p['blocks']} blocks "
+                  f"of {p['threads']} threads "
+                  f"({p['blocks'] * p['threads']} threads), "
+                  f"{p['blocks_per_sm']} resident a SM x {sms} SMs: "
+                  f"{waves:.3f} waves")
+            if p["path"] != "vector" or (d == MAIN_D and waves > 1):
+                raise AssertionError(f"{kernel} at ({m}, {d}): want the "
+                                     f"vector path (in one wave at D = "
+                                     f"{MAIN_D}), got {p}")
 
 
 def wkv_inputs(shape, dev, g):
@@ -603,7 +717,9 @@ def check_wkv_kernel(dev) -> tuple:
 
 def time_wire_kernels(dev, m, d) -> dict:
     """quantize_int8 and dequantize_int8 at (m, d) f32 beside their plain
-    versions; both move m*d*(4 + 1) + 4*m bytes."""
+    versions; both move m*d*(4 + 1) + 4*m bytes. Their floors copy the
+    same m*d*(4 + 1) bytes without the scales: x into a fresh int8 tensor,
+    the codes into a fresh f32 one."""
     from repro_torch.kernels.quant.int8 import dequantize_int8, quantize_int8
     from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
                                                quantize_int8_ref)
@@ -616,12 +732,19 @@ def time_wire_kernels(dev, m, d) -> dict:
     def codes_and_scales():
         return quantize_int8(torch.randn(m, d, device=dev))
 
+    def to_int8(x):
+        return torch.empty(x.shape, dtype=torch.int8, device=dev).copy_(x)
+
+    def to_f32(codes, _scales):
+        return torch.empty(codes.shape, device=dev).copy_(codes)
+
     return {name: cold_and_warm(f"{name} M={m} D={d} f32", kernel, plain,
-                                make, nbytes, bound_ms)
-            for name, kernel, plain, make in (
-                ("quantize_int8", quantize_int8, quantize_int8_ref, x_only),
+                                make, nbytes, bound_ms, floor)
+            for name, kernel, plain, make, floor in (
+                ("quantize_int8", quantize_int8, quantize_int8_ref, x_only,
+                 to_int8),
                 ("dequantize_int8", dequantize_int8, dequantize_int8_ref,
-                 codes_and_scales))}
+                 codes_and_scales, to_f32))}
 
 
 def time_wkv_kernel(dev) -> dict:
@@ -997,9 +1120,19 @@ def demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
+# the int8 kernels' vector instantiations the link shapes launch (f32, no
+# residual): G 8, V 1 at (12544, 32); G 32, V 5 at (8192, 576)
+INT8_MAIN_INSTANCES = ("quant_dequant_int8_vec<float, float, false, 8, 1>",
+                       "quant_dequant_int8_vec<float, float, false, 32, 5>",
+                       "quantize_int8_vec<float, 8, 1>",
+                       "quantize_int8_vec<float, 32, 5>")
+
+
 def print_ptxas(logs: dict):
     """Each kernel's registers, stack and spills from the ``-Xptxas=-v``
-    build logs (empty when the library was already built)."""
+    build logs (empty when the library was already built). The int8
+    kernels' many vector instantiations get one summary line, with the
+    main paths' own in full; any spill in the int8 library raises."""
     for lib, log in logs.items():
         rows, name = [], None
         for line in log.splitlines():
@@ -1010,9 +1143,34 @@ def print_ptxas(logs: dict):
             elif name and ("spill" in line or "registers" in line):
                 rows[-1][1] += line.strip().replace("ptxas info    : ", "") \
                     + " "
+        vec, loop = [], []
         for (_, props), pretty in zip(rows, demangle([r[0] for r in rows])):
-            print(f"[ptxas] {lib}: {pretty.replace('(anonymous namespace)::', '')}"
-                  f": {props.strip()}")
+            pretty = pretty.replace("(anonymous namespace)::", "")
+            loop.append(props)
+            if lib == "quant_int8" and "int8_vec" in pretty:
+                loop.pop()
+                vec.append((pretty, props))
+                if not (any(k in pretty for k in INT8_MAIN_INSTANCES)
+                        or re.search(r"[1-9]\d* bytes (spill|stack)", props)):
+                    continue
+            print(f"[ptxas] {lib}: {pretty}: {props.strip()}")
+        if lib != "quant_int8":
+            continue
+        regs = [int(r) for _, p in vec for r in re.findall(
+            r"Used (\d+) registers", p)]
+        spilled = [name for name, p in vec
+                   if re.search(r"[1-9]\d* bytes spill", p)]
+        spills = sum(int(b) for _, p in vec for b in re.findall(
+            r"(\d+) bytes spill", p))
+        if vec:
+            print(f"[ptxas] quant_int8: {len(vec)} vector-path "
+                  f"instantiations, {min(regs)}-{max(regs)} registers; "
+                  f"{len(spilled)} of them (printed above) spill, "
+                  f"{spills} bytes of spill stores and loads in all")
+        main = [n for n in spilled if any(k in n for k in INT8_MAIN_INSTANCES)]
+        if main or any(re.search(r"[1-9]\d* bytes spill", p) for p in loop):
+            raise AssertionError(f"an int8 kernel of the link shapes or of "
+                                 f"the loop path spills registers: {main}")
 
 
 def print_hmma(lib: str):
@@ -1070,6 +1228,7 @@ def main() -> int:
 
     max_err = check_quant_kernel(dev)
     wire_err = check_wire_kernels(dev)
+    check_int8_plans(dev)
     flash_err = check_flash_kernel(dev)
     wkv_err, wkv_bwd_err = check_wkv_kernel(dev)
     stamp("kernel checks")

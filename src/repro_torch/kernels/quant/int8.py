@@ -12,6 +12,12 @@ note in that file); on a CPU tensor it runs its plain version, the same
 arithmetic in plain PyTorch ops (``quant_dequant_int8_plain`` here,
 ``ref.quantize_int8_ref`` and ``ref.dequantize_int8_ref`` for the halves).
 Any other device raises: there is no fallback.
+
+``quant_int8_launch_plan`` is a plain-Python copy of the rule by which the
+C launch functions choose between the fused and quantize kernels' vector
+path (rows of whole 16-byte chunks, G lanes a row, V chunks a lane) and
+their generic path; ``quant_int8_device_plan`` asks the compiled library
+for the same plan, with the resident blocks an SM beside it.
 """
 from __future__ import annotations
 
@@ -21,6 +27,15 @@ import functools
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the launch plan's constants, as csrc/quant_int8.cu sets them
+WARPS_PER_BLOCK = 8
+THREADS = 32 * WARPS_PER_BLOCK
+CHUNK_BYTES = 16        # a lane's load: 4 f32 or 8 bf16
+VEC_MAX_CHUNKS = 8      # V, the chunks a lane holds, at most
+_KERNEL_CODES = {("quant_dequant_int8", False): 0,
+                 ("quant_dequant_int8", True): 1,
+                 ("quantize_int8", False): 2}
 
 
 def quant_dequant_int8_plain(x: torch.Tensor, *,
@@ -52,6 +67,74 @@ def row_scale(xf: torch.Tensor) -> torch.Tensor:
     tensor's last axis, shared by the fused and the two-op paths."""
     amax = xf.abs().amax(dim=-1, keepdim=True)
     return torch.clamp(amax * (1.0 / 127.0), min=1e-8)
+
+
+def quant_int8_launch_plan(m: int, d: int, in_dtype: torch.dtype,
+                           out_dtype: torch.dtype | None = None,
+                           aligned: bool = True,
+                           kernel: str = "quant_dequant_int8") -> dict:
+    """The launch ``quant_dequant_int8`` or ``quantize_int8`` makes for an
+    (m, d) input of ``in_dtype`` (``out_dtype`` matters to neither plan),
+    with every pointer aligned to its access width (``aligned``) or not: a
+    copy of ``make_plan`` in ``csrc/quant_int8.cu``.
+
+    The vector path takes rows of C = d * size / 16 whole 16-byte chunks,
+    C at most 32 * ``VEC_MAX_CHUNKS``: G lanes a row, G the smallest power
+    of two >= C capped at 32, V = ceil(C / G) chunks a lane, 32 / G rows a
+    warp. Anything else takes the generic path: a warp a row (G = 32, V =
+    0). Returns ``path`` ("vector" or "generic"), ``lanes_per_row``,
+    ``chunks_per_lane``, ``rows_per_block``, ``blocks`` and ``threads``."""
+    if (kernel, False) not in _KERNEL_CODES:
+        raise ValueError(f"no launch plan for kernel {kernel!r}")
+    if m <= 0 or d <= 0:
+        raise ValueError(f"an (M, D) input with M, D > 0, got ({m}, {d})")
+    row_bytes = d * in_dtype.itemsize
+    chunks = row_bytes // CHUNK_BYTES
+    if (aligned and row_bytes % CHUNK_BYTES == 0
+            and chunks <= 32 * VEC_MAX_CHUNKS):
+        g = min(32, 1 << (chunks - 1).bit_length())
+        plan = {"path": "vector", "lanes_per_row": g,
+                "chunks_per_lane": -(-chunks // g),
+                "rows_per_block": WARPS_PER_BLOCK * 32 // g}
+    else:
+        plan = {"path": "generic", "lanes_per_row": 32, "chunks_per_lane": 0,
+                "rows_per_block": WARPS_PER_BLOCK}
+    plan["blocks"] = -(-m // plan["rows_per_block"])
+    plan["threads"] = THREADS
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_function():
+    from ..build import load_library
+    fn = load_library("quant_int8").quant_int8_launch_plan
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def quant_int8_device_plan(m: int, d: int, in_dtype: torch.dtype,
+                           out_dtype: torch.dtype | None = None,
+                           aligned: bool = True,
+                           kernel: str = "quant_dequant_int8",
+                           residual: bool = False) -> dict:
+    """``quant_int8_launch_plan``'s keys from the compiled library
+    (``quant_int8_launch_plan`` in ``csrc/quant_int8.cu``) for the kernel
+    with or without a residual, on the current CUDA device, and
+    ``blocks_per_sm``: the resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int64 * 7)()
+    err = _plan_function()(m, d, _DTYPE_CODES[in_dtype],
+                           _DTYPE_CODES[out_dtype or in_dtype], int(aligned),
+                           _KERNEL_CODES[(kernel, residual)], out)
+    if err != 0:
+        raise RuntimeError(f"quant_int8_launch_plan for ({m}, {d}) {kernel} "
+                           f"failed: CUDA error {err}")
+    vector, g, v, rows, blocks, threads, resident = out
+    return {"path": "vector" if vector else "generic", "lanes_per_row": g,
+            "chunks_per_lane": v, "rows_per_block": rows, "blocks": blocks,
+            "threads": threads, "blocks_per_sm": resident}
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,9 +181,11 @@ def quant_dequant_int8(x: torch.Tensor, *,
                        residual: torch.Tensor | None = None,
                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Fused int8 quant -> dequant (+ residual) of a contiguous (M, D) f32 or
-    bf16 tensor. CUDA tensor: launches the kernel on the current stream and
-    adds one to ``quant_dequant_int8.launches``. CPU tensor: the plain
-    version. Anything else raises."""
+    bf16 tensor. CUDA tensor: launches the kernel on the current stream
+    (the path ``quant_int8_launch_plan`` gives, with the alignment the
+    launch function reads off the pointers) and adds one to
+    ``quant_dequant_int8.launches``. CPU tensor: the plain version.
+    Anything else raises."""
     out_dtype = out_dtype or x.dtype
     if not _on_cuda("quant_dequant_int8", x):
         return quant_dequant_int8_plain(x, residual=residual,
@@ -145,8 +230,9 @@ def _wire_launchers():
 
 def quantize_int8(x: torch.Tensor):
     """x (M, D) f32/bf16 -> (codes int8 (M, D), scales f32 (M, 1)). CUDA
-    tensor: launches the kernel on the current stream and adds one to
-    ``quantize_int8.launches``. CPU tensor: ``ref.quantize_int8_ref``."""
+    tensor: launches the kernel on the current stream (its path as
+    ``quant_dequant_int8``'s) and adds one to ``quantize_int8.launches``.
+    CPU tensor: ``ref.quantize_int8_ref``."""
     if not _on_cuda("quantize_int8", x):
         from .ref import quantize_int8_ref
         return quantize_int8_ref(x)

@@ -20,6 +20,8 @@ from repro_torch.kernels.attn.flash import (flash_attention,
 from repro_torch.kernels.quant.int8 import (dequantize_int8,
                                             quant_dequant_int8,
                                             quant_dequant_int8_plain,
+                                            quant_int8_device_plan,
+                                            quant_int8_launch_plan,
                                             quantize_int8)
 from repro_torch.kernels.quant.ref import (dequantize_int8_ref,
                                            quantize_int8_ref)
@@ -264,6 +266,71 @@ def test_wire_pair_is_bit_equal_to_plain(hopper, dtype):
         assert torch.equal(codes, want_c) and _same(scales, want_s)
         assert (quantize_int8.launches, dequantize_int8.launches) == \
             (before[0] + 1, before[1] + 2)
+
+
+def _int8_rows(m, d, dtype, dev, g, misaligned=False):
+    """(m, d) rows with a NaN, an inf and a zero row; ``misaligned``: a
+    contiguous view one element past an allocation."""
+    flat = torch.empty(m * d + 1, dtype=dtype, device=dev)
+    x = flat[int(misaligned):][:m * d].view(m, d)
+    x.copy_(torch.randn(m, d, device=dev, generator=g)
+            * torch.rand(m, 1, device=dev, generator=g) * 5)
+    x[1, 0], x[2, d - 1], x[3] = float("nan"), float("inf"), 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernels_bit_equal_on_both_paths(hopper, in_dtype):
+    """Widths on the generic path (3, 1028, 33) and the vector path (36,
+    576, 1000; 2048 is each, by dtype), a misaligned view, every out dtype,
+    with and without a residual: the fused kernel and quantize_int8 give
+    their plain versions' bits."""
+    g = torch.Generator(device=hopper).manual_seed(0)
+    cases = [(509, d, False) for d in (3, 33, 36, 576, 1000, 1028, 2048)]
+    cases += [(509, 32, True), (7, 576, True)]
+    paths = set()
+    for m, d, misaligned in cases:
+        x = _int8_rows(m, d, in_dtype, hopper, g, misaligned)
+        r = _int8_rows(m, d, in_dtype, hopper, g, misaligned)
+        aligned = x.data_ptr() % 16 == 0
+        assert aligned != misaligned
+        paths.add(quant_int8_launch_plan(m, d, in_dtype,
+                                         aligned=aligned)["path"])
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for res in (None, r):
+                got = quant_dequant_int8(x, residual=res, out_dtype=out_dtype)
+                want = quant_dequant_int8_plain(x, residual=res,
+                                                out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                assert got.dtype == out_dtype and _same(got, want), \
+                    (m, d, misaligned, out_dtype, res is not None)
+        codes, scales = quantize_int8(x)
+        want_c, want_s = quantize_int8_ref(x)
+        torch.cuda.synchronize()
+        assert torch.equal(codes, want_c) and _same(scales, want_s)
+    assert paths == {"generic", "vector"}
+
+
+@pytest.mark.cuda
+def test_int8_launch_plan_mirror_matches_library(hopper):
+    for d in (1, 3, 4, 8, 32, 36, 576, 1000, 1024, 1028, 2048):
+        for in_dtype in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                for kernel, res in (("quant_dequant_int8", False),
+                                    ("quant_dequant_int8", True),
+                                    ("quantize_int8", False)):
+                    want = quant_int8_launch_plan(509, d, in_dtype,
+                                                  aligned=aligned,
+                                                  kernel=kernel)
+                    got = quant_int8_device_plan(509, d, in_dtype,
+                                                 aligned=aligned,
+                                                 kernel=kernel, residual=res)
+                    assert {k: got[k] for k in want} == want
+                    assert got["blocks_per_sm"] >= 1
+    plan = quant_int8_device_plan(12544, 32, torch.float32)
+    sms = torch.cuda.get_device_properties(hopper).multi_processor_count
+    assert plan["blocks"] <= plan["blocks_per_sm"] * sms     # one wave
 
 
 def _wkv_inputs(shape, dev, g):
