@@ -50,15 +50,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    with both kernels' launch counts over exactly that run, the "pallas"
    plan's FLOP bill against the "ref" plan's, one profiled round, and a
    reduced SmolLM on the card held against the same run on the CPU;
-8. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
+8. the fleet engines (``client_axis="vmap"``): the ``vmap`` rules of the
+   int8 boundary (bit-equal to the plain version client by client, one
+   launch for 4 clients) and of flash attention (within 2e-5, one launch;
+   its gradient within 2e-4, by ``vmap(grad)`` and by the engines' form,
+   a vmapped forward and one autograd backward), all at the vmap paths'
+   shapes, and both kernels timed there (int8 (50,176, 32) and
+   (16,384, 576) L2 cold, flash (16, 9, 1024, 64)); ``sl/vmap`` (parallel
+   SL, one server update a step on the
+   clients' mean gradient) on the MobileNetV2 spec of 5 with dropout 0.25
+   for 2 rounds, with its int8 launches (one a local step) and a profiled
+   round, and a tinycnn ``sl/vmap`` run with dropout on the card held
+   against the CPU; ``fl/vmap`` on the same spec for one round (SL's
+   client energy below FL's on the same clients); ``sl/vmap`` on the
+   SmolLM spec of 7 at batch 4 (batch 8 does not fit 80 GB under vmap)
+   for 2 rounds, with its flash and int8 launches, its
+   peak memory, a profiled round, and a reduced SmolLM ``sl/vmap`` with
+   dropout on the card held against the CPU;
+9. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
    parameters drawn on the card; with the WKV kernel's launch count over
    exactly those steps (4 x 3 forward and 4 x 3 backward), the peak
    memory, one profiled step, and the reduced rwkv6-7b (head size 256) on
    the card held against the same run on the CPU; the wire-format pair's
-   launch counts cover paths 5 to 8;
-9. one JSON line listing the kernels, then the card, then the result line.
+   launch counts cover paths 5 to 9;
+10. one JSON line listing the kernels, then the card, then the result
+    line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
 exits non-zero before printing any result.
@@ -113,6 +131,18 @@ WKV_MAIN = (4, 64, 1024, 64)
 WKV_TOL = 1e-4                     # atol and rtol, the reference's own
 L2_ROTATE_BYTES = 256 * 2 ** 20    # > 5x the H100's 50 MB L2
 RWKV_LAYERS = 4                    # of rwkv6-7b's 32: the only cut
+# the fleet engines (client_axis="vmap") fold their 4 clients into each
+# kernel's batch. The split LM's vmap step holds all 4 clients'
+# activations at once: at lm_spec's batch 8 it runs out of the card's
+# 80 GB (72.55 GiB allocated and 6 GiB more asked for in the backward, on
+# an H100 80GB HBM3), so its phase takes batch 4 x 1024, the phase's only
+# cut. The vmap rules are checked, and the kernels timed, at the vmap
+# paths' shapes.
+FLEET = 4
+LM_VMAP_BATCH = 4
+VMAP_INT8 = ((FLEET * MAIN_M, MAIN_D), (FLEET * LM_VMAP_BATCH * 1024, LM_D))
+FLASH_VMAP = ((FLEET * LM_VMAP_BATCH,) + FLASH_MAIN[1:],)
+FLEET_DROPOUT = 0.25
 
 
 def card_line() -> str:
@@ -424,18 +454,19 @@ def check_flash_kernel(dev) -> dict:
     return errs
 
 
-def time_flash_kernel(dev) -> dict:
-    """The flash kernel at the split LM's shape (f32, causal) beside its
-    plain version and ``F.scaled_dot_product_attention(is_causal=True)``,
-    the library yardstick (timed here only; the port never calls it), in
-    turns; then the same shape in bf16, kernel beside SDPA (informational:
-    no path runs it). The f32 bound is the 3xTF32 tensor-core work the
-    kernel does (3 TF32 products per f32 product); the FP32 bound of the
-    first, SIMT version is printed beside it."""
+def time_flash_kernel(dev, shape=FLASH_MAIN, bf16=True) -> dict:
+    """The flash kernel at ``shape`` (f32, causal; by default the split
+    LM's) beside its plain version and
+    ``F.scaled_dot_product_attention(is_causal=True)``, the library
+    yardstick (timed here only; the port never calls it), in turns; then,
+    with ``bf16``, the same shape in bf16, kernel beside SDPA
+    (informational: no path runs it). The f32 bound is the 3xTF32
+    tensor-core work the kernel does (3 TF32 products per f32 product); the
+    FP32 bound of the first, SIMT version is printed beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels.attn.flash import (flash_attention_fwd,
                                                 flash_attention_plain)
-    b, h, s, d = FLASH_MAIN
+    b, h, s, d = shape
     q, k, v = (torch.randn(b, h, s, d, device=dev) for _ in range(3))
     kernel = lambda: flash_attention_fwd(q, k, v, causal=True)   # noqa: E731
     plain = lambda: flash_attention_plain(q, k, v, causal=True)  # noqa: E731
@@ -452,7 +483,7 @@ def time_flash_kernel(dev) -> dict:
     fp32_ms = flops / FP32_FLOP_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(tf32_ms, bytes_ms)
-    print(f"[time] flash_attention {FLASH_MAIN} f32 causal, device time per "
+    print(f"[time] flash_attention {shape} f32 causal, device time per "
           f"call (CUDA graph): kernel {kernel_ms:.6f} ms ({k1:.6f}, "
           f"{k2:.6f}), plain {plain_ms:.6f} ms ({p1:.6f}, {p2:.6f}), SDPA "
           f"{lib_ms:.6f} ms ({l1:.6f}, {l2:.6f}); kernel/SDPA "
@@ -462,11 +493,15 @@ def time_flash_kernel(dev) -> dict:
           f"{bytes_ms:.6f} ms), kernel at {100 * bound_ms / kernel_ms:.1f}% "
           f"of it; the first version's FP32 bound {fp32_ms:.6f} ms "
           f"({flops / 1e9:.3f} GFLOP at 67 TFLOP/s)")
-    print(f"[time] flash_attention eager per call (host dispatch included): "
-          f"kernel {time_ms(kernel, iters=20, warmup=3):.6f} ms, plain "
-          f"{time_ms(plain, iters=20, warmup=3):.6f} ms, SDPA "
+    print(f"[time] flash_attention {shape} eager per call (host dispatch "
+          f"included): kernel {time_ms(kernel, iters=20, warmup=3):.6f} ms, "
+          f"plain {time_ms(plain, iters=20, warmup=3):.6f} ms, SDPA "
           f"{time_ms(sdpa, iters=20, warmup=3):.6f} ms")
     del q, k, v
+    result = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "library_ms": lib_ms}
+    if not bf16:
+        return result
     qb, kb, vb = (torch.randn(b, h, s, d, device=dev).to(torch.bfloat16)
                   for _ in range(3))
     kernel = lambda: flash_attention_fwd(qb, kb, vb, causal=True)  # noqa: E731
@@ -476,14 +511,13 @@ def time_flash_kernel(dev) -> dict:
                       device_ms(sdpa, iters=20), device_ms(kernel, iters=20))
     bf_ops_ms = flops / BF16_FLOP_PER_S * 1e3
     bf_bytes_ms = nbytes / 2 / HBM_BYTES_PER_S * 1e3
-    print(f"[time] flash_attention {FLASH_MAIN} bf16 causal (no path runs "
+    print(f"[time] flash_attention {shape} bf16 causal (no path runs "
           f"it), device time per call (CUDA graph): kernel "
           f"{min(k1, k2):.6f} ms ({k1:.6f}, {k2:.6f}), SDPA {min(l1, l2):.6f}"
           f" ms ({l1:.6f}, {l2:.6f}); bound {max(bf_ops_ms, bf_bytes_ms):.6f}"
           f" ms (operations {bf_ops_ms:.6f} ms at 989 TFLOP/s bf16, bytes "
           f"{bf_bytes_ms:.6f} ms)")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "library_ms": lib_ms}
+    return result
 
 
 def check_wire_kernels(dev) -> float:
@@ -852,21 +886,23 @@ def time_wkv_bwd(dev) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def main_spec(api, kind: str, rounds: int):
+def main_spec(api, kind: str, rounds: int, *, client_axis="scan",
+              dropout_rate=0.0):
     return api.ExperimentSpec(
         model=api.ModelSpec(name="mobilenetv2", num_classes=12),
         data=api.DataSpec(image_size=224),
-        clients=api.ClientSpec(num_clients=4),
+        clients=api.ClientSpec(num_clients=4, dropout_rate=dropout_rate),
         cut_policy=api.CutPolicy(fraction=0.25),
         link_policy=api.LinkPolicy(compress="int8"),
-        engine=api.EngineSpec(kind=kind, client_axis="scan",
-                              link_kernel="fused"),
+        engine=api.EngineSpec(kind=kind, client_axis=client_axis,
+                              link_kernel="fused", server_reduce="mean"),
         mission=api.MissionSpec(),
         global_rounds=rounds, local_steps=2, batch_size=16)
 
 
 def run_plan(plan, label: str):
-    """Run the plan's rounds; print each record and its wall time."""
+    """Run the plan's rounds; print each record, its wall time and its
+    active clients."""
     state = plan.init()
     records = []
     for _ in range(plan.num_rounds):
@@ -876,6 +912,7 @@ def run_plan(plan, label: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         print(f"[{label}] round {rec.round} wall_s={wall:.4f} "
+              f"active_clients={rec.active_clients} "
               f"record={json.dumps(rec.to_dict())}")
         if not math.isfinite(rec.loss):
             raise AssertionError(f"{label}: non-finite loss {rec.loss}")
@@ -949,17 +986,19 @@ def check_against_cpu(api):
 
 
 def lm_spec(api, arch, attn_impl: str, *, seq_len=1024, n_train=96,
-            n_test=16, num_clients=4, batch_size=8, mission=True):
+            n_test=16, num_clients=4, batch_size=8, mission=True,
+            client_axis="scan", dropout_rate=0.0):
     return api.ExperimentSpec(
         model=api.ModelSpec(family="transformer", arch=arch,
                             attn_impl=attn_impl),
         data=api.DataSpec(kind="tokens", partition="iid", seq_len=seq_len,
                           n_train=n_train, n_test=n_test),
-        clients=api.ClientSpec(num_clients=num_clients),
+        clients=api.ClientSpec(num_clients=num_clients,
+                               dropout_rate=dropout_rate),
         cut_policy=api.CutPolicy(fraction=0.25),
         link_policy=api.LinkPolicy(compress="int8"),
-        engine=api.EngineSpec(kind="sl", client_axis="scan",
-                              link_kernel="fused"),
+        engine=api.EngineSpec(kind="sl", client_axis=client_axis,
+                              link_kernel="fused", server_reduce="mean"),
         mission=api.MissionSpec() if mission else None,
         global_rounds=2, local_steps=2, batch_size=batch_size, seed=0)
 
@@ -999,7 +1038,7 @@ def run_lm_path(api) -> dict:
           f"step)")
     if lm.num_rounds != 2 or launches != want:
         raise AssertionError(f"split-LM path launches {launches}, want {want}")
-    profile_call(lambda: lm.run_round(lm_state), "lm", "round")
+    profile_call(lambda: lm.run_round(lm_state), "lm", "round", cpu=False)
     del lm, lm_state
     torch.cuda.empty_cache()
 
@@ -1026,6 +1065,249 @@ def run_lm_path(api) -> dict:
           f"CPU (losses {[round(r.loss, 6) for r in rec_gpu]} vs "
           f"{[round(r.loss, 6) for r in rec_cpu]})")
     return launches
+
+
+def check_vmap_rules(dev) -> dict:
+    """The vmap rules of the fleet paths' two Functions on the card, over
+    ``FLEET`` clients at the vmap paths' own shapes: the int8 boundary at
+    both cuts (MobileNetV2's (16, 28, 28, 32) NHWC rows, SmolLM's
+    (``LM_VMAP_BATCH``, 1024, 576); NaN, inf and zero rows) bit-equal to
+    the plain version client by client, in ONE launch; flash attention at
+    (``LM_VMAP_BATCH``, 9, 1024, 64) per client within 2e-5 of the plain
+    version, in one launch, and its gradient (kernel forward + closed-form
+    backward) within 2e-4 of autograd through the plain version client by
+    client, both as ``vmap(grad)`` and as the engines take it: one vmapped
+    forward and one autograd backward of the clients' summed losses.
+    Returns the largest errors."""
+    from torch.func import grad, vmap
+    from repro_torch.kernels.attn.flash import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
+                                                quant_dequant_int8_plain)
+    from repro_torch.kernels.quant.ops import make_link_compress
+    g = torch.Generator(device=dev).manual_seed(6)
+    compress = make_link_compress(kernel="fused")
+    for shape in ((FLEET, 16, 28, 28, MAIN_D),
+                  (FLEET, LM_VMAP_BATCH, 1024, LM_D)):
+        x = torch.randn(shape, device=dev, generator=g) * 3
+        x[1, 0, 2, 3] = float("nan")
+        x[2, 1, 0, 0] = float("inf")
+        x[3, 0, 0, 1] = 0.0
+        before = quant_dequant_int8.launches
+        got = vmap(compress)(x)
+        torch.cuda.synchronize()
+        launches = quant_dequant_int8.launches - before
+        d = shape[-1]
+        want = torch.stack([quant_dequant_int8_plain(x[c].reshape(-1, d))
+                            .reshape(shape[1:]) for c in range(FLEET)])
+        ok = same(got, want)
+        print(f"[vmap-rules] int8 boundary vmapped over {FLEET} clients of "
+              f"{tuple(shape[1:])} ({x.numel() // d} rows of {d}): "
+              f"bit-equal to the plain version client by client {ok} (NaN, "
+              f"inf and zero rows included), {launches} launch")
+        if not ok or launches != 1:
+            raise AssertionError(f"int8 vmap rule at {shape}: bit-equal "
+                                 f"{ok}, {launches} launches")
+        del x, got, want
+    per_client = (LM_VMAP_BATCH,) + FLASH_MAIN[1:]
+    q, k, v = (torch.randn((FLEET,) + per_client, device=dev, generator=g)
+               for _ in range(3))
+
+    def attend(a, b_, c):
+        return flash_attention(a, b_, c, causal=True)
+
+    before = flash_attention.launches
+    got = vmap(attend)(q, k, v)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches - before
+    want = torch.stack([flash_attention_plain(q[c], k[c], v[c], causal=True)
+                        for c in range(FLEET)])
+    err = float((got - want).abs().max())
+    print(f"[vmap-rules] flash_attention vmapped over {FLEET} clients of "
+          f"{per_client} f32 causal: max_abs_err {err:.3e} (atol 2e-5), "
+          f"{launches} launch at {FLASH_VMAP[0]}")
+    if not (err <= 2e-5 and launches == 1):
+        raise AssertionError(f"flash vmap rule: err {err}, {launches} "
+                             f"launches")
+    del q, k, v, got, want
+
+    def loss(a, b_, c):
+        o = attend(a, b_, c)
+        return (o * torch.cos(o)).sum()
+
+    def engine_grads(*ins):
+        """The engines' form: one vmapped forward, one backward."""
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        vmap(loss)(*leaves).sum().backward()
+        return [t.grad for t in leaves]
+
+    gerr = {}
+    for form, grads_of in (("vmap(grad)",
+                            vmap(grad(loss, argnums=(0, 1, 2)))),
+                           ("vmapped forward, one backward", engine_grads)):
+        err_f = 0.0
+        for shape in ((FLEET, 2, 3, 257, 64), (FLEET,) + per_client):
+            ins = [torch.randn(shape, device=dev, generator=g)
+                   for _ in range(3)]
+            before = flash_attention.launches
+            grads = grads_of(*ins)
+            launches = flash_attention.launches - before
+            for c in range(FLEET):
+                leaves = [t[c].clone().requires_grad_(True) for t in ins]
+                o = flash_attention_plain(*leaves, causal=True)
+                (o * torch.cos(o)).sum().backward()
+                for got_g, leaf in zip(grads, leaves):
+                    err_f = max(err_f,
+                                float((got_g[c] - leaf.grad).abs().max()))
+                del leaves, o
+            if launches != 1 or not err_f <= 2e-4:
+                raise AssertionError(f"flash {form} at {shape}: err "
+                                     f"{err_f}, {launches} launches")
+            del ins, grads
+        gerr[form] = err_f
+        print(f"[vmap-rules] flash_attention gradient over {FLEET} clients "
+              f"as {form} (one forward launch; closed-form backward) vs "
+              f"autograd of the plain version client by client, "
+              f"{per_client} per client included: max_abs_err "
+              f"{err_f:.3e} (atol 2e-4)")
+    torch.cuda.empty_cache()
+    return {"flash": err, "flash_grad": max(gerr.values())}
+
+
+def check_fleet_against_cpu(api, spec, label: str):
+    """``spec`` on the card against the same plan on the CPU (the kernels'
+    plain versions), same params and data: losses within the reference's
+    ``FLEET_EQUIV_ATOL``, active clients and wire bytes exactly."""
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    _, rec_gpu = api.compile_experiment(spec).run()
+    _, rec_cpu = api.compile_experiment(spec, device="cpu").run()
+    for a, b in zip(rec_gpu, rec_cpu):
+        if (abs(a.loss - b.loss) > FLEET_EQUIV_ATOL
+                or a.active_clients != b.active_clients
+                or a.link_bytes != b.link_bytes):
+            raise AssertionError(f"{label} card vs CPU records differ: {a} "
+                                 f"vs {b}")
+    print(f"[check] {label} on the card == on the CPU (losses "
+          f"{[round(r.loss, 6) for r in rec_gpu]} vs "
+          f"{[round(r.loss, 6) for r in rec_cpu]}, active clients "
+          f"{[r.active_clients for r in rec_gpu]})")
+
+
+def run_fleet_cnn_paths(api) -> dict:
+    """``sl/vmap`` (parallel SL, one server update a step on the clients'
+    mean gradient) on MobileNetV2 with ``main_spec``, dropout
+    ``FLEET_DROPOUT``, 2 rounds, then ``fl/vmap`` for one round: the int8
+    launches over exactly the SL run (masked clients still run, so one a
+    local step), a profiled round of each, SL's client energy below FL's
+    in the first round (both draw the same masks), and a tinycnn
+    ``sl/vmap`` run with dropout on the card against the CPU."""
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    t0 = time.perf_counter()
+    sl = api.compile_experiment(main_spec(api, "sl", 2, client_axis="vmap",
+                                          dropout_rate=FLEET_DROPOUT))
+    print(f"[sl-vmap] compiled in {time.perf_counter() - t0:.2f} s: "
+          f"{sl.engine_label}, dropout {FLEET_DROPOUT}, server_reduce "
+          f"{sl.spec.engine.server_reduce}")
+    quant_dequant_int8.launches = 0
+    sl_state, sl_recs = run_plan(sl, "sl-vmap")
+    launches = {"quant_dequant_int8": quant_dequant_int8.launches}
+    want = sl.num_rounds * sl.spec.local_steps
+    print(f"[sl-vmap] quant_dequant_int8 launches over the "
+          f"{sl.num_rounds}-round run: {launches['quant_dequant_int8']} "
+          f"(want {want}: one a local step for all {FLEET} clients, masked "
+          f"ones included)")
+    if sl.num_rounds != 2 or launches["quant_dequant_int8"] != want:
+        raise AssertionError(f"sl/vmap launched the int8 kernel {launches}, "
+                             f"want {want}")
+    profile_call(lambda: sl.run_round(sl_state), "sl-vmap", "round",
+                 cpu=False)
+    del sl, sl_state
+    check_fleet_against_cpu(api, api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=3, dropout_rate=0.34),
+        link_policy=api.LinkPolicy(compress="int8"),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        global_rounds=3, batch_size=4), "tinycnn sl/vmap int8 dropout")
+    stamp("sl/vmap path")
+
+    fl = api.compile_experiment(main_spec(api, "fl", 1, client_axis="vmap",
+                                          dropout_rate=FLEET_DROPOUT))
+    quant_dequant_int8.launches = 0
+    fl_state, fl_recs = run_plan(fl, "fl-vmap")
+    fl_launches = {"quant_dequant_int8": quant_dequant_int8.launches}
+    profile_call(lambda: fl.run_round(fl_state), "fl-vmap", "round",
+                 cpu=False)
+    del fl, fl_state
+    sl_client = sl_recs[0].client_energy_j
+    fl_client = fl_recs[0].client_energy_j
+    print(f"[fl-vmap] client energy in round 0 ({sl_recs[0].active_clients} "
+          f"and {fl_recs[0].active_clients} active): SL {sl_client:.6g} J "
+          f"< FL {fl_client:.6g} J; int8 launches {fl_launches} (FL has no "
+          f"link)")
+    if not (sl_client < fl_client and fl_launches["quant_dequant_int8"] == 0
+            and sl_recs[0].active_clients == fl_recs[0].active_clients):
+        raise AssertionError("fl/vmap: SL client energy is not below FL's "
+                             "on the same clients, or FL launched the link")
+    torch.cuda.empty_cache()
+    stamp("fl/vmap path")
+    return {"sl-vmap": launches, "fl-vmap": fl_launches}
+
+
+def run_lm_vmap_path(api) -> dict:
+    """SmolLM-135M at full width on ``sl/vmap`` with ``lm_spec`` at batch
+    ``LM_VMAP_BATCH``: the flash and int8 launches over exactly the 2-round
+    run (one flash launch a layer a local step for all clients, plus the
+    evaluation's; one int8 launch a local step), the peak memory, one
+    profiled round, and a reduced SmolLM ``sl/vmap`` with dropout on the
+    card against the CPU."""
+    import gc
+
+    from repro_torch.api.plan import LM_EVAL_CHUNK
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = api.compile_experiment(lm_spec(api, smollm_135m, "pallas",
+                                        client_axis="vmap",
+                                        batch_size=LM_VMAP_BATCH))
+    print(f"[lm-vmap] compiled in {time.perf_counter() - t0:.2f} s: "
+          f"{lm.engine_label}, {lm.spec.clients.num_clients} clients x batch "
+          f"{lm.spec.batch_size} x {lm.spec.data.seq_len} tokens")
+    flash_attention.launches = 0
+    quant_dequant_int8.launches = 0
+    lm_state, _ = run_plan(lm, "lm-vmap")
+    launches = {"flash_attention": flash_attention.launches,
+                "quant_dequant_int8": quant_dequant_int8.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = lm.spec.local_steps
+    chunks = -(-len(lm.x_test) // LM_EVAL_CHUNK)
+    n_layers = smollm_135m.n_layers
+    want = {"flash_attention": lm.num_rounds * n_layers * (steps + chunks),
+            "quant_dequant_int8": lm.num_rounds * steps}
+    print(f"[lm-vmap] launches over the {lm.num_rounds}-round run: "
+          f"{launches} (want {want}: {n_layers} x {steps} local steps, all "
+          f"{FLEET} clients in each launch, + {n_layers} x {chunks} "
+          f"evaluation chunks per round; one int8 boundary a local step); "
+          f"peak memory {peak / 2 ** 30:.2f} GiB ({peak} bytes)")
+    if lm.num_rounds != 2 or launches != want:
+        raise AssertionError(f"sl/vmap LM launches {launches}, want {want}")
+    profile_call(lambda: lm.run_round(lm_state), "lm-vmap", "round",
+                 cpu=False)
+    del lm, lm_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_fleet_against_cpu(
+        api, lm_spec(api, smollm_135m.reduced(), "pallas", seq_len=64,
+                     n_train=32, n_test=8, num_clients=2, batch_size=4,
+                     mission=False, client_axis="vmap",
+                     dropout_rate=FLEET_DROPOUT),
+        "reduced SmolLM sl/vmap pallas+int8 dropout")
+    return {"lm-vmap": launches, "peak_bytes": peak}
 
 
 def run_rwkv_path() -> int:
@@ -1281,12 +1563,33 @@ def main() -> int:
     stamp("CNN paths")
     lm_launches = run_lm_path(api)
     stamp("split-LM path")
+
+    # the fleet engines: the two kernels' vmap rules and their times at
+    # the batched shapes (outside any path's counts), then the three vmap
+    # paths, each read over its own run
+    vmap_errs = check_vmap_rules(dev)
+    for m, d in VMAP_INT8:
+        time_quant_kernel(dev, m, d)
+    for shape in FLASH_VMAP:
+        time_flash_kernel(dev, shape, bf16=False)
+    stamp("vmap rules and batched kernel times")
+    fleet_launches = run_fleet_cnn_paths(api)
+    fleet_launches.update(run_lm_vmap_path(api))
+    stamp("lm/vmap path")
+
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
     wire_launches = {"quantize_int8": quantize_int8.launches,
                      "dequantize_int8": dequantize_int8.launches}
-    print(f"[paths] wire-format pair launches over the CNN, split-LM and "
-          f"RWKV paths: {wire_launches} (no path of the port calls them)")
+    print(f"[paths] wire-format pair launches over the CNN, split-LM, vmap "
+          f"and RWKV paths: {wire_launches} (no path of the port calls "
+          f"them)")
+    print(f"[paths] fleet engines: sl/vmap MobileNetV2 "
+          f"{fleet_launches['sl-vmap']}, fl/vmap MobileNetV2 "
+          f"{fleet_launches['fl-vmap']}, sl/vmap SmolLM-135M "
+          f"{fleet_launches['lm-vmap']} (peak "
+          f"{fleet_launches['peak_bytes'] / 2 ** 30:.2f} GiB); vmap rules "
+          f"max_abs_err {vmap_errs}")
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), over the RWKV

@@ -3,13 +3,18 @@
 Counterpart of ``repro.api.plan`` for the slices ported so far:
 
 - the CNN family on the sequential engines (``fl/scan``, the FL baseline,
-  and ``sl/scan``, Algorithm 3);
+  and ``sl/scan``, Algorithm 3) and on the fleet engines (``fl/vmap`` and
+  ``sl/vmap``, parallel SL with one server update a step on the reduced
+  client gradient; ``fleet.engine``);
 - the transformer family (the split LM, ``fleet.hetero.lm_split_program``)
-  on ``sl/scan``, its attention on the kernel path ``ModelSpec.attn_impl``
-  resolves to (the hand-written flash kernel for ``"pallas"``);
+  on ``sl/scan`` and ``sl/vmap``, its attention on the kernel path
+  ``ModelSpec.attn_impl`` resolves to (the hand-written flash kernel for
+  ``"pallas"``);
 
 each with a fraction cut, an fp32 or int8 link (the int8 boundary on the
-fused CUDA kernel or the two-op plain path), and the UAV mission budget.
+fused CUDA kernel or the two-op plain path), the UAV mission budget and, on
+the fleet engines, client dropout (``ClientSpec.dropout_rate``: a numpy
+mask a round from ``RandomState(seed + 1)``, as the reference draws it).
 The run surface is the reference's:
 
     plan = compile_experiment(spec, device="cuda")
@@ -31,21 +36,25 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..core.energy import RTX_A5000
 from ..core.split import (SplitStep, cut_index_for_fraction,
                           init_stages, make_fl_round, make_multi_client_round,
-                          stack_cut_index, to_port_layout)
+                          make_split_loss, stack_cut_index,
+                          tier_call, to_port_layout)
 from ..core.trajectory import TourPlan, plan_tour
 from ..data.partition import (partition_dirichlet, partition_iid,
                               partition_non_iid)
 from ..data.synthetic import SyntheticPestImages, synthetic_tokens
+from ..fleet.engine import (fleet_state, make_fleet_fl_round,
+                            make_fleet_sl_round)
 from ..fleet.hetero import lm_split_program, lm_split_step
 from ..fleet.link import FleetLink
 from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
                                 resolve_link_kernel)
 from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
-from ..optim.optimizers import adamw
+from ..optim.optimizers import FunctionalAdamW, adamw
 from .records import RoundRecord
 from .runtime import (client_coords, client_step_time_s, count_fl_step_flops,
                       count_sl_step_flops, count_split_step_flops,
@@ -69,6 +78,7 @@ class PlanState:
     round: int
     engine_state: Any
     rng: np.random.RandomState      # minibatch sampling stream
+    dropout_rng: np.random.RandomState   # client dropout stream
     last_metrics: Optional[dict] = None
 
 
@@ -110,10 +120,12 @@ class Plan:
 
     def init(self) -> PlanState:
         """Fresh run state from ``params0``; the batch stream is one
-        ``RandomState(spec.seed)`` as in the reference."""
+        ``RandomState(spec.seed)`` and the dropout stream one
+        ``RandomState(spec.seed + 1)``, as in the reference."""
         return PlanState(round=0,
                          engine_state=self._engine.init_state(self.params0),
-                         rng=np.random.RandomState(self.spec.seed))
+                         rng=np.random.RandomState(self.spec.seed),
+                         dropout_rng=np.random.RandomState(self.spec.seed + 1))
 
     def round_batches(self, state: PlanState):
         """One round's (clients, local_steps, ...) batch stacks on the
@@ -127,26 +139,43 @@ class Plan:
             return bx, by
         return {"inputs": bx, "targets": by}
 
+    def _round_mask(self, state: PlanState) -> Optional[np.ndarray]:
+        """The round's (clients,) 0/1 dropout mask, or None without
+        dropout: ``uniform >= rate`` per client from the dropout stream,
+        and never an all-dropped fleet (one client drawn back in)."""
+        rate = self.spec.clients.dropout_rate
+        if rate <= 0.0:
+            return None
+        n = self.spec.clients.num_clients
+        mask = (state.dropout_rng.uniform(size=n) >= rate).astype(np.float32)
+        if mask.sum() == 0:          # never drop the whole fleet
+            mask[state.dropout_rng.randint(n)] = 1.0
+        return mask
+
     def run_round(self, state: PlanState, batches=None, *,
                   with_eval: bool = True) -> tuple[PlanState, RoundRecord]:
         """Execute one global round; returns (state, RoundRecord)."""
         if batches is None:
             batches = self.round_batches(state)
-        losses = self._engine.run(state.engine_state, batches)
-        rec = self._assemble_record(state, losses.cpu().numpy(),
+        mask = self._round_mask(state)
+        state.engine_state, losses = self._engine.run(
+            state.engine_state, batches,
+            None if mask is None else torch.from_numpy(mask).to(self.device))
+        rec = self._assemble_record(state, losses.cpu().numpy(), mask,
                                     with_eval=with_eval)
         state.round += 1
         return state, rec
 
-    def _assemble_record(self, state: PlanState, loss_c, *,
+    def _assemble_record(self, state: PlanState, loss_c, mask, *,
                          with_eval: bool) -> RoundRecord:
-        """The analytic energy/link bill of one executed round (every
-        client active: this slice has no dropout)."""
+        """The analytic energy/link bill of one executed round: the loss
+        and every bill over the active clients only."""
         n = self.spec.clients.num_clients
         steps = self.spec.local_steps
-        active = np.arange(n)
+        active = np.arange(n) if mask is None else np.flatnonzero(mask > 0)
         # losses: FL (clients, steps); SL (steps, clients)
-        loss = float(loss_c.mean())
+        loss = float((loss_c[active, :] if self.spec.engine.kind == "fl"
+                      else loss_c[:, active]).mean())
         uav = 0.0
         if self.tour is not None:
             uav = float(self.tour.e_first if state.round == 0
@@ -208,8 +237,10 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# engines: init_state(params0) / run(state, batches) -> losses tensor /
-#          predict(state, inputs) -> predicted classes (on the device)
+# engines: init_state(params0) / run(state, batches, mask) -> (state, losses
+#          tensor) / predict(state, inputs) -> predicted classes (on the
+#          device). The sequential engines update their modules in place and
+#          take no mask (dropout is a fleet policy, refused at validation).
 # ---------------------------------------------------------------------------
 
 def _load(stages, params):
@@ -242,8 +273,9 @@ class _FLEngine:
     def init_state(self, params0):
         return _load(self.stages, params0)
 
-    def run(self, model, batches):
-        return self.round_fn(model, batches)
+    def run(self, model, batches, mask):
+        assert mask is None, "dropout needs a fleet engine (validated)"
+        return model, self.round_fn(model, batches)
 
     def predict(self, model, x):
         return model(to_port_layout(x)).argmax(dim=-1)
@@ -281,13 +313,106 @@ class _SLScanEngine:
                        client_opts=[make_opt(c.parameters()) for c in clients],
                        server_opt=make_opt(server.parameters()))
 
-    def run(self, st: SLState, batches):
-        return self.round_fn(st.clients, st.server, st.client_opts,
-                             st.server_opt, batches)
+    def run(self, st: SLState, batches, mask):
+        assert mask is None, "dropout needs a fleet engine (validated)"
+        return st, self.round_fn(st.clients, st.server, st.client_opts,
+                                 st.server_opt, batches)
 
     def predict(self, st: SLState, x):
         # every client holds the FedAvg'd prefix after a round
         return self.logits(st.clients[0], st.server, x).argmax(dim=-1)
+
+
+def _tier_params(params0: list, device) -> dict:
+    """Per-stage parameter dicts (``params0``'s form) -> one dict keyed as
+    ``nn.Sequential(*those stages)``'s parameters."""
+    return {f"{i}.body.{key}": v.to(device)
+            for i, p in enumerate(params0) for key, v in p.items()}
+
+
+class _FLFleetEngine:
+    """``fl/vmap``: the global params dict; the clients train from it in one
+    vmapped program (``fleet.engine.make_fleet_fl_round``), FedAvg (over the
+    active clients under dropout) at the end of the round."""
+
+    def __init__(self, spec, stages, device):
+        self.device = device
+        self.model = nn.Sequential(*stages)
+        self.masked = spec.clients.dropout_rate > 0
+
+        def loss_fn(params, batch):
+            bx, by = batch
+            return cross_entropy_loss(self.forward(params, bx), by)
+
+        self.round_fn = make_fleet_fl_round(loss_fn, FunctionalAdamW(spec.lr),
+                                            client_dropout=self.masked)
+
+    def forward(self, params, x):
+        return functional_call(self.model, params, (to_port_layout(x),))
+
+    def init_state(self, params0):
+        return _tier_params(params0, self.device)
+
+    def run(self, params, batches, mask):
+        return self.round_fn(params, batches, *_mask_arg(mask))
+
+    def predict(self, params, x):
+        return self.forward(params, x).argmax(dim=-1)
+
+
+class _SLFleetEngine:
+    """``sl/vmap``: parallel SL (``fleet.engine.make_fleet_sl_round``) over
+    the client-stacked prefixes, one shared server suffix updated once a
+    local step on the ``server_reduce`` of the clients' gradients, the
+    (masked) FedAvg of the prefixes at the end of the round. State:
+    ``(params_c, params_s, oc, os_)``. ``params0_tiers(params0)`` gives the
+    (client, server) parameter dicts of the plan's ``params0``;
+    ``logits(client, server, inputs)`` is the evaluation forward, on the
+    prefix of row 0 (or, under dropout, the row mean)."""
+
+    def __init__(self, spec, step: SplitStep, client: nn.Module,
+                 server: nn.Module, *, params0_tiers, logits):
+        self.spec = spec
+        self.masked = spec.clients.dropout_rate > 0
+        self.params0_tiers = params0_tiers
+        self.opt_c, self.opt_s = (FunctionalAdamW(spec.lr),
+                                  FunctionalAdamW(spec.lr))
+        self.logits = tier_call(logits, client, server)
+        self.round_fn = make_fleet_sl_round(
+            make_split_loss(step, client, server), self.opt_c, self.opt_s,
+            local_rounds=spec.local_steps,
+            server_reduce=spec.engine.server_reduce,
+            client_dropout=self.masked)
+
+    def init_state(self, params0):
+        params_c, params_s = self.params0_tiers(params0)
+        return fleet_state(params_c, params_s, self.opt_c, self.opt_s,
+                           self.spec.clients.num_clients)
+
+    def run(self, st, batches, mask):
+        out = self.round_fn(*st, batches, *_mask_arg(mask))
+        return out[:4], out[4]
+
+    def predict(self, st, x):
+        params_c, params_s = st[0], st[1]
+        prefix = _eval_prefix(params_c, self.masked)
+        return self.logits(prefix, params_s, x).argmax(dim=-1)
+
+
+def _mask_arg(mask) -> tuple:
+    """The fleet rounds take a trailing mask only when built with client
+    dropout, and the plan draws one exactly then."""
+    return () if mask is None else (mask,)
+
+
+def _eval_prefix(client_stack: dict, dropout: bool) -> dict:
+    """The global client prefix to evaluate with: row 0 (every row holds
+    the FedAvg'd prefix), or under dropout, where dropped rows hold stale
+    prefixes, the f32 row mean (the reference's ``_eval_prefix``)."""
+    if dropout:
+        return {k: v.float().mean(dim=0).to(v.dtype)
+                for k, v in client_stack.items()}
+    return {k: v[0] for k, v in client_stack.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -418,14 +543,15 @@ def _validate(spec: ExperimentSpec):
                          f"or 'iid', got {spec.data.partition!r}")
     if spec.cut_policy.mode not in ("fraction", "adaptive"):
         raise ValueError(spec.cut_policy.mode)
+    if cli.dropout_rate > 0 and not eng.is_fleet:
+        raise ValueError("client dropout is a fleet policy; use a vmap or "
+                         "shard_map client axis")
     # ---- outside the ported slices: refused, never run some other way ----
-    if eng.client_axis != "scan":
-        _not_in_slice(f"client_axis={eng.client_axis!r} (fleet engines)",
-                      "item 9" if eng.client_axis == "vmap" else "item 16")
+    if eng.client_axis == "shard_map":
+        _not_in_slice("client_axis='shard_map' (the explicit-collective "
+                      "fleet engines)", "item 16")
     if eng.server_mesh is not None:
         _not_in_slice("EngineSpec.server_mesh", "item 16")
-    if cli.dropout_rate > 0:
-        _not_in_slice("ClientSpec.dropout_rate (client dropout)", "item 9")
     if cli.population is not None:
         _not_in_slice("ClientSpec.population (cohort sampling)", "item 10")
     if spec.cut_policy.mode == "adaptive":
@@ -504,12 +630,22 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
             cfg, attn_impl="ref" if impl == "pallas" else impl)
         fl_client, fl_server, smashed = count_split_step_flops(
             count_step, client, server, sample_x, sample_y)
-        engine = _SLScanEngine(
-            spec, prog.step,
-            load_client=lambda p: _load_module(client, p[0]),
-            load_server=lambda p: _load_module(server, p[1]),
-            logits=lambda c, s_, x: prog.server_logits(
-                s_, prog.step.client_fwd(c, x)))
+
+        def lm_logits(c, s_, x):
+            return prog.server_logits(s_, prog.step.client_fwd(c, x))
+
+        if spec.engine.is_fleet:
+            engine = _SLFleetEngine(
+                spec, prog.step, client, server, logits=lm_logits,
+                params0_tiers=lambda p: tuple(
+                    {key: v.to(device) for key, v in tier.items()}
+                    for tier in p))
+        else:
+            engine = _SLScanEngine(
+                spec, prog.step,
+                load_client=lambda p: _load_module(client, p[0]),
+                load_server=lambda p: _load_module(server, p[1]),
+                logits=lm_logits)
         num_classes, eval_chunk = cfg.vocab, LM_EVAL_CHUNK
     else:
         # the port's own initializer; see init_stages
@@ -529,11 +665,22 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
                 server_loss=lambda server, sm, yy: (
                     cross_entropy_loss(server(sm), yy), {}),
                 link_constraint=link.boundary("nchw"))
-            engine = _SLScanEngine(
-                spec, step,
-                load_client=lambda p: _load(stages[:k], p[:k]),
-                load_server=lambda p: _load(stages[k:], p[k:]),
-                logits=lambda c, s_, x: s_(c(to_port_layout(x))))
+
+            def cnn_logits(c, s_, x):
+                return s_(c(to_port_layout(x)))
+
+            if spec.engine.is_fleet:
+                engine = _SLFleetEngine(
+                    spec, step, nn.Sequential(*stages[:k]),
+                    nn.Sequential(*stages[k:]), logits=cnn_logits,
+                    params0_tiers=lambda p: (_tier_params(p[:k], device),
+                                             _tier_params(p[k:], device)))
+            else:
+                engine = _SLScanEngine(
+                    spec, step,
+                    load_client=lambda p: _load(stages[:k], p[:k]),
+                    load_server=lambda p: _load(stages[k:], p[k:]),
+                    logits=cnn_logits)
 
     if spec.engine.kind == "fl":
         cut_of_client: list[int] = []
@@ -542,7 +689,8 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
         for c in range(n):
             t_client[c] = client_step_time_s(step_flops, edges[c])
         server_base_s = FL_SERVER_AGG_S
-        engine = _FLEngine(spec, stages)
+        engine = (_FLFleetEngine(spec, stages, device)
+                  if spec.engine.is_fleet else _FLEngine(spec, stages))
     else:
         cut_of_client = [k] * n
         flops[k] = (fl_client, fl_server, smashed)

@@ -6,8 +6,8 @@ both packages. ``ModelSpec.arch`` takes the port's
 ``repro_torch.configs.base.ArchConfig``; ``ExperimentSpec.scenario`` is an
 opaque optional field that ``compile_experiment`` refuses (the scenario
 layer is a later slice). The engine lowering table is in
-``repro.api.spec``'s docstring; the port lowers ``fl/scan`` and ``sl/scan``
-so far (``repro_torch.api.plan``).
+``repro.api.spec``'s docstring; the port lowers ``fl/scan``, ``sl/scan``,
+``fl/vmap`` and ``sl/vmap`` so far (``repro_torch.api.plan``).
 """
 from __future__ import annotations
 

@@ -17,6 +17,12 @@ one shared server updated per client visit, FedAvg of the client prefixes
 at the end) and the FL baseline (each client from the global model with a
 fresh optimizer, FedAvg at the end). Losses stay on the device until the
 round ends, so a round syncs with the host once.
+
+The fleet engines (``fleet.engine``) take the functional forms instead:
+``tier_call`` makes a function of both tiers' parameter dicts out of the
+modules (``torch.func.functional_call``), and ``make_split_loss`` is the
+split step's loss as ``(params_c, params_s, batch) -> loss`` for
+``torch.func.vmap``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from .fedavg import fedavg_mean, fedavg_modules_
 
@@ -208,3 +215,44 @@ def make_fl_round(loss_fn: Callable, make_opt: Callable):
         return torch.stack(losses)
 
     return global_round
+
+
+# ---------------------------------------------------------------------------
+# functional forms for the fleet engines (torch.func)
+# ---------------------------------------------------------------------------
+
+class _TierCall(nn.Module):
+    """``fn(client, server, *args)`` as a module, so that one
+    ``functional_call`` binds both tiers' parameters (``client.*``,
+    ``server.*``)."""
+
+    def __init__(self, fn: Callable, client: nn.Module, server: nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.client, self.server = client, server
+
+    def forward(self, *args):
+        return self.fn(self.client, self.server, *args)
+
+
+def tier_call(fn: Callable, client: nn.Module, server: nn.Module):
+    """``fn(client, server, *args)`` as a pure function of the tiers'
+    parameters: ``f(params_c, params_s, *args)``, each a dict keyed as the
+    module's ``named_parameters()``. The modules are templates: their own
+    parameters are not used."""
+    holder = _TierCall(fn, client, server)
+
+    def call(params_c: dict, params_s: dict, *args):
+        params = {f"client.{k}": v for k, v in params_c.items()}
+        params.update({f"server.{k}": v for k, v in params_s.items()})
+        return functional_call(holder, params, args)
+    return call
+
+
+def make_split_loss(step: SplitStep, client: nn.Module, server: nn.Module):
+    """The split step's loss as a function the fleet engines vmap:
+    ``(params_c, params_s, batch) -> loss``, the client forward, the link
+    boundary and the server loss in one function (``SplitStep.loss_fn``),
+    differentiated by the engine's one backward."""
+    return tier_call(lambda c, s, batch: step.loss_fn(c, s, batch)[0],
+                     client, server)

@@ -1,0 +1,249 @@
+"""Fleet rounds: the client axis batched with ``torch.func.vmap``.
+
+Counterpart of ``repro.fleet.engine`` for ``client_axis="vmap"``. Every
+per-client quantity (params, AdamW moments and step counters, minibatches)
+carries a leading client axis. Per local step the per-client loss runs
+forward once for the whole fleet under ``torch.func.vmap``, and ONE plain
+autograd backward of the (mask-weighted) sum of the clients' losses gives
+every client its own gradient in its row of a client-stacked leaf, and a
+leaf the clients share (the server suffix, a shared client tier) the sum
+over clients, reduced inside the backward's own products: no per-client
+copy of a shared gradient is made. The link boundary's int8 kernel and the
+flash kernel have ``vmap`` rules that fold the client axis into their own
+batch, so each is one launch for all clients.
+
+  * FL — ``make_fleet_fl_round``: clients are independent until FedAvg
+    (the plain or masked mean).
+  * SL — ``make_fleet_sl_round``: Efficient *Parallel* Split Learning (Lin
+    et al., arXiv:2303.15991). Per local step every client's prefix runs
+    forward and backward against the shared server suffix, the clients
+    update their own prefixes, and the server takes ONE update on the mean
+    (or sum) of the clients' server gradients; the prefixes are FedAvg'd at
+    the end of the round. A deliberate variant of Algorithm 3, not equal to
+    the sequential engine.
+
+Client dropout (``client_dropout=True``): the round takes a trailing
+(clients,) 0/1 mask. Masked clients still execute (the batch shape is
+fixed) but keep their params and optimizer state (step counter included),
+add nothing to the server's gradient (their loss has weight 0 in the
+backward), and are left out of FedAvg; a fully-masked round changes no
+state. The reference's ``lax.scan`` over the local steps is a Python loop
+here. ``client_axis="shard_map"`` is refused by the plan (``api.plan``,
+ROADMAP queue 1 item 16).
+
+``FLEET_EQUIV_ATOL`` is the reference's loosened bound for vmapped rounds
+against sequential ones (batched convolutions reassociate f32 sums); the
+port's fleet rounds are held to it against the reference's.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch.func import vmap
+
+from ..core.fedavg import (fedavg_mean, fedavg_mean_masked, fedavg_stack,
+                           fedavg_stack_masked, stack_replicas)
+from ..optim.optimizers import OptState
+
+FLEET_EQUIV_ATOL = 1e-3
+
+
+def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def _keep_masked_rows(mask: torch.Tensor, new: dict, old: dict) -> dict:
+    """Masked clients' leading-axis rows keep their old value."""
+    return {k: torch.where(_rows(mask, v) > 0, v, old[k])
+            for k, v in new.items()}
+
+
+def _keep_masked_state(mask, new: OptState, old: OptState) -> OptState:
+    return OptState(step=torch.where(mask > 0, new.step, old.step),
+                    mu=_keep_masked_rows(mask, new.mu, old.mu),
+                    nu=_keep_masked_rows(mask, new.nu, old.nu))
+
+
+def _guard(active: torch.Tensor, new: dict, old: dict) -> dict:
+    """``new`` when any client is active, else ``old`` (on the device)."""
+    return {k: torch.where(active, v, old[k]) for k, v in new.items()}
+
+
+def _guard_state(active, new: OptState, old: OptState) -> OptState:
+    return OptState(step=torch.where(active, new.step, old.step),
+                    mu=_guard(active, new.mu, old.mu),
+                    nu=_guard(active, new.nu, old.nu))
+
+
+def _losses_and_grads(per_client: Callable, params: tuple, batch,
+                      weights: Optional[torch.Tensor] = None):
+    """One vmapped forward and one backward: the (clients,) losses of
+    ``per_client(*params, batch)`` and the gradients of their sum (each
+    loss times its weight, when ``weights`` is given) with respect to every
+    dict in ``params``."""
+    with torch.enable_grad():
+        leaves = tuple({k: v.detach().requires_grad_() for k, v in p.items()}
+                       for p in params)
+        losses = per_client(*leaves, batch)
+        total = (losses if weights is None else losses * weights).sum()
+        flat = iter(torch.autograd.grad(
+            total, [v for p in leaves for v in p.values()]))
+    return losses.detach(), tuple({k: next(flat) for k in p} for p in leaves)
+
+
+def _mean(g: dict, n) -> dict:
+    """The cohort mean of a summed gradient: ``g / n`` in f32, back in each
+    leaf's dtype."""
+    return {k: (v.float() / n).to(v.dtype) for k, v in g.items()}
+
+
+# ---------------------------------------------------------------------------
+# FL rounds
+# ---------------------------------------------------------------------------
+
+def make_fleet_fl_round(loss_fn: Callable, opt, *,
+                        client_dropout: bool = False):
+    """FL baseline round with the client axis batched (the reference's
+    ``make_fleet_fl_round`` on ``make_fl_round(..., client_axis="vmap")``):
+    ``f(global_params, batches[, client_mask]) -> (new_global_params,
+    losses (clients, local_steps))``.
+
+    ``loss_fn(params, batch) -> loss`` on the full model, params a dict;
+    ``opt`` a ``FunctionalAdamW``; ``batches`` ``(bx, by)`` with leading
+    (clients, local_steps) axes. Every client starts the round from
+    ``global_params`` with a fresh optimizer state and runs its local
+    minibatches; the round ends with the FedAvg of the clients' models.
+    With ``client_dropout`` the masked clients still train but are left
+    out of FedAvg; a round with no active client returns the incoming
+    global params."""
+    per_client = vmap(loss_fn)
+
+    def clients_round(global_params: dict, batches):
+        bx, by = batches
+        n, steps = bx.shape[0], bx.shape[1]
+        params = stack_replicas(global_params, n)
+        state = opt.init_stacked(global_params, n)
+        losses = []
+        for s in range(steps):
+            loss, (grads,) = _losses_and_grads(per_client, (params,),
+                                               (bx[:, s], by[:, s]))
+            params, state = opt.update(grads, state, params)
+            losses.append(loss)
+        return params, torch.stack(losses, dim=1)
+
+    if not client_dropout:
+        def global_round(global_params, batches):
+            stack, losses = clients_round(global_params, batches)
+            return fedavg_mean(stack), losses
+        return global_round
+
+    def global_round_masked(global_params, batches, client_mask):
+        stack, losses = clients_round(global_params, batches)
+        mask = client_mask.to(torch.float32)
+        return fedavg_mean_masked(stack, mask, global_params), losses
+
+    return global_round_masked
+
+
+# ---------------------------------------------------------------------------
+# parallel-SL rounds
+# ---------------------------------------------------------------------------
+
+def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
+                        server_reduce: str = "mean",
+                        client_dropout: bool = False,
+                        client_tier: str = "stacked"):
+    """One global round of parallel split learning over the fleet.
+
+    ``loss(params_c, params_s, batch) -> loss`` is the split step's loss,
+    the link boundary inside (``core.split.make_split_loss``); ``opt_c``,
+    ``opt_s`` ``FunctionalAdamW``s. The round is ``f(params_c, params_s,
+    oc, os_, batches[, client_mask]) -> (params_c, params_s, oc, os_,
+    losses)`` with ``batches`` a dict of (clients, local_rounds, ...)
+    tensors and losses (local_rounds, clients).
+
+    ``client_tier``:
+      "stacked" — per-client prefixes and optimizer states on the leading
+                  client axis (``vmap(loss, in_dims=(0, None, 0))``), one
+                  update per client, ONE server update on the
+                  ``server_reduce`` of the server gradients; the (masked)
+                  FedAvg of the prefixes at the end.
+      "shared"  — EPSL cohort mode: ONE client model and optimizer state
+                  broadcast over the cohort (``in_dims=(None, None, 0)``),
+                  updated like the server on the (masked) cohort-MEAN
+                  gradient; no closing FedAvg. No plan reaches it yet: it
+                  is the tier of cohort sampling (ROADMAP queue 1 item 10).
+    """
+    if server_reduce not in ("mean", "sum"):
+        raise ValueError(server_reduce)
+    if client_tier not in ("stacked", "shared"):
+        raise ValueError(f"client_tier must be 'stacked' or 'shared', "
+                         f"got {client_tier!r}")
+    shared = client_tier == "shared"
+    per_client = vmap(loss, in_dims=(None if shared else 0, None, 0))
+
+    @torch.no_grad()
+    def run_round(params_c, params_s, oc, os_, batches, mask):
+        n_active = active = None
+        n = next(iter(batches.values())).shape[0]
+        if mask is not None:
+            total = mask.sum()
+            n_active = torch.clamp(total, min=1.0)
+            active = total > 0
+        cohort = n if mask is None else n_active
+        losses = []
+        for r in range(local_rounds):
+            batch = {k: v[:, r] for k, v in batches.items()}
+            # masked clients' losses weigh 0: their rows' gradients are 0
+            # (and dropped below), and they add nothing to the server's
+            loss_r, (g_c, g_s) = _losses_and_grads(
+                per_client, (params_c, params_s), batch, mask)
+            losses.append(loss_r)
+            if shared:
+                pc_new, oc_new = opt_c.update(_mean(g_c, cohort), oc,
+                                              params_c)
+            else:
+                pc_new, oc_new = opt_c.update(g_c, oc, params_c)
+                if mask is not None:
+                    pc_new = _keep_masked_rows(mask, pc_new, params_c)
+                    oc_new = _keep_masked_state(mask, oc_new, oc)
+            if server_reduce == "mean":
+                g_s = _mean(g_s, cohort)
+            ps_new, os_new = opt_s.update(g_s, os_, params_s)
+            if mask is not None:
+                # no active client: the server (and a shared client tier)
+                # sits the round out
+                ps_new = _guard(active, ps_new, params_s)
+                os_new = _guard_state(active, os_new, os_)
+                if shared:
+                    pc_new = _guard(active, pc_new, params_c)
+                    oc_new = _guard_state(active, oc_new, oc)
+            params_c, oc, params_s, os_ = pc_new, oc_new, ps_new, os_new
+        if not shared:
+            params_c = (fedavg_stack(params_c) if mask is None
+                        else fedavg_stack_masked(params_c, mask))
+        return params_c, params_s, oc, os_, torch.stack(losses)
+
+    if client_dropout:
+        def global_round_masked(params_c, params_s, oc, os_, batches,
+                                client_mask):
+            return run_round(params_c, params_s, oc, os_, batches,
+                             client_mask.to(torch.float32))
+        return global_round_masked
+
+    def global_round(params_c, params_s, oc, os_, batches):
+        return run_round(params_c, params_s, oc, os_, batches, None)
+    return global_round
+
+
+def fleet_state(params_c: dict, params_s: dict, opt_c, opt_s, n: int,
+                client_tier: str = "stacked") -> tuple:
+    """Initial engine state ``(params_c, params_s, oc, os_)``: the client
+    params and optimizer state stacked ``n`` times ("stacked") or single
+    ("shared"), as the reference's ``init_state`` builds them."""
+    if client_tier == "shared":
+        return (dict(params_c), dict(params_s), opt_c.init(params_c),
+                opt_s.init(params_s))
+    return (stack_replicas(params_c, n), dict(params_s),
+            opt_c.init_stacked(params_c, n), opt_s.init(params_s))

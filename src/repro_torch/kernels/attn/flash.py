@@ -133,12 +133,20 @@ def flash_attention_bwd(q, k, v, o, g, *, causal: bool,
 
 
 class _FlashAttention(torch.autograd.Function):
+    """``torch.func``-ready (``forward`` without ``ctx``, ``setup_context``,
+    an explicit ``vmap`` rule): the vmapped dimension folds into B,
+    (C, B, H, S, D) -> (C*B, H, S, D), so all clients' attention is one
+    kernel launch; the backward is the closed form under either."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o = flash_attention_fwd(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o)
+    def forward(q, k, v, causal, window):
+        return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v, output)
         ctx.causal, ctx.window = causal, window
-        return o
 
     @staticmethod
     def backward(ctx, g):
@@ -146,6 +154,19 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, g, causal=ctx.causal,
                                          window=ctx.window)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = (t.expand(n, *t.shape) if dim is None
+                 else t.movedim(dim, 0))
+            return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+        qf, kf, vf = (fold(t, d) for t, d in zip((q, k, v), in_dims[:3]))
+        o = _FlashAttention.apply(qf, kf, vf, causal, window)
+        return o.reshape(n, -1, *o.shape[1:]), 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

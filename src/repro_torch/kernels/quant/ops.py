@@ -3,7 +3,9 @@
 Counterpart of ``repro.kernels.quant.ops``. The forward quantizes and
 dequantizes rows of the tensor's last axis; the backward is the identity
 (straight-through estimator), so the split step keeps the compressed link
-inside one autograd graph. ``kernel`` picks the path: ``"fused"`` (the one
+inside one autograd graph (and composes with ``torch.func.vmap`` and
+``grad``: under ``vmap`` the batched dimension joins the rows, so a fleet of
+clients is one launch). ``kernel`` picks the path: ``"fused"`` (the one
 CUDA kernel, or its plain version for a CPU tensor) or ``"xla"`` (the
 two-op quantize/dequantize of ``ref.py``; the name is the spec's).
 """
@@ -34,13 +36,28 @@ def quant_dequant(x: torch.Tensor, *, kernel: str = "xla") -> torch.Tensor:
 
 
 class _StraightThroughInt8(torch.autograd.Function):
+    """``torch.func``-ready (``forward`` without ``ctx``, ``setup_context``,
+    an explicit ``vmap`` rule): rows are independent, so a vmapped client
+    axis folds into the rows and every client's tensor goes through one
+    ``quant_dequant`` (one kernel launch)."""
+
     @staticmethod
-    def forward(ctx, x, kernel):
+    def forward(x, kernel):
         return quant_dequant(x, kernel=kernel)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
         return g, None   # straight-through
+
+    @staticmethod
+    def vmap(info, in_dims, x, kernel):
+        if in_dims[0] is None:
+            return _StraightThroughInt8.apply(x, kernel), None
+        return _StraightThroughInt8.apply(x.movedim(in_dims[0], 0), kernel), 0
 
 
 def make_link_compress(*, kernel: str = "xla"):

@@ -9,10 +9,32 @@ numbers differ. This one repeats ``optimizers.py:79-98`` op for op, in f32:
     p  = p + (-lr) * (mh / (sqrt(vh) + eps) + wd * p)
 
 with one step counter per optimizer (the reference's ``OptState.step``).
+
+``FunctionalAdamW`` is the same arithmetic over dicts of tensors, returning
+new tensors (the form ``torch.func.vmap`` engines need). Its state may carry
+a leading client axis on every leaf, the step counter included
+(``init_stacked``, the reference's ``optimizers.py:134-141``): each row then
+has its own bias correction, so rows that sat a round out (client dropout)
+keep their own count.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+from ..core.fedavg import stack_replicas
+
+
+def _adamw_leaf(p, g, mu, nu, b1c, b2c, *, b1, b2, eps, wd):
+    """One leaf's AdamW arithmetic: the new moments and the update direction
+    ``delta`` (the step is ``p + (-lr * delta)``). ``b1c``/``b2c`` are the
+    bias corrections, 0-d or broadcast against ``p``'s leading axes."""
+    g = g.float()
+    m = b1 * mu + (1 - b1) * g
+    v = b2 * nu + (1 - b2) * g * g
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * p.float()
+    return m, v, delta
 
 
 class AdamW(torch.optim.Optimizer):
@@ -43,12 +65,69 @@ class AdamW(torch.optim.Optimizer):
                 if not st:
                     st["mu"] = torch.zeros_like(p, dtype=torch.float32)
                     st["nu"] = torch.zeros_like(p, dtype=torch.float32)
-                g = p.grad.float()
-                m = b1 * st["mu"] + (1 - b1) * g
-                v = b2 * st["nu"] + (1 - b2) * g * g
-                delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * p.float()
-                st["mu"], st["nu"] = m, v
+                st["mu"], st["nu"], delta = _adamw_leaf(
+                    p, p.grad, st["mu"], st["nu"], b1c, b2c, b1=b1, b2=b2,
+                    eps=eps, wd=wd)
                 p.add_((-lr * delta).to(p.dtype))
+
+
+@dataclasses.dataclass
+class OptState:
+    """The reference's ``OptState``: the int32 step counter and the f32
+    moments, dicts keyed as the params. ``step`` is 0-d, or (clients,) for
+    a client-stacked state."""
+    step: torch.Tensor
+    mu: dict
+    nu: dict
+
+
+class FunctionalAdamW:
+    """``AdamW.step``'s arithmetic, op for op, over dicts of tensors.
+    ``update(grads, state, params) -> (new_params, new_state)``; with a
+    stacked state (step of shape (clients,)) every leaf's leading axis is
+    the client axis and each row takes its own bias correction."""
+
+    def __init__(self, lr: float = 1e-3, *, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.01):
+        self.lr, self.b1, self.b2 = lr, b1, b2
+        self.eps, self.weight_decay = eps, weight_decay
+
+    def init(self, params: dict) -> OptState:
+        first = next(iter(params.values()))
+        zeros = {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in params.items()}
+        return OptState(step=torch.zeros((), dtype=torch.int32,
+                                         device=first.device),
+                        mu=zeros,
+                        nu={k: z.clone() for k, z in zeros.items()})
+
+    def init_stacked(self, params: dict, n: int) -> OptState:
+        """State for ``n`` replicas of ``params`` (unstacked), every leaf,
+        the step counter included, on a leading client axis."""
+        st = self.init(params)
+        return OptState(step=st.step.expand(n).clone(),
+                        mu=stack_replicas(st.mu, n),
+                        nu=stack_replicas(st.nu, n))
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: OptState, params: dict):
+        b1, b2 = self.b1, self.b2
+        eps, wd = self.eps, self.weight_decay
+        t = state.step + 1
+        f32 = dict(dtype=torch.float32, device=t.device)
+        tf = t.float()
+        b1c = 1 - torch.tensor(b1, **f32) ** tf
+        b2c = 1 - torch.tensor(b2, **f32) ** tf
+        lr = torch.tensor(self.lr, **f32)
+        new_p, mu, nu = {}, {}, {}
+        for k, p in params.items():
+            shape = tuple(t.shape) + (1,) * (p.dim() - t.dim())
+            mu[k], nu[k], delta = _adamw_leaf(
+                p, grads[k], state.mu[k], state.nu[k], b1c.reshape(shape),
+                b2c.reshape(shape), b1=b1, b2=b2, eps=eps, wd=wd)
+            new_p[k] = p + (-lr * delta).to(p.dtype)
+        return new_p, OptState(step=t, mu=mu, nu=nu)
 
 
 class SGD(torch.optim.Optimizer):

@@ -2,8 +2,9 @@
 
 Energy, link and UAV models, partitioners, the deployment and tour planners,
 the host half of the runtime (its metrics in class counts against the
-reference's per-class loop), the record type, the spec layer and the ten
-architecture configs: the same inputs give equal outputs (exactly; these
+reference's per-class loop), the record type, the spec layer, the paper's
+FL/SL configurations (``core.paper_train``) and the ten architecture
+configs: the same inputs give equal outputs (exactly; these
 are the same arithmetic).
 """
 import dataclasses
@@ -17,6 +18,7 @@ import repro.api.runtime as ref_runtime
 import repro.core.deployment as ref_deployment
 import repro.core.energy as ref_energy
 import repro.core.link as ref_link
+import repro.core.paper_train as ref_paper_train
 import repro.core.trajectory as ref_trajectory
 import repro.core.uav_energy as ref_uav
 import repro.data.partition as ref_partition
@@ -26,6 +28,7 @@ import repro_torch.api.runtime as runtime
 import repro_torch.core.deployment as deployment
 import repro_torch.core.energy as energy
 import repro_torch.core.link as link
+import repro_torch.core.paper_train as paper_train
 import repro_torch.core.trajectory as trajectory
 import repro_torch.core.uav_energy as uav
 import repro_torch.data.partition as partition
@@ -186,6 +189,23 @@ def test_spec_fields_defaults_and_describe():
         assert [g[0] for g in got] == [w[0] for w in want], cls
         for (name, g), (_, w) in zip(got, want):
             assert _plain(g) == _plain(w), name
+
+
+@pytest.mark.parametrize("kind", ["fl", "sl"])
+def test_paper_spec_field_for_field(kind):
+    assert ([(f.name, f.default) for f in
+             dataclasses.fields(paper_train.PaperTrainConfig)]
+            == [(f.name, f.default) for f in
+                dataclasses.fields(ref_paper_train.PaperTrainConfig)])
+    for kw in ({}, dict(model="tinycnn", num_clients=3, classes_per_client=2,
+                        num_classes=6, client_fraction=0.4, global_rounds=2,
+                        local_steps=1, batch_size=4, lr=3e-3, image_size=16,
+                        compress_link=True, seed=5)):
+        got = paper_train.paper_spec(paper_train.PaperTrainConfig(**kw), kind)
+        want = ref_paper_train.paper_spec(
+            ref_paper_train.PaperTrainConfig(**kw), kind)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.describe() == want.describe()
 
 
 def test_arch_configs_field_for_field():

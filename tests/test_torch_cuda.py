@@ -529,3 +529,72 @@ def test_rwkv_train_step_launches_the_wkv_kernel_per_layer(hopper):
     assert rwkv6_scan.launches == cfg.n_layers * 2
     assert rwkv6_scan_bwd.launches == cfg.n_layers * 2
     assert all(torch.isfinite(torch.tensor(losses)))
+
+
+# ---------------------------------------------------------------------------
+# the fleet engines' vmap rules and an sl/vmap plan on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_int8_vmap_rule_on_card_is_one_launch(hopper):
+    """The int8 boundary vmapped over 4 clients (the MobileNetV2 cut's NHWC
+    rows, NaN rows included) is bit-equal to the plain version client by
+    client, in ONE kernel launch."""
+    from torch.func import vmap
+    from repro_torch.kernels.quant.ops import make_link_compress
+    g = torch.Generator(device=hopper).manual_seed(0)
+    x = torch.randn(4, 16, 28, 28, 32, device=hopper, generator=g) * 3
+    x[1, 0, 2, 3, 5] = float("nan")
+    x[3, 2, 0, 0, :] = 0.0
+    compress = make_link_compress(kernel="fused")
+    before = quant_dequant_int8.launches
+    got = vmap(compress)(x)
+    torch.cuda.synchronize()
+    assert quant_dequant_int8.launches == before + 1
+    want = torch.stack([quant_dequant_int8_plain(x[c].reshape(-1, 32))
+                        .reshape(x.shape[1:]) for c in range(4)])
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_vmap_rule_on_card_is_one_launch(hopper):
+    """flash attention vmapped over 4 clients: one launch at (4 B, H, S, D),
+    within 2e-5 of the plain version client by client."""
+    from torch.func import vmap
+    g = torch.Generator(device=hopper).manual_seed(1)
+    q, k, v = (torch.randn(4, 2, 3, 257, 64, device=hopper, generator=g)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = vmap(lambda a, b, c: flash_attention(a, b, c, causal=True))(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = torch.stack([flash_attention_plain(q[c], k[c], v[c], causal=True)
+                        for c in range(4)])
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sl_vmap_plan_with_dropout_on_card_matches_cpu(hopper):
+    """tinycnn ``sl/vmap`` with dropout, int8 on the fused kernel: the card
+    run against the same plan on the CPU (its plain version), losses within
+    ``FLEET_EQUIV_ATOL``, active clients and wire bytes exactly; one int8
+    launch per local step for all clients."""
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    spec = api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=3, dropout_rate=0.34),
+        link_policy=api.LinkPolicy(compress="int8"),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        global_rounds=3, local_steps=2, batch_size=4)
+    gpu = api.compile_experiment(spec)
+    quant_dequant_int8.launches = 0
+    _, rec_gpu = gpu.run()
+    assert quant_dequant_int8.launches == 3 * 2
+    _, rec_cpu = api.compile_experiment(spec, device="cpu").run()
+    for a, b in zip(rec_gpu, rec_cpu):
+        assert a.engine == b.engine == "sl/vmap"
+        assert a.active_clients == b.active_clients
+        assert a.link_bytes == b.link_bytes
+        assert abs(a.loss - b.loss) <= FLEET_EQUIV_ATOL

@@ -135,11 +135,17 @@ def _lm(arch, **kw):
 
 _REFUSED = (NotImplementedError, "ROADMAP queue 1")
 OUT_OF_SLICE = {
-    "vmap": (dict(engine=T.EngineSpec(client_axis="vmap")), _REFUSED),
+    # the vmap fleet engines run; what rides on them later is refused
+    "vmap": (dict(engine=T.EngineSpec(client_axis="vmap"),
+                  cut_policy=T.CutPolicy(mode="adaptive")),
+             (NotImplementedError, "queue 1 item 11")),
     "shard_map": (dict(engine=T.EngineSpec(client_axis="shard_map")),
                   _REFUSED),
     "server_mesh": (dict(engine=T.EngineSpec(server_mesh=(1, 1))), _REFUSED),
-    "dropout": (dict(clients=T.ClientSpec(dropout_rate=0.5)), _REFUSED),
+    # dropout runs on the fleet engines; on sl/scan it is the reference's
+    # own refusal
+    "dropout": (dict(clients=T.ClientSpec(dropout_rate=0.5)),
+                (ValueError, "client dropout is a fleet policy")),
     "population": (dict(clients=T.ClientSpec(num_clients=4, population=8)),
                    _REFUSED),
     "adaptive": (dict(cut_policy=T.CutPolicy(mode="adaptive")), _REFUSED),
@@ -147,10 +153,17 @@ OUT_OF_SLICE = {
     # the transformer family runs now, but only on a stack it is given
     "transformer": (dict(model=T.ModelSpec(family="transformer")),
                     (ValueError, "needs arch=")),
-    # the split LM runs on sl/scan; the fleet engines are item 9
+    # the split LM runs on sl/scan and sl/vmap; shard_map is item 16
     "lm-vmap": (_lm(configs.smollm_135m.reduced(),
-                    engine=T.EngineSpec(client_axis="vmap")),
-                (NotImplementedError, "queue 1 item 9")),
+                    engine=T.EngineSpec(client_axis="shard_map")),
+                (NotImplementedError, "queue 1 item 16")),
+    "vmap-population": (dict(engine=T.EngineSpec(client_axis="vmap"),
+                             clients=T.ClientSpec(num_clients=4,
+                                                  population=8)),
+                        (NotImplementedError, "queue 1 item 10")),
+    "vmap-scenario": (dict(engine=T.EngineSpec(client_axis="vmap"),
+                           scenario=object()),
+                      (NotImplementedError, "queue 1 item 14")),
     # MoE stacks: the reference's own refusal
     "lm-moe": (_lm(configs.deepseek_moe_16b.reduced()),
                (ValueError, "MoE stacks")),
