@@ -63,10 +63,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    round, and a tinycnn ``sl/vmap`` run with dropout on the card held
    against the CPU; ``fl/vmap`` on the same spec for one round (SL's
    client energy below FL's on the same clients); ``sl/vmap`` on the
-   SmolLM spec of 7 at batch 4 (batch 8 does not fit 80 GB under vmap)
+   SmolLM spec of 7 (batch 8; its server loss over chunks of tokens)
    for 2 rounds, with its flash and int8 launches, its
    peak memory, a profiled round, and a reduced SmolLM ``sl/vmap`` with
-   dropout on the card held against the CPU;
+   dropout on the card held against the CPU; then population cohorts
+   (``[cohort]``): ``sl/vmap`` on the MobileNetV2 spec of 5 with dropout
+   0.25 and a cohort of 4 drawn out of 1,000,000 clients (the EPSL
+   shared client tier), 2 rounds, its int8 launches (one a local step),
+   each round's cohort, and the engine state's bytes after ``init()``,
+   equal at populations of 10,000 and 1,000,000; ``fl/vmap`` on the same
+   cohort for one round (SL's client energy below FL's); SmolLM-135M
+   ``sl/vmap`` on the shared tier, a cohort of 4 out of 10,000 at batch
+   8, 1 round, with its flash and int8 launches and its peak memory; and
+   a tinycnn ``sl/vmap`` cohort run on the card held against the CPU on
+   the same ``Plan.cohorts``;
 9. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
@@ -83,6 +93,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -133,13 +144,15 @@ L2_ROTATE_BYTES = 256 * 2 ** 20    # > 5x the H100's 50 MB L2
 RWKV_LAYERS = 4                    # of rwkv6-7b's 32: the only cut
 # the fleet engines (client_axis="vmap") fold their 4 clients into each
 # kernel's batch. The split LM's vmap step holds all 4 clients'
-# activations at once: at lm_spec's batch 8 it runs out of the card's
-# 80 GB (72.55 GiB allocated and 6 GiB more asked for in the backward, on
-# an H100 80GB HBM3), so its phase takes batch 4 x 1024, the phase's only
-# cut. The vmap rules are checked, and the kernels timed, at the vmap
-# paths' shapes.
+# activations at once; it runs at lm_spec's batch 8, its server loss over
+# chunks of tokens (fleet.hetero.chunked_lm_loss: the whole logits, their
+# log-softmax and its gradient at 6 GiB each made it run out of the card's
+# 80 GB before). The vmap rules are checked, and the kernels timed, at the
+# vmap paths' shapes.
 FLEET = 4
-LM_VMAP_BATCH = 4
+LM_VMAP_BATCH = 8
+# the population the cohort phase draws its 4 clients from
+COHORT_POPULATION = 1_000_000
 VMAP_INT8 = ((FLEET * MAIN_M, MAIN_D), (FLEET * LM_VMAP_BATCH * 1024, LM_D))
 FLASH_VMAP = ((FLEET * LM_VMAP_BATCH,) + FLASH_MAIN[1:],)
 FLEET_DROPOUT = 0.25
@@ -887,11 +900,12 @@ def time_wkv_bwd(dev) -> dict:
 
 
 def main_spec(api, kind: str, rounds: int, *, client_axis="scan",
-              dropout_rate=0.0):
+              dropout_rate=0.0, population=None):
     return api.ExperimentSpec(
         model=api.ModelSpec(name="mobilenetv2", num_classes=12),
         data=api.DataSpec(image_size=224),
-        clients=api.ClientSpec(num_clients=4, dropout_rate=dropout_rate),
+        clients=api.ClientSpec(num_clients=4, dropout_rate=dropout_rate,
+                               population=population),
         cut_policy=api.CutPolicy(fraction=0.25),
         link_policy=api.LinkPolicy(compress="int8"),
         engine=api.EngineSpec(kind=kind, client_axis=client_axis,
@@ -987,14 +1001,15 @@ def check_against_cpu(api):
 
 def lm_spec(api, arch, attn_impl: str, *, seq_len=1024, n_train=96,
             n_test=16, num_clients=4, batch_size=8, mission=True,
-            client_axis="scan", dropout_rate=0.0):
+            client_axis="scan", dropout_rate=0.0, population=None):
     return api.ExperimentSpec(
         model=api.ModelSpec(family="transformer", arch=arch,
                             attn_impl=attn_impl),
         data=api.DataSpec(kind="tokens", partition="iid", seq_len=seq_len,
                           n_train=n_train, n_test=n_test),
         clients=api.ClientSpec(num_clients=num_clients,
-                               dropout_rate=dropout_rate),
+                               dropout_rate=dropout_rate,
+                               population=population),
         cut_policy=api.CutPolicy(fraction=0.25),
         link_policy=api.LinkPolicy(compress="int8"),
         engine=api.EngineSpec(kind="sl", client_axis=client_axis,
@@ -1174,17 +1189,23 @@ def check_vmap_rules(dev) -> dict:
     return {"flash": err, "flash_grad": max(gerr.values())}
 
 
-def check_fleet_against_cpu(api, spec, label: str):
+def check_fleet_against_cpu(api, spec, label: str, cohorts=None):
     """``spec`` on the card against the same plan on the CPU (the kernels'
-    plain versions), same params and data: losses within the reference's
-    ``FLEET_EQUIV_ATOL``, active clients and wire bytes exactly."""
+    plain versions), same params and data (and, for a population, the same
+    ``Plan.cohorts``): losses within the reference's ``FLEET_EQUIV_ATOL``,
+    active clients, wire bytes and cohort ids exactly."""
     from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
-    _, rec_gpu = api.compile_experiment(spec).run()
-    _, rec_cpu = api.compile_experiment(spec, device="cpu").run()
+    records = []
+    for device in ("cuda", "cpu"):
+        plan = api.compile_experiment(spec, device=device)
+        plan.cohorts = cohorts
+        records.append(plan.run()[1])
+    rec_gpu, rec_cpu = records
     for a, b in zip(rec_gpu, rec_cpu):
         if (abs(a.loss - b.loss) > FLEET_EQUIV_ATOL
                 or a.active_clients != b.active_clients
-                or a.link_bytes != b.link_bytes):
+                or a.link_bytes != b.link_bytes
+                or a.cohort_pids != b.cohort_pids):
             raise AssertionError(f"{label} card vs CPU records differ: {a} "
                                  f"vs {b}")
     print(f"[check] {label} on the card == on the CPU (losses "
@@ -1308,6 +1329,144 @@ def run_lm_vmap_path(api) -> dict:
                      dropout_rate=FLEET_DROPOUT),
         "reduced SmolLM sl/vmap pallas+int8 dropout")
     return {"lm-vmap": launches, "peak_bytes": peak}
+
+
+def state_bytes(tree) -> int:
+    """Bytes of every tensor in an engine state (dicts, tuples, optimizer
+    states)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(state_bytes(v) for v in tree)
+    if hasattr(tree, "__dataclass_fields__"):
+        return sum(state_bytes(getattr(tree, f)) for f in
+                   tree.__dataclass_fields__)
+    return 0
+
+
+def run_cohort_paths(api) -> dict:
+    """Population cohorts on the fleet engines: MobileNetV2 ``sl/vmap``
+    (the EPSL shared client tier) with ``main_spec`` at a population of
+    ``COHORT_POPULATION``, cohort 4, dropout ``FLEET_DROPOUT``, 2 rounds
+    (one int8 launch a local step, each round's cohort printed), its
+    engine state after ``init()`` equal in bytes at populations of 10,000
+    and 1,000,000; ``fl/vmap`` for one round on the same cohort, SL's
+    client energy below FL's; SmolLM-135M ``sl/vmap`` on the shared tier
+    at a population of 10,000 and batch ``LM_VMAP_BATCH``, 1 round (one
+    flash launch a layer a local step for the cohort, plus the
+    evaluation's; one int8 launch a local step), its peak memory; and a
+    tinycnn ``sl/vmap`` cohort run on the card against the CPU with the
+    same ``Plan.cohorts``."""
+    import gc
+
+    from repro_torch.api.plan import LM_EVAL_CHUNK
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.sim.scenario import cohort_generator, sample_cohort
+
+    sizes = {}
+    for pop in (10_000, COHORT_POPULATION):
+        t0 = time.perf_counter()
+        sl = api.compile_experiment(main_spec(
+            api, "sl", 2, client_axis="vmap", dropout_rate=FLEET_DROPOUT,
+            population=pop))
+        sizes[pop] = state_bytes(sl.init().engine_state)
+        print(f"[cohort] sl/vmap MobileNetV2 compiled in "
+              f"{time.perf_counter() - t0:.2f} s: population {pop}, cohort "
+              f"{sl.spec.clients.num_clients}, {len(sl.parts)} partitions, "
+              f"client tier {sl._engine.client_tier}; engine state "
+              f"{sizes[pop]} bytes after init()")
+    if sizes[10_000] != sizes[COHORT_POPULATION]:
+        raise AssertionError(f"cohort engine state depends on the "
+                             f"population: {sizes}")
+    quant_dequant_int8.launches = 0
+    sl_state, sl_recs = run_plan(sl, "cohort-sl")
+    launches = {"quant_dequant_int8": quant_dequant_int8.launches}
+    want = sl.num_rounds * sl.spec.local_steps
+    print(f"[cohort] sl/vmap cohorts {[r.cohort_pids for r in sl_recs]}; "
+          f"quant_dequant_int8 launches over the {sl.num_rounds}-round run: "
+          f"{launches['quant_dequant_int8']} (want {want}: one a local step "
+          f"for the cohort)")
+    if (sl.num_rounds != 2 or launches["quant_dequant_int8"] != want
+            or any(len(r.cohort_pids) != 4 for r in sl_recs)):
+        raise AssertionError(f"cohort sl/vmap launched the int8 kernel "
+                             f"{launches}, want {want}, or lost its cohort")
+    del sl, sl_state
+
+    fl = api.compile_experiment(main_spec(
+        api, "fl", 1, client_axis="vmap", dropout_rate=FLEET_DROPOUT,
+        population=COHORT_POPULATION))
+    quant_dequant_int8.launches = 0
+    fl_state, fl_recs = run_plan(fl, "cohort-fl")
+    fl_launches = {"quant_dequant_int8": quant_dequant_int8.launches}
+    del fl, fl_state
+    sl_client = sl_recs[0].client_energy_j
+    fl_client = fl_recs[0].client_energy_j
+    print(f"[cohort] client energy in round 0 (cohort "
+          f"{fl_recs[0].cohort_pids}, {sl_recs[0].active_clients} and "
+          f"{fl_recs[0].active_clients} active): SL {sl_client:.6g} J < FL "
+          f"{fl_client:.6g} J; FL int8 launches {fl_launches}")
+    if not (sl_client < fl_client and fl_launches["quant_dequant_int8"] == 0
+            and sl_recs[0].cohort_pids == fl_recs[0].cohort_pids
+            and sl_recs[0].active_clients == fl_recs[0].active_clients):
+        raise AssertionError("cohort fl/vmap: SL client energy is not below "
+                             "FL's on the same cohort, or FL launched the "
+                             "link")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("cohort CNN paths")
+
+    torch.cuda.reset_peak_memory_stats()
+    spec = lm_spec(api, smollm_135m, "pallas", client_axis="vmap",
+                   batch_size=LM_VMAP_BATCH, population=10_000)
+    spec = dataclasses.replace(spec, global_rounds=1)
+    t0 = time.perf_counter()
+    lm = api.compile_experiment(spec)
+    print(f"[cohort] sl/vmap SmolLM-135M compiled in "
+          f"{time.perf_counter() - t0:.2f} s: population 10000, cohort "
+          f"{lm.spec.clients.num_clients} x batch {lm.spec.batch_size} x "
+          f"{lm.spec.data.seq_len} tokens, client tier "
+          f"{lm._engine.client_tier}")
+    flash_attention.launches = 0
+    quant_dequant_int8.launches = 0
+    _, lm_recs = run_plan(lm, "cohort-lm")
+    lm_launches = {"flash_attention": flash_attention.launches,
+                   "quant_dequant_int8": quant_dequant_int8.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = lm.spec.local_steps
+    chunks = -(-len(lm.x_test) // LM_EVAL_CHUNK)
+    n_layers = smollm_135m.n_layers
+    want = {"flash_attention": lm.num_rounds * n_layers * (steps + chunks),
+            "quant_dequant_int8": lm.num_rounds * steps}
+    print(f"[cohort] sl/vmap SmolLM-135M cohort {lm_recs[0].cohort_pids}; "
+          f"launches over the {lm.num_rounds}-round run: {lm_launches} "
+          f"(want {want}); peak memory {peak / 2 ** 30:.2f} GiB ({peak} "
+          f"bytes)")
+    if lm.num_rounds != 1 or lm_launches != want:
+        raise AssertionError(f"cohort SmolLM launches {lm_launches}, want "
+                             f"{want}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cohorts = [tuple(int(p) for p in sample_cohort(
+        cohort_generator(7, r), 10_000, 3)) for r in range(3)]
+    check_fleet_against_cpu(api, api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=3, dropout_rate=0.34,
+                               population=10_000),
+        link_policy=api.LinkPolicy(compress="int8"),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        global_rounds=3, batch_size=4), "tinycnn sl/vmap cohort int8 dropout",
+        cohorts=cohorts)
+    return {"cohort-sl": launches, "cohort-fl": fl_launches,
+            "cohort-lm": lm_launches, "cohort_lm_peak_bytes": peak,
+            "state_bytes": sizes}
 
 
 def run_rwkv_path() -> int:
@@ -1576,6 +1735,8 @@ def main() -> int:
     fleet_launches = run_fleet_cnn_paths(api)
     fleet_launches.update(run_lm_vmap_path(api))
     stamp("lm/vmap path")
+    cohort = run_cohort_paths(api)
+    stamp("cohort paths")
 
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
@@ -1590,6 +1751,11 @@ def main() -> int:
           f"{fleet_launches['lm-vmap']} (peak "
           f"{fleet_launches['peak_bytes'] / 2 ** 30:.2f} GiB); vmap rules "
           f"max_abs_err {vmap_errs}")
+    print(f"[paths] cohorts: sl/vmap MobileNetV2 {cohort['cohort-sl']}, "
+          f"fl/vmap MobileNetV2 {cohort['cohort-fl']}, sl/vmap SmolLM-135M "
+          f"{cohort['cohort-lm']} (peak "
+          f"{cohort['cohort_lm_peak_bytes'] / 2 ** 30:.2f} GiB); engine "
+          f"state bytes by population {cohort['state_bytes']}")
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), over the RWKV

@@ -14,8 +14,13 @@ Counterpart of ``repro.api.plan`` for the slices ported so far:
 each with a fraction cut, an fp32 or int8 link (the int8 boundary on the
 fused CUDA kernel or the two-op plain path), the UAV mission budget and, on
 the fleet engines, client dropout (``ClientSpec.dropout_rate``: a numpy
-mask a round from ``RandomState(seed + 1)``, as the reference draws it).
-The run surface is the reference's:
+mask a round from ``RandomState(seed + 1)``, as the reference draws it) and
+population cohorts (``ClientSpec.population``: a round's ``num_clients``
+participants drawn out of the population, their batches gathered from the
+partitions by population id, their edge profiles billed by population id;
+parallel SL trains one client model shared by the cohort, the EPSL shared
+client tier, so engine state stays O(cohort)). The run surface is the
+reference's:
 
     plan = compile_experiment(spec, device="cuda")
     state = plan.init()
@@ -45,7 +50,7 @@ from ..core.split import (SplitStep, cut_index_for_fraction,
                           tier_call, to_port_layout)
 from ..core.trajectory import TourPlan, plan_tour
 from ..data.partition import (partition_dirichlet, partition_iid,
-                              partition_non_iid)
+                              partition_non_iid, population_partition_count)
 from ..data.synthetic import SyntheticPestImages, synthetic_tokens
 from ..fleet.engine import (fleet_state, make_fleet_fl_round,
                             make_fleet_sl_round)
@@ -55,10 +60,12 @@ from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
                                 resolve_link_kernel)
 from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
 from ..optim.optimizers import FunctionalAdamW, adamw
+from ..sim.scenario import cohort_generator, sample_cohort
 from .records import RoundRecord
 from .runtime import (client_coords, client_step_time_s, count_fl_step_flops,
                       count_sl_step_flops, count_split_step_flops,
-                      metrics_from_predictions, roofline_s, round_batches)
+                      metrics_from_predictions, roofline_s,
+                      round_batch_indices)
 from .spec import ExperimentSpec
 
 # time billed to the FL server per round: aggregation only (the
@@ -89,12 +96,18 @@ class Plan:
     parameter dicts (keys are the reference's pytree paths, e.g.
     ``"conv.w"``), for the split LM the (client, server) state dicts. Assign
     ``convert.from_reference(...)`` / ``convert.lm_from_reference(...)`` to
-    it before ``init()`` to start from the reference's parameters."""
+    it before ``init()`` to start from the reference's parameters.
+
+    ``cohorts`` (population plans only) takes the place of the plan's own
+    cohort draw: a sequence with one entry a round, each ``num_clients``
+    distinct sorted population ids. Assign it before running, e.g. the
+    reference's ``RoundRecord.cohort_pids``, to replay its cohorts; an
+    entry that breaks those rules, or a round past its end, raises."""
 
     def __init__(self, spec: ExperimentSpec, *, device, arrays, parts,
                  stages, params0, tour: Optional[TourPlan], cut_of_client,
                  flops: dict, edges, consts, engine, num_classes: int,
-                 eval_chunk: int):
+                 eval_chunk: int, prof_consts=None):
         self.spec = spec
         self.device = device
         self.engine_label = f"{spec.engine.kind}/{spec.engine.client_axis}"
@@ -111,6 +124,12 @@ class Plan:
         self.edges = edges
         (self._t_client, self._t_server, self._link_bytes, self._link_time,
          self._link_energy, self._server_base_s) = consts
+        # per-PROFILE per-step client constants for cohort billing (edge
+        # profiles cycle over population ids), or None without a population
+        self._t_client_prof, self._p_edge_prof = (
+            prof_consts if prof_consts is not None else (None, None))
+        self._population = spec.clients.population
+        self.cohorts = None
         self._engine = engine
         self._num_classes = num_classes
         self._eval_chunk = eval_chunk
@@ -127,17 +146,52 @@ class Plan:
                          rng=np.random.RandomState(self.spec.seed),
                          dropout_rng=np.random.RandomState(self.spec.seed + 1))
 
-    def round_batches(self, state: PlanState):
+    def round_batches(self, state: PlanState, cohort=None):
         """One round's (clients, local_steps, ...) batch stacks on the
-        plan's device, in the engine's format (FL: ``(bx, by)``; SL: dict)."""
-        bx, by = round_batches(self.x_train, self.y_train, self.parts,
-                               self.spec.batch_size, self.spec.local_steps,
-                               state.rng, shrink=self.spec.data.shrink_batches)
-        bx = _to_device(bx, self.device)
-        by = torch.from_numpy(by.astype(np.int64)).to(self.device)
+        plan's device, in the engine's format (FL: ``(bx, by)``; SL: dict).
+
+        The sample indices of every partition are drawn (one ``choice`` a
+        partition, the reference's call sequence); with ``cohort``
+        (population ids) only the cohort's partitions (``cohort % P``) are
+        gathered and moved to the device, without it every partition."""
+        sel = round_batch_indices(self.parts, self.spec.batch_size,
+                                  self.spec.local_steps, state.rng,
+                                  shrink=self.spec.data.shrink_batches)
+        if cohort is not None:
+            sel = sel[np.asarray(cohort) % len(self.parts)]
+        bx = _to_device(self.x_train[sel], self.device)
+        by = torch.from_numpy(self.y_train[sel].astype(np.int64)).to(
+            self.device)
         if self.spec.engine.kind == "fl":
             return bx, by
         return {"inputs": bx, "targets": by}
+
+    def _round_cohort(self, state: PlanState) -> Optional[np.ndarray]:
+        """The round's sorted cohort population ids, or None without a
+        population: the entry of ``cohorts`` when it is set (checked), else
+        a uniform Gumbel top-k draw from the round's own generator
+        (``sim.scenario.cohort_generator(seed, round)``)."""
+        if self._population is None:
+            if self.cohorts is not None:
+                raise ValueError("Plan.cohorts is set on a plan without "
+                                 "ClientSpec.population")
+            return None
+        k = self.spec.clients.num_clients
+        if self.cohorts is None:
+            return sample_cohort(cohort_generator(self.spec.seed,
+                                                  state.round),
+                                 self._population, k)
+        if state.round >= len(self.cohorts):
+            raise ValueError(f"Plan.cohorts holds {len(self.cohorts)} "
+                             f"rounds; round {state.round} is past its end")
+        ids = np.asarray(self.cohorts[state.round])
+        if (ids.shape != (k,) or not np.issubdtype(ids.dtype, np.integer)
+                or np.any(np.diff(ids) <= 0) or ids[0] < 0
+                or ids[-1] >= self._population):
+            raise ValueError(f"Plan.cohorts[{state.round}] = {ids.tolist()} "
+                             f"is not {k} distinct sorted ids below the "
+                             f"population {self._population}")
+        return ids.astype(np.int64)
 
     def _round_mask(self, state: PlanState) -> Optional[np.ndarray]:
         """The round's (clients,) 0/1 dropout mask, or None without
@@ -155,21 +209,24 @@ class Plan:
     def run_round(self, state: PlanState, batches=None, *,
                   with_eval: bool = True) -> tuple[PlanState, RoundRecord]:
         """Execute one global round; returns (state, RoundRecord)."""
+        cohort = self._round_cohort(state)
         if batches is None:
-            batches = self.round_batches(state)
+            batches = self.round_batches(state, cohort=cohort)
         mask = self._round_mask(state)
         state.engine_state, losses = self._engine.run(
             state.engine_state, batches,
             None if mask is None else torch.from_numpy(mask).to(self.device))
         rec = self._assemble_record(state, losses.cpu().numpy(), mask,
-                                    with_eval=with_eval)
+                                    cohort, with_eval=with_eval)
         state.round += 1
         return state, rec
 
-    def _assemble_record(self, state: PlanState, loss_c, mask, *,
+    def _assemble_record(self, state: PlanState, loss_c, mask, cohort, *,
                          with_eval: bool) -> RoundRecord:
         """The analytic energy/link bill of one executed round: the loss
-        and every bill over the active clients only."""
+        and every bill over the active clients only; under a population the
+        client time and energy at the cohort's own edge profiles
+        (``cohort % profiles``)."""
         n = self.spec.clients.num_clients
         steps = self.spec.local_steps
         active = np.arange(n) if mask is None else np.flatnonzero(mask > 0)
@@ -180,10 +237,15 @@ class Plan:
         if self.tour is not None:
             uav = float(self.tour.e_first if state.round == 0
                         else self.tour.e_per_round)
-        p_edge = np.asarray([e.power_w for e in self.edges])
-        t_cli = float(self._t_client[active].sum() * steps)
-        e_cli = float(sum(self._t_client[c] * steps * p_edge[c]
-                          for c in active))
+        if cohort is not None and self._t_client_prof is not None:
+            prof = cohort % len(self._t_client_prof)
+            t_client, p_edge = (self._t_client_prof[prof],
+                                self._p_edge_prof[prof])
+        else:
+            t_client = self._t_client
+            p_edge = np.asarray([e.power_w for e in self.edges])
+        t_cli = float(t_client[active].sum() * steps)
+        e_cli = float(sum(t_client[c] * steps * p_edge[c] for c in active))
         t_srv = float(self._t_server[active].sum() * steps
                       + self._server_base_s)
         if with_eval:
@@ -200,7 +262,10 @@ class Plan:
             server_time_s=t_srv,
             server_energy_j=t_srv * RTX_A5000.power_w,
             uav_energy_j=uav, active_clients=len(active),
-            engine=self.engine_label, cohort_pids=(), metrics={})
+            engine=self.engine_label,
+            cohort_pids=(() if cohort is None
+                         else tuple(int(p) for p in cohort)),
+            metrics={})
 
     @torch.no_grad()
     def evaluate(self, state: PlanState) -> dict:
@@ -368,12 +433,22 @@ class _SLFleetEngine:
     ``(params_c, params_s, oc, os_)``. ``params0_tiers(params0)`` gives the
     (client, server) parameter dicts of the plan's ``params0``;
     ``logits(client, server, inputs)`` is the evaluation forward, on the
-    prefix of row 0 (or, under dropout, the row mean)."""
+    prefix of row 0 (or, under dropout, the row mean).
+
+    A sampled cohort (population > num_clients) cannot keep a prefix a
+    slot, since a slot holds another population client every round: the
+    fleet trains ONE client model shared by the cohort (the EPSL shared
+    client tier, ``client_tier="shared"``), updated on the cohort-mean
+    gradient, and evaluates with it as it is."""
 
     def __init__(self, spec, step: SplitStep, client: nn.Module,
                  server: nn.Module, *, params0_tiers, logits):
         self.spec = spec
         self.masked = spec.clients.dropout_rate > 0
+        pop = spec.clients.population
+        self.client_tier = ("shared" if pop is not None
+                            and pop > spec.clients.num_clients
+                            else "stacked")
         self.params0_tiers = params0_tiers
         self.opt_c, self.opt_s = (FunctionalAdamW(spec.lr),
                                   FunctionalAdamW(spec.lr))
@@ -382,12 +457,13 @@ class _SLFleetEngine:
             make_split_loss(step, client, server), self.opt_c, self.opt_s,
             local_rounds=spec.local_steps,
             server_reduce=spec.engine.server_reduce,
-            client_dropout=self.masked)
+            client_dropout=self.masked, client_tier=self.client_tier)
 
     def init_state(self, params0):
         params_c, params_s = self.params0_tiers(params0)
         return fleet_state(params_c, params_s, self.opt_c, self.opt_s,
-                           self.spec.clients.num_clients)
+                           self.spec.clients.num_clients,
+                           client_tier=self.client_tier)
 
     def run(self, st, batches, mask):
         out = self.round_fn(*st, batches, *_mask_arg(mask))
@@ -395,7 +471,8 @@ class _SLFleetEngine:
 
     def predict(self, st, x):
         params_c, params_s = st[0], st[1]
-        prefix = _eval_prefix(params_c, self.masked)
+        prefix = (params_c if self.client_tier == "shared"
+                  else _eval_prefix(params_c, self.masked))
         return self.logits(prefix, params_s, x).argmax(dim=-1)
 
 
@@ -448,7 +525,15 @@ def _resolve_data(spec: ExperimentSpec, data):
 
 
 def _resolve_parts(spec: ExperimentSpec, y_train: np.ndarray) -> list:
+    """Client data partitions per ``DataSpec.partition``; under a
+    population ``population_partition_count`` of them, cycled over the
+    population ids (``pid % count``). The materialised corner (population
+    == num_clients) builds the per-client partitions of a plan without
+    one."""
     n = spec.clients.num_clients
+    if spec.clients.population is not None:
+        n = population_partition_count(spec.clients.population,
+                                       len(y_train))
     if spec.data.partition == "dirichlet":
         return partition_dirichlet(y_train, n, alpha=spec.data.dirichlet_alpha,
                                    seed=spec.seed, min_size=1)
@@ -457,6 +542,19 @@ def _resolve_parts(spec: ExperimentSpec, y_train: np.ndarray) -> list:
     return partition_non_iid(y_train, n, spec.data.classes_per_client,
                              num_classes=spec.model.num_classes,
                              seed=spec.seed)
+
+
+def _profile_consts(spec: ExperimentSpec, client_flops):
+    """Per-PROFILE ``(t_client_s, power_w)`` arrays for cohort billing, from
+    the homogeneous per-step client FLOPs (FL's full step, or the single
+    cut's client step), or None without a population. Profiles cycle over
+    population ids as they cycle over slots, so in the materialised corner
+    the gather ``cohort % profiles`` gives the per-slot constants."""
+    if spec.clients.population is None:
+        return None
+    profs = spec.clients.edge_profiles
+    return (np.asarray([client_step_time_s(client_flops, p) for p in profs]),
+            np.asarray([p.power_w for p in profs]))
 
 
 def _not_in_slice(what: str, item: str):
@@ -507,6 +605,28 @@ def _validate(spec: ExperimentSpec):
     if not 0.0 <= cli.dropout_rate < 1.0:
         raise ValueError(f"ClientSpec.dropout_rate must be in [0, 1), got "
                          f"{cli.dropout_rate}")
+    if cli.population is not None:
+        # the reference's refusals, with its messages
+        if cli.population < cli.num_clients:
+            raise ValueError(
+                f"ClientSpec.population={cli.population} is smaller than the "
+                f"cohort num_clients={cli.num_clients}; a round samples "
+                f"num_clients participants FROM the population (use "
+                f"population=None for a fully-materialized fleet)")
+        if cli.population > cli.num_clients:
+            if eng.kind == "sl" and not eng.is_fleet:
+                raise ValueError(
+                    "population sampling with sl/scan is unsupported: the "
+                    "sequential Algorithm 3 engine keeps per-slot client "
+                    "params + Adam moments across rounds, which would leak "
+                    "state between the different population clients a slot "
+                    "maps to; use sl/vmap or sl/shard_map (the EPSL shared "
+                    "client tier) or fl/* (stateless rounds)")
+            if spec.cut_policy.mode == "adaptive":
+                raise ValueError(
+                    "adaptive per-client cuts re-bucket (and so recompile) "
+                    "per sampled cohort; population sampling supports "
+                    "fraction cuts only")
     if eng.kind not in ("fl", "sl"):
         raise ValueError(f"engine.kind must be 'fl' or 'sl', got {eng.kind!r}")
     if eng.client_axis not in ("scan", "vmap", "shard_map"):
@@ -552,8 +672,6 @@ def _validate(spec: ExperimentSpec):
                       "fleet engines)", "item 16")
     if eng.server_mesh is not None:
         _not_in_slice("EngineSpec.server_mesh", "item 16")
-    if cli.population is not None:
-        _not_in_slice("ClientSpec.population (cohort sampling)", "item 10")
     if spec.cut_policy.mode == "adaptive":
         _not_in_slice("CutPolicy(mode='adaptive')", "item 11")
     if spec.scenario is not None:
@@ -625,7 +743,10 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
         # the dispatch-level FLOP counter cannot see inside a kernel launch:
         # a "pallas" plan is billed through the plain attention of the "ref"
         # seam, the same O(S^2) work, so its bill does not depend on the
-        # kernel
+        # kernel. Likewise the bill counts the plain loss of the whole
+        # logits, the reference's form: the chunked loss the engines train
+        # on forms the same three head products, and its backward's scaling
+        # of the saved gradients is work the plain loss does not do
         count_step, _ = lm_split_step(
             cfg, attn_impl="ref" if impl == "pallas" else impl)
         fl_client, fl_server, smashed = count_split_step_flops(
@@ -702,8 +823,10 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
             link_energy[cid] = link.step_energy_j(smashed)
     consts = (t_client, t_server, link_bytes, link_time, link_energy,
               server_base_s)
+    client_flops = flops["full"] if spec.engine.kind == "fl" else fl_client
     return Plan(spec, device=device, arrays=arrays, parts=parts,
                 stages=stages, params0=params0, tour=tour,
                 cut_of_client=cut_of_client, flops=flops, edges=edges,
                 consts=consts, engine=engine, num_classes=num_classes,
-                eval_chunk=eval_chunk)
+                eval_chunk=eval_chunk,
+                prof_consts=_profile_consts(spec, client_flops))

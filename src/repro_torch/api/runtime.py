@@ -4,6 +4,8 @@
                                leading client axis; the numpy ``RandomState``
                                call sequence of the reference, so both
                                packages draw the same batches
+                               (``round_batch_indices``: the indices alone,
+                               for a cohort's gather)
   * ``client_step_time_s``   — A5000-roofline seconds scaled to an edge
                                profile via paper Eq. (9)
   * ``count_fl_step_flops`` / ``count_sl_step_flops`` /
@@ -30,20 +32,28 @@ from ..fleet.link import SmashedSpec
 from ..models.cnn import cross_entropy_loss
 
 
-def round_batches(x, y, parts, batch_size, steps, rng, *,
-                  shrink: bool = False):
-    """One global round of minibatches as numpy arrays stacked on a leading
-    client axis: ``((clients, steps, b, ...), (clients, steps, b))``.
-    Sampling is with replacement; ``shrink`` caps the batch at the smallest
-    partition (the legacy behaviour)."""
+def round_batch_indices(parts, batch_size, steps, rng, *,
+                        shrink: bool = False) -> np.ndarray:
+    """The sample indices of one global round: ``(partitions, steps, b)``,
+    one ``rng.choice`` per partition in order (the reference's call
+    sequence). Sampling is with replacement; ``shrink`` caps the batch at
+    the smallest partition (the legacy behaviour)."""
     empty = [ci for ci, idx in enumerate(parts) if len(idx) == 0]
     if empty:
         raise ValueError(f"clients {empty} drew no data; increase the "
                          f"training set or classes_per_client")
     bs = min(batch_size, min(len(idx) for idx in parts)) if shrink \
         else batch_size
-    sel = np.stack([rng.choice(idx, size=(steps, bs), replace=True)
-                    for idx in parts])
+    return np.stack([rng.choice(idx, size=(steps, bs), replace=True)
+                     for idx in parts])
+
+
+def round_batches(x, y, parts, batch_size, steps, rng, *,
+                  shrink: bool = False):
+    """One global round of minibatches as numpy arrays stacked on a leading
+    client axis: ``((clients, steps, b, ...), (clients, steps, b))``
+    (``round_batch_indices`` gathered)."""
+    sel = round_batch_indices(parts, batch_size, steps, rng, shrink=shrink)
     return x[sel], y[sel]
 
 

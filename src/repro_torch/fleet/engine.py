@@ -172,8 +172,8 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
       "shared"  — EPSL cohort mode: ONE client model and optimizer state
                   broadcast over the cohort (``in_dims=(None, None, 0)``),
                   updated like the server on the (masked) cohort-MEAN
-                  gradient; no closing FedAvg. No plan reaches it yet: it
-                  is the tier of cohort sampling (ROADMAP queue 1 item 10).
+                  gradient; no closing FedAvg. The tier of a sampled
+                  cohort (``api.plan`` with population > num_clients).
     """
     if server_reduce not in ("mean", "sum"):
         raise ValueError(server_reduce)

@@ -95,6 +95,12 @@ def test_partitions():
             == ref_partition.population_partition_count(10 ** 6, 500))
 
 
+def test_cohort_down_weight():
+    import repro.sim.scenario as ref_scenario
+    import repro_torch.sim.scenario as scenario
+    assert scenario.COHORT_DOWN_WEIGHT == ref_scenario.COHORT_DOWN_WEIGHT
+
+
 def test_tour_planning_on_six_points():
     pts = np.random.RandomState(5).uniform(0, 600, size=(6, 2))
     base = np.zeros(2)

@@ -598,3 +598,28 @@ def test_sl_vmap_plan_with_dropout_on_card_matches_cpu(hopper):
         assert a.active_clients == b.active_clients
         assert a.link_bytes == b.link_bytes
         assert abs(a.loss - b.loss) <= FLEET_EQUIV_ATOL
+
+
+@pytest.mark.cuda
+def test_chunked_lm_loss_on_card_matches_cpu(hopper):
+    """The split LM's chunked server loss at SmolLM-135M's width, 2
+    clients x 4 x 1024 token rows (d 576, vocab 49,152), vmapped over the
+    clients with a shared head as the fleet engines take it: the card's
+    losses and gradients against the same function on the CPU."""
+    from repro_torch.fleet.hetero import chunked_lm_loss
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(2, 4, 1024, 576, generator=g)
+    head = 0.02 * torch.randn(576, 49152, generator=g)
+    t = torch.randint(0, 49152, (2, 4, 1024), generator=g)
+    w = torch.tensor([0.5, 1.0])
+    out = []
+    for dev in ("cuda", "cpu"):
+        hh = h.to(dev).requires_grad_()
+        hd = head.to(dev).requires_grad_()
+        losses = torch.func.vmap(chunked_lm_loss, in_dims=(0, None, 0))(
+            hh, hd, t.to(dev))
+        grads = torch.autograd.grad((losses * w.to(dev)).sum(), [hh, hd])
+        out.append([x.detach().cpu() for x in (losses, *grads)])
+    for a, b in zip(*out):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm() / b.norm()) < 1e-5

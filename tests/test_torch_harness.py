@@ -7,6 +7,7 @@ to both packages: the JAX reference (``repro``) and the port
 (``repro_torch``). The reference runs on the CPU. Tests that need the
 card are in ``test_torch_cuda.py``, which imports no jax.
 """
+import dataclasses
 import math
 import os
 
@@ -87,7 +88,8 @@ def assert_records_match(ref_recs, port_recs, *, ref_flops_pair,
                          port_flops_pair, server_base_s, n_test,
                          loss_atol=1e-3):
     """Record-stream parity: loss within ``loss_atol``, accuracy within one
-    test sample, link bytes exact, link time/energy within 1e-9 relative,
+    test sample, link bytes and cohort ids exact, link time/energy within
+    1e-9 relative,
     the rest by the billing arithmetic: every client field scales by the
     client FLOP ratio and every server field (less ``server_base_s``) by
     the server FLOP ratio, within 1e-6."""
@@ -98,6 +100,7 @@ def assert_records_match(ref_recs, port_recs, *, ref_flops_pair,
         assert abs(p.loss - r.loss) <= loss_atol, (p.loss, r.loss)
         assert abs(p.accuracy - r.accuracy) <= 1.0 / n_test + 1e-12
         assert p.link_bytes == r.link_bytes
+        assert tuple(p.cohort_pids) == tuple(r.cohort_pids)
         for f in RECORD_LINK_FIELDS:
             assert getattr(p, f) == pytest.approx(getattr(r, f), rel=1e-9)
         assert p.active_clients == r.active_clients
@@ -155,3 +158,19 @@ def test_contraction_walk_counts_a_matmul_and_a_conv():
     conv = lambda x, w: jax.lax.conv_general_dilated(  # noqa: E731
         x, w, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
     assert jax_contraction_flops(conv, x, w) == 2 * (2 * 8 * 8 * 4) * 27
+
+
+def test_records_match_compares_cohort_ids():
+    from repro.api.records import RoundRecord
+    rec = RoundRecord(round=0, loss=1.0, accuracy=0.5, link_bytes=8.0,
+                      link_time_s=1.0, link_energy_j=2.0, client_time_s=3.0,
+                      client_energy_j=4.0, server_time_s=5.0,
+                      server_energy_j=6.0, uav_energy_j=0.0,
+                      active_clients=2, engine="sl/vmap",
+                      cohort_pids=(3, 17))
+    kw = dict(ref_flops_pair=(1.0, 1.0), port_flops_pair=(1.0, 1.0),
+              server_base_s=0.0, n_test=4)
+    assert_records_match([rec], [rec], **kw)
+    other = dataclasses.replace(rec, cohort_pids=(3, 18))
+    with pytest.raises(AssertionError):
+        assert_records_match([rec], [other], **kw)

@@ -146,8 +146,10 @@ OUT_OF_SLICE = {
     # own refusal
     "dropout": (dict(clients=T.ClientSpec(dropout_rate=0.5)),
                 (ValueError, "client dropout is a fleet policy")),
+    # a sampled population runs on the fleet and FL engines; on sl/scan it
+    # is the reference's own refusal
     "population": (dict(clients=T.ClientSpec(num_clients=4, population=8)),
-                   _REFUSED),
+                   (ValueError, "population sampling with sl/scan")),
     "adaptive": (dict(cut_policy=T.CutPolicy(mode="adaptive")), _REFUSED),
     "scenario": (dict(scenario=object()), _REFUSED),
     # the transformer family runs now, but only on a stack it is given
@@ -157,10 +159,14 @@ OUT_OF_SLICE = {
     "lm-vmap": (_lm(configs.smollm_135m.reduced(),
                     engine=T.EngineSpec(client_axis="shard_map")),
                 (NotImplementedError, "queue 1 item 16")),
+    # population cohorts run on sl/vmap; with adaptive cuts they are the
+    # reference's own refusal
     "vmap-population": (dict(engine=T.EngineSpec(client_axis="vmap"),
                              clients=T.ClientSpec(num_clients=4,
-                                                  population=8)),
-                        (NotImplementedError, "queue 1 item 10")),
+                                                  population=8),
+                             cut_policy=T.CutPolicy(mode="adaptive")),
+                        (ValueError, "population sampling supports "
+                                     "fraction cuts only")),
     "vmap-scenario": (dict(engine=T.EngineSpec(client_axis="vmap"),
                            scenario=object()),
                       (NotImplementedError, "queue 1 item 14")),

@@ -11,7 +11,15 @@
   int8-fused links, ``attn_impl`` in {xla, ref, pallas}: loss within 1e-3,
   link bytes exactly, energies by the port/reference FLOP ratio to 1e-6
   (``assert_records_match``);
-- the port's token stream law, the stack cut and the conversion's checks.
+- the port's token stream law, the stack cut and the conversion's checks;
+- the chunked server loss the engines train on (``chunked_lm_loss``): its
+  loss and the gradients of h and the head against autograd through the
+  plain loss in f32 within 1e-6, at chunk sizes that divide the token
+  count and that do not; no tensor larger than one chunk's logits; under
+  ``torch.func.vmap`` over 3 clients with a shared head, each client's
+  loss and gradient as a per-client loop, the head's gradient the
+  weighted sum of theirs; the split step on it against the plain one, and
+  the same contraction FLOPs.
 """
 import dataclasses
 
@@ -38,8 +46,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import lm_from_reference
 from repro_torch.core.split import stack_cut_index
 from repro_torch.data.synthetic import synthetic_tokens
-from repro_torch.fleet.hetero import lm_modules, lm_split_program, \
-    lm_split_step
+from repro_torch.fleet.hetero import (chunked_lm_loss, lm_loss, lm_modules,
+                                     lm_split_program, lm_split_step)
 from repro_torch.models.transformer import GroupSpec, group_apply
 from repro_torch.optim import AdamW
 
@@ -299,3 +307,130 @@ def test_lm_from_reference_checks_keys_and_shapes():
         lm_from_reference(pc, ps, dataclasses.replace(cfg, d_ff=8))
     with pytest.raises(ValueError, match="cut"):
         lm_split_program(cfg, torch.Generator(), cfg.n_layers)
+
+
+# ---------------------------------------------------------------------------
+# the chunked server loss
+# ---------------------------------------------------------------------------
+
+N_TOK, D, V = 2 * 37, 48, 300
+
+
+def _loss_inputs(seed=0, clients=None):
+    rng = np.random.RandomState(seed)
+    lead = () if clients is None else (clients,)
+    h = torch.tensor(rng.standard_normal(lead + (2, 37, D)),
+                     dtype=torch.float32, requires_grad=True)
+    head = torch.tensor(0.2 * rng.standard_normal((D, V)),
+                        dtype=torch.float32, requires_grad=True)
+    t = torch.tensor(rng.randint(0, V, size=lead + (2, 37)))
+    return h, head, t
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 37, N_TOK, 1000])
+def test_chunked_loss_matches_plain_loss(chunk):
+    """Chunks of 7 and 1 do not divide 74 tokens; 1000 is one chunk."""
+    h, head, t = _loss_inputs()
+    got = chunked_lm_loss(h, head, t, chunk=chunk)
+    g_got = torch.autograd.grad(got, [h, head])
+    want = lm_loss(h @ head, t)
+    g_want = torch.autograd.grad(want, [h, head])
+    assert got.shape == () and got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), atol=1e-6, rtol=0)
+    for a, b in zip(g_got, g_want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
+
+
+def test_chunked_loss_holds_one_chunk_of_logits():
+    """Forward and backward, no tensor the loss makes is larger than one
+    chunk of logits (7 x 300), where the plain loss makes (74, 300)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        most = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(o, torch.Tensor):
+                    self.most = max(self.most, o.numel())
+            return out
+
+    h, head, t = _loss_inputs()
+    for fn, bound in ((lambda: chunked_lm_loss(h, head, t, chunk=7),
+                       max(7 * V, D * V)),
+                      (lambda: lm_loss(h @ head, t), N_TOK * V)):
+        with Largest() as mode:
+            torch.autograd.grad(fn(), [h, head])
+        assert mode.most == bound
+
+
+def test_chunked_loss_skips_the_gradient_work_without_grad():
+    h, head, t = _loss_inputs()
+    want = float(lm_loss(h @ head, t))
+    with torch.no_grad():
+        got = chunked_lm_loss(h, head, t, chunk=7)
+    assert not got.requires_grad
+    np.testing.assert_allclose(float(got), want, atol=1e-6, rtol=0)
+    got = chunked_lm_loss(h.detach(), head.detach(), t, chunk=7)
+    assert not got.requires_grad
+
+
+def test_chunked_loss_vmap_with_a_shared_head():
+    """The fleet engines' form: a vmapped forward over 3 clients (head
+    shared, ``in_dims`` None), one backward of the weighted sum. Each
+    client's loss and h gradient equal a per-client loop's; the head's
+    gradient the weighted sum of the clients', weights (0, 1, 1)."""
+    h, head, t = _loss_inputs(clients=3)
+    w = torch.tensor([0.0, 1.0, 1.0])
+    losses = torch.func.vmap(
+        lambda hh, hd, tt: chunked_lm_loss(hh, hd, tt, chunk=7),
+        in_dims=(0, None, 0))(h, head, t)
+    g_h, g_head = torch.autograd.grad((losses * w).sum(), [h, head])
+    assert losses.shape == (3,)
+    want_head = torch.zeros_like(head)
+    for c in range(3):
+        hc = h[c].detach().requires_grad_()
+        want = lm_loss(hc @ head, t[c])
+        gw_h, gw_head = torch.autograd.grad(want, [hc, head])
+        np.testing.assert_allclose(float(losses[c]), float(want), atol=1e-6,
+                                   rtol=0)
+        np.testing.assert_allclose(g_h[c].numpy(), (w[c] * gw_h).numpy(),
+                                   atol=1e-6, rtol=0)
+        want_head += w[c] * gw_head
+    np.testing.assert_allclose(g_head.numpy(), want_head.numpy(), atol=1e-6,
+                               rtol=0)
+    with pytest.raises(ValueError, match="shared"):
+        heads = head.detach().expand(3, D, V)
+        torch.func.vmap(lambda hh, hd, tt: chunked_lm_loss(hh, hd, tt))(
+            h, heads, t)
+
+
+def test_split_step_on_the_chunked_loss():
+    """The split step the engines train (``chunked_loss=True``) against
+    the plain one: loss and every gradient, and equal contraction FLOPs
+    (the bill counts the plain step)."""
+    from repro_torch.api.runtime import count_split_step_flops
+    cfg, ref_cfg = _cfg()
+    k = 1
+    _, params = _reference_program(ref_cfg, k)
+    tokens, targets = _tokens(cfg.vocab)
+    batch = {"inputs": torch.tensor(tokens).long(),
+             "targets": torch.tensor(targets).long()}
+    out = []
+    for chunked in (False, True):
+        client, server = _port_modules(cfg, params, k)
+        step, _ = lm_split_step(cfg, chunked_loss=chunked)
+        loss, _ = step.grads(client, server, batch)
+        grads = {f"{tier}.{name}": p.grad.clone()
+                 for tier, m in (("c", client), ("s", server))
+                 for name, p in m.named_parameters()}
+        c, s, _ = count_split_step_flops(step, client, server,
+                                         batch["inputs"], batch["targets"])
+        out.append((float(loss), grads, (c.contraction, s.contraction)))
+    (l0, g0, f0), (l1, g1, f1) = out
+    np.testing.assert_allclose(l1, l0, atol=1e-6, rtol=0)
+    for name in g0:
+        np.testing.assert_allclose(g1[name].numpy(), g0[name].numpy(),
+                                   atol=1e-6, rtol=1e-5, err_msg=name)
+    assert f1 == f0
