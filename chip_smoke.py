@@ -15,8 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the wire format's quantize/dequantize pair bit for bit (NaN positions
    included; widths that reach both paths of ``csrc/quant_int8.cu``, all
    four dtype pairs, misaligned views), the int8 launch plans against
-   their Python mirror with a ``[launch]`` line at both link shapes (the
-   vector path, one wave at D = 32), the flash attention kernel within
+   their Python mirror with a ``[launch]`` line at both link shapes and
+   the ``[hetero]`` buckets' (the vector path, one wave at (12,544, 32)),
+   the flash attention kernel within
    the reference's own tolerances (f32 2e-5, bf16 3e-2), a case with
    fully masked rows (finite everywhere, the rows that see a key equal),
    and its gradient (kernel forward + closed-form backward) against
@@ -76,7 +77,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``sl/vmap`` on the shared tier, a cohort of 4 out of 10,000 at batch
    8, 1 round, with its flash and int8 launches and its peak memory; and
    a tinycnn ``sl/vmap`` cohort run on the card held against the CPU on
-   the same ``Plan.cohorts``;
+   the same ``Plan.cohorts``; then per-client adaptive cuts
+   (``[hetero]``): ``sl/vmap`` on the MobileNetV2 spec of 5 with
+   ``CutPolicy(mode="adaptive")``, edges (Jetson AGX Orin, an MCU-class
+   profile) cycled over the 4 clients, dropout 0.25 and the mission's 20 s
+   per-step link deadline, 2 rounds: the cuts must be [2, 1, 2, 1] (two
+   buckets of 2, each its own fleet round and server suffix; smashed
+   (16, 112, 112, 32) at cut 1 and (16, 112, 112, 16) at cut 2), with the
+   int8 launches (one a local step a bucket), each round's wall time and
+   record, the buckets' state bytes and a profiled round, and a tinycnn
+   run with per-client cuts on the card held against the CPU (the vmap
+   rules above include the int8 boundary at both buckets' shapes, 2
+   clients folded into (401,408, 32) and (401,408, 16), and time the kernel
+   there);
 9. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
@@ -154,6 +167,11 @@ LM_VMAP_BATCH = 8
 # the population the cohort phase draws its 4 clients from
 COHORT_POPULATION = 1_000_000
 VMAP_INT8 = ((FLEET * MAIN_M, MAIN_D), (FLEET * LM_VMAP_BATCH * 1024, LM_D))
+# the [hetero] phase's cut buckets: 2 clients each, MobileNetV2 at batch 16
+# cut after the stem (16, 112, 112, 32) and after ir0_0 (16, 112, 112, 16)
+HETERO_CUTS = [2, 1, 2, 1]
+HETERO_INT8_SHAPES = ((2, 16, 112, 112, 32), (2, 16, 112, 112, 16))
+HETERO_INT8 = tuple((math.prod(s[:-1]), s[-1]) for s in HETERO_INT8_SHAPES)
 FLASH_VMAP = ((FLEET * LM_VMAP_BATCH,) + FLASH_MAIN[1:],)
 FLEET_DROPOUT = 0.25
 
@@ -584,8 +602,9 @@ def check_int8_plans(dev):
     Python mirror (``quant_int8_launch_plan``) over ``INT8_PLAN_D`` x
     dtypes x alignment x kernel; then a ``[launch]`` line for the fused
     kernel and ``quantize_int8`` at both link shapes (f32, as the paths
-    call them), held equal to the mirror too. The vector path must take
-    both shapes, in one wave at the MobileNetV2 cut."""
+    call them), and for the fused kernel at the ``[hetero]`` buckets'
+    shapes, held equal to the mirror too. The vector path must take every
+    shape, in one wave at the MobileNetV2 cut."""
     from repro_torch.kernels.quant.int8 import (quant_int8_device_plan,
                                                 quant_int8_launch_plan)
     n = 0
@@ -613,7 +632,8 @@ def check_int8_plans(dev):
           f"Python mirror")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kernel in ("quant_dequant_int8", "quantize_int8"):
-        for m, d in ((MAIN_M, MAIN_D), (LM_M, LM_D)):
+        for m, d in ((MAIN_M, MAIN_D), (LM_M, LM_D)) + (
+                HETERO_INT8 if kernel == "quant_dequant_int8" else ()):
             p = quant_int8_device_plan(m, d, torch.float32, kernel=kernel)
             want = quant_int8_launch_plan(m, d, torch.float32, kernel=kernel)
             if {k: p[k] for k in want} != want:
@@ -628,10 +648,11 @@ def check_int8_plans(dev):
                   f"({p['blocks'] * p['threads']} threads), "
                   f"{p['blocks_per_sm']} resident a SM x {sms} SMs: "
                   f"{waves:.3f} waves")
-            if p["path"] != "vector" or (d == MAIN_D and waves > 1):
+            if p["path"] != "vector" or ((m, d) == (MAIN_M, MAIN_D)
+                                         and waves > 1):
                 raise AssertionError(f"{kernel} at ({m}, {d}): want the "
-                                     f"vector path (in one wave at D = "
-                                     f"{MAIN_D}), got {p}")
+                                     f"vector path (in one wave at "
+                                     f"({MAIN_M}, {MAIN_D})), got {p}")
 
 
 def wkv_inputs(shape, dev, g):
@@ -899,14 +920,29 @@ def time_wkv_bwd(dev) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def mcu_profile():
+    """The microcontroller-class edge profile of the reference's tests."""
+    from repro_torch.core.energy import HardwareProfile
+    return HardwareProfile("mcu-class", fp32_tflops=0.02, mem_bw_gbs=2.0,
+                           tensor_tflops=0.04, cpu_passmark=400.0,
+                           power_w=2.0)
+
+
 def main_spec(api, kind: str, rounds: int, *, client_axis="scan",
-              dropout_rate=0.0, population=None):
+              dropout_rate=0.0, population=None, adaptive=False):
+    """MobileNetV2 at 224x224 (the CNN paths' spec). ``adaptive``: per-client
+    cuts, edges (Jetson AGX Orin, MCU) cycled over the clients."""
+    from repro_torch.core.energy import JETSON_AGX_ORIN
     return api.ExperimentSpec(
         model=api.ModelSpec(name="mobilenetv2", num_classes=12),
         data=api.DataSpec(image_size=224),
         clients=api.ClientSpec(num_clients=4, dropout_rate=dropout_rate,
-                               population=population),
-        cut_policy=api.CutPolicy(fraction=0.25),
+                               population=population,
+                               edge_profiles=((JETSON_AGX_ORIN, mcu_profile())
+                                              if adaptive
+                                              else (JETSON_AGX_ORIN,))),
+        cut_policy=api.CutPolicy(mode="adaptive" if adaptive else "fraction",
+                                 fraction=0.25),
         link_policy=api.LinkPolicy(compress="int8"),
         engine=api.EngineSpec(kind=kind, client_axis=client_axis,
                               link_kernel="fused", server_reduce="mean"),
@@ -1086,8 +1122,10 @@ def check_vmap_rules(dev) -> dict:
     """The vmap rules of the fleet paths' two Functions on the card, over
     ``FLEET`` clients at the vmap paths' own shapes: the int8 boundary at
     both cuts (MobileNetV2's (16, 28, 28, 32) NHWC rows, SmolLM's
-    (``LM_VMAP_BATCH``, 1024, 576); NaN, inf and zero rows) bit-equal to
-    the plain version client by client, in ONE launch; flash attention at
+    (``LM_VMAP_BATCH``, 1024, 576)) and, over the 2 clients of a
+    ``[hetero]`` bucket, at both of its cuts ((16, 112, 112, 32) and (16,
+    112, 112, 16)); NaN, inf and zero rows; bit-equal to the plain version
+    client by client, in ONE launch; flash attention at
     (``LM_VMAP_BATCH``, 9, 1024, 64) per client within 2e-5 of the plain
     version, in one launch, and its gradient (kernel forward + closed-form
     backward) within 2e-4 of autograd through the plain version client by
@@ -1103,20 +1141,20 @@ def check_vmap_rules(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(6)
     compress = make_link_compress(kernel="fused")
     for shape in ((FLEET, 16, 28, 28, MAIN_D),
-                  (FLEET, LM_VMAP_BATCH, 1024, LM_D)):
+                  (FLEET, LM_VMAP_BATCH, 1024, LM_D)) + HETERO_INT8_SHAPES:
         x = torch.randn(shape, device=dev, generator=g) * 3
         x[1, 0, 2, 3] = float("nan")
-        x[2, 1, 0, 0] = float("inf")
-        x[3, 0, 0, 1] = 0.0
+        x[0, 1, 0, 0] = float("inf")
+        x[1, 0, 0, 1] = 0.0
         before = quant_dequant_int8.launches
         got = vmap(compress)(x)
         torch.cuda.synchronize()
         launches = quant_dequant_int8.launches - before
-        d = shape[-1]
+        clients, d = shape[0], shape[-1]
         want = torch.stack([quant_dequant_int8_plain(x[c].reshape(-1, d))
-                            .reshape(shape[1:]) for c in range(FLEET)])
+                            .reshape(shape[1:]) for c in range(clients)])
         ok = same(got, want)
-        print(f"[vmap-rules] int8 boundary vmapped over {FLEET} clients of "
+        print(f"[vmap-rules] int8 boundary vmapped over {clients} clients of "
               f"{tuple(shape[1:])} ({x.numel() // d} rows of {d}): "
               f"bit-equal to the plain version client by client {ok} (NaN, "
               f"inf and zero rows included), {launches} launch")
@@ -1193,14 +1231,19 @@ def check_fleet_against_cpu(api, spec, label: str, cohorts=None):
     """``spec`` on the card against the same plan on the CPU (the kernels'
     plain versions), same params and data (and, for a population, the same
     ``Plan.cohorts``): losses within the reference's ``FLEET_EQUIV_ATOL``,
-    active clients, wire bytes and cohort ids exactly."""
+    each client's cut, active clients, wire bytes and cohort ids
+    exactly."""
     from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
-    records = []
+    records, cuts = [], []
     for device in ("cuda", "cpu"):
         plan = api.compile_experiment(spec, device=device)
         plan.cohorts = cohorts
         records.append(plan.run()[1])
+        cuts.append(plan.cut_of_client)
     rec_gpu, rec_cpu = records
+    if cuts[0] != cuts[1]:
+        raise AssertionError(f"{label}: cuts on the card {cuts[0]}, on the "
+                             f"CPU {cuts[1]}")
     for a, b in zip(rec_gpu, rec_cpu):
         if (abs(a.loss - b.loss) > FLEET_EQUIV_ATOL
                 or a.active_clients != b.active_clients
@@ -1469,6 +1512,70 @@ def run_cohort_paths(api) -> dict:
             "state_bytes": sizes}
 
 
+def run_hetero_path(api) -> dict:
+    """Per-client adaptive cuts on ``sl/vmap``: MobileNetV2 with
+    ``main_spec(adaptive=True)`` (edges Jetson AGX Orin and MCU cycled over
+    the 4 clients), dropout ``FLEET_DROPOUT``, int8 on the fused kernel and
+    the UAV mission, whose dwell gives the per-step link deadline, 2
+    rounds: the cuts must be ``HETERO_CUTS`` (two buckets of 2 clients,
+    each its own fleet round and server suffix), the int8 launches over
+    exactly that run one a local step a bucket (masked clients, and a
+    bucket with no active client, still run), each round's wall time and
+    record, the buckets' state bytes, one profiled round, and a tinycnn
+    run with per-client cuts on the card against the CPU."""
+    import gc
+
+    from repro_torch.api.runtime import mission_max_link_s
+    from repro_torch.core.energy import JETSON_AGX_ORIN
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    t0 = time.perf_counter()
+    plan = api.compile_experiment(main_spec(
+        api, "sl", 2, client_axis="vmap", dropout_rate=FLEET_DROPOUT,
+        adaptive=True))
+    spec = plan.spec
+    deadline = mission_max_link_s(spec.mission.hover_s_per_stop,
+                                  spec.mission.comm_s_per_stop,
+                                  spec.local_steps)
+    buckets = plan._engine.fleet.buckets
+    print(f"[hetero] compiled in {time.perf_counter() - t0:.2f} s: "
+          f"{plan.engine_label}, link deadline {deadline} s a step, "
+          f"cut_of_client {plan.cut_of_client}, buckets "
+          f"{[(b.cut_index, b.client_ids) for b in buckets]}, smashed "
+          f"{ {k: plan.flops[k][2].shape for k in sorted(plan.flops)} }")
+    if plan.cut_of_client != HETERO_CUTS:
+        raise AssertionError(f"[hetero] cuts {plan.cut_of_client}, want "
+                             f"{HETERO_CUTS}")
+    quant_dequant_int8.launches = 0
+    state, _ = run_plan(plan, "hetero")
+    launches = {"quant_dequant_int8": quant_dequant_int8.launches}
+    want = plan.num_rounds * spec.local_steps * len(buckets)
+    sizes = [state_bytes(st) for st in state.engine_state]
+    print(f"[hetero] quant_dequant_int8 launches over the "
+          f"{plan.num_rounds}-round run: {launches['quant_dequant_int8']} "
+          f"(want {want}: one a local step a bucket, each for its 2 "
+          f"clients); buckets' state bytes {sizes}")
+    if plan.num_rounds != 2 or launches["quant_dequant_int8"] != want:
+        raise AssertionError(f"[hetero] launched the int8 kernel "
+                             f"{launches}, want {want}")
+    profile_call(lambda: plan.run_round(state), "hetero", "round", cpu=False)
+    del plan, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_fleet_against_cpu(api, api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=4, dropout_rate=0.3,
+                               edge_profiles=(JETSON_AGX_ORIN,
+                                              mcu_profile())),
+        cut_policy=api.CutPolicy(mode="adaptive"),
+        link_policy=api.LinkPolicy(compress="int8", rate_bps=1e6),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        global_rounds=3, batch_size=4),
+        "tinycnn sl/vmap per-client cuts [2, 1, 2, 1] int8 dropout")
+    return {"hetero": launches, "state_bytes": sizes}
+
+
 def run_rwkv_path() -> int:
     """rwkv6-7b at full width, cut to ``RWKV_LAYERS`` layers, through the
     port's trainer: 3 steps of 4 x 1024 tokens with the WKV forward and
@@ -1727,7 +1834,7 @@ def main() -> int:
     # the batched shapes (outside any path's counts), then the three vmap
     # paths, each read over its own run
     vmap_errs = check_vmap_rules(dev)
-    for m, d in VMAP_INT8:
+    for m, d in VMAP_INT8 + HETERO_INT8:
         time_quant_kernel(dev, m, d)
     for shape in FLASH_VMAP:
         time_flash_kernel(dev, shape, bf16=False)
@@ -1737,6 +1844,8 @@ def main() -> int:
     stamp("lm/vmap path")
     cohort = run_cohort_paths(api)
     stamp("cohort paths")
+    hetero = run_hetero_path(api)
+    stamp("hetero path")
 
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
@@ -1756,11 +1865,15 @@ def main() -> int:
           f"{cohort['cohort-lm']} (peak "
           f"{cohort['cohort_lm_peak_bytes'] / 2 ** 30:.2f} GiB); engine "
           f"state bytes by population {cohort['state_bytes']}")
+    print(f"[paths] per-client cuts: sl/vmap MobileNetV2 {HETERO_CUTS} "
+          f"{hetero['hetero']}; buckets' state bytes "
+          f"{hetero['state_bytes']}")
 
     # launches: the counts over the split-LM path's run for the two kernels
-    # on it (the CNN path's int8 count is checked above), over the RWKV
-    # path's 3 steps for the WKV kernels, over all three paths for the
-    # wire-format pair
+    # on it (the CNN path's int8 count is checked above), the int8 kernel's
+    # with the [hetero] path's run added (each count read over its own
+    # run), over the RWKV path's 3 steps for the WKV kernels, over all the
+    # paths for the wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
              "replaces": f"src/repro/kernels/quant/int8.py:{line}",
@@ -1773,7 +1886,8 @@ def main() -> int:
     kernels = [{"name": "quant_dequant_int8", "route": "cuda",
                 "source": "src/repro_torch/csrc/quant_int8.cu",
                 "replaces": "src/repro/kernels/quant/int8.py:40",
-                "launches": lm_launches["quant_dequant_int8"],
+                "launches": (lm_launches["quant_dequant_int8"]
+                             + hetero["hetero"]["quant_dequant_int8"]),
                 "max_abs_err": max_err,
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": "bytes",

@@ -19,8 +19,13 @@ population cohorts (``ClientSpec.population``: a round's ``num_clients``
 participants drawn out of the population, their batches gathered from the
 partitions by population id, their edge profiles billed by population id;
 parallel SL trains one client model shared by the cohort, the EPSL shared
-client tier, so engine state stays O(cohort)). The run surface is the
-reference's:
+client tier, so engine state stays O(cohort)). A CNN on ``sl/vmap`` also
+takes per-client adaptive cuts (``CutPolicy(mode="adaptive")``: each
+client's minimum-energy cut for its own edge profile and link under the
+link deadline, ``fleet.hetero.assign_cuts_cnn``); with more than one
+distinct cut the clients train in cut buckets, one fleet round and one
+server suffix a bucket (``fleet.hetero.HeteroFleet``), each client billed
+at its own cut. The run surface is the reference's:
 
     plan = compile_experiment(spec, device="cuda")
     state = plan.init()
@@ -47,14 +52,15 @@ from ..core.energy import RTX_A5000
 from ..core.split import (SplitStep, cut_index_for_fraction,
                           init_stages, make_fl_round, make_multi_client_round,
                           make_split_loss, stack_cut_index,
-                          tier_call, to_port_layout)
+                          tier_call, tier_params, to_port_layout)
 from ..core.trajectory import TourPlan, plan_tour
 from ..data.partition import (partition_dirichlet, partition_iid,
                               partition_non_iid, population_partition_count)
 from ..data.synthetic import SyntheticPestImages, synthetic_tokens
 from ..fleet.engine import (fleet_state, make_fleet_fl_round,
                             make_fleet_sl_round)
-from ..fleet.hetero import lm_split_program, lm_split_step
+from ..fleet.hetero import (HeteroFleet, assign_cuts_cnn, cnn_split_program,
+                            lm_split_program, lm_split_step)
 from ..fleet.link import FleetLink
 from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
                                 resolve_link_kernel)
@@ -64,8 +70,8 @@ from ..sim.scenario import cohort_generator, sample_cohort
 from .records import RoundRecord
 from .runtime import (client_coords, client_step_time_s, count_fl_step_flops,
                       count_sl_step_flops, count_split_step_flops,
-                      metrics_from_predictions, roofline_s,
-                      round_batch_indices)
+                      metrics_from_predictions, mission_max_link_s,
+                      roofline_s, round_batch_indices)
 from .spec import ExperimentSpec
 
 # time billed to the FL server per round: aggregation only (the
@@ -388,13 +394,6 @@ class _SLScanEngine:
         return self.logits(st.clients[0], st.server, x).argmax(dim=-1)
 
 
-def _tier_params(params0: list, device) -> dict:
-    """Per-stage parameter dicts (``params0``'s form) -> one dict keyed as
-    ``nn.Sequential(*those stages)``'s parameters."""
-    return {f"{i}.body.{key}": v.to(device)
-            for i, p in enumerate(params0) for key, v in p.items()}
-
-
 class _FLFleetEngine:
     """``fl/vmap``: the global params dict; the clients train from it in one
     vmapped program (``fleet.engine.make_fleet_fl_round``), FedAvg (over the
@@ -416,7 +415,7 @@ class _FLFleetEngine:
         return functional_call(self.model, params, (to_port_layout(x),))
 
     def init_state(self, params0):
-        return _tier_params(params0, self.device)
+        return tier_params(params0, self.device)
 
     def run(self, params, batches, mask):
         return self.round_fn(params, batches, *_mask_arg(mask))
@@ -474,6 +473,55 @@ class _SLFleetEngine:
         prefix = (params_c if self.client_tier == "shared"
                   else _eval_prefix(params_c, self.masked))
         return self.logits(prefix, params_s, x).argmax(dim=-1)
+
+
+class _HeteroSLEngine:
+    """``sl/vmap`` with per-client cuts (``fleet.hetero.HeteroFleet``): one
+    ``make_fleet_sl_round`` and one server suffix a cut bucket, the buckets
+    run one after another. State: a list of per-bucket ``(params_c,
+    params_s, oc, os_)``, fresh on every ``init_state``. Evaluation is the
+    reference's vote: every bucket's model gives its f32 logits (on its
+    ``_eval_prefix``), weighted by its client count, summed and divided by
+    the fleet size; the argmax of that sum is the prediction."""
+
+    def __init__(self, spec, stages, params0, cut_of_client, link, device):
+        self.device = device
+        self.masked = spec.clients.dropout_rate > 0
+        self.num_clients = spec.clients.num_clients
+        self.fleet = HeteroFleet(
+            lambda k: cnn_split_program(stages, params0, k,
+                                        loss_fn=cross_entropy_loss,
+                                        link_boundary=link.boundary("nchw")),
+            cut_of_client, FunctionalAdamW(spec.lr), FunctionalAdamW(spec.lr),
+            local_rounds=spec.local_steps, client_dropout=self.masked,
+            server_reduce=spec.engine.server_reduce)
+        self.logits = [
+            tier_call(_cnn_logits, prog.client, prog.server)
+            for prog in (self.fleet.programs[b.cut_index]
+                         for b in self.fleet.buckets)]
+
+    def init_state(self, params0):
+        return self.fleet.init_states(
+            lambda k: (tier_params(params0[:k], self.device),
+                       tier_params(params0[k:], self.device)))
+
+    def run(self, st, batches, mask):
+        return self.fleet.run_round_on(st, batches, mask)
+
+    def predict(self, st, x):
+        votes = None
+        for bucket, (params_c, params_s, _, _), logits in zip(
+                self.fleet.buckets, st, self.logits):
+            out = (logits(_eval_prefix(params_c, self.masked), params_s,
+                          x).float() * len(bucket.client_ids))
+            votes = out if votes is None else votes + out
+        return (votes / self.num_clients).argmax(dim=-1)
+
+
+def _cnn_logits(client, server, x):
+    """A split CNN's evaluation forward on NHWC images (no link: the
+    reference evaluates the model itself)."""
+    return server(client(to_port_layout(x)))
 
 
 def _mask_arg(mask) -> tuple:
@@ -542,6 +590,27 @@ def _resolve_parts(spec: ExperimentSpec, y_train: np.ndarray) -> list:
     return partition_non_iid(y_train, n, spec.data.classes_per_client,
                              num_classes=spec.model.num_classes,
                              seed=spec.seed)
+
+
+def _cnn_cuts(spec: ExperimentSpec, stages, sample_x, edges,
+              link: FleetLink) -> list[int]:
+    """Each client's cut of a CNN: the fraction's, or under
+    ``CutPolicy(mode="adaptive")`` its minimum-energy cut for its edge
+    profile and the link (``fleet.hetero.assign_cuts_cnn``) within the
+    per-step link deadline: ``CutPolicy.max_link_s``, or with a mission the
+    UAV's dwell at a stop over the local steps."""
+    n = spec.clients.num_clients
+    if spec.cut_policy.mode != "adaptive":
+        return [cut_index_for_fraction(stages, spec.cut_policy.fraction)] * n
+    max_link_s = spec.cut_policy.max_link_s
+    if max_link_s is None and spec.mission is not None:
+        max_link_s = mission_max_link_s(spec.mission.hover_s_per_stop,
+                                        spec.mission.comm_s_per_stop,
+                                        spec.local_steps)
+    return assign_cuts_cnn(stages, sample_x, edges=edges,
+                           links=[link.config] * n,
+                           min_client_layers=spec.cut_policy.min_client_layers,
+                           max_link_s=max_link_s)
 
 
 def _profile_consts(spec: ExperimentSpec, client_flops):
@@ -663,6 +732,11 @@ def _validate(spec: ExperimentSpec):
                          f"or 'iid', got {spec.data.partition!r}")
     if spec.cut_policy.mode not in ("fraction", "adaptive"):
         raise ValueError(spec.cut_policy.mode)
+    if spec.cut_policy.mode == "adaptive" and not (
+            eng.kind == "sl" and eng.is_fleet):
+        raise ValueError("adaptive cuts produce per-client programs; they "
+                         "need the bucketed fleet engine (sl/vmap or "
+                         "sl/shard_map)")
     if cli.dropout_rate > 0 and not eng.is_fleet:
         raise ValueError("client dropout is a fleet policy; use a vmap or "
                          "shard_map client axis")
@@ -672,8 +746,6 @@ def _validate(spec: ExperimentSpec):
                       "fleet engines)", "item 16")
     if eng.server_mesh is not None:
         _not_in_slice("EngineSpec.server_mesh", "item 16")
-    if spec.cut_policy.mode == "adaptive":
-        _not_in_slice("CutPolicy(mode='adaptive')", "item 11")
     if spec.scenario is not None:
         _not_in_slice("ExperimentSpec.scenario", "item 14")
 
@@ -749,8 +821,9 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
         # of the saved gradients is work the plain loss does not do
         count_step, _ = lm_split_step(
             cfg, attn_impl="ref" if impl == "pallas" else impl)
-        fl_client, fl_server, smashed = count_split_step_flops(
-            count_step, client, server, sample_x, sample_y)
+        cut_of_client = [k] * n
+        flops[k] = count_split_step_flops(count_step, client, server,
+                                          sample_x, sample_y)
 
         def lm_logits(c, s_, x):
             return prog.server_logits(s_, prog.step.client_fwd(c, x))
@@ -778,30 +851,30 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
         for st in stages:
             st.to(device=device, memory_format=torch.channels_last)
         if spec.engine.kind == "sl":
-            k = cut_index_for_fraction(stages, spec.cut_policy.fraction)
-            fl_client, fl_server, smashed = count_sl_step_flops(
-                stages[:k], stages[k:], sample_x, sample_y)
-            step = SplitStep(
-                client_fwd=lambda client, xx: client(to_port_layout(xx)),
-                server_loss=lambda server, sm, yy: (
-                    cross_entropy_loss(server(sm), yy), {}),
-                link_constraint=link.boundary("nchw"))
-
-            def cnn_logits(c, s_, x):
-                return s_(c(to_port_layout(x)))
-
-            if spec.engine.is_fleet:
-                engine = _SLFleetEngine(
-                    spec, step, nn.Sequential(*stages[:k]),
-                    nn.Sequential(*stages[k:]), logits=cnn_logits,
-                    params0_tiers=lambda p: (_tier_params(p[:k], device),
-                                             _tier_params(p[k:], device)))
+            cut_of_client = _cnn_cuts(spec, stages, sample_x, edges, link)
+            for k in sorted(set(cut_of_client)):
+                flops[k] = count_sl_step_flops(stages[:k], stages[k:],
+                                               sample_x, sample_y)
+            if len(flops) > 1:
+                engine = _HeteroSLEngine(spec, stages, params0,
+                                         cut_of_client, link, device)
             else:
-                engine = _SLScanEngine(
-                    spec, step,
-                    load_client=lambda p: _load(stages[:k], p[:k]),
-                    load_server=lambda p: _load(stages[k:], p[k:]),
-                    logits=cnn_logits)
+                k = cut_of_client[0]
+                prog = cnn_split_program(stages, params0, k,
+                                         loss_fn=cross_entropy_loss,
+                                         link_boundary=link.boundary("nchw"))
+                if spec.engine.is_fleet:
+                    engine = _SLFleetEngine(
+                        spec, prog.step, prog.client, prog.server,
+                        logits=_cnn_logits,
+                        params0_tiers=lambda p: (tier_params(p[:k], device),
+                                                 tier_params(p[k:], device)))
+                else:
+                    engine = _SLScanEngine(
+                        spec, prog.step,
+                        load_client=lambda p: _load(stages[:k], p[:k]),
+                        load_server=lambda p: _load(stages[k:], p[k:]),
+                        logits=_cnn_logits)
 
     if spec.engine.kind == "fl":
         cut_of_client: list[int] = []
@@ -813,9 +886,9 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
         engine = (_FLFleetEngine(spec, stages, device)
                   if spec.engine.is_fleet else _FLEngine(spec, stages))
     else:
-        cut_of_client = [k] * n
-        flops[k] = (fl_client, fl_server, smashed)
-        for cid in range(n):
+        # each client at its own cut's counts and smashed tensor
+        for cid, k in enumerate(cut_of_client):
+            fl_client, fl_server, smashed = flops[k]
             t_client[cid] = client_step_time_s(fl_client, edges[cid])
             t_server[cid] = roofline_s(fl_server, RTX_A5000)
             link_bytes[cid] = link.step_wire_bytes(smashed)
@@ -823,7 +896,12 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
             link_energy[cid] = link.step_energy_j(smashed)
     consts = (t_client, t_server, link_bytes, link_time, link_energy,
               server_base_s)
-    client_flops = flops["full"] if spec.engine.kind == "fl" else fl_client
+    # one per-step client cost exists for FL and for a single cut; with
+    # cuts that differ there is none (reachable only without a population,
+    # where the per-slot constants bill exactly)
+    client_flops = (flops["full"] if spec.engine.kind == "fl"
+                    else flops[cut_of_client[0]][0] if len(flops) == 1
+                    else None)
     return Plan(spec, device=device, arrays=arrays, parts=parts,
                 stages=stages, params0=params0, tour=tour,
                 cut_of_client=cut_of_client, flops=flops, edges=edges,

@@ -20,6 +20,17 @@ level of the ATen ops that actually run, forward and backward:
 
 ``FlopCount`` is the total (a float, what the records bill) and carries its
 contraction part, which equals the reference's conv/dot count exactly.
+
+``profile_flops`` is a second counter, for the adaptive cut profile only
+(``core.adaptive_cut``): one forward counted as the reference's
+``jaxpr_flops`` counts the primitives its forward lowers to
+(``repro/core/flops.py:26-87``), so the profile, and so each client's cut,
+is the reference's. Where one ATen op stands for several primitives it
+counts those primitives: GroupNorm as the reference's ``_gn``
+(``repro/models/cnn.py:31-42``), relu6 (``clip``: a max and a min), the
+max-pool's ``reduce_window`` (one per input element, before the SAME
+padding), and the head's mean (``reduce_sum`` plus a ``div`` per output).
+The bill keeps ``count_flops``.
 """
 from __future__ import annotations
 
@@ -128,3 +139,53 @@ def count_flops(fn, *args) -> FlopCount:
     with torch.enable_grad(), FlopCounter() as counter:
         fn(*args)
     return counter.count()
+
+
+_JAXPR_RULES = frozenset({"native_group_norm", "clamp", "constant_pad_nd",
+                          "max_pool2d_with_indices", "mean"})
+
+
+class JaxprRulesCounter(FlopCounter):
+    """``FlopCounter`` with the reference's jaxpr rules for the ops whose
+    lowering there is several primitives (forward only). Padding is free,
+    and a padded tensor is remembered by identity (``data_ptr()`` is 0 on
+    the meta device), so a max-pool counts its input before the padding."""
+
+    def __init__(self):
+        super().__init__()
+        # id of a padded tensor -> (element count before the padding, the
+        # tensor itself: held so the id stays unique)
+        self._unpadded_ids = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._overloadpacket.__name__
+        if name not in _JAXPR_RULES:
+            return super().__torch_dispatch__(func, types, args, kwargs)
+        out = func(*args, **(kwargs or {}))
+        if name == "native_group_norm":
+            # _gn over N elements in B x G groups: three reduce_sums over
+            # N, sub x2, square, the normalizing mul, scale and bias (9N);
+            # three divs, the eps add and the rsqrt per group (5BG); the
+            # variance's scalar normalizer (1)
+            x, batch, groups = args[0], args[3], args[6]
+            self.other += 9.0 * x.numel() + 5.0 * batch * groups + 1.0
+        elif name == "clamp":
+            self.other += 2.0 * out.numel()          # max, then min
+        elif name == "constant_pad_nd":
+            self._unpadded_ids[id(out)] = (args[0].numel(), out)
+        elif name == "max_pool2d_with_indices":
+            self.other += self._unpadded_ids.get(id(args[0]),
+                                                 (args[0].numel(),))[0]
+        else:                                          # mean
+            self.other += args[0].numel() + out.numel()    # reduce_sum, div
+        return out
+
+
+def profile_flops(fn, *args) -> tuple[FlopCount, object]:
+    """FLOPs of one forward ``fn(*args)`` (under ``torch.no_grad()``)
+    counted by the reference's jaxpr rules (``JaxprRulesCounter``), and
+    what ``fn`` returned: the count the adaptive cut profile takes, never
+    the bill."""
+    with torch.no_grad(), JaxprRulesCounter() as counter:
+        out = fn(*args)
+    return counter.count(), out

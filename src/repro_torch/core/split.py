@@ -235,6 +235,14 @@ class _TierCall(nn.Module):
         return self.fn(self.client, self.server, *args)
 
 
+def tier_params(params: Sequence[dict], device=None) -> dict:
+    """Per-stage parameter dicts (a plan's ``params0`` form, keyed as each
+    stage's ``body``) -> one dict keyed as ``nn.Sequential(*those
+    stages)``'s parameters, on ``device`` when one is given."""
+    return {f"{i}.body.{key}": v if device is None else v.to(device)
+            for i, p in enumerate(params) for key, v in p.items()}
+
+
 def tier_call(fn: Callable, client: nn.Module, server: nn.Module):
     """``fn(client, server, *args)`` as a pure function of the tiers'
     parameters: ``f(params_c, params_s, *args)``, each a dict keyed as the

@@ -1,26 +1,277 @@
-"""The split language model: a transformer ``ArchConfig`` stack cut at layer k.
+"""Per-client cuts in buckets, and the split language model.
 
-Counterpart of the transformer half of ``repro.fleet.hetero``
-(``transformer_block_apply``, ``lm_split_program``). The client tier holds
-the token embedding and the first k blocks (raw tokens never cross the
-link); the server tier holds the other blocks and the output head, and
-closes with next-token cross entropy. The smashed tensor is the (B, S,
-d_model) residual stream at the cut. The step is a ``SplitStep`` over the
-two modules, so ``core.split.make_multi_client_round`` drives it as it
-drives the CNNs. The trained step's loss (``chunked_lm_loss``) runs over
-chunks of tokens and never holds the whole (tokens, vocab) logits.
+Counterpart of ``repro.fleet.hetero``.
+
+**Per-client cuts** (the CNN half). Heterogeneous edge fleets (P3SL,
+arXiv:2507.17228) do not share one best cut: a Jetson-class client wants a
+deeper prefix than a microcontroller-class one, and a starved link moves
+the optimum toward smaller smashed tensors. Every client gets its own cut
+from ``core.adaptive_cut.select_cut`` on its own (hardware, link) profile
+(``assign_cuts_cnn``), clients are grouped into cut buckets
+(``bucket_by_cut``), and ``HeteroFleet`` runs one ``fleet.engine.
+make_fleet_sl_round`` a bucket, each with its own server suffix: the
+bucket, not the client, is the unit of a program. A bucket's
+``SplitProgram`` holds the stage modules as ``functional_call`` templates
+(``cnn_split_program``); the parameters live in the buckets' state dicts.
+The transformer half (``assign_cuts_transformer``, ``arch_split_program``,
+``stack_split_program``) is ROADMAP queue 1 item 17.
+
+**The split language model**: a transformer ``ArchConfig`` stack cut at
+layer k (``transformer_block_apply``, ``lm_split_program``). The client
+tier holds the token embedding and the first k blocks (raw tokens never
+cross the link); the server tier holds the other blocks and the output
+head, and closes with next-token cross entropy. The smashed tensor is the
+(B, S, d_model) residual stream at the cut. The step is a ``SplitStep``
+over the two modules, so ``core.split.make_multi_client_round`` drives it
+as it drives the CNNs. The trained step's loss (``chunked_lm_loss``) runs
+over chunks of tokens and never holds the whole (tokens, vocab) logits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..core.split import SplitStep, split_stack
+from ..core.adaptive_cut import profile_cuts_cnn, select_cut
+from ..core.energy import HardwareProfile
+from ..core.link import LinkConfig
+from ..core.split import (SplitStep, Stage, make_split_loss, split_stack,
+                          tier_params, to_port_layout)
 from ..models.transformer import AttnLayer, GroupSpec, group_apply, group_init
+from .engine import fleet_state, make_fleet_sl_round
+
+
+# ---------------------------------------------------------------------------
+# cut assignment + bucketing
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CutBucket:
+    cut_index: int
+    client_ids: tuple[int, ...]   # global client indices, ascending
+
+
+def bucket_by_cut(cut_indices: Sequence[int]) -> list[CutBucket]:
+    """Group clients by cut index, ascending cut then ascending client id:
+    the buckets partition the fleet, every client exactly once."""
+    by_cut: dict[int, list[int]] = {}
+    for cid, k in enumerate(cut_indices):
+        by_cut.setdefault(int(k), []).append(cid)
+    return [CutBucket(k, tuple(ids)) for k, ids in sorted(by_cut.items())]
+
+
+def _assign_cuts(profile_fn: Callable, edges: Sequence[HardwareProfile],
+                 links: Optional[Sequence[LinkConfig]],
+                 max_link_s: Optional[float]) -> list[int]:
+    """Per-client selection: ``profile_fn(edge, link)`` gives one profile's
+    cut choices, evaluated once a distinct (hardware, link) pair."""
+    links = list(links) if links is not None else [LinkConfig()] * len(edges)
+    if len(links) != len(edges):
+        raise ValueError("edges and links must be per-client (same length)")
+    cache: dict[tuple, int] = {}
+    cuts = []
+    for edge, link in zip(edges, links):
+        key = (edge, link)
+        if key not in cache:
+            cache[key] = select_cut(profile_fn(edge, link),
+                                    max_link_s=max_link_s).cut_index
+        cuts.append(cache[key])
+    return cuts
+
+
+def assign_cuts_cnn(stages: Sequence[Stage], sample_x: torch.Tensor, *,
+                    edges: Sequence[HardwareProfile],
+                    links: Optional[Sequence[LinkConfig]] = None,
+                    min_client_layers: int = 1,
+                    max_link_s: Optional[float] = None) -> list[int]:
+    """Per-client minimum-energy cut of a CNN stage list on the NHWC batch
+    ``sample_x`` (its shape and dtype); ``edges`` (and ``links``) give each
+    client its profile."""
+    return _assign_cuts(
+        lambda edge, link: profile_cuts_cnn(
+            stages, sample_x, edge=edge, link=link,
+            min_client_layers=min_client_layers),
+        edges, links, max_link_s)
+
+
+# ---------------------------------------------------------------------------
+# split programs: one cut of a CNN as a SplitStep, templates and inits
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SplitProgram:
+    """A model split at one cut: the step over two template modules (their
+    own parameters are never used: ``core.split.make_split_loss`` binds
+    a state's), and each tier's initial parameters, keyed as the
+    templates' ``named_parameters()`` (every client of a bucket starts
+    from the same prefix)."""
+    step: SplitStep
+    client: nn.Module             # nn.Sequential(stages[:k])
+    server: nn.Module             # nn.Sequential(stages[k:])
+    params_c0: dict
+    params_s0: dict
+    cut_index: int
+
+
+def cnn_split_program(stages: Sequence[Stage], params: Sequence[dict],
+                      k: int, *, loss_fn: Callable,
+                      link_boundary: Optional[Callable] = None
+                      ) -> SplitProgram:
+    """Split a CNN stage list at stage index ``k``. ``params`` are the
+    per-stage parameter dicts (a plan's ``params0``); ``loss_fn(logits,
+    targets) -> scalar`` closes the server side; ``link_boundary`` is the
+    NCHW boundary (``FleetLink.boundary("nchw")``) or None."""
+    if not 1 <= k <= len(stages) - 1:
+        raise ValueError(f"cut {k} outside (0, {len(stages)})")
+    step = SplitStep(
+        client_fwd=lambda client, xx: client(to_port_layout(xx)),
+        server_loss=lambda server, sm, yy: (loss_fn(server(sm), yy), {}),
+        link_constraint=link_boundary)
+    return SplitProgram(step=step, client=nn.Sequential(*stages[:k]),
+                        server=nn.Sequential(*stages[k:]),
+                        params_c0=tier_params(params[:k]),
+                        params_s0=tier_params(params[k:]), cut_index=k)
+
+
+# ---------------------------------------------------------------------------
+# bucketed dispatch
+# ---------------------------------------------------------------------------
+
+class HeteroFleet:
+    """Per-cut-bucket fleet engines over one client population.
+
+    ``build_program(k) -> SplitProgram`` specializes the model to a cut;
+    each bucket owns a ``make_fleet_sl_round`` (its own server suffix: a
+    cut group is also a server-model group) and the client-stacked state
+    of its clients. ``run_round(batches)`` takes each bucket's rows of the
+    global (clients, local_steps, ...) batch dict on the device, runs the
+    buckets one after another, and puts their losses back into
+    (local_steps, clients). The client axis is ``torch.func.vmap``'s:
+    ``client_axis="shard_map"`` (ROADMAP queue 1 item 16) and ``taps``
+    (item 15) are refused."""
+
+    def __init__(self, build_program: Callable[[int], SplitProgram],
+                 cut_indices: Sequence[int], opt_c, opt_s, *,
+                 local_rounds: int, client_dropout: bool = False,
+                 server_reduce: str = "mean", client_axis: str = "vmap",
+                 taps: tuple = ()):
+        if client_axis == "shard_map":
+            raise NotImplementedError(
+                "HeteroFleet(client_axis='shard_map') is not ported to "
+                "repro_torch yet (ROADMAP queue 1 item 16)")
+        if client_axis != "vmap":
+            raise ValueError(f"client_axis must be 'vmap', got "
+                             f"{client_axis!r}")
+        if taps:
+            raise NotImplementedError(
+                "HeteroFleet(taps=...) is not ported to repro_torch yet "
+                "(ROADMAP queue 1 item 15)")
+        self.buckets = bucket_by_cut(cut_indices)
+        self.local_rounds = local_rounds
+        self.num_clients = len(cut_indices)
+        self.client_dropout = client_dropout
+        self.opt_c, self.opt_s = opt_c, opt_s
+        self.programs: dict[int, SplitProgram] = {}
+        self._rounds = []
+        for bucket in self.buckets:
+            prog = build_program(bucket.cut_index)
+            if prog.cut_index != bucket.cut_index:
+                raise ValueError("build_program returned a different cut")
+            self.programs[bucket.cut_index] = prog
+            self._rounds.append(make_fleet_sl_round(
+                make_split_loss(prog.step, prog.client, prog.server),
+                opt_c, opt_s, local_rounds=local_rounds,
+                server_reduce=server_reduce, client_dropout=client_dropout))
+        # the fleet's own live state (the run_round / bucket_state surface),
+        # made on first use: callers that thread state through
+        # init_states() / run_round_on never pay for it
+        self._states = None
+
+    def init_states(self, tiers: Optional[Callable[[int], tuple]] = None
+                    ) -> list[tuple]:
+        """Fresh per-bucket states ``(params_c, params_s, oc, os_)``, new
+        tensors on every call: each bucket's clients stacked from its
+        program's initial parameters, or from ``tiers(k) -> (params_c,
+        params_s)``."""
+        states = []
+        for bucket in self.buckets:
+            k = bucket.cut_index
+            params_c, params_s = (
+                tiers(k) if tiers is not None
+                else (self.programs[k].params_c0, self.programs[k].params_s0))
+            states.append(fleet_state(
+                params_c, {key: v.clone() for key, v in params_s.items()},
+                self.opt_c, self.opt_s, len(bucket.client_ids)))
+        return states
+
+    def reset(self) -> None:
+        """Re-initialize every bucket's live state, so one fleet can run
+        several independent experiments."""
+        self._states = self.init_states()
+
+    def _live_states(self) -> list[tuple]:
+        if self._states is None:
+            self._states = self.init_states()
+        return self._states
+
+    @property
+    def cut_of_client(self) -> list[int]:
+        cuts = [0] * self.num_clients
+        for bucket in self.buckets:
+            for cid in bucket.client_ids:
+                cuts[cid] = bucket.cut_index
+        return cuts
+
+    def bucket_state(self, i: int) -> tuple:
+        """(params_c stack, params_s, oc stack, os_) of bucket ``i``."""
+        return self._live_states()[i]
+
+    def run_round(self, batches: dict, client_mask=None) -> torch.Tensor:
+        """One global round on the fleet's own state: ``batches`` a dict of
+        (clients, local_steps, ...) tensors; returns the (local_steps,
+        clients) losses, every client's column filled once.
+        ``client_mask`` (a (clients,) 0/1 vector) needs
+        ``client_dropout=True``."""
+        self._states, losses = self.run_round_on(self._live_states(),
+                                                 batches, client_mask)
+        return losses
+
+    def run_round_on(self, states: list[tuple], batches: dict,
+                     client_mask=None) -> tuple[list[tuple], torch.Tensor]:
+        """``run_round`` over caller-owned per-bucket states (from
+        ``init_states``): returns ``(new_states, losses)``. A bucket whose
+        clients are all masked keeps its state (the engine's all-masked
+        guard)."""
+        if client_mask is not None and not self.client_dropout:
+            raise ValueError("client_mask needs HeteroFleet("
+                             "client_dropout=True)")
+        device = next(iter(batches.values())).device
+        if client_mask is not None:
+            client_mask = torch.as_tensor(client_mask, dtype=torch.float32,
+                                          device=device)
+        losses = torch.zeros((self.local_rounds, self.num_clients),
+                             dtype=torch.float32, device=device)
+        new_states = list(states)
+        for i, bucket in enumerate(self.buckets):
+            ids = torch.as_tensor(bucket.client_ids, device=device)
+            sub = {key: v.index_select(0, ids) for key, v in batches.items()}
+            mask = ()
+            if self.client_dropout:
+                mask = ((torch.ones(len(ids), device=device),)
+                        if client_mask is None
+                        else (client_mask.index_select(0, ids),))
+            *state, bucket_losses = self._rounds[i](*states[i], sub, *mask)
+            new_states[i] = tuple(state)
+            losses[:, ids] = bucket_losses
+        return new_states, losses
+
+
+# ---------------------------------------------------------------------------
+# the split language model
+# ---------------------------------------------------------------------------
 
 EMBED_SCALE = 0.02      # embedding and head init scale (the reference's)
 

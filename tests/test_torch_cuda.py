@@ -601,6 +601,41 @@ def test_sl_vmap_plan_with_dropout_on_card_matches_cpu(hopper):
 
 
 @pytest.mark.cuda
+def test_hetero_sl_vmap_plan_on_card_matches_cpu(hopper):
+    """tinycnn ``sl/vmap`` with per-client cuts (edges Jetson and MCU, an
+    int8 link at 1 Mb/s on the fused kernel: cuts [2, 1, 2, 1], two
+    buckets) and dropout: the card run against the same plan on the CPU,
+    the cuts, active clients and wire bytes exactly, losses within
+    ``FLEET_EQUIV_ATOL``; one int8 launch a local step a bucket."""
+    from repro_torch.core.energy import HardwareProfile, JETSON_AGX_ORIN
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    mcu = HardwareProfile("mcu-class", fp32_tflops=0.02, mem_bw_gbs=2.0,
+                          tensor_tflops=0.04, cpu_passmark=400.0,
+                          power_w=2.0)
+    spec = api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=4, dropout_rate=0.3,
+                               edge_profiles=(JETSON_AGX_ORIN, mcu)),
+        cut_policy=api.CutPolicy(mode="adaptive"),
+        link_policy=api.LinkPolicy(compress="int8", rate_bps=1e6),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        global_rounds=3, local_steps=2, batch_size=4)
+    gpu = api.compile_experiment(spec)
+    cpu = api.compile_experiment(spec, device="cpu")
+    assert gpu.cut_of_client == cpu.cut_of_client == [2, 1, 2, 1]
+    quant_dequant_int8.launches = 0
+    _, rec_gpu = gpu.run()
+    assert quant_dequant_int8.launches == 3 * 2 * 2
+    _, rec_cpu = cpu.run()
+    for a, b in zip(rec_gpu, rec_cpu):
+        assert a.active_clients == b.active_clients
+        assert a.link_bytes == b.link_bytes
+        assert abs(a.loss - b.loss) <= FLEET_EQUIV_ATOL
+
+
+@pytest.mark.cuda
 def test_chunked_lm_loss_on_card_matches_cpu(hopper):
     """The split LM's chunked server loss at SmolLM-135M's width, 2
     clients x 4 x 1024 token rows (d 576, vocab 49,152), vmapped over the

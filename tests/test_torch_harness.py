@@ -84,18 +84,46 @@ def jax_contraction_flops(fn, *args) -> float:
     return _contractions(jax.make_jaxpr(fn)(*args).jaxpr)
 
 
+def _billing_ratios(ref_flops_pair, port_flops_pair, ref_consts, active):
+    """Port/reference ratios of (client time, client energy, server time)
+    for one record. One pair each: the client and the server FLOP ratios.
+    Per-client pairs (clients at different cuts): each field's ratio is
+    the mean of the active clients' FLOP ratios weighted by their
+    reference step constants ``ref_consts = (t_client, p_edge,
+    t_server)``, since each client is billed at its own cut."""
+    if ref_consts is None:
+        (ref_c, ref_s), (port_c, port_s) = ref_flops_pair, port_flops_pair
+        return port_c / ref_c, port_c / ref_c, (port_s / ref_s if ref_s
+                                                else None)
+    t, p_edge, t_srv = (np.asarray(a, np.float64)[active] for a in ref_consts)
+    rc = np.asarray([port_flops_pair[c][0] / ref_flops_pair[c][0]
+                     for c in active])
+    rs = np.asarray([port_flops_pair[c][1] / ref_flops_pair[c][1]
+                     for c in active])
+    return ((rc * t).sum() / t.sum(),
+            (rc * t * p_edge).sum() / (t * p_edge).sum(),
+            (rs * t_srv).sum() / t_srv.sum())
+
+
 def assert_records_match(ref_recs, port_recs, *, ref_flops_pair,
                          port_flops_pair, server_base_s, n_test,
-                         loss_atol=1e-3):
+                         loss_atol=1e-3, ref_consts=None, active=None):
     """Record-stream parity: loss within ``loss_atol``, accuracy within one
     test sample, link bytes and cohort ids exact, link time/energy within
     1e-9 relative,
     the rest by the billing arithmetic: every client field scales by the
     client FLOP ratio and every server field (less ``server_base_s``) by
-    the server FLOP ratio, within 1e-6."""
+    the server FLOP ratio, within 1e-6.
+
+    With clients at different cuts, ``ref_flops_pair`` and
+    ``port_flops_pair`` are per-client lists of (client, server) FLOP
+    pairs (each client's cut's), ``ref_consts`` the reference plan's
+    per-client ``(t_client, p_edge, t_server)`` step constants, and
+    ``active`` a list a record of its active client ids (default: every
+    client): each field then scales by the weighted ratio of
+    ``_billing_ratios``."""
     assert len(ref_recs) == len(port_recs)
-    (ref_c, ref_s), (port_c, port_s) = ref_flops_pair, port_flops_pair
-    for r, p in zip(ref_recs, port_recs):
+    for i, (r, p) in enumerate(zip(ref_recs, port_recs)):
         assert p.round == r.round and p.engine == r.engine
         assert abs(p.loss - r.loss) <= loss_atol, (p.loss, r.loss)
         assert abs(p.accuracy - r.accuracy) <= 1.0 / n_test + 1e-12
@@ -105,14 +133,22 @@ def assert_records_match(ref_recs, port_recs, *, ref_flops_pair,
             assert getattr(p, f) == pytest.approx(getattr(r, f), rel=1e-9)
         assert p.active_clients == r.active_clients
         assert p.uav_energy_j == r.uav_energy_j
-        for f in ("client_time_s", "client_energy_j"):
+        ids = None
+        if ref_consts is not None:
+            ids = (np.arange(len(ref_consts[0])) if active is None
+                   else np.asarray(active[i]))
+            assert len(ids) == r.active_clients
+        r_time, r_energy, r_server = _billing_ratios(
+            ref_flops_pair, port_flops_pair, ref_consts, ids)
+        for f, ratio in (("client_time_s", r_time),
+                         ("client_energy_j", r_energy)):
             assert getattr(p, f) / getattr(r, f) == pytest.approx(
-                port_c / ref_c, rel=1e-6)
-        if ref_s:
+                ratio, rel=1e-6)
+        if r_server is not None:
             for f, base in (("server_time_s", server_base_s),
                             ("server_energy_j", server_base_s * 230.0)):
                 assert (getattr(p, f) - base) / (getattr(r, f) - base) == \
-                    pytest.approx(port_s / ref_s, rel=1e-6)
+                    pytest.approx(r_server, rel=1e-6)
         else:
             assert p.server_time_s == pytest.approx(r.server_time_s,
                                                     rel=1e-12)
@@ -174,3 +210,41 @@ def test_records_match_compares_cohort_ids():
     other = dataclasses.replace(rec, cohort_pids=(3, 18))
     with pytest.raises(AssertionError):
         assert_records_match([rec], [other], **kw)
+
+
+def test_records_match_bills_each_client_at_its_own_cut():
+    """Three clients at two cuts (FLOP ratios 2 and 3 on the client, 5 and
+    7 on the server): records billed client by client pass, with every
+    client active and with a subset; a bill at one ratio for all does
+    not."""
+    from repro.api.records import RoundRecord
+    t, p_edge, t_srv = (np.array([1.0, 2.0, 4.0]), np.array([40.0, 2.0, 40.0]),
+                        np.array([0.5, 0.25, 0.5]))
+    ref_pairs = [(10.0, 20.0), (30.0, 40.0), (10.0, 20.0)]
+    port_pairs = [(20.0, 100.0), (90.0, 280.0), (20.0, 100.0)]
+    rc = np.array([2.0, 3.0, 2.0])
+    rs = np.array([5.0, 7.0, 5.0])
+
+    def record(ids, scale_c, scale_s):
+        ids = np.asarray(ids)
+        return RoundRecord(
+            round=0, loss=1.0, accuracy=0.5, link_bytes=8.0,
+            link_time_s=1.0, link_energy_j=2.0,
+            client_time_s=float((scale_c * t)[ids].sum()),
+            client_energy_j=float((scale_c * t * p_edge)[ids].sum()),
+            server_time_s=float((scale_s * t_srv)[ids].sum()),
+            server_energy_j=float((scale_s * t_srv)[ids].sum()) * 230.0,
+            uav_energy_j=0.0, active_clients=len(ids), engine="sl/vmap")
+
+    kw = dict(ref_flops_pair=ref_pairs, port_flops_pair=port_pairs,
+              server_base_s=0.0, n_test=4, ref_consts=(t, p_edge, t_srv))
+    for ids in ([0, 1, 2], [1, 2]):
+        assert_records_match([record(ids, 1.0, 1.0)],
+                             [record(ids, rc, rs)], active=[ids], **kw)
+    with pytest.raises(AssertionError):
+        assert_records_match([record([0, 1, 2], 1.0, 1.0)],
+                             [record([0, 1, 2], 2.0, rs)], **kw)
+    with pytest.raises(AssertionError):
+        assert_records_match([record([1, 2], 1.0, 1.0)],
+                             [record([1, 2], rc, rs)], active=[[0, 1]],
+                             **kw)

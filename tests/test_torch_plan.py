@@ -135,10 +135,11 @@ def _lm(arch, **kw):
 
 _REFUSED = (NotImplementedError, "ROADMAP queue 1")
 OUT_OF_SLICE = {
-    # the vmap fleet engines run; what rides on them later is refused
-    "vmap": (dict(engine=T.EngineSpec(client_axis="vmap"),
+    # the vmap fleet engines run, adaptive cuts too; what rides on them
+    # later is refused
+    "vmap": (dict(engine=T.EngineSpec(client_axis="vmap", server_mesh=(1, 1)),
                   cut_policy=T.CutPolicy(mode="adaptive")),
-             (NotImplementedError, "queue 1 item 11")),
+             (NotImplementedError, "queue 1 item 16")),
     "shard_map": (dict(engine=T.EngineSpec(client_axis="shard_map")),
                   _REFUSED),
     "server_mesh": (dict(engine=T.EngineSpec(server_mesh=(1, 1))), _REFUSED),
@@ -150,7 +151,10 @@ OUT_OF_SLICE = {
     # is the reference's own refusal
     "population": (dict(clients=T.ClientSpec(num_clients=4, population=8)),
                    (ValueError, "population sampling with sl/scan")),
-    "adaptive": (dict(cut_policy=T.CutPolicy(mode="adaptive")), _REFUSED),
+    # adaptive cuts run on sl/vmap; on sl/scan it is the reference's own
+    # refusal
+    "adaptive": (dict(cut_policy=T.CutPolicy(mode="adaptive")),
+                 (ValueError, "need the bucketed fleet engine")),
     "scenario": (dict(scenario=object()), _REFUSED),
     # the transformer family runs now, but only on a stack it is given
     "transformer": (dict(model=T.ModelSpec(family="transformer")),
