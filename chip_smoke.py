@@ -89,7 +89,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    run with per-client cuts on the card held against the CPU (the vmap
    rules above include the int8 boundary at both buckets' shapes, 2
    clients folded into (401,408, 32) and (401,408, 16), and time the kernel
-   there);
+   there); then the scenario layer (``[scenario]``): ``sl/vmap`` on the
+   MobileNetV2 spec of 5 under the reference tests' stochastic scenario
+   (the ``a2g`` channel at its defaults, markov availability p_drop 0.4,
+   p_recover 0.6, two UAVs relaying from their partitions' centroids,
+   seed 1), 2 rounds: the rolled-out mission (rounds budget, each route's
+   clients, the serve distances, the nominal rates), each round's mask
+   and rate ratios, its records and wall time and the int8 launches (one
+   a local step), and tinycnn under the same scenario on the card and on
+   the CPU from the same injected draws (``Plan.env_draws``); and the
+   Monte-Carlo sweep (``[mc]``): ``run_monte_carlo`` of that plan over 4
+   seeds x 2 rounds in both modes, the seed axis (``vmap``: one program a
+   local step for all seeds and clients) and the per-seed loop, masks,
+   active clients, bytes and bills equal seed by seed and losses within
+   ``FLEET_EQUIV_ATOL`` (the first round's under cuDNN's default
+   algorithms, every round's under its deterministic ones: the default
+   ones drift past it run to run by the second round), each mode's
+   fenced wall time, their ratio and the peak memory, the int8 launches of each (one a local step for all
+   16 seed-client rows in ``vmap`` mode), and the kernel through the
+   nested ``vmap`` rule at (200,704, 32), bit-equal and one launch, timed
+   L2 cold;
 9. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
@@ -174,6 +193,13 @@ HETERO_INT8_SHAPES = ((2, 16, 112, 112, 32), (2, 16, 112, 112, 16))
 HETERO_INT8 = tuple((math.prod(s[:-1]), s[-1]) for s in HETERO_INT8_SHAPES)
 FLASH_VMAP = ((FLEET * LM_VMAP_BATCH,) + FLASH_MAIN[1:],)
 FLEET_DROPOUT = 0.25
+# the [mc] phase's Monte-Carlo sweep: MC_SEEDS scenario seeds of the
+# [scenario] plan (4 clients), both folded into the int8 kernel's rows by
+# the seed axis's nested vmap rule: (4, 4, 16, 28, 28, 32) -> (200,704, 32)
+MC_SEEDS = 4
+MC_ROUNDS = 2
+MC_INT8_SHAPE = (MC_SEEDS, FLEET, 16, 28, 28, MAIN_D)
+MC_INT8 = (math.prod(MC_INT8_SHAPE[:-1]), MAIN_D)
 
 
 def card_line() -> str:
@@ -1227,17 +1253,19 @@ def check_vmap_rules(dev) -> dict:
     return {"flash": err, "flash_grad": max(gerr.values())}
 
 
-def check_fleet_against_cpu(api, spec, label: str, cohorts=None):
+def check_fleet_against_cpu(api, spec, label: str, cohorts=None,
+                            env_draws=None):
     """``spec`` on the card against the same plan on the CPU (the kernels'
     plain versions), same params and data (and, for a population, the same
-    ``Plan.cohorts``): losses within the reference's ``FLEET_EQUIV_ATOL``,
-    each client's cut, active clients, wire bytes and cohort ids
-    exactly."""
+    ``Plan.cohorts``; for a scenario, the same ``Plan.env_draws``): losses
+    within the reference's ``FLEET_EQUIV_ATOL``, each client's cut, active
+    clients, wire bytes, link time and cohort ids exactly."""
     from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
     records, cuts = [], []
     for device in ("cuda", "cpu"):
         plan = api.compile_experiment(spec, device=device)
         plan.cohorts = cohorts
+        plan.env_draws = env_draws
         records.append(plan.run()[1])
         cuts.append(plan.cut_of_client)
     rec_gpu, rec_cpu = records
@@ -1248,13 +1276,15 @@ def check_fleet_against_cpu(api, spec, label: str, cohorts=None):
         if (abs(a.loss - b.loss) > FLEET_EQUIV_ATOL
                 or a.active_clients != b.active_clients
                 or a.link_bytes != b.link_bytes
+                or a.link_time_s != b.link_time_s
                 or a.cohort_pids != b.cohort_pids):
             raise AssertionError(f"{label} card vs CPU records differ: {a} "
                                  f"vs {b}")
     print(f"[check] {label} on the card == on the CPU (losses "
           f"{[round(r.loss, 6) for r in rec_gpu]} vs "
-          f"{[round(r.loss, 6) for r in rec_cpu]}, active clients "
-          f"{[r.active_clients for r in rec_gpu]})")
+          f"{[round(r.loss, 6) for r in rec_cpu]}, max_abs_diff "
+          f"{max(abs(a.loss - b.loss) for a, b in zip(rec_gpu, rec_cpu)):.3e}"
+          f", active clients {[r.active_clients for r in rec_gpu]})")
 
 
 def run_fleet_cnn_paths(api) -> dict:
@@ -1576,6 +1606,199 @@ def run_hetero_path(api) -> dict:
     return {"hetero": launches, "state_bytes": sizes}
 
 
+def stoch_scenario(sim):
+    """The reference tests' stochastic scenario (``tests/test_sim.py``):
+    the ``a2g`` channel at its defaults, markov availability, two UAVs
+    relaying from their partitions' centroids, seed 1."""
+    return sim.ScenarioSpec(
+        channel=sim.ChannelParams(kind="a2g"),
+        availability=sim.AvailabilityParams(kind="markov", p_drop=0.4,
+                                            p_recover=0.6),
+        num_uavs=2, serve_mode="relay", seed=1)
+
+
+def check_seed_rule(dev):
+    """The int8 boundary through the seed axis's nested ``vmap`` rule at
+    the ``[mc]`` sweep's shape (``MC_SEEDS`` seeds x ``FLEET`` clients of
+    the MobileNetV2 cut, (200,704, 32) rows): NaN, inf and zero rows,
+    bit-equal to the plain version seed by seed and client by client, in
+    ONE launch."""
+    from torch.func import vmap
+    from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
+                                                quant_dequant_int8_plain)
+    from repro_torch.kernels.quant.ops import make_link_compress
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(MC_INT8_SHAPE, device=dev, generator=g) * 3
+    x[3, 1, 0, 2, 3] = float("nan")
+    x[0, 2, 1, 0, 0] = float("inf")
+    x[2, 0, 0, 0, 1] = 0.0
+    before = quant_dequant_int8.launches
+    got = vmap(vmap(make_link_compress(kernel="fused")))(x)
+    torch.cuda.synchronize()
+    launches = quant_dequant_int8.launches - before
+    want = torch.stack([torch.stack([
+        quant_dequant_int8_plain(x[s_, c].reshape(-1, MAIN_D))
+        .reshape(MC_INT8_SHAPE[2:]) for c in range(FLEET)])
+        for s_ in range(MC_SEEDS)])
+    ok = same(got, want)
+    print(f"[vmap-rules] int8 boundary through the nested (seed, client) "
+          f"vmap rule, {MC_SEEDS} seeds x {FLEET} clients of "
+          f"{MC_INT8_SHAPE[2:]} ({MC_INT8[0]} rows of {MC_INT8[1]}): "
+          f"bit-equal to the plain version seed by seed, client by client "
+          f"{ok} (NaN, inf and zero rows included), {launches} launch")
+    if not ok or launches != 1:
+        raise AssertionError(f"nested int8 vmap rule: bit-equal {ok}, "
+                             f"{launches} launches")
+
+
+def run_scenario_path(api):
+    """``sl/vmap`` on MobileNetV2 (``main_spec``, no dropout) under
+    ``stoch_scenario``, 2 rounds: the timeline, each round's mask and rate
+    ratios (nominal / sampled) and record, the int8 launches over exactly
+    that run (one a local step), and tinycnn under the same scenario on
+    the card against the CPU from the same injected draws. Returns the
+    plan (the [mc] phase sweeps it) and the launch count."""
+    import numpy as np
+    from repro_torch import sim
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.sim.scenario import availability_step
+    from repro_torch.sim.streams import draw_env
+    t0 = time.perf_counter()
+    plan = api.compile_experiment(dataclasses.replace(
+        main_spec(api, "sl", 2, client_axis="vmap"),
+        scenario=stoch_scenario(sim)))
+    tl = plan.timeline
+    print(f"[scenario] compiled in {time.perf_counter() - t0:.2f} s: "
+          f"{plan.engine_label}, {tl.num_uavs} UAVs relaying, rounds budget "
+          f"{plan.rounds_budget}, routes "
+          f"{[r.client_ids for r in tl.routes]}, serve distances "
+          f"{np.round(plan.serve_dist_m, 3).tolist()} m, nominal rates "
+          f"{np.round(plan.rate_nominal / 1e6, 3).tolist()} Mb/s, round "
+          f"{tl.round_duration_s:.1f} s on the mission clock")
+    quant_dequant_int8.launches = 0
+    state = plan.init()
+    records = []
+    for _ in range(plan.num_rounds):
+        env = plan.round_env(state.round)
+        mask, _ = availability_step(env.mask, state.avail_up,
+                                    plan.spec.scenario.availability)
+        ratio = plan._round_rate_ratio(env)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rec = plan.run_round(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"[scenario] round {rec.round} wall_s={wall:.4f} mask "
+              f"{mask.astype(int).tolist()} rate ratios "
+              f"{np.round(ratio, 4).tolist()} "
+              f"record={json.dumps(rec.to_dict())}")
+        if not math.isfinite(rec.loss) or rec.active_clients != mask.sum():
+            raise AssertionError(f"[scenario] round {rec.round}: {rec}")
+        records.append(rec)
+    launches = quant_dequant_int8.launches
+    want = plan.num_rounds * plan.spec.local_steps
+    print(f"[scenario] quant_dequant_int8 launches over the "
+          f"{plan.num_rounds}-round run: {launches} (want {want}: one a "
+          f"local step for all {FLEET} clients)")
+    if plan.num_rounds != 2 or launches != want:
+        raise AssertionError(f"[scenario] launched the int8 kernel "
+                             f"{launches} times, want {want}")
+    spec = api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=4),
+        link_policy=api.LinkPolicy(compress="int8"),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        mission=api.MissionSpec(), scenario=stoch_scenario(sim),
+        global_rounds=3, batch_size=4)
+    draws = [draw_env(7, r, mask_n=4, rates_n=4) for r in range(3)]
+    check_fleet_against_cpu(api, spec, "tinycnn sl/vmap under the "
+                            "stochastic scenario, injected draws",
+                            env_draws=draws)
+    return plan, launches
+
+
+def run_mc_path(plan) -> dict:
+    """``run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS)`` in both modes
+    on the [scenario] plan, timed with cuDNN's default algorithms: each
+    mode's fenced wall time (after its warm-up round), the phase's
+    seconds, the peak memory and the int8 launches (``vmap``: one a local
+    step for all seeds and clients, its warm-up round's included); per
+    seed the masks, active clients, bytes and bills equal, the first
+    round's losses within ``FLEET_EQUIV_ATOL``. cuDNN's default
+    algorithms are not reproducible run to run, and at this width the
+    loop against itself (run once more and printed) drifts past
+    ``FLEET_EQUIV_ATOL`` by the second round (PERF.md, ROADMAP fault H):
+    so both modes run again with cuDNN's deterministic algorithms,
+    bitwise reproducible run to run, and there every round's losses must
+    agree within ``FLEET_EQUIV_ATOL``."""
+    import numpy as np
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.sim import run_monte_carlo
+    steps = plan.spec.local_steps
+    want = {"vmap": (1 + MC_ROUNDS) * steps,
+            "loop": (1 + MC_SEEDS * MC_ROUNDS) * steps}
+    out, det = {}, {}
+    for mode in ("vmap", "loop"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        quant_dequant_int8.launches = 0
+        t0 = time.perf_counter()
+        mc = run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS, mode=mode)
+        phase_s = time.perf_counter() - t0
+        launches = quant_dequant_int8.launches
+        peak = torch.cuda.max_memory_allocated()
+        s = mc.stacks
+        print(f"[mc] {mode}: {MC_SEEDS} seeds x {MC_ROUNDS} rounds, wall_s="
+              f"{mc.wall_s:.4f} (fenced, after one warm-up round; "
+              f"{phase_s:.2f} s with it), peak "
+              f"{peak / 2 ** 30:.2f} GiB, quant_dequant_int8 launches "
+              f"{launches} (want {want[mode]}); loss "
+              f"{s['loss'].round(6).tolist()}, active clients "
+              f"{s['active_clients'].tolist()}, link_time_s "
+              f"{s['link_time_s'].tolist()}, final accuracy "
+              f"{s['final_accuracy'].tolist()}")
+        if not np.isfinite(s["loss"]).all() or launches != want[mode]:
+            raise AssertionError(f"[mc] {mode}: non-finite losses or "
+                                 f"{launches} int8 launches")
+        out[mode] = (mc, launches, peak, phase_s)
+    # the loop once more, same code and inputs: its drift against itself
+    again = run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS, mode="loop")
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("vmap", "loop"):
+            det[mode] = run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS,
+                                        mode=mode)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    v, l = out["vmap"][0], out["loop"][0]
+    self_drift = np.abs(again.stacks["loss"] - l.stacks["loss"]).max(axis=0)
+    exact = [k for k in v.stacks if k not in ("loss", "final_accuracy")]
+    pairs = ((v, l), (det["vmap"], det["loop"]), (v, det["vmap"]))
+    equal = all(np.array_equal(a.stacks[k], b.stacks[k]) for k in exact
+                for a, b in pairs)
+    diff = np.abs(v.stacks["loss"] - l.stacks["loss"]).max(axis=0)
+    diff_det = np.abs(det["vmap"].stacks["loss"]
+                      - det["loop"].stacks["loss"]).max(axis=0)
+    print(f"[mc] vmap == loop seed by seed: {exact} equal {equal}; loss "
+          f"max_abs_diff by round, default algorithms "
+          f"{[f'{x:.3e}' for x in diff]} (round 0 gated at "
+          f"{FLEET_EQUIV_ATOL}; the loop against itself "
+          f"{[f'{x:.3e}' for x in self_drift]}), deterministic algorithms "
+          f"{[f'{x:.3e}' for x in diff_det]} (gated at {FLEET_EQUIV_ATOL}); "
+          f"wall loop/vmap {l.wall_s / v.wall_s:.3f}")
+    if not (equal and diff[0] <= FLEET_EQUIV_ATOL
+            and diff_det.max() <= FLEET_EQUIV_ATOL
+            and len(np.unique(v.stacks["active_clients"])) > 1):
+        raise AssertionError("[mc] the two modes disagree")
+    torch.cuda.empty_cache()
+    return {"mc-vmap": out["vmap"][1], "wall": (v.wall_s, l.wall_s),
+            "peak": (out["vmap"][2], out["loop"][2]),
+            "phase_s": (out["vmap"][3], out["loop"][3])}
+
+
 def run_rwkv_path() -> int:
     """rwkv6-7b at full width, cut to ``RWKV_LAYERS`` layers, through the
     port's trainer: 3 steps of 4 x 1024 tokens with the WKV forward and
@@ -1834,8 +2057,10 @@ def main() -> int:
     # the batched shapes (outside any path's counts), then the three vmap
     # paths, each read over its own run
     vmap_errs = check_vmap_rules(dev)
+    check_seed_rule(dev)
     for m, d in VMAP_INT8 + HETERO_INT8:
         time_quant_kernel(dev, m, d)
+    time_quant_kernel(dev, *MC_INT8)
     for shape in FLASH_VMAP:
         time_flash_kernel(dev, shape, bf16=False)
     stamp("vmap rules and batched kernel times")
@@ -1846,6 +2071,11 @@ def main() -> int:
     stamp("cohort paths")
     hetero = run_hetero_path(api)
     stamp("hetero path")
+    scenario_plan, scenario_launches = run_scenario_path(api)
+    stamp("scenario path")
+    mc = run_mc_path(scenario_plan)
+    del scenario_plan
+    stamp("Monte-Carlo path")
 
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
@@ -1868,12 +2098,19 @@ def main() -> int:
     print(f"[paths] per-client cuts: sl/vmap MobileNetV2 {HETERO_CUTS} "
           f"{hetero['hetero']}; buckets' state bytes "
           f"{hetero['state_bytes']}")
+    print(f"[paths] scenario: sl/vmap MobileNetV2 {scenario_launches} int8 "
+          f"launches; Monte-Carlo {MC_SEEDS} seeds x {MC_ROUNDS} rounds: "
+          f"vmap {mc['mc-vmap']} int8 launches, wall vmap/loop "
+          f"{mc['wall'][0]:.4f}/{mc['wall'][1]:.4f} s (loop/vmap "
+          f"{mc['wall'][1] / mc['wall'][0]:.3f}), peak vmap/loop "
+          f"{mc['peak'][0] / 2 ** 30:.2f}/{mc['peak'][1] / 2 ** 30:.2f} GiB, "
+          f"phase s vmap/loop {mc['phase_s'][0]:.2f}/{mc['phase_s'][1]:.2f}")
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), the int8 kernel's
-    # with the [hetero] path's run added (each count read over its own
-    # run), over the RWKV path's 3 steps for the WKV kernels, over all the
-    # paths for the wire-format pair
+    # with the [hetero], [scenario] and [mc] vmap runs added (each count
+    # read over its own run), over the RWKV path's 3 steps for the WKV
+    # kernels, over all the paths for the wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
              "replaces": f"src/repro/kernels/quant/int8.py:{line}",
@@ -1887,7 +2124,8 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/quant_int8.cu",
                 "replaces": "src/repro/kernels/quant/int8.py:40",
                 "launches": (lm_launches["quant_dequant_int8"]
-                             + hetero["hetero"]["quant_dequant_int8"]),
+                             + hetero["hetero"]["quant_dequant_int8"]
+                             + scenario_launches + mc["mc-vmap"]),
                 "max_abs_err": max_err,
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": "bytes",

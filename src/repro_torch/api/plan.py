@@ -25,7 +25,13 @@ client's minimum-energy cut for its own edge profile and link under the
 link deadline, ``fleet.hetero.assign_cuts_cnn``); with more than one
 distinct cut the clients train in cut buckets, one fleet round and one
 server suffix a bucket (``fleet.hetero.HeteroFleet``), each client billed
-at its own cut. The run surface is the reference's:
+at its own cut. A ``ScenarioSpec`` (``ExperimentSpec.scenario``,
+``repro_torch.sim``) runs on every engine: the mission rolls out in time
+(``sim.mission.rollout_mission``: several UAVs, hover or relay serving),
+each client's link constants are hoisted at its nominal channel rate, the
+channel's draws re-bill link time and energy each round, and on the fleet
+engines an availability trace masks the clients (and, under a population,
+weights the cohort draw). The run surface is the reference's:
 
     plan = compile_experiment(spec, device="cuda")
     state = plan.init()
@@ -53,6 +59,7 @@ from ..core.split import (SplitStep, cut_index_for_fraction,
                           init_stages, make_fl_round, make_multi_client_round,
                           make_split_loss, stack_cut_index,
                           tier_call, tier_params, to_port_layout)
+from ..core.link import LinkConfig
 from ..core.trajectory import TourPlan, plan_tour
 from ..data.partition import (partition_dirichlet, partition_iid,
                               partition_non_iid, population_partition_count)
@@ -66,7 +73,12 @@ from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
                                 resolve_link_kernel)
 from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
 from ..optim.optimizers import FunctionalAdamW, adamw
-from ..sim.scenario import cohort_generator, sample_cohort
+from ..sim.channel import deterministic_rate_bps, rates_from_draws
+from ..sim.mission import MissionTimeline, rollout_mission
+from ..sim.scenario import (COHORT_DOWN_WEIGHT, ScenarioSpec,
+                            availability_init, availability_step,
+                            cohort_generator, cohort_mask, sample_cohort)
+from ..sim.streams import EnvDraws, checked_draws, draw_env
 from .records import RoundRecord
 from .runtime import (client_coords, client_step_time_s, count_fl_step_flops,
                       count_sl_step_flops, count_split_step_flops,
@@ -93,6 +105,9 @@ class PlanState:
     rng: np.random.RandomState      # minibatch sampling stream
     dropout_rng: np.random.RandomState   # client dropout stream
     last_metrics: Optional[dict] = None
+    # a scenario's availability state (population-sized when one is
+    # declared), carried from round to round
+    avail_up: Optional[np.ndarray] = None
 
 
 class Plan:
@@ -108,12 +123,28 @@ class Plan:
     cohort draw: a sequence with one entry a round, each ``num_clients``
     distinct sorted population ids. Assign it before running, e.g. the
     reference's ``RoundRecord.cohort_pids``, to replay its cohorts; an
-    entry that breaks those rules, or a round past its end, raises."""
+    entry that breaks those rules, or a round past its end, raises.
+
+    ``env_draws`` (scenario plans) takes the place of the plan's own
+    environment draws in the same way: a sequence with one
+    ``sim.streams.EnvDraws`` a round, its ``mask`` the availability
+    process's (clients,) uniforms (population-sized under a population) and
+    its ``normal``/``exponential`` the channel's (clients,) draws, each
+    given when the scenario uses it, e.g. the reference's draws from its
+    folded keys. A field of the wrong length, a missing one, or a round past
+    its end raises.
+
+    With a scenario the plan also reads ``timeline`` (the rolled-out
+    mission), ``serve_dist_m`` (each client's slant distance to its UAV)
+    and ``rate_nominal`` (each client's deterministic channel rate, at
+    which its link constants are hoisted)."""
 
     def __init__(self, spec: ExperimentSpec, *, device, arrays, parts,
                  stages, params0, tour: Optional[TourPlan], cut_of_client,
                  flops: dict, edges, consts, engine, num_classes: int,
-                 eval_chunk: int, prof_consts=None):
+                 eval_chunk: int, prof_consts=None,
+                 timeline: Optional[MissionTimeline] = None,
+                 serve_dist_m=None, rate_nominal=None):
         self.spec = spec
         self.device = device
         self.engine_label = f"{spec.engine.kind}/{spec.engine.client_axis}"
@@ -122,9 +153,24 @@ class Plan:
         self.stages = stages
         self.params0 = params0
         self.tour = tour
-        self.rounds_budget = tour.rounds if tour is not None else None
-        self.num_rounds = (min(spec.global_rounds, tour.rounds)
-                           if tour is not None else spec.global_rounds)
+        self.timeline = timeline
+        budget = (timeline.rounds if timeline is not None
+                  else tour.rounds if tour is not None else None)
+        self.rounds_budget = budget
+        self.num_rounds = (min(spec.global_rounds, budget)
+                           if budget is not None else spec.global_rounds)
+        n = spec.clients.num_clients
+        self.serve_dist_m = (np.zeros(n) if serve_dist_m is None
+                             else np.asarray(serve_dist_m))
+        self.rate_nominal = (np.full(n, spec.link_policy.rate_bps)
+                             if rate_nominal is None
+                             else np.asarray(rate_nominal))
+        scn = spec.scenario
+        self._channel = scn.channel if scn is not None else None
+        # masks, rates and cohorts fold from the scenario's seed, or from
+        # seed 0 without a scenario (as run_monte_carlo's default does)
+        self.env_seed = scn.seed if scn is not None else 0
+        self.env_draws = None
         self.cut_of_client = list(cut_of_client)
         self.flops = flops            # {"full": f} | {cut: (client, server, sd)}
         self.edges = edges
@@ -143,28 +189,39 @@ class Plan:
 
     # ---- lifecycle --------------------------------------------------------
 
+    @property
+    def avail_clients(self) -> int:
+        """The clients the availability trace runs over: the population
+        when one is declared, else the fleet."""
+        return (self._population if self._population is not None
+                else self.spec.clients.num_clients)
+
     def init(self) -> PlanState:
         """Fresh run state from ``params0``; the batch stream is one
         ``RandomState(spec.seed)`` and the dropout stream one
-        ``RandomState(spec.seed + 1)``, as in the reference."""
+        ``RandomState(spec.seed + 1)``, as in the reference; a scenario's
+        availability trace starts with every client up."""
+        scn = self.spec.scenario
         return PlanState(round=0,
                          engine_state=self._engine.init_state(self.params0),
                          rng=np.random.RandomState(self.spec.seed),
-                         dropout_rng=np.random.RandomState(self.spec.seed + 1))
+                         dropout_rng=np.random.RandomState(self.spec.seed + 1),
+                         avail_up=(availability_init(self.avail_clients)
+                                   if scn is not None and scn.needs_mask
+                                   else None))
 
-    def round_batches(self, state: PlanState, cohort=None):
-        """One round's (clients, local_steps, ...) batch stacks on the
-        plan's device, in the engine's format (FL: ``(bx, by)``; SL: dict).
+    def round_indices(self, state: PlanState) -> np.ndarray:
+        """One round's (partitions, local_steps, batch) sample indices of
+        every partition (one ``choice`` a partition, the reference's call
+        sequence), from the batch stream."""
+        return round_batch_indices(self.parts, self.spec.batch_size,
+                                   self.spec.local_steps, state.rng,
+                                   shrink=self.spec.data.shrink_batches)
 
-        The sample indices of every partition are drawn (one ``choice`` a
-        partition, the reference's call sequence); with ``cohort``
-        (population ids) only the cohort's partitions (``cohort % P``) are
-        gathered and moved to the device, without it every partition."""
-        sel = round_batch_indices(self.parts, self.spec.batch_size,
-                                  self.spec.local_steps, state.rng,
-                                  shrink=self.spec.data.shrink_batches)
-        if cohort is not None:
-            sel = sel[np.asarray(cohort) % len(self.parts)]
+    def gather_batches(self, sel: np.ndarray):
+        """The images (tokens) and labels at sample indices ``sel``
+        (clients, local_steps, batch), on the plan's device, in the
+        engine's format (FL: ``(bx, by)``; SL: dict)."""
         bx = _to_device(self.x_train[sel], self.device)
         by = torch.from_numpy(self.y_train[sel].astype(np.int64)).to(
             self.device)
@@ -172,11 +229,52 @@ class Plan:
             return bx, by
         return {"inputs": bx, "targets": by}
 
+    def round_batches(self, state: PlanState, cohort=None):
+        """One round's (clients, local_steps, ...) batch stacks on the
+        plan's device, in the engine's format (FL: ``(bx, by)``; SL: dict).
+
+        The sample indices of every partition are drawn; with ``cohort``
+        (population ids) only the cohort's partitions (``cohort % P``) are
+        gathered and moved to the device, without it every partition."""
+        sel = self.round_indices(state)
+        if cohort is not None:
+            sel = sel[np.asarray(cohort) % len(self.parts)]
+        return self.gather_batches(sel)
+
+    def round_env(self, round_index: int) -> EnvDraws:
+        """One round's environment draws (what the scenario uses, else
+        empty): the entry of ``env_draws`` when it is set (checked), else
+        drawn from the plan's environment seed."""
+        scn = self.spec.scenario
+        mask_n = (self.avail_clients
+                  if scn is not None and scn.needs_mask else 0)
+        return self.env_round(round_index, mask_n, self.env_seed,
+                              self.env_draws, "Plan.env_draws")
+
+    def env_round(self, round_index: int, mask_n: int, env_seed: int,
+                  given, where: str) -> EnvDraws:
+        """Round ``round_index``'s draws: ``mask_n`` availability uniforms
+        and, under a stochastic channel, a normal and an exponential a
+        client; from ``given`` (a sequence with one ``EnvDraws`` a round,
+        named ``where`` in its errors) when it is not None, else from
+        environment seed ``env_seed``."""
+        rates_n = (self.spec.clients.num_clients
+                   if self._channel is not None
+                   and self._channel.is_stochastic else 0)
+        if given is None:
+            return draw_env(env_seed, round_index, mask_n=mask_n,
+                            rates_n=rates_n)
+        if round_index >= len(given):
+            raise ValueError(f"{where} holds {len(given)} rounds; round "
+                             f"{round_index} is past its end")
+        return checked_draws(given[round_index], mask_n=mask_n,
+                             rates_n=rates_n,
+                             where=f"{where}[{round_index}]")
+
     def _round_cohort(self, state: PlanState) -> Optional[np.ndarray]:
         """The round's sorted cohort population ids, or None without a
         population: the entry of ``cohorts`` when it is set (checked), else
-        a uniform Gumbel top-k draw from the round's own generator
-        (``sim.scenario.cohort_generator(seed, round)``)."""
+        the plan's own draw (``draw_cohort``)."""
         if self._population is None:
             if self.cohorts is not None:
                 raise ValueError("Plan.cohorts is set on a plan without "
@@ -184,9 +282,8 @@ class Plan:
             return None
         k = self.spec.clients.num_clients
         if self.cohorts is None:
-            return sample_cohort(cohort_generator(self.spec.seed,
-                                                  state.round),
-                                 self._population, k)
+            return self.draw_cohort(state.round, state.avail_up,
+                                    self.env_seed)
         if state.round >= len(self.cohorts):
             raise ValueError(f"Plan.cohorts holds {len(self.cohorts)} "
                              f"rounds; round {state.round} is past its end")
@@ -199,10 +296,34 @@ class Plan:
                              f"population {self._population}")
         return ids.astype(np.int64)
 
-    def _round_mask(self, state: PlanState) -> Optional[np.ndarray]:
-        """The round's (clients,) 0/1 dropout mask, or None without
-        dropout: ``uniform >= rate`` per client from the dropout stream,
-        and never an all-dropped fleet (one client drawn back in)."""
+    def draw_cohort(self, round_index: int, avail_up, env_seed: int
+                    ) -> np.ndarray:
+        """A Gumbel top-k draw of the round's cohort from the
+        ``ENV_COHORT`` generator of environment seed ``env_seed``: weighted
+        by an availability state ``avail_up`` entering the round (a down
+        client at ``COHORT_DOWN_WEIGHT``), uniform when it is None."""
+        weights = None
+        if avail_up is not None:
+            weights = avail_up + (1.0 - avail_up) * np.float32(
+                COHORT_DOWN_WEIGHT)
+        return sample_cohort(cohort_generator(env_seed, round_index),
+                             self._population, self.spec.clients.num_clients,
+                             weights=weights)
+
+    def _round_mask(self, state: PlanState, env: EnvDraws,
+                    cohort=None) -> Optional[np.ndarray]:
+        """The round's (clients,) 0/1 client mask, or None when the engine
+        takes none. Under a scenario's availability trace: one step of the
+        trace on the round's uniforms (``env.mask``), sliced to the cohort
+        under a population (an all-down cohort keeps slot 0; the trace's
+        own guard holds for the population). Under client dropout:
+        ``uniform >= rate`` per client from the dropout stream, never an
+        all-dropped fleet (one client drawn back in)."""
+        scn = self.spec.scenario
+        if scn is not None and scn.needs_mask:
+            mask, state.avail_up = availability_step(
+                env.mask, state.avail_up, scn.availability)
+            return mask if cohort is None else cohort_mask(mask, cohort)
         rate = self.spec.clients.dropout_rate
         if rate <= 0.0:
             return None
@@ -212,36 +333,56 @@ class Plan:
             mask[state.dropout_rng.randint(n)] = 1.0
         return mask
 
+    def _round_rate_ratio(self, env: EnvDraws) -> Optional[np.ndarray]:
+        """nominal / sampled channel rate a client for one round, from the
+        round's draws, or None without a channel (the hoisted constants
+        stand as they are)."""
+        if self._channel is None:
+            return None
+        rates = rates_from_draws(self._channel, self.serve_dist_m,
+                                 self.spec.link_policy.rate_bps, env.normal,
+                                 env.exponential)
+        return self.rate_nominal / rates
+
     def run_round(self, state: PlanState, batches=None, *,
                   with_eval: bool = True) -> tuple[PlanState, RoundRecord]:
         """Execute one global round; returns (state, RoundRecord)."""
+        env = self.round_env(state.round)
         cohort = self._round_cohort(state)
         if batches is None:
             batches = self.round_batches(state, cohort=cohort)
-        mask = self._round_mask(state)
+        mask = self._round_mask(state, env, cohort)
         state.engine_state, losses = self._engine.run(
             state.engine_state, batches,
             None if mask is None else torch.from_numpy(mask).to(self.device))
         rec = self._assemble_record(state, losses.cpu().numpy(), mask,
-                                    cohort, with_eval=with_eval)
+                                    cohort, self._round_rate_ratio(env),
+                                    with_eval=with_eval)
         state.round += 1
         return state, rec
 
-    def _assemble_record(self, state: PlanState, loss_c, mask, cohort, *,
-                         with_eval: bool) -> RoundRecord:
-        """The analytic energy/link bill of one executed round: the loss
-        and every bill over the active clients only; under a population the
-        client time and energy at the cohort's own edge profiles
-        (``cohort % profiles``)."""
+    def _round_loss(self, loss_c: np.ndarray, mask) -> float:
+        """The round's loss: the mean over the active clients' steps
+        (losses FL (clients, steps), SL (steps, clients))."""
+        n = self.spec.clients.num_clients
+        active = np.arange(n) if mask is None else np.flatnonzero(mask > 0)
+        return float((loss_c[active, :] if self.spec.engine.kind == "fl"
+                      else loss_c[:, active]).mean())
+
+    def _round_bill(self, round_index: int, mask, cohort, ratio) -> dict:
+        """The analytic energy/link bill of one round over the active
+        clients only; under a population the client time and energy at the
+        cohort's own edge profiles (``cohort % profiles``); under a channel
+        link time and energy at ``ratio`` (nominal / sampled rate) times
+        the hoisted constants, the bytes as they are."""
         n = self.spec.clients.num_clients
         steps = self.spec.local_steps
         active = np.arange(n) if mask is None else np.flatnonzero(mask > 0)
-        # losses: FL (clients, steps); SL (steps, clients)
-        loss = float((loss_c[active, :] if self.spec.engine.kind == "fl"
-                      else loss_c[:, active]).mean())
         uav = 0.0
-        if self.tour is not None:
-            uav = float(self.tour.e_first if state.round == 0
+        if self.timeline is not None:
+            uav = self.timeline.uav_energy_j(round_index)
+        elif self.tour is not None:
+            uav = float(self.tour.e_first if round_index == 0
                         else self.tour.e_per_round)
         if cohort is not None and self._t_client_prof is not None:
             prof = cohort % len(self._t_client_prof)
@@ -254,6 +395,23 @@ class Plan:
         e_cli = float(sum(t_client[c] * steps * p_edge[c] for c in active))
         t_srv = float(self._t_server[active].sum() * steps
                       + self._server_base_s)
+        l_time, l_energy = self._link_time, self._link_energy
+        if ratio is not None:
+            l_time, l_energy = l_time * ratio, l_energy * ratio
+        return dict(
+            link_bytes=float(self._link_bytes[active].sum() * steps),
+            link_time_s=float(l_time[active].sum() * steps),
+            link_energy_j=float(l_energy[active].sum() * steps),
+            client_time_s=t_cli, client_energy_j=e_cli,
+            server_time_s=t_srv,
+            server_energy_j=t_srv * RTX_A5000.power_w,
+            uav_energy_j=uav, active_clients=len(active))
+
+    def _assemble_record(self, state: PlanState, loss_c, mask, cohort,
+                         ratio, *, with_eval: bool) -> RoundRecord:
+        """One executed round's record: the loss, the held-out accuracy
+        (NaN without ``with_eval``) and the bill (``_round_bill``)."""
+        loss = self._round_loss(loss_c, mask)
         if with_eval:
             state.last_metrics = self.evaluate(state)
             accuracy = state.last_metrics["accuracy"]
@@ -261,26 +419,24 @@ class Plan:
             accuracy = float("nan")
         return RoundRecord(
             round=state.round, loss=loss, accuracy=accuracy,
-            link_bytes=float(self._link_bytes[active].sum() * steps),
-            link_time_s=float(self._link_time[active].sum() * steps),
-            link_energy_j=float(self._link_energy[active].sum() * steps),
-            client_time_s=t_cli, client_energy_j=e_cli,
-            server_time_s=t_srv,
-            server_energy_j=t_srv * RTX_A5000.power_w,
-            uav_energy_j=uav, active_clients=len(active),
             engine=self.engine_label,
             cohort_pids=(() if cohort is None
                          else tuple(int(p) for p in cohort)),
-            metrics={})
+            metrics={}, **self._round_bill(state.round, mask, cohort, ratio))
 
-    @torch.no_grad()
     def evaluate(self, state: PlanState) -> dict:
         """Held-out classification metrics of the current global model (for
-        the split LM: next-token prediction at every position). Logits stay
-        on the device chunk by chunk; only the argmax goes to the host."""
+        the split LM: next-token prediction at every position)."""
+        return self.evaluate_engine_state(state.engine_state)
+
+    @torch.no_grad()
+    def evaluate_engine_state(self, engine_state) -> dict:
+        """``evaluate`` of an engine state (a Monte-Carlo seed's). Logits
+        stay on the device chunk by chunk; only the argmax goes to the
+        host."""
         chunk = self._eval_chunk
         pred = torch.cat([
-            self._engine.predict(state.engine_state,
+            self._engine.predict(engine_state,
                                  self._x_test[i:i + chunk]).reshape(-1)
             for i in range(0, len(self._x_test), chunk)])
         return metrics_from_predictions(pred.cpu().numpy(), self.y_test,
@@ -402,7 +558,7 @@ class _FLFleetEngine:
     def __init__(self, spec, stages, device):
         self.device = device
         self.model = nn.Sequential(*stages)
-        self.masked = spec.clients.dropout_rate > 0
+        self.masked = _needs_mask(spec)
 
         def loss_fn(params, batch):
             bx, by = batch
@@ -410,6 +566,9 @@ class _FLFleetEngine:
 
         self.round_fn = make_fleet_fl_round(loss_fn, FunctionalAdamW(spec.lr),
                                             client_dropout=self.masked)
+        self.seeds_round_fn = make_fleet_fl_round(
+            loss_fn, FunctionalAdamW(spec.lr), client_dropout=self.masked,
+            seed_axis=True)
 
     def forward(self, params, x):
         return functional_call(self.model, params, (to_port_layout(x),))
@@ -419,6 +578,11 @@ class _FLFleetEngine:
 
     def run(self, params, batches, mask):
         return self.round_fn(params, batches, *_mask_arg(mask))
+
+    def run_seeds(self, params, batches, mask):
+        """``run`` with a leading seed axis on every tensor (a
+        Monte-Carlo sweep's seeds in one program a local step)."""
+        return self.seeds_round_fn(params, batches, *_mask_arg(mask))
 
     def predict(self, params, x):
         return self.forward(params, x).argmax(dim=-1)
@@ -443,7 +607,7 @@ class _SLFleetEngine:
     def __init__(self, spec, step: SplitStep, client: nn.Module,
                  server: nn.Module, *, params0_tiers, logits):
         self.spec = spec
-        self.masked = spec.clients.dropout_rate > 0
+        self.masked = _needs_mask(spec)
         pop = spec.clients.population
         self.client_tier = ("shared" if pop is not None
                             and pop > spec.clients.num_clients
@@ -452,11 +616,12 @@ class _SLFleetEngine:
         self.opt_c, self.opt_s = (FunctionalAdamW(spec.lr),
                                   FunctionalAdamW(spec.lr))
         self.logits = tier_call(logits, client, server)
-        self.round_fn = make_fleet_sl_round(
+        self.round_fn, self.seeds_round_fn = (make_fleet_sl_round(
             make_split_loss(step, client, server), self.opt_c, self.opt_s,
             local_rounds=spec.local_steps,
             server_reduce=spec.engine.server_reduce,
-            client_dropout=self.masked, client_tier=self.client_tier)
+            client_dropout=self.masked, client_tier=self.client_tier,
+            seed_axis=seed_axis) for seed_axis in (False, True))
 
     def init_state(self, params0):
         params_c, params_s = self.params0_tiers(params0)
@@ -466,6 +631,12 @@ class _SLFleetEngine:
 
     def run(self, st, batches, mask):
         out = self.round_fn(*st, batches, *_mask_arg(mask))
+        return out[:4], out[4]
+
+    def run_seeds(self, st, batches, mask):
+        """``run`` with a leading seed axis on every tensor (a
+        Monte-Carlo sweep's seeds in one program a local step)."""
+        out = self.seeds_round_fn(*st, batches, *_mask_arg(mask))
         return out[:4], out[4]
 
     def predict(self, st, x):
@@ -486,7 +657,7 @@ class _HeteroSLEngine:
 
     def __init__(self, spec, stages, params0, cut_of_client, link, device):
         self.device = device
-        self.masked = spec.clients.dropout_rate > 0
+        self.masked = _needs_mask(spec)
         self.num_clients = spec.clients.num_clients
         self.fleet = HeteroFleet(
             lambda k: cnn_split_program(stages, params0, k,
@@ -526,8 +697,18 @@ def _cnn_logits(client, server, x):
 
 def _mask_arg(mask) -> tuple:
     """The fleet rounds take a trailing mask only when built with client
-    dropout, and the plan draws one exactly then."""
+    dropout or an availability trace, and the plan draws one exactly
+    then."""
     return () if mask is None else (mask,)
+
+
+def _needs_mask(spec: ExperimentSpec) -> bool:
+    """Whether the engine takes a client mask a round: client dropout, or
+    a scenario's stochastic availability trace."""
+    if spec.clients.dropout_rate > 0:
+        return True
+    scn = spec.scenario
+    return scn is not None and scn.needs_mask
 
 
 def _eval_prefix(client_stack: dict, dropout: bool) -> dict:
@@ -593,12 +774,13 @@ def _resolve_parts(spec: ExperimentSpec, y_train: np.ndarray) -> list:
 
 
 def _cnn_cuts(spec: ExperimentSpec, stages, sample_x, edges,
-              link: FleetLink) -> list[int]:
+              links: list) -> list[int]:
     """Each client's cut of a CNN: the fraction's, or under
     ``CutPolicy(mode="adaptive")`` its minimum-energy cut for its edge
-    profile and the link (``fleet.hetero.assign_cuts_cnn``) within the
-    per-step link deadline: ``CutPolicy.max_link_s``, or with a mission the
-    UAV's dwell at a stop over the local steps."""
+    profile and its own link (``links``, at its nominal channel rate;
+    ``fleet.hetero.assign_cuts_cnn``) within the per-step link deadline:
+    ``CutPolicy.max_link_s``, or with a mission the UAV's dwell at a stop
+    over the local steps."""
     n = spec.clients.num_clients
     if spec.cut_policy.mode != "adaptive":
         return [cut_index_for_fraction(stages, spec.cut_policy.fraction)] * n
@@ -608,7 +790,7 @@ def _cnn_cuts(spec: ExperimentSpec, stages, sample_x, edges,
                                         spec.mission.comm_s_per_stop,
                                         spec.local_steps)
     return assign_cuts_cnn(stages, sample_x, edges=edges,
-                           links=[link.config] * n,
+                           links=[lk.config for lk in links],
                            min_client_layers=spec.cut_policy.min_client_layers,
                            max_link_s=max_link_s)
 
@@ -740,14 +922,30 @@ def _validate(spec: ExperimentSpec):
     if cli.dropout_rate > 0 and not eng.is_fleet:
         raise ValueError("client dropout is a fleet policy; use a vmap or "
                          "shard_map client axis")
+    scn = spec.scenario
+    if scn is not None:
+        if not isinstance(scn, ScenarioSpec):
+            raise TypeError(f"ExperimentSpec.scenario takes a "
+                            f"repro_torch.sim.ScenarioSpec, got "
+                            f"{type(scn).__name__}")
+        scn.validate(has_mission=spec.mission is not None)
+        if scn.needs_mask and not eng.is_fleet:
+            raise ValueError("availability traces mask clients per round; "
+                             "they need a fleet engine (vmap or shard_map "
+                             "client axis)")
+        if scn.needs_mask and cli.dropout_rate > 0:
+            raise ValueError("pick ONE straggler process: ClientSpec."
+                             "dropout_rate (i.i.d.) or the scenario's "
+                             "availability trace")
+        if scn.num_uavs > cli.num_clients:
+            raise ValueError(f"{scn.num_uavs} UAVs for "
+                             f"{cli.num_clients} clients")
     # ---- outside the ported slices: refused, never run some other way ----
     if eng.client_axis == "shard_map":
         _not_in_slice("client_axis='shard_map' (the explicit-collective "
                       "fleet engines)", "item 16")
     if eng.server_mesh is not None:
         _not_in_slice("EngineSpec.server_mesh", "item 16")
-    if spec.scenario is not None:
-        _not_in_slice("ExperimentSpec.scenario", "item 14")
 
 
 def _resolve_device(device) -> torch.device:
@@ -780,12 +978,41 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
                      kernel=resolve_link_kernel(spec.engine.link_kernel,
                                                 device))
 
-    tour = None
+    scn = spec.scenario
+    tour = timeline = None
     if spec.mission is not None:
         coords = client_coords(spec.mission.farm_acres, n, seed=spec.seed)
-        tour = plan_tour(coords, np.zeros(2), params=spec.mission.uav,
-                         hover_s_per_stop=spec.mission.hover_s_per_stop,
-                         comm_s_per_stop=spec.mission.comm_s_per_stop)
+        if scn is not None:
+            # a scenario's mission rolls out in time (several UAVs, the
+            # serve geometry); one hovering UAV is plan_tour's plan
+            timeline = rollout_mission(
+                coords, np.zeros(2), params=spec.mission.uav,
+                hover_s_per_stop=spec.mission.hover_s_per_stop,
+                comm_s_per_stop=spec.mission.comm_s_per_stop,
+                num_uavs=scn.num_uavs, serve_mode=scn.serve_mode)
+            if scn.num_uavs == 1:
+                tour = timeline.routes[0].tour
+        else:
+            tour = plan_tour(coords, np.zeros(2), params=spec.mission.uav,
+                             hover_s_per_stop=spec.mission.hover_s_per_stop,
+                             comm_s_per_stop=spec.mission.comm_s_per_stop)
+
+    # each client's nominal rate: the channel's deterministic rate at its
+    # serve distance (the link policy's without a channel); its link
+    # constants are hoisted at it, and a round's draw scales them by
+    # nominal / sampled
+    serve_dist = (timeline.serve_dist_m if timeline is not None
+                  else np.zeros(n))
+    rate_nominal = np.full(n, spec.link_policy.rate_bps)
+    if scn is not None and scn.channel is not None:
+        rate_nominal = deterministic_rate_bps(
+            scn.channel, serve_dist,
+            spec.link_policy.rate_bps).astype(np.float64)
+    lp = spec.link_policy
+    client_links = [FleetLink(config=LinkConfig(
+        rate_bps=float(rate_nominal[c]), compress=lp.compress,
+        radio_power_w=lp.radio_power_w), kernel=link.kernel)
+        for c in range(n)]
 
     # ---- per-client constants -------------------------------------------
     t_client = np.zeros(n)
@@ -851,7 +1078,8 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
         for st in stages:
             st.to(device=device, memory_format=torch.channels_last)
         if spec.engine.kind == "sl":
-            cut_of_client = _cnn_cuts(spec, stages, sample_x, edges, link)
+            cut_of_client = _cnn_cuts(spec, stages, sample_x, edges,
+                                      client_links)
             for k in sorted(set(cut_of_client)):
                 flops[k] = count_sl_step_flops(stages[:k], stages[k:],
                                                sample_x, sample_y)
@@ -891,9 +1119,9 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
             fl_client, fl_server, smashed = flops[k]
             t_client[cid] = client_step_time_s(fl_client, edges[cid])
             t_server[cid] = roofline_s(fl_server, RTX_A5000)
-            link_bytes[cid] = link.step_wire_bytes(smashed)
-            link_time[cid] = link.step_time_s(smashed)
-            link_energy[cid] = link.step_energy_j(smashed)
+            link_bytes[cid] = client_links[cid].step_wire_bytes(smashed)
+            link_time[cid] = client_links[cid].step_time_s(smashed)
+            link_energy[cid] = client_links[cid].step_energy_j(smashed)
     consts = (t_client, t_server, link_bytes, link_time, link_energy,
               server_base_s)
     # one per-step client cost exists for FL and for a single cut; with
@@ -907,4 +1135,6 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
                 cut_of_client=cut_of_client, flops=flops, edges=edges,
                 consts=consts, engine=engine, num_classes=num_classes,
                 eval_chunk=eval_chunk,
-                prof_consts=_profile_consts(spec, client_flops))
+                prof_consts=_profile_consts(spec, client_flops),
+                timeline=timeline, serve_dist_m=serve_dist,
+                rate_nominal=rate_nominal)

@@ -3,9 +3,8 @@
 Re-declaration of ``repro.api.spec`` for the port: the same dataclasses,
 fields, defaults and ``describe()`` strings, so one spec reads the same in
 both packages. ``ModelSpec.arch`` takes the port's
-``repro_torch.configs.base.ArchConfig``; ``ExperimentSpec.scenario`` is an
-opaque optional field that ``compile_experiment`` refuses (the scenario
-layer is a later slice). The engine lowering table is in
+``repro_torch.configs.base.ArchConfig`` and ``ExperimentSpec.scenario`` the
+port's ``repro_torch.sim.ScenarioSpec``. The engine lowering table is in
 ``repro.api.spec``'s docstring; the port lowers ``fl/scan``, ``sl/scan``,
 ``fl/vmap`` and ``sl/vmap`` so far (``repro_torch.api.plan``).
 """
@@ -17,6 +16,7 @@ from typing import Any, Optional, Tuple
 from ..core.energy import HardwareProfile, JETSON_AGX_ORIN
 from ..core.link import LinkConfig
 from ..core.uav_energy import DEFAULT_UAV, UAVParams
+from ..sim.scenario import ScenarioSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +139,7 @@ class ExperimentSpec:
     # stochastic environment (repro.sim): A2G channel draws, availability
     # traces, multi-UAV dispatch. None keeps the idealized constants; the
     # degenerate scenario reproduces them exactly (sim.degenerate_scenario)
-    scenario: Optional[Any] = None
+    scenario: Optional[ScenarioSpec] = None
     global_rounds: int = 4       # cap; a mission's UAV budget may cut it short
     local_steps: int = 2
     batch_size: int = 8

@@ -17,18 +17,20 @@ int8 link, and the per-step energy constants. The rounds that run are
 ``min(cfg.global_rounds, tour.rounds)``: the UAV's energy budget caps the
 campaign. ``campaign_totals`` adds the return-to-base leg that no record
 bills; ``mission_obs_events`` decomposes each round's UAV time into its
-legs on the mission clock. A plan with a scenario timeline (several UAVs)
-comes with ``ExperimentSpec.scenario`` (ROADMAP queue 1 item 14).
+legs on the mission clock, a UAV at a time under a scenario's rolled-out
+mission (``plan.timeline``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from ..api.spec import (ClientSpec, CutPolicy, DataSpec, EngineSpec,
                         ExperimentSpec, LinkPolicy, MissionSpec, ModelSpec)
 from ..core.energy import HardwareProfile, JETSON_AGX_ORIN
 from ..core.link import LinkConfig
 from ..core.uav_energy import DEFAULT_UAV, UAVParams
+from ..sim.scenario import ScenarioSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +58,10 @@ class CampaignConfig:
     # the registered fleet a round's cohort of num_clients is drawn from
     # (None: the fleet is the cohort); see ClientSpec.population
     population: int | None = None
-    # the stochastic environment (ExperimentSpec.scenario); None keeps the
-    # constant-rate, always-available campaign
-    scenario: object = None
+    # the stochastic environment (ExperimentSpec.scenario, a
+    # sim.ScenarioSpec); None keeps the constant-rate, always-available
+    # campaign
+    scenario: Optional[ScenarioSpec] = None
     seed: int = 0
 
 
@@ -80,31 +83,54 @@ def campaign_totals(records, tour) -> dict:
     }
 
 
+def _event(name, rnd, uav, t, dur) -> dict:
+    return {"ev": "mission_span", "name": f"mission/{name}", "round": rnd,
+            "uav": uav, "clock": "mission", "t_mission_s": round(t, 3),
+            "dur_s": round(float(dur), 3)}
+
+
 def mission_obs_events(plan, records) -> list[dict]:
     """The tour's legs as telemetry events on the simulated mission clock,
-    one event a (round, leg): ``travel`` (the tour length at cruise speed),
-    ``hover`` (the clients' compute window, ``hover_s_per_stop`` a stop) and
-    ``comm`` (the link's window, ``comm_s_per_stop`` a stop). Each event
-    carries ``clock: "mission"`` and ``t_mission_s``, the seconds into the
-    mission, in place of a wall-clock time. Rounds follow one another at
-    the sum of the three legs."""
+    one event a (round, UAV, leg): ``travel`` (the tour length at cruise
+    speed), ``hover`` (the clients' compute window, ``hover_s_per_stop`` a
+    stop) and ``comm`` (the link's window, ``comm_s_per_stop`` a stop).
+    Each event carries ``clock: "mission"`` and ``t_mission_s``, the
+    seconds into the mission, in place of a wall-clock time. Without a
+    timeline rounds follow one another at the sum of the three legs; with
+    one (``plan.timeline``) each UAV's legs start at the round's
+    fleet-synchronised start time, over the clients of its route."""
     mission = plan.spec.mission
     if mission is None or not records:
         return []
     v = max(mission.uav.V, 1e-9)
+    events = []
+    if plan.timeline is not None:
+        tl = plan.timeline
+        starts = tl.round_start_s
+        for rec in records:
+            r = rec.round
+            t0 = float(starts[r]) if r < len(starts) else float(
+                starts[-1] + (r - len(starts) + 1) * tl.round_duration_s)
+            for route in tl.routes:
+                legs = (("travel", route.tour.tour_length / v),
+                        ("hover", len(route.client_ids)
+                         * mission.hover_s_per_stop),
+                        ("comm", len(route.client_ids)
+                         * mission.comm_s_per_stop))
+                t = t0
+                for name, dur in legs:
+                    events.append(_event(name, r, route.uav, t, dur))
+                    t += dur
+        return events
     n = plan.spec.clients.num_clients
     legs = (("travel", plan.tour.tour_length / v),
             ("hover", n * mission.hover_s_per_stop),
             ("comm", n * mission.comm_s_per_stop))
     round_s = sum(d for _, d in legs)
-    events = []
     for rec in records:
         t = rec.round * round_s
         for name, dur in legs:
-            events.append({"ev": "mission_span", "name": f"mission/{name}",
-                           "round": rec.round, "uav": 0, "clock": "mission",
-                           "t_mission_s": round(t, 3),
-                           "dur_s": round(float(dur), 3)})
+            events.append(_event(name, rec.round, 0, t, dur))
             t += dur
     return events
 

@@ -31,12 +31,26 @@ state. The reference's ``lax.scan`` over the local steps is a Python loop
 here. ``client_axis="shard_map"`` is refused by the plan (``api.plan``,
 ROADMAP queue 1 item 16).
 
+Seed axis (``seed_axis=True``, the Monte-Carlo sweeps of
+``sim.monte_carlo``): one more ``vmap`` level, outermost, over scenario
+seeds, the counterpart of the reference's ``vmap`` over seeds of one
+rollout. Every leaf of the state carries a leading seed axis (each seed its
+own server suffix, shared client tier and optimizer states), batches are
+(seeds, clients, steps, ...) and the mask (seeds, clients). The one
+backward of the summed mask-weighted losses gives each (seed, client) row
+its own gradient and each seed's server the sum over its own clients;
+the server reduction, the all-masked guard, FedAvg and the AdamW step
+counters run per seed. The int8 and flash ``vmap`` rules fold both levels
+into their batch, so each kernel stays one launch for all seeds and
+clients.
+
 ``FLEET_EQUIV_ATOL`` is the reference's loosened bound for vmapped rounds
 against sequential ones (batched convolutions reassociate f32 sums); the
 port's fleet rounds are held to it against the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -49,13 +63,15 @@ from ..optim.optimizers import OptState
 FLEET_EQUIV_ATOL = 1e-3
 
 
-def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+def _lead(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``t`` (a mask or flag over ``x``'s leading axes) shaped to broadcast
+    against ``x``."""
+    return t.reshape(tuple(t.shape) + (1,) * (x.dim() - t.dim()))
 
 
 def _keep_masked_rows(mask: torch.Tensor, new: dict, old: dict) -> dict:
     """Masked clients' leading-axis rows keep their old value."""
-    return {k: torch.where(_rows(mask, v) > 0, v, old[k])
+    return {k: torch.where(_lead(mask, v) > 0, v, old[k])
             for k, v in new.items()}
 
 
@@ -66,8 +82,10 @@ def _keep_masked_state(mask, new: OptState, old: OptState) -> OptState:
 
 
 def _guard(active: torch.Tensor, new: dict, old: dict) -> dict:
-    """``new`` when any client is active, else ``old`` (on the device)."""
-    return {k: torch.where(active, v, old[k]) for k, v in new.items()}
+    """``new`` when any client is active, else ``old`` (on the device);
+    per seed when ``active`` is (seeds,)."""
+    return {k: torch.where(_lead(active, v), v, old[k])
+            for k, v in new.items()}
 
 
 def _guard_state(active, new: OptState, old: OptState) -> OptState:
@@ -94,8 +112,45 @@ def _losses_and_grads(per_client: Callable, params: tuple, batch,
 
 def _mean(g: dict, n) -> dict:
     """The cohort mean of a summed gradient: ``g / n`` in f32, back in each
-    leaf's dtype."""
-    return {k: (v.float() / n).to(v.dtype) for k, v in g.items()}
+    leaf's dtype (``n`` per seed when it is a (seeds,) tensor)."""
+    return {k: (v.float() / (_lead(n, v) if torch.is_tensor(n) else n)
+                ).to(v.dtype) for k, v in g.items()}
+
+
+def _replicate(params: dict, n: int, seed_axis: bool) -> dict:
+    """``n`` copies of every leaf on a new client axis, after the seed axis
+    when there is one."""
+    if not seed_axis:
+        return stack_replicas(params, n)
+    return {k: v[:, None].expand((v.shape[0], n) + tuple(v.shape[1:])).clone()
+            for k, v in params.items()}
+
+
+def stack_seeds(tree, num_seeds: int):
+    """A fresh copy of an engine state (dicts, tuples, lists and
+    ``OptState``s of tensors) on a new leading seed axis."""
+    if isinstance(tree, torch.Tensor):
+        return tree[None].expand((num_seeds,) + tuple(tree.shape)).clone()
+    if isinstance(tree, OptState):
+        return OptState(*(stack_seeds(getattr(tree, f), num_seeds)
+                          for f in ("step", "mu", "nu")))
+    if isinstance(tree, dict):
+        return {k: stack_seeds(v, num_seeds) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(stack_seeds(v, num_seeds) for v in tree)
+    raise TypeError(f"cannot stack {type(tree).__name__} over seeds")
+
+
+def seed_row(tree, i: int):
+    """Seed ``i``'s slice of a seed-stacked engine state (views)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, OptState):
+        return OptState(*(seed_row(getattr(tree, f), i)
+                          for f in ("step", "mu", "nu")))
+    if isinstance(tree, dict):
+        return {k: seed_row(v, i) for k, v in tree.items()}
+    return type(tree)(seed_row(v, i) for v in tree)
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +158,8 @@ def _mean(g: dict, n) -> dict:
 # ---------------------------------------------------------------------------
 
 def make_fleet_fl_round(loss_fn: Callable, opt, *,
-                        client_dropout: bool = False):
+                        client_dropout: bool = False,
+                        seed_axis: bool = False):
     """FL baseline round with the client axis batched (the reference's
     ``make_fleet_fl_round`` on ``make_fl_round(..., client_axis="vmap")``):
     ``f(global_params, batches[, client_mask]) -> (new_global_params,
@@ -116,32 +172,45 @@ def make_fleet_fl_round(loss_fn: Callable, opt, *,
     minibatches; the round ends with the FedAvg of the clients' models.
     With ``client_dropout`` the masked clients still train but are left
     out of FedAvg; a round with no active client returns the incoming
-    global params."""
+    global params. With ``seed_axis`` every tensor has a leading seed axis
+    (the module docstring): global params (seeds, ...), batches (seeds,
+    clients, local_steps, ...), the mask (seeds, clients), losses (seeds,
+    clients, local_steps)."""
     per_client = vmap(loss_fn)
+    mean, mean_masked = fedavg_mean, fedavg_mean_masked
+    if seed_axis:
+        per_client = vmap(per_client)
+        mean, mean_masked = vmap(fedavg_mean), vmap(fedavg_mean_masked)
+    lead = 1 if seed_axis else 0
 
     def clients_round(global_params: dict, batches):
         bx, by = batches
-        n, steps = bx.shape[0], bx.shape[1]
-        params = stack_replicas(global_params, n)
-        state = opt.init_stacked(global_params, n)
+        n, steps = bx.shape[lead], bx.shape[lead + 1]
+        params = _replicate(global_params, n, seed_axis)
+        # per-row AdamW state: zero moments, a step counter a (seed, client)
+        state = dataclasses.replace(
+            opt.init(params), step=torch.zeros(bx.shape[:lead + 1],
+                                               dtype=torch.int32,
+                                               device=bx.device))
         losses = []
         for s in range(steps):
-            loss, (grads,) = _losses_and_grads(per_client, (params,),
-                                               (bx[:, s], by[:, s]))
+            loss, (grads,) = _losses_and_grads(
+                per_client, (params,),
+                (bx.select(lead + 1, s), by.select(lead + 1, s)))
             params, state = opt.update(grads, state, params)
             losses.append(loss)
-        return params, torch.stack(losses, dim=1)
+        return params, torch.stack(losses, dim=-1)
 
     if not client_dropout:
         def global_round(global_params, batches):
             stack, losses = clients_round(global_params, batches)
-            return fedavg_mean(stack), losses
+            return mean(stack), losses
         return global_round
 
     def global_round_masked(global_params, batches, client_mask):
         stack, losses = clients_round(global_params, batches)
         mask = client_mask.to(torch.float32)
-        return fedavg_mean_masked(stack, mask, global_params), losses
+        return mean_masked(stack, mask, global_params), losses
 
     return global_round_masked
 
@@ -153,7 +222,8 @@ def make_fleet_fl_round(loss_fn: Callable, opt, *,
 def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                         server_reduce: str = "mean",
                         client_dropout: bool = False,
-                        client_tier: str = "stacked"):
+                        client_tier: str = "stacked",
+                        seed_axis: bool = False):
     """One global round of parallel split learning over the fleet.
 
     ``loss(params_c, params_s, batch) -> loss`` is the split step's loss,
@@ -174,6 +244,10 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                   updated like the server on the (masked) cohort-MEAN
                   gradient; no closing FedAvg. The tier of a sampled
                   cohort (``api.plan`` with population > num_clients).
+
+    ``seed_axis``: every tensor carries a leading seed axis (the module
+    docstring); batches (seeds, clients, local_rounds, ...), the mask
+    (seeds, clients), losses (seeds, local_rounds, clients).
     """
     if server_reduce not in ("mean", "sum"):
         raise ValueError(server_reduce)
@@ -182,19 +256,26 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                          f"got {client_tier!r}")
     shared = client_tier == "shared"
     per_client = vmap(loss, in_dims=(None if shared else 0, None, 0))
+    fedavg, fedavg_masked = fedavg_stack, fedavg_stack_masked
+    if seed_axis:
+        # each seed its own server (and shared client tier): batched on the
+        # seed level, unbatched on the client level
+        per_client = vmap(per_client)
+        fedavg, fedavg_masked = vmap(fedavg_stack), vmap(fedavg_stack_masked)
+    lead = 1 if seed_axis else 0
 
     @torch.no_grad()
     def run_round(params_c, params_s, oc, os_, batches, mask):
         n_active = active = None
-        n = next(iter(batches.values())).shape[0]
+        n = next(iter(batches.values())).shape[lead]
         if mask is not None:
-            total = mask.sum()
+            total = mask.sum(dim=-1)
             n_active = torch.clamp(total, min=1.0)
             active = total > 0
         cohort = n if mask is None else n_active
         losses = []
         for r in range(local_rounds):
-            batch = {k: v[:, r] for k, v in batches.items()}
+            batch = {k: v.select(lead + 1, r) for k, v in batches.items()}
             # masked clients' losses weigh 0: their rows' gradients are 0
             # (and dropped below), and they add nothing to the server's
             loss_r, (g_c, g_s) = _losses_and_grads(
@@ -221,9 +302,9 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                     oc_new = _guard_state(active, oc_new, oc)
             params_c, oc, params_s, os_ = pc_new, oc_new, ps_new, os_new
         if not shared:
-            params_c = (fedavg_stack(params_c) if mask is None
-                        else fedavg_stack_masked(params_c, mask))
-        return params_c, params_s, oc, os_, torch.stack(losses)
+            params_c = (fedavg(params_c) if mask is None
+                        else fedavg_masked(params_c, mask))
+        return params_c, params_s, oc, os_, torch.stack(losses, dim=lead)
 
     if client_dropout:
         def global_round_masked(params_c, params_s, oc, os_, batches,

@@ -354,7 +354,8 @@ class _ChunkedLMLoss(torch.autograd.Function):
     ``torch.func``-ready (``forward`` without ``ctx``, ``setup_context``, a
     ``vmap`` rule that folds the vmapped axis into the groups: the clients'
     token rows go through one call, each client keeps its own mean and its
-    own head gradient). Without ``grad_enabled`` (the caller's grad mode),
+    own head gradient; a vmapped head, a Monte-Carlo seed's own server,
+    takes one call a seed). Without ``grad_enabled`` (the caller's grad mode),
     or when neither ``h`` nor ``head`` requires a gradient, the gradient
     work is skipped."""
 
@@ -424,14 +425,23 @@ class _ChunkedLMLoss(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, h, head, targets, groups, chunk, grad_enabled):
-        if in_dims[1] is not None:
-            raise ValueError("the chunked LM loss takes one head shared by "
-                             "the vmapped axis (in_dims None for head)")
         n = info.batch_size
         h = (h.movedim(in_dims[0], 0) if in_dims[0] is not None
              else h.expand(n, *h.shape))
         targets = (targets.movedim(in_dims[2], 0) if in_dims[2] is not None
                    else targets.expand(n, *targets.shape))
+        if in_dims[1] is not None:
+            # a head of its own at each index (a Monte-Carlo seed's server):
+            # one call an index, each folding its own groups
+            head = head.movedim(in_dims[1], 0)
+            outs = [_ChunkedLMLoss.apply(h[i], head[i], targets[i], groups,
+                                         chunk, grad_enabled)
+                    for i in range(n)]
+            loss, dh, dhead = (
+                None if outs[0][j] is None
+                else torch.stack([o[j] for o in outs]) for j in range(3))
+            return (loss, dh, dhead), (0, None if dh is None else 0,
+                                       None if dhead is None else 0)
         out = _ChunkedLMLoss.apply(h.reshape(-1, h.shape[-1]), head,
                                    targets.reshape(-1), n * groups, chunk,
                                    grad_enabled)

@@ -108,7 +108,13 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x):
-        y = F.group_norm(x.float(), self.groups, self.scale.float(),
+        xf = x.float()
+        if torch._C._functorch.is_batchedtensor(xf):
+            # under vmap: the CPU kernel asks for a channels-last copy,
+            # which vmap refuses; the CUDA kernel takes a contiguous one
+            # anyway
+            xf = xf.contiguous()
+        y = F.group_norm(xf, self.groups, self.scale.float(),
                          self.bias.float(), eps=1e-5)
         return y.to(x.dtype)
 

@@ -1,0 +1,296 @@
+"""Monte-Carlo campaign sweeps over scenario seeds.
+
+Counterpart of ``repro.sim.monte_carlo``. A compiled ``Plan`` runs ONE
+realisation of its scenario; ``run_monte_carlo(plan, num_seeds)`` runs
+``num_seeds`` of them and stacks each ``RoundRecord`` field as a (seeds,
+rounds) array, with ONE held-out accuracy a seed at the end (intermediate
+rounds hold NaN in ``records_for_seed``).
+
+Sweep seed ``i`` is the realisation of environment seed ``scn.seed + seed
++ i`` (a bare ``ScenarioSpec()`` without a scenario): its availability
+uniforms, channel draws and cohorts come from the same streams
+(``sim.streams``) as a plan compiled with that scenario seed, so seed 0 of
+a ``seed=0`` sweep replays ``plan.run()``. The seeds share one stack of
+the plan's own batch draws (the environment varies, the data does not);
+under a population each seed gathers its own cohort's partitions. A plain
+``ClientSpec.dropout_rate`` is swept as a bernoulli availability trace on
+the mask stream, as the reference sweeps it.
+
+Modes:
+
+  * ``"vmap"`` (the fleet engines ``fl/vmap`` and ``sl/vmap``, CNNs and
+    the split LM): all seeds in one program a local step, the engines'
+    seed axis (``fleet.engine``: one more ``vmap`` level over seeds, each
+    seed its own server, the int8 and flash kernels one launch for all
+    seeds and clients). The scan engines raise ``NotImplementedError``
+    (ROADMAP queue 1 item 26); nothing falls back to the loop.
+  * ``"loop"``: seed after seed, round after round through the plan's own
+    engine, on every single-engine plan the port compiles.
+
+Hetero-bucketed plans (per-client cuts in more than one bucket) run one
+program a bucket on the host and raise ``ValueError``. Host draws (masks,
+rates, cohorts) are the same in both modes, so masks, active clients and
+bills agree exactly and losses within ``FLEET_EQUIV_ATOL``. ``env_draws``
+(one sequence of per-round ``EnvDraws`` a seed) takes the place of the
+sweep's own draws, as ``Plan.env_draws`` does for one run. ``wall_s`` is
+the sweep's host time after one warm-up round, fenced by
+``torch.cuda.synchronize()`` on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .scenario import (AvailabilityParams, ScenarioSpec, availability_init,
+                       availability_step, cohort_mask)
+
+_STATS = ("mean", "std", "min", "max", "p10", "p90")
+
+def _stats(v: np.ndarray) -> dict:
+    return {"mean": float(v.mean()), "std": float(v.std()),
+            "min": float(v.min()), "max": float(v.max()),
+            "p10": float(np.percentile(v, 10)),
+            "p90": float(np.percentile(v, 90))}
+
+
+@dataclasses.dataclass
+class MonteCarloResult:
+    """Per-seed (seeds, rounds) stacks of the RoundRecord numeric fields,
+    ``mask`` (seeds, rounds, clients), ``cohort`` (seeds, rounds, clients)
+    under a population and ``final_accuracy`` (seeds,)."""
+    stacks: dict
+    num_seeds: int
+    rounds: int
+    engine: str
+    mode: str                   # "vmap" | "loop"
+    wall_s: float               # the sweep's fenced host time
+
+    def records_for_seed(self, i: int) -> list:
+        from ..api.records import RoundRecord
+        s = self.stacks
+        return [RoundRecord(
+            round=r, loss=float(s["loss"][i, r]),
+            # one held-out evaluation a seed: the last round carries it
+            accuracy=(float(s["final_accuracy"][i])
+                      if r == self.rounds - 1 else float("nan")),
+            link_bytes=float(s["link_bytes"][i, r]),
+            link_time_s=float(s["link_time_s"][i, r]),
+            link_energy_j=float(s["link_energy_j"][i, r]),
+            client_time_s=float(s["client_time_s"][i, r]),
+            client_energy_j=float(s["client_energy_j"][i, r]),
+            server_time_s=float(s["server_time_s"][i, r]),
+            server_energy_j=float(s["server_energy_j"][i, r]),
+            uav_energy_j=float(s["uav_energy_j"][i, r]),
+            active_clients=int(s["active_clients"][i, r]),
+            engine=self.engine,
+            cohort_pids=(tuple(int(p) for p in s["cohort"][i, r])
+                         if "cohort" in s else ()),
+            metrics={}) for r in range(self.rounds)]
+
+    def summary(self) -> dict:
+        """Across-seed statistics of the campaign totals and the last
+        round's loss."""
+        s = self.stacks
+        total_energy = (s["client_energy_j"] + s["server_energy_j"]
+                        + s["link_energy_j"] + s["uav_energy_j"]).sum(axis=1)
+        return {
+            "num_seeds": self.num_seeds, "rounds": self.rounds,
+            "mode": self.mode, "engine": self.engine,
+            "final_loss": _stats(s["loss"][:, -1]),
+            "final_accuracy": _stats(s["final_accuracy"]),
+            "mean_active_clients": _stats(s["active_clients"].mean(axis=1)),
+            "total_link_bytes": _stats(s["link_bytes"].sum(axis=1)),
+            "total_link_time_s": _stats(s["link_time_s"].sum(axis=1)),
+            "total_link_energy_j": _stats(s["link_energy_j"].sum(axis=1)),
+            "total_client_energy_j": _stats(s["client_energy_j"].sum(axis=1)),
+            "total_energy_j": _stats(total_energy),
+            # the metrics bus is not ported yet (ROADMAP queue 1 item 15)
+            "metrics": None,
+        }
+
+
+class _Seed:
+    """One seed's host side: its environment seed, its draws and its
+    availability state."""
+
+    def __init__(self, env_seed: int, up: np.ndarray, draws):
+        self.env_seed, self.up, self.draws = env_seed, up, draws
+
+
+def _sweep_context(plan):
+    """The scenario, the availability process the sweep runs (a plain
+    dropout rate as a bernoulli trace) and whether the engine takes a
+    mask; raises for a plan without one engine round."""
+    from ..api.plan import _HeteroSLEngine, _needs_mask
+    if isinstance(plan._engine, _HeteroSLEngine):
+        raise ValueError("Monte-Carlo rollouts need a single compiled engine "
+                         "round; hetero-bucketed plans dispatch per bucket "
+                         "on the host (run those seeds with plan.run())")
+    spec = plan.spec
+    scn = spec.scenario or ScenarioSpec()
+    avail = (scn.availability if scn.needs_mask
+             else AvailabilityParams(kind="bernoulli",
+                                     p_drop=spec.clients.dropout_rate)
+             if spec.clients.dropout_rate > 0
+             else AvailabilityParams(kind="full"))
+    return scn, avail, _needs_mask(spec)
+
+
+class _Sweep:
+    """The host half of a sweep: per (seed, round) the cohort, the mask and
+    the rate ratio from the seed's draws, and the round's bill."""
+
+    def __init__(self, plan, num_seeds, rounds, seed, env_draws):
+        scn, self.avail, self.masked = _sweep_context(plan)
+        self.plan = plan
+        self.pop = plan.spec.clients.population
+        self.weighted = self.pop is not None and scn.needs_mask
+        self.mask_n = plan.avail_clients if self.avail.is_stochastic else 0
+        if env_draws is not None and len(env_draws) != num_seeds:
+            raise ValueError(f"env_draws holds {len(env_draws)} seeds, "
+                             f"want {num_seeds}")
+        self.seeds = [_Seed(scn.seed + seed + i,
+                            availability_init(plan.avail_clients),
+                            None if env_draws is None else env_draws[i])
+                      for i in range(num_seeds)]
+        # the plan's own batch stream, shared by the seeds: each round's
+        # sample indices of every partition
+        st = plan.init()
+        self.indices = [plan.round_indices(st) for _ in range(rounds)]
+
+    def host_round(self, i: int, r: int):
+        """Seed ``i``'s round ``r``: (cohort, mask, rate ratio, sample
+        indices), stepping its availability state."""
+        sd, plan = self.seeds[i], self.plan
+        env = plan.env_round(r, self.mask_n, sd.env_seed, sd.draws,
+                             f"env_draws[{i}]")
+        cohort = (None if self.pop is None else plan.draw_cohort(
+            r, sd.up if self.weighted else None, sd.env_seed))
+        mask, sd.up = availability_step(env.mask, sd.up, self.avail)
+        sel = self.indices[r]
+        if cohort is not None:
+            mask = cohort_mask(mask, cohort)
+            sel = sel[cohort % len(plan.parts)]
+        return cohort, mask, plan._round_rate_ratio(env), sel
+
+    def mask_tensor(self, masks):
+        if not self.masked:
+            return None
+        return torch.from_numpy(np.stack(masks)).to(self.plan.device)
+
+    def outputs(self, r, loss_c, cohort, mask, ratio) -> dict:
+        out = self.plan._round_bill(r, mask, cohort, ratio)
+        out["loss"] = self.plan._round_loss(loss_c, mask)
+        out["mask"] = mask
+        if cohort is not None:
+            out["cohort"] = cohort
+        return out
+
+
+def _fence(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _loop(sweep: _Sweep, rounds: int):
+    """Seed after seed, round after round through the plan's engine."""
+    plan = sweep.plan
+    engine = plan._engine
+    shared = ([plan.gather_batches(sel) for sel in sweep.indices]
+              if sweep.pop is None else None)
+    rows, accs = [], []
+    for i in range(len(sweep.seeds)):
+        state = engine.init_state(plan.params0)
+        per_round = []
+        for r in range(rounds):
+            cohort, mask, ratio, sel = sweep.host_round(i, r)
+            batch = shared[r] if shared is not None \
+                else plan.gather_batches(sel)
+            m = sweep.mask_tensor([mask])
+            state, losses = engine.run(state, batch,
+                                       None if m is None else m[0])
+            per_round.append(sweep.outputs(r, losses.cpu().numpy(), cohort,
+                                           mask, ratio))
+        rows.append(per_round)
+        accs.append(plan.evaluate_engine_state(state)["accuracy"])
+    return rows, accs
+
+
+def _vmap(sweep: _Sweep, rounds: int):
+    """All seeds in one program a local step: the engine's seed axis."""
+    from ..fleet.engine import seed_row, stack_seeds
+    plan = sweep.plan
+    engine = plan._engine
+    num_seeds = len(sweep.seeds)
+    state = stack_seeds(engine.init_state(plan.params0), num_seeds)
+    outs = [[] for _ in range(num_seeds)]
+    for r in range(rounds):
+        host = [sweep.host_round(i, r) for i in range(num_seeds)]
+        if sweep.pop is None:
+            batch = _tree_map(
+                lambda v: v.expand((num_seeds,) + tuple(v.shape)),
+                plan.gather_batches(sweep.indices[r]))
+        else:
+            batch = plan.gather_batches(np.stack([h[3] for h in host]))
+        state, losses = engine.run_seeds(
+            state, batch, sweep.mask_tensor([h[1] for h in host]))
+        losses = losses.cpu().numpy()
+        for i, (cohort, mask, ratio, _) in enumerate(host):
+            outs[i].append(sweep.outputs(r, losses[i], cohort, mask, ratio))
+    accs = [plan.evaluate_engine_state(seed_row(state, i))["accuracy"]
+            for i in range(num_seeds)]
+    return outs, accs
+
+
+def _tree_map(fn, batch):
+    if isinstance(batch, dict):
+        return {k: fn(v) for k, v in batch.items()}
+    return type(batch)(fn(v) for v in batch)
+
+
+def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
+                    mode: str = "vmap", seed: int = 0,
+                    env_draws=None) -> MonteCarloResult:
+    """Sweep ``num_seeds`` scenario realisations of ``plan`` for ``rounds``
+    rounds (default the plan's ``num_rounds``), seed ``i`` at environment
+    seed ``scn.seed + seed + i``, in ``mode`` ``"vmap"`` or ``"loop"``
+    (the module docstring)."""
+    if mode not in ("vmap", "loop"):
+        raise ValueError(f"mode must be 'vmap' or 'loop', got {mode!r}")
+    if num_seeds < 1:
+        raise ValueError(f"need at least one seed, got {num_seeds}")
+    rounds = plan.num_rounds if rounds is None else rounds
+    if rounds < 1:
+        raise ValueError("need at least one round")
+    _sweep_context(plan)
+    if mode == "vmap" and not hasattr(plan._engine, "run_seeds"):
+        raise NotImplementedError(
+            f"run_monte_carlo(mode='vmap') on {plan.engine_label}: the seed "
+            f"axis runs on the fleet engines (fl/vmap, sl/vmap); the scan "
+            f"engines' is not ported yet (ROADMAP queue 1 item 26); use "
+            f"mode='loop'")
+    run = _vmap if mode == "vmap" else _loop
+
+    # one warm-up round outside the timed sweep (first calls at these
+    # shapes), on a sweep of its own
+    warm = num_seeds if mode == "vmap" else 1
+    run(_Sweep(plan, warm, 1, seed,
+               None if env_draws is None else env_draws[:warm]), 1)
+    sweep = _Sweep(plan, num_seeds, rounds, seed, env_draws)
+    _fence(plan.device)
+    t0 = time.perf_counter()
+    rows, accs = run(sweep, rounds)
+    _fence(plan.device)
+    wall = time.perf_counter() - t0
+
+    stacks = {k: np.asarray([[out[k] for out in per_round]
+                             for per_round in rows])
+              for k in rows[0][0]}
+    stacks["final_accuracy"] = np.asarray(accs, np.float64)
+    return MonteCarloResult(stacks=stacks, num_seeds=num_seeds,
+                            rounds=rounds, engine=plan.engine_label,
+                            mode=mode, wall_s=wall)

@@ -2,7 +2,8 @@
 
 Energy, link and UAV models, partitioners, the deployment and tour planners,
 the host half of the runtime (its metrics in class counts against the
-reference's per-class loop), the record type, the spec layer, the paper's
+reference's per-class loop), the record type, the spec layer, the
+scenario layer's mission rollout and spec dataclasses, the paper's
 FL/SL configurations (``core.paper_train``) and the ten architecture
 configs: the same inputs give equal outputs (exactly; these
 are the same arithmetic).
@@ -22,6 +23,8 @@ import repro.core.paper_train as ref_paper_train
 import repro.core.trajectory as ref_trajectory
 import repro.core.uav_energy as ref_uav
 import repro.data.partition as ref_partition
+import repro.sim as ref_sim
+import repro.sim.mission as ref_mission
 import repro_torch.api as T
 import repro_torch.api.records as records
 import repro_torch.api.runtime as runtime
@@ -32,6 +35,8 @@ import repro_torch.core.paper_train as paper_train
 import repro_torch.core.trajectory as trajectory
 import repro_torch.core.uav_energy as uav
 import repro_torch.data.partition as partition
+import repro_torch.sim as sim
+import repro_torch.sim.mission as mission
 
 PROFILES = ("RTX_A5000", "JETSON_AGX_ORIN", "TPU_V5E")
 
@@ -255,3 +260,51 @@ def test_vectorised_metrics_equal_the_reference_loop(num_classes, n):
     assert runtime.metrics_from_predictions(pred, labels, num_classes) == want
     assert runtime.metrics_from_predictions(
         logits.argmax(-1), labels, num_classes) == want
+
+
+def test_mission_rollout_helpers():
+    """``sim/mission.py``'s partition, relay tour and leg lengths on the
+    reference's inputs."""
+    pts = np.random.RandomState(8).uniform(0, 600, size=(9, 2))
+    for u in (1, 2, 3, 4):
+        got = mission._partition_by_tour(pts, u, 16)
+        want = ref_mission._partition_by_tour(pts, u, 16)
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    with pytest.raises(ValueError, match="UAVs for"):
+        mission._partition_by_tour(pts, 10, 16)
+    got = mission._relay_tour(pts.mean(0), np.zeros(2), 9, uav.DEFAULT_UAV,
+                              30.0, 10.0)
+    want = ref_mission._relay_tour(pts.mean(0), np.zeros(2), 9,
+                                   ref_uav.DEFAULT_UAV, 30.0, 10.0)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    np.testing.assert_array_equal(mission._leg_lengths(pts, [3, 1, 0, 2]),
+                                  ref_mission._leg_lengths(pts, [3, 1, 0, 2]))
+    got = mission.rollout_mission(pts, np.zeros(2), num_uavs=2,
+                                  serve_mode="relay")
+    want = ref_mission.rollout_mission(pts, np.zeros(2), num_uavs=2,
+                                       serve_mode="relay")
+    np.testing.assert_array_equal(got.serve_dist_m, want.serve_dist_m)
+    np.testing.assert_array_equal(got.battery_j, want.battery_j)
+    assert got.rounds == want.rounds
+    with pytest.raises(ValueError, match="serve_mode"):
+        mission.rollout_mission(pts, np.zeros(2), serve_mode="orbit")
+
+
+def test_scenario_dataclasses_field_for_field():
+    for cls in ("ChannelParams", "AvailabilityParams", "ScenarioSpec"):
+        got = [(f.name, f.default) for f in
+               dataclasses.fields(getattr(sim, cls))]
+        want = [(f.name, f.default) for f in
+                dataclasses.fields(getattr(ref_sim, cls))]
+        assert got == want, cls
+    assert (dataclasses.asdict(sim.degenerate_scenario())
+            == dataclasses.asdict(ref_sim.degenerate_scenario()))
+    for av in ("full", "bernoulli", "markov"):
+        assert (sim.ScenarioSpec(availability=sim.AvailabilityParams(av))
+                .needs_mask == ref_sim.ScenarioSpec(
+                    availability=ref_sim.AvailabilityParams(av)).needs_mask)
+    for kw in (dict(), dict(fading="none", shadowing_sigma_db=0.0),
+               dict(kind="constant")):
+        assert (sim.ChannelParams(**kw).is_stochastic
+                == ref_sim.ChannelParams(**kw).is_stochastic)
+    assert sim.COHORT_DOWN_WEIGHT == ref_sim.COHORT_DOWN_WEIGHT

@@ -658,3 +658,68 @@ def test_chunked_lm_loss_on_card_matches_cpu(hopper):
     for a, b in zip(*out):
         assert torch.isfinite(a).all()
         assert float((a - b).norm() / b.norm()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo sweeps: the seed axis on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_int8_nested_vmap_rule_on_card_is_one_launch(hopper):
+    """The int8 boundary vmapped over 3 seeds of 4 clients (the fleet
+    engines' seed axis, outermost): both levels fold into the rows, ONE
+    launch, bit-equal to the plain version seed by seed, client by client
+    (NaN, inf and zero rows included)."""
+    from torch.func import vmap
+    from repro_torch.kernels.quant.ops import make_link_compress
+    g = torch.Generator(device=hopper).manual_seed(3)
+    x = torch.randn(3, 4, 16, 28, 28, 32, device=hopper, generator=g) * 3
+    x[2, 1, 0, 2, 3, 5] = float("nan")
+    x[0, 3, 1, 0, 0, 0] = float("inf")
+    x[1, 2, 2, 0, 0, :] = 0.0
+    compress = make_link_compress(kernel="fused")
+    before = quant_dequant_int8.launches
+    got = vmap(vmap(compress))(x)
+    torch.cuda.synchronize()
+    assert quant_dequant_int8.launches == before + 1
+    want = torch.stack([torch.stack([
+        quant_dequant_int8_plain(x[s, c].reshape(-1, 32)).reshape(x.shape[2:])
+        for c in range(4)]) for s in range(3)])
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_seed_axis_sweep_on_card_matches_the_per_seed_loop(hopper):
+    """tinycnn ``sl/vmap`` under a stochastic scenario (a2g channel, markov
+    availability, two relaying UAVs): the sweep on the seed axis against
+    the per-seed loop, both on the card, masks and bills exactly, losses
+    within ``FLEET_EQUIV_ATOL``; one int8 launch a local step for all
+    seeds and clients."""
+    import numpy as np
+    from repro_torch import sim
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    spec = api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=4),
+        link_policy=api.LinkPolicy(compress="int8"),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        mission=api.MissionSpec(),
+        scenario=sim.ScenarioSpec(
+            channel=sim.ChannelParams(kind="a2g"),
+            availability=sim.AvailabilityParams(kind="markov", p_drop=0.4,
+                                                p_recover=0.6),
+            num_uavs=2, serve_mode="relay", seed=1),
+        global_rounds=2, local_steps=2, batch_size=4)
+    plan = api.compile_experiment(spec)
+    quant_dequant_int8.launches = 0
+    v = sim.run_monte_carlo(plan, 3, rounds=2, mode="vmap")
+    assert quant_dequant_int8.launches == 2 + 2 * 2    # warm-up + sweep
+    loop = sim.run_monte_carlo(plan, 3, rounds=2, mode="loop")
+    for k in v.stacks:
+        if k in ("loss", "final_accuracy"):
+            assert np.abs(v.stacks[k] - loop.stacks[k]).max() <= (
+                FLEET_EQUIV_ATOL if k == "loss" else 1.0 / 24 + 1e-12), k
+        else:
+            np.testing.assert_array_equal(v.stacks[k], loop.stacks[k], k)

@@ -47,6 +47,7 @@ def test_importing_the_port_leaves_jax_out():
                "import repro_torch.kernels.quant.ops\n"
                "import repro_torch.fleet.hetero, repro_torch.configs\n"
                "import repro_torch.fleet.campaign, repro_torch.core.adaptive_cut\n"
+               "import repro_torch.sim, repro_torch.sim.monte_carlo\n"
                "import repro_torch.kernels.attn.ops\n"
                "import repro_torch.kernels.rwkv.ops, repro_torch.launch.train\n"
                "import chip_smoke\n"

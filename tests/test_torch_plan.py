@@ -21,6 +21,7 @@ import repro_torch.api as T
 from repro_torch import configs
 from repro_torch.api.plan import FL_SERVER_AGG_S
 from repro_torch.convert import from_reference
+from repro_torch.sim import AvailabilityParams, ScenarioSpec
 
 N_TRAIN, N_TEST = 96, 24
 
@@ -155,7 +156,11 @@ OUT_OF_SLICE = {
     # refusal
     "adaptive": (dict(cut_policy=T.CutPolicy(mode="adaptive")),
                  (ValueError, "need the bucketed fleet engine")),
-    "scenario": (dict(scenario=object()), _REFUSED),
+    # a scenario runs on every engine; its availability trace on sl/scan is
+    # the reference's own refusal
+    "scenario": (dict(scenario=ScenarioSpec(availability=AvailabilityParams(
+        kind="bernoulli", p_drop=0.5))),
+        (ValueError, "availability traces mask clients per round")),
     # the transformer family runs now, but only on a stack it is given
     "transformer": (dict(model=T.ModelSpec(family="transformer")),
                     (ValueError, "needs arch=")),
@@ -171,9 +176,10 @@ OUT_OF_SLICE = {
                              cut_policy=T.CutPolicy(mode="adaptive")),
                         (ValueError, "population sampling supports "
                                      "fraction cuts only")),
+    # ... and takes the port's ScenarioSpec, nothing else
     "vmap-scenario": (dict(engine=T.EngineSpec(client_axis="vmap"),
                            scenario=object()),
-                      (NotImplementedError, "queue 1 item 14")),
+                      (TypeError, "takes a repro_torch.sim.ScenarioSpec")),
     # MoE stacks: the reference's own refusal
     "lm-moe": (_lm(configs.deepseek_moe_16b.reduced()),
                (ValueError, "MoE stacks")),

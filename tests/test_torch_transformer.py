@@ -380,7 +380,8 @@ def test_chunked_loss_vmap_with_a_shared_head():
     """The fleet engines' form: a vmapped forward over 3 clients (head
     shared, ``in_dims`` None), one backward of the weighted sum. Each
     client's loss and h gradient equal a per-client loop's; the head's
-    gradient the weighted sum of the clients', weights (0, 1, 1)."""
+    gradient the weighted sum of the clients', weights (0, 1, 1). A
+    vmapped head gives each index its own head's loss."""
     h, head, t = _loss_inputs(clients=3)
     w = torch.tensor([0.0, 1.0, 1.0])
     losses = torch.func.vmap(
@@ -400,10 +401,17 @@ def test_chunked_loss_vmap_with_a_shared_head():
         want_head += w[c] * gw_head
     np.testing.assert_allclose(g_head.numpy(), want_head.numpy(), atol=1e-6,
                                rtol=0)
-    with pytest.raises(ValueError, match="shared"):
-        heads = head.detach().expand(3, D, V)
-        torch.func.vmap(lambda hh, hd, tt: chunked_lm_loss(hh, hd, tt))(
-            h, heads, t)
+    # a head of each client's own (the form a Monte-Carlo seed axis gives
+    # the server's head): each loss on its own head
+    heads = head.detach() * torch.tensor([1.0, 0.5, 2.0]).reshape(3, 1, 1)
+    losses = torch.func.vmap(
+        lambda hh, hd, tt: chunked_lm_loss(hh, hd, tt, chunk=7))(
+            h.detach(), heads, t)
+    for c in range(3):
+        np.testing.assert_allclose(float(losses[c]),
+                                   float(lm_loss(h[c].detach() @ heads[c],
+                                                 t[c])),
+                                   atol=1e-6, rtol=0)
 
 
 def test_split_step_on_the_chunked_loss():
