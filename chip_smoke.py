@@ -108,7 +108,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    fenced wall time, their ratio and the peak memory, the int8 launches of each (one a local step for all
    16 seed-client rows in ``vmap`` mode), and the kernel through the
    nested ``vmap`` rule at (200,704, 32), bit-equal and one launch, timed
-   L2 cold;
+   L2 cold; then run telemetry and the metrics bus (``[obs]``, under
+   cuDNN's deterministic algorithms): the ``sl/vmap`` spec with dropout
+   0.25, 2 rounds with a run directory under ``results/runs/``, the full
+   tap set and round 1 profiled, against the same 2 rounds without
+   telemetry (records and engine state bit-equal, 4 int8 launches each,
+   round 0's ``quant_error`` against the plain version on the kernel's own
+   inputs, 0 kernel builds a gauge window, ``state_bytes`` equal to
+   ``tensor_bytes``, ``round/execute`` fenced, the int8 kernel in the
+   profiler's trace, ``tools/obs_report.py --coverage-min 0.95
+   --health-gate`` exiting 0), the host syncs of one ``raw_round`` with
+   taps equal to without, the raw round timed in turns; a NaN planted at
+   (client 2, step 1) of a tinycnn round localized on the card as on the
+   CPU, and raised under ``on_nonfinite="raise"``; the ``[mc]`` plan's
+   sweep with taps (6 int8 launches, its ``mc/*`` spans, seed 0 against
+   ``plan.run()``'s metrics in the loop and on the seed axis); and a
+   reduced SmolLM ``sl/vmap`` with taps on the card against the CPU, its
+   flash and int8 launches equal with and without taps;
 9. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
@@ -1404,21 +1420,6 @@ def run_lm_vmap_path(api) -> dict:
     return {"lm-vmap": launches, "peak_bytes": peak}
 
 
-def state_bytes(tree) -> int:
-    """Bytes of every tensor in an engine state (dicts, tuples, optimizer
-    states)."""
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, dict):
-        return sum(state_bytes(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return sum(state_bytes(v) for v in tree)
-    if hasattr(tree, "__dataclass_fields__"):
-        return sum(state_bytes(getattr(tree, f)) for f in
-                   tree.__dataclass_fields__)
-    return 0
-
-
 def run_cohort_paths(api) -> dict:
     """Population cohorts on the fleet engines: MobileNetV2 ``sl/vmap``
     (the EPSL shared client tier) with ``main_spec`` at a population of
@@ -1438,6 +1439,7 @@ def run_cohort_paths(api) -> dict:
     from repro_torch.configs import smollm_135m
     from repro_torch.kernels.attn.flash import flash_attention
     from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.obs import tensor_bytes
     from repro_torch.sim.scenario import cohort_generator, sample_cohort
 
     sizes = {}
@@ -1446,7 +1448,7 @@ def run_cohort_paths(api) -> dict:
         sl = api.compile_experiment(main_spec(
             api, "sl", 2, client_axis="vmap", dropout_rate=FLEET_DROPOUT,
             population=pop))
-        sizes[pop] = state_bytes(sl.init().engine_state)
+        sizes[pop] = tensor_bytes(sl.init().engine_state)
         print(f"[cohort] sl/vmap MobileNetV2 compiled in "
               f"{time.perf_counter() - t0:.2f} s: population {pop}, cohort "
               f"{sl.spec.clients.num_clients}, {len(sl.parts)} partitions, "
@@ -1558,6 +1560,7 @@ def run_hetero_path(api) -> dict:
     from repro_torch.api.runtime import mission_max_link_s
     from repro_torch.core.energy import JETSON_AGX_ORIN
     from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.obs import tensor_bytes
     t0 = time.perf_counter()
     plan = api.compile_experiment(main_spec(
         api, "sl", 2, client_axis="vmap", dropout_rate=FLEET_DROPOUT,
@@ -1579,7 +1582,7 @@ def run_hetero_path(api) -> dict:
     state, _ = run_plan(plan, "hetero")
     launches = {"quant_dequant_int8": quant_dequant_int8.launches}
     want = plan.num_rounds * spec.local_steps * len(buckets)
-    sizes = [state_bytes(st) for st in state.engine_state]
+    sizes = [tensor_bytes(st) for st in state.engine_state]
     print(f"[hetero] quant_dequant_int8 launches over the "
           f"{plan.num_rounds}-round run: {launches['quant_dequant_int8']} "
           f"(want {want}: one a local step a bucket, each for its 2 "
@@ -1797,6 +1800,399 @@ def run_mc_path(plan) -> dict:
     return {"mc-vmap": out["vmap"][1], "wall": (v.wall_s, l.wall_s),
             "peak": (out["vmap"][2], out["loop"][2]),
             "phase_s": (out["vmap"][3], out["loop"][3])}
+
+
+OBS_RUN_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "results", "runs")       # git-ignored
+OBS_QERR_RTOL = 1e-5
+NON_METRIC_FIELDS = ("round", "loss", "accuracy", "link_bytes",
+                     "link_time_s", "link_energy_j", "client_energy_j",
+                     "server_energy_j", "uav_energy_j", "client_time_s",
+                     "server_time_s", "active_clients", "engine",
+                     "cohort_pids")
+
+
+def poison(batches, client: int, step: int) -> dict:
+    """An SL batch stack with NaN planted at one (client, local step), the
+    reference tests' ``_poison``."""
+    bx = batches["inputs"].clone()
+    bx[client, step] = float("nan")
+    return {"inputs": bx, "targets": batches["targets"]}
+
+
+def same_tensors(a, b) -> bool:
+    """Every tensor of two engine states (dicts, tuples, ``OptState``s)
+    bit-equal."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tensors(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_tensors(x, y)
+                                        for x, y in zip(a, b))
+    if dataclasses.is_dataclass(a):
+        return all(same_tensors(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
+
+
+def load_events(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "events.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def obs_sl_vmap(api, run_id: str) -> dict:
+    """MobileNetV2 ``sl/vmap`` (``main_spec``, dropout ``FLEET_DROPOUT``),
+    2 rounds with telemetry and the full tap set (round 1 under the
+    profiler), then the same 2 rounds without telemetry, same ``params0``
+    and batches. Checks: the non-metric record fields and the engine
+    state bit-equal, 4 int8 launches in each run, no nonfinite slot, round
+    0's ``quant_error/mean`` against the RMS of the plain version's
+    output minus its input on the boundary tensors the kernel saw, 0
+    kernel builds in every gauge window, the gauges' ``state_bytes``
+    equal to ``tensor_bytes`` of the engine state, ``round/execute``'s
+    ``0 < sync_s <= dur_s``, the profiler's trace holding the int8
+    kernel, and ``tools/obs_report.py --coverage-min 0.95 --health-gate``
+    exiting 0. The round wall times of both runs are printed, not gated."""
+    from repro_torch.kernels.quant import ops as quant_ops
+    from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
+                                                quant_dequant_int8_plain)
+    import numpy as np
+    from repro_torch.obs import MetricsConfig, ObsConfig, tensor_bytes
+    from repro_torch.obs.timeline import count_host_syncs, time_fenced
+    spec = main_spec(api, "sl", 2, client_axis="vmap",
+                     dropout_rate=FLEET_DROPOUT)
+    on = api.compile_experiment(spec, obs=ObsConfig(
+        run_root=OBS_RUN_ROOT, run_id=run_id, metrics=MetricsConfig(),
+        profile_rounds=(1, 1)))
+    off = api.compile_experiment(spec)
+    off.params0 = on.params0
+    steps = spec.local_steps
+    # the boundary's inputs of round 0, for the quant_error recomputation
+    seen = []
+    kernel_call = quant_ops.quant_dequant
+
+    def keep_input(x, *, kernel="xla"):
+        if len(seen) < steps:
+            seen.append(x.detach().clone())
+        return kernel_call(x, kernel=kernel)
+
+    quant_ops.quant_dequant = keep_input
+    quant_dequant_int8.launches = 0
+    try:
+        state_on, recs_on = on.run()
+    finally:
+        quant_ops.quant_dequant = kernel_call
+    launches_on = quant_dequant_int8.launches
+    on.obs.close()
+    quant_dequant_int8.launches = 0
+    state_off, recs_off, walls_off = off.init(), [], []
+    for _ in range(off.num_rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_off, rec = off.run_round(state_off)
+        torch.cuda.synchronize()
+        walls_off.append(time.perf_counter() - t0)
+        recs_off.append(rec)
+    launches_off = quant_dequant_int8.launches
+    want = off.num_rounds * steps
+
+    fields_equal = all(getattr(a, f) == getattr(b, f) for a, b in
+                       zip(recs_on, recs_off) for f in NON_METRIC_FIELDS)
+    state_equal = same_tensors(state_on.engine_state, state_off.engine_state)
+    rms = [torch.sqrt(torch.mean(torch.square(
+        quant_dequant_int8_plain(x[c].reshape(-1, x.shape[-1])).float()
+        - x[c].reshape(-1, x.shape[-1]).float()))).item()
+        for x in seen for c in range(x.shape[0])]
+    want_qerr = float(np.mean(rms))
+    qerr = recs_on[0].metrics["quant_error/mean"]
+    qerr_rel = abs(qerr - want_qerr) / want_qerr
+    events = load_events(on.obs.run_dir)
+    gauges = [e for e in events if e["ev"] == "gauge"]
+    execute = [e for e in events if e.get("path") == "run/round/execute"]
+    walls_on = [e["dur_s"] for e in events if e.get("path") == "run/round"]
+    nonfinite = [m.metrics["health/nonfinite"] for m in recs_on]
+    status = on.obs.profiler.status
+    trace = on.obs.profiler.trace_path
+    in_trace = os.path.isfile(trace) and any(
+        "quant_dequant_int8" in e.get("name", "")
+        for e in json.load(open(trace))["traceEvents"]
+        if e.get("cat") == "kernel")
+    report = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tools", "obs_report.py"), on.obs.run_dir,
+         "--coverage-min", "0.95", "--health-gate"],
+        capture_output=True, text=True, timeout=300)
+    print(f"[obs] sl/vmap MobileNetV2 dropout {FLEET_DROPOUT}, taps "
+          f"{list(on.graph_taps)}: int8 launches {launches_on} with taps, "
+          f"{launches_off} without (want {want} each); non-metric record "
+          f"fields bit-equal {fields_equal}, engine state bit-equal "
+          f"{state_equal}; health/nonfinite {nonfinite}")
+    print(f"[obs] quant_error/mean round 0 {qerr:.9g} vs the plain "
+          f"version's RMS on the kernel's inputs {want_qerr:.9g} (rel "
+          f"{qerr_rel:.2e}, gated at {OBS_QERR_RTOL})")
+    print(f"[obs] gauges: compiles {[g['compiles'] for g in gauges]}, "
+          f"state_bytes {[g['state_bytes'] for g in gauges]} vs "
+          f"tensor_bytes {tensor_bytes(state_on.engine_state)}, rss "
+          f"{[g['rss_bytes'] for g in gauges]}")
+    print(f"[obs] round wall s with telemetry+taps {walls_on} (round 1 "
+          f"under the profiler), without {[round(w, 6) for w in walls_off]}"
+          f"; round/execute sync_s/dur_s "
+          f"{[(e['sync_s'], e['dur_s']) for e in execute]}")
+    print(f"[obs] profiler {status}; trace {os.path.getsize(trace) if os.path.isfile(trace) else 0} "
+          f"bytes, int8 kernel in it {in_trace}; metrics round 0 "
+          f"{json.dumps(recs_on[0].metrics)}")
+    print("[obs] obs_report: " + " | ".join(
+        ln for ln in report.stdout.splitlines()
+        if "coverage" in ln or "obs-report" in ln))
+    if not (launches_on == launches_off == want and fields_equal
+            and state_equal and nonfinite == [0] * len(recs_on)
+            and qerr_rel <= OBS_QERR_RTOL
+            and all(g["compiles"] == 0 for g in gauges)
+            and all(g["state_bytes"] == tensor_bytes(state_on.engine_state)
+                    for g in gauges)
+            and len(execute) == 2
+            and all(0 < e["sync_s"] <= e["dur_s"] for e in execute)
+            and status.startswith("captured -> ") and in_trace
+            and report.returncode == 0):
+        raise AssertionError(f"[obs] sl/vmap telemetry checks failed "
+                             f"(obs_report rc {report.returncode}: "
+                             f"{report.stdout[-2000:]})")
+    # the host syncs of one engine round: taps on against taps off
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=on.device)
+    counts = []
+    for plan in (on, off):
+        for warm in (True, False):
+            st = plan.init()
+            batches = plan.round_batches(st)
+            torch.cuda.synchronize()
+            _, n = count_host_syncs(
+                lambda: plan.raw_round(st.engine_state, batches, mask))
+            torch.cuda.synchronize()
+        counts.append(n)
+    print(f"[obs] host syncs in one raw_round (a client masked): with taps "
+          f"{counts[0]}, without {counts[1]}")
+    if counts[0] != counts[1]:
+        raise AssertionError(f"[obs] taps add host syncs: {counts}")
+    # the engine round alone, warm, in turns: without, with, with, without
+    raw_s = {"on": [], "off": []}
+    for name in ("off", "on", "on", "off"):
+        plan = on if name == "on" else off
+        st = plan.init()
+        batches = plan.round_batches(st)
+        raw_s[name].append(time_fenced(
+            lambda: plan.raw_round(st.engine_state, batches, mask),
+            repeats=3) / 3)
+    print(f"[obs] raw_round wall s (fenced, 3 back to back, a client "
+          f"masked), in turns off/on/on/off: without taps {raw_s['off']}, "
+          f"with {raw_s['on']} (with/without "
+          f"{sum(raw_s['on']) / sum(raw_s['off']):.3f})")
+    return {"launches": launches_on, "walls": (walls_on, walls_off),
+            "execute": [(e["sync_s"], e["dur_s"]) for e in execute],
+            "syncs": counts, "raw_s": raw_s}
+
+
+def obs_nan_check(api):
+    """tinycnn ``sl/vmap``, int8 on the fused kernel, the full tap set: a
+    NaN planted at (client 2, step 1) of round 1 is localized there on the
+    card as on the CPU, and ``on_nonfinite="raise"`` raises with it."""
+    from repro_torch.obs import MetricsConfig, NonfiniteError, ObsConfig
+    spec = api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=3),
+        link_policy=api.LinkPolicy(compress="int8"),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        global_rounds=2, local_steps=2, batch_size=4)
+    found = {}
+    for device in ("cuda", "cpu"):
+        coords = []
+        for policy in ("record", "raise"):
+            plan = api.compile_experiment(spec, device=device, obs=ObsConfig(
+                enabled=False, metrics=MetricsConfig(on_nonfinite=policy)))
+            st = plan.init()
+            st, rec0 = plan.run_round(st, with_eval=False)
+            bad = poison(plan.round_batches(st), client=2, step=1)
+            try:
+                st, rec1 = plan.run_round(st, bad, with_eval=False)
+            except NonfiniteError as e:
+                coords.append(("raise", e.round_index, e.step, e.client,
+                               e.count))
+            else:
+                m = rec1.metrics
+                coords.append(("record", rec0.metrics["health/nonfinite"],
+                               m["health/first_step"],
+                               m["health/first_client"],
+                               m["health/nonfinite"]))
+        found[device] = coords
+    print(f"[obs] NaN at (client 2, step 1) of round 1, tinycnn sl/vmap "
+          f"fused int8: card {found['cuda']}, CPU {found['cpu']}")
+    want_raise = ("raise", 1, 1, 2)
+    if not (found["cuda"] == found["cpu"]
+            and found["cuda"][0][:4] == ("record", 0, 1, 2)
+            and found["cuda"][1][:4] == want_raise):
+        raise AssertionError(f"[obs] NaN localization: {found}")
+
+
+def metrics_replay(recs, replay, rtol: float) -> tuple:
+    """Two record streams' metrics: whether the keys and the health and
+    mask entries are equal, and each round's float tap farthest from
+    ``recs``'s by ``|d| - rtol |a|`` as (key, |d|, |d| / |a|, a)."""
+    exact, worst = True, []
+    for a, b in zip(recs, replay):
+        exact &= set(a.metrics) == set(b.metrics)
+        rows = []
+        for k, v in a.metrics.items():
+            if k.startswith(("health/", "mask/")):
+                exact &= v == b.metrics[k]
+            else:
+                d = abs(v - b.metrics[k])
+                rows.append((d - rtol * abs(v), (k, d, d / max(abs(v),
+                                                                1e-30), v)))
+        worst.append(max(rows)[1])
+    return exact, worst
+
+
+def obs_mc_path(api, run_id: str) -> dict:
+    """The ``[mc]`` plan (MobileNetV2 ``sl/vmap`` under ``stoch_scenario``)
+    with the full tap set, ``MC_SEEDS`` seeds x ``MC_ROUNDS`` rounds on
+    the seed axis under cuDNN's deterministic algorithms: the ``mc/*``
+    spans and the ``sweep`` manifest entry, the int8 launches ((1 +
+    MC_ROUNDS) x local steps, as without taps), seed 0's metrics against
+    ``plan.run()``'s: the loop's within rtol 2e-5 (atol 1e-7), the seed
+    axis's round 0 within ``FLEET_EQUIV_ATOL`` (relative and absolute; its
+    batched convolutions sum in another order, and the AdamW steps of a
+    round amplify that: round 1 is printed, ROADMAP fault H), and the peak
+    memory."""
+    import numpy as np
+    from repro_torch import sim
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.obs import MetricsConfig, ObsConfig
+    plan = api.compile_experiment(
+        dataclasses.replace(main_spec(api, "sl", MC_ROUNDS,
+                                      client_axis="vmap"),
+                            scenario=stoch_scenario(sim)),
+        obs=ObsConfig(run_root=OBS_RUN_ROOT, run_id=run_id,
+                      metrics=MetricsConfig()))
+    steps = plan.spec.local_steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    quant_dequant_int8.launches = 0
+    mc = sim.run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS, mode="vmap")
+    launches = quant_dequant_int8.launches
+    peak = torch.cuda.max_memory_allocated()
+    _, recs = plan.run(MC_ROUNDS, with_eval=False)
+    loop = sim.run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS, mode="loop")
+    plan.obs.close()
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    exact, worst = metrics_replay(recs, mc.records_for_seed(0),
+                                  FLEET_EQUIV_ATOL)
+    exact_loop, worst_loop = metrics_replay(recs, loop.records_for_seed(0),
+                                            2e-5)
+    # round 0's raw tap stacks, seed axis against loop, step by step
+    steps_rel = {k.split("/", 1)[1]: [float(np.max(
+        np.abs(mc.stacks[k][0, 0, s_] - loop.stacks[k][0, 0, s_])
+        / np.maximum(np.abs(loop.stacks[k][0, 0, s_]), 1e-30)))
+        for s_ in range(steps)]
+        for k in sorted(mc.stacks) if k.startswith("metrics/")
+        and k != "metrics/nonfinite"}
+    events = load_events(plan.obs.run_dir)
+    spans = {e["path"] for e in events if e["ev"] == "span"}
+    with open(os.path.join(plan.obs.run_dir, "manifest.json")) as f:
+        sweeps = json.load(f).get("sweeps", [])
+    want = (1 + MC_ROUNDS) * steps
+    print(f"[obs] mc: {MC_SEEDS} seeds x {MC_ROUNDS} rounds with taps, "
+          f"wall_s={mc.wall_s:.4f}, peak {peak / 2 ** 30:.2f} GiB ({peak} "
+          f"bytes), int8 launches {launches} (want {want}); seed 0 vs "
+          f"plan.run() metrics, the loop's: keys, health, mask equal "
+          f"{exact_loop}, float taps' worst (key, abs, rel, value) by round "
+          f"{worst_loop} (gated at rtol 2e-5, atol 1e-7); the seed axis's: "
+          f"equal {exact}, {worst} (round 0 gated at FLEET_EQUIV_ATOL "
+          f"relative and absolute; round 1 printed: fault H); round 0's "
+          f"taps, seed axis vs loop, max rel diff by step {steps_rel}; "
+          f"spans "
+          f"{sorted(p for p in spans if p.startswith('mc/'))}, sweeps "
+          f"{[(w['mode'], w['seeds']) for w in sweeps]}; summary "
+          f"grad_norm_server {mc.summary()['metrics']['grad_norm_server']}")
+    if not (launches == want and exact and exact_loop
+            and all(w[1] <= 1e-7 + 2e-5 * abs(w[3]) for w in worst_loop)
+            and worst[0][1] <= FLEET_EQUIV_ATOL * (1 + abs(worst[0][3]))
+            and {"mc/setup", "mc/compile", "mc/execute",
+                 "mc/summarize"} <= spans
+            and [w["mode"] for w in sweeps] == ["vmap", "loop"]):
+        raise AssertionError("[obs] Monte-Carlo sweep with taps failed")
+    return {"launches": launches, "peak": peak}
+
+
+def obs_lm_check(api) -> dict:
+    """A reduced SmolLM ``sl/vmap`` (dropout ``FLEET_DROPOUT``, int8 fused,
+    flash attention) with the full tap set, on the card against the CPU on
+    the same data and ``params0``: losses within ``FLEET_EQUIV_ATOL``, the
+    health and mask entries exactly, the float taps within
+    ``FLEET_EQUIV_ATOL`` relative and absolute (the CPU tests' bound); and
+    the flash and int8 launches of its card run equal to those of the same
+    run without taps (the taps' second backward launches neither)."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.obs import MetricsConfig, ObsConfig
+    spec = lm_spec(api, smollm_135m.reduced(), "pallas", seq_len=64,
+                   n_train=32, n_test=8, num_clients=2, batch_size=4,
+                   mission=False, client_axis="vmap",
+                   dropout_rate=FLEET_DROPOUT)
+    recs, launches = [], []
+    for device, metrics in (("cuda", None), ("cuda", MetricsConfig()),
+                            ("cpu", MetricsConfig())):
+        flash_attention.launches = quant_dequant_int8.launches = 0
+        recs.append(api.compile_experiment(spec, device=device, obs=ObsConfig(
+            enabled=False, metrics=metrics)).run()[1])
+        launches.append((flash_attention.launches,
+                         quant_dequant_int8.launches))
+    recs = recs[1:]
+    worst, ok = 0.0, True
+    for a, b in zip(*recs):
+        ok &= (abs(a.loss - b.loss) <= FLEET_EQUIV_ATOL
+               and set(a.metrics) == set(b.metrics))
+        for k in b.metrics:
+            if k.startswith(("health/", "mask/")):
+                ok &= a.metrics[k] == b.metrics[k]
+            else:
+                d = abs(a.metrics[k] - b.metrics[k])
+                ok &= d <= FLEET_EQUIV_ATOL * (1 + abs(b.metrics[k]))
+                worst = max(worst, d / max(abs(b.metrics[k]), 1e-12))
+    print(f"[obs] reduced SmolLM sl/vmap with taps on the card == on the CPU "
+          f"{ok} (losses {[round(r.loss, 6) for r in recs[0]]} vs "
+          f"{[round(r.loss, 6) for r in recs[1]]}; float taps max rel diff "
+          f"{worst:.2e}); (flash, int8) launches on the card without taps "
+          f"{launches[0]}, with {launches[1]}")
+    if not ok or launches[0] != launches[1]:
+        raise AssertionError("[obs] reduced SmolLM taps card vs CPU")
+    return {"lm_launches": launches[1]}
+
+
+def run_obs_path(api) -> dict:
+    """The ``[obs]`` phase: run telemetry and the metrics bus on the card
+    (``obs_sl_vmap``, ``obs_nan_check``, ``obs_mc_path``, ``obs_lm_check``),
+    under cuDNN's deterministic algorithms (bit-equal runs with and without
+    taps; ROADMAP fault H)."""
+    import gc
+    run_id = f"chip-smoke-{os.getpid()}"
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = obs_sl_vmap(api, run_id)
+        gc.collect()
+        torch.cuda.empty_cache()
+        obs_nan_check(api)
+        out["mc"] = obs_mc_path(api, run_id + "-mc")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(obs_lm_check(api))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
 
 
 def run_rwkv_path() -> int:
@@ -2076,6 +2472,8 @@ def main() -> int:
     mc = run_mc_path(scenario_plan)
     del scenario_plan
     stamp("Monte-Carlo path")
+    obs = run_obs_path(api)
+    stamp("obs path")
 
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
@@ -2106,10 +2504,21 @@ def main() -> int:
           f"{mc['peak'][0] / 2 ** 30:.2f}/{mc['peak'][1] / 2 ** 30:.2f} GiB, "
           f"phase s vmap/loop {mc['phase_s'][0]:.2f}/{mc['phase_s'][1]:.2f}")
 
+    print(f"[paths] obs: sl/vmap MobileNetV2 with telemetry and taps "
+          f"{obs['launches']} int8 launches, round walls with/without "
+          f"{obs['walls']}, round/execute sync_s/dur_s {obs['execute']}, "
+          f"host syncs a raw round with/without taps {obs['syncs']}, "
+          f"raw round s with/without {obs['raw_s']['on']}/"
+          f"{obs['raw_s']['off']}; "
+          f"Monte-Carlo with taps {obs['mc']['launches']} int8 launches, "
+          f"peak {obs['mc']['peak'] / 2 ** 30:.2f} GiB; reduced SmolLM "
+          f"sl/vmap with taps (flash, int8) launches {obs['lm_launches']}")
+
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), the int8 kernel's
     # with the [hetero], [scenario] and [mc] vmap runs added (each count
-    # read over its own run), over the RWKV path's 3 steps for the WKV
+    # read over its own run, and the [obs] phase's sl/vmap and Monte-Carlo
+    # runs with taps), over the RWKV path's 3 steps for the WKV
     # kernels, over all the paths for the wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
@@ -2125,7 +2534,8 @@ def main() -> int:
                 "replaces": "src/repro/kernels/quant/int8.py:40",
                 "launches": (lm_launches["quant_dequant_int8"]
                              + hetero["hetero"]["quant_dequant_int8"]
-                             + scenario_launches + mc["mc-vmap"]),
+                             + scenario_launches + mc["mc-vmap"]
+                             + obs["launches"] + obs["mc"]["launches"]),
                 "max_abs_err": max_err,
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": "bytes",

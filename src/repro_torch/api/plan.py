@@ -42,6 +42,15 @@ Every energy/FLOP/link constant is hoisted at compile time (the paper's
 Eq. 8/9 accounting); ``run_round`` multiplies the per-client constants by
 the steps that ran. Spec fields outside the slices raise
 ``NotImplementedError`` naming their ROADMAP item; nothing falls back.
+
+Telemetry (``compile_experiment(..., obs=ObsConfig(...))``,
+``repro_torch.obs``): the lowering's ``compile/*`` spans, the plan's row
+in the run manifest, and a round's ``round/sample``, ``round/execute``
+(fenced on the card), ``round/account`` and ``round/eval`` spans, gauge,
+record and metrics events. A ``MetricsConfig`` (``ObsConfig.metrics``)
+adds the in-round taps of ``repro_torch.obs.metrics`` to every engine and
+fills ``RoundRecord.metrics``; without one the rounds run the same tensor
+operations as a plan without telemetry.
 """
 from __future__ import annotations
 
@@ -72,6 +81,9 @@ from ..fleet.link import FleetLink
 from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
                                 resolve_link_kernel)
 from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
+from ..obs import NULL_OBS, Obs
+from ..obs.metrics import (NonfiniteError, engine_tap_names,
+                           split_step_tap_names, summarize_round_metrics)
 from ..optim.optimizers import FunctionalAdamW, adamw
 from ..sim.channel import deterministic_rate_bps, rates_from_draws
 from ..sim.mission import MissionTimeline, rollout_mission
@@ -144,9 +156,19 @@ class Plan:
                  flops: dict, edges, consts, engine, num_classes: int,
                  eval_chunk: int, prof_consts=None,
                  timeline: Optional[MissionTimeline] = None,
-                 serve_dist_m=None, rate_nominal=None):
+                 serve_dist_m=None, rate_nominal=None,
+                 obs: Optional[Obs] = None, metrics=None,
+                 graph_taps: tuple = ()):
         self.spec = spec
         self.device = device
+        # the metrics bus: the MetricsConfig the plan was compiled with
+        # (None = off) and the tap channels its engine rounds return — with
+        # any, the engines return (state, losses, taps)
+        self.metrics_config = metrics
+        self.graph_taps = tuple(graph_taps)
+        # telemetry: the shared disabled instance unless compile_experiment
+        # was handed an ObsConfig (every hot-path touch a branch + no-op)
+        self.obs = obs if obs is not None else NULL_OBS
         self.engine_label = f"{spec.engine.kind}/{spec.engine.client_axis}"
         self.x_train, self.y_train, self.x_test, self.y_test = arrays
         self.parts = parts
@@ -346,20 +368,60 @@ class Plan:
 
     def run_round(self, state: PlanState, batches=None, *,
                   with_eval: bool = True) -> tuple[PlanState, RoundRecord]:
-        """Execute one global round; returns (state, RoundRecord)."""
-        env = self.round_env(state.round)
-        cohort = self._round_cohort(state)
-        if batches is None:
-            batches = self.round_batches(state, cohort=cohort)
-        mask = self._round_mask(state, env, cohort)
-        state.engine_state, losses = self._engine.run(
-            state.engine_state, batches,
-            None if mask is None else torch.from_numpy(mask).to(self.device))
-        rec = self._assemble_record(state, losses.cpu().numpy(), mask,
-                                    cohort, self._round_rate_ratio(env),
-                                    with_eval=with_eval)
+        """Execute one global round; returns (state, RoundRecord).
+
+        With telemetry the round decomposes into spans: ``round/sample``
+        (the environment draws, cohort, mask and batch gather),
+        ``round/execute`` (the engine, fenced on the losses and taps
+        together so the device's work lands in ``sync_s``),
+        ``round/account`` (the record and the metrics summary) and
+        ``round/eval``; then one gauge stamp, the record and, with
+        metrics, the round's ``metrics`` event."""
+        obs = self.obs
+        r = state.round
+        obs.round_started(r)
+        with obs.span("round", round=r):
+            with obs.span("round/sample", round=r):
+                env = self.round_env(r)
+                cohort = self._round_cohort(state)
+                if batches is None:
+                    batches = self.round_batches(state, cohort=cohort)
+                mask = self._round_mask(state, env, cohort)
+            with obs.span("round/execute", round=r) as sp:
+                out = self.raw_round(state.engine_state, batches, mask)
+                state.engine_state, losses = out[0], out[1]
+                taps = out[2] if self.graph_taps else None
+                # the losses and taps leave the device together, once
+                sp.fence((losses, taps))
+            rec = self._assemble_record(state, losses, mask, cohort, env,
+                                        taps=taps, with_eval=with_eval)
+            if obs:
+                n = self.spec.clients.num_clients
+                obs.gauge(r, engine_state=state.engine_state,
+                          active_clients=rec.active_clients,
+                          dropped=n - rec.active_clients,
+                          cohort=len(rec.cohort_pids),
+                          link_bytes=rec.link_bytes)
+                obs.record(rec)
+                if rec.metrics:
+                    obs.event("metrics", round=r, engine=self.engine_label,
+                              **rec.metrics)
+        obs.round_finished(r)
         state.round += 1
         return state, rec
+
+    def raw_round(self, engine_state, batches, mask=None):
+        """One engine round with no record and no host synchronization:
+        ``(engine_state, losses)`` on the device, plus the tap dict third
+        when the plan carries metrics taps (``graph_taps``). ``mask`` is a
+        (clients,) 0/1 array (or tensor) for an engine that takes one.
+        Benches queue rounds back to back through it and fence once
+        (``obs.time_fenced``)."""
+        if mask is not None and not torch.is_tensor(mask):
+            mask = torch.from_numpy(np.asarray(mask, np.float32))
+        return self._engine.run(
+            engine_state, batches,
+            None if mask is None else mask.to(self.device))
 
     def _round_loss(self, loss_c: np.ndarray, mask) -> float:
         """The round's loss: the mean over the active clients' steps
@@ -407,13 +469,36 @@ class Plan:
             server_energy_j=t_srv * RTX_A5000.power_w,
             uav_energy_j=uav, active_clients=len(active))
 
-    def _assemble_record(self, state: PlanState, loss_c, mask, cohort,
-                         ratio, *, with_eval: bool) -> RoundRecord:
+    def _assemble_record(self, state: PlanState, losses, mask, cohort, env,
+                         *, with_eval: bool, taps=None) -> RoundRecord:
         """One executed round's record: the loss, the held-out accuracy
-        (NaN without ``with_eval``) and the bill (``_round_bill``)."""
-        loss = self._round_loss(loss_c, mask)
+        (NaN without ``with_eval``), the bill (``_round_bill``, at the
+        round's channel draws ``env``) and, when the plan carries a
+        MetricsConfig, the metrics summary (raising ``NonfiniteError``
+        under ``on_nonfinite="raise"``)."""
+        obs = self.obs
+        with obs.span("round/account", round=state.round):
+            loss_c, taps = pull_round(losses, taps)
+            loss = self._round_loss(loss_c, mask)
+            bill = self._round_bill(state.round, mask, cohort,
+                                    self._round_rate_ratio(env))
+            metrics = {}
+            if self.metrics_config is not None:
+                metrics = summarize_round_metrics(
+                    self.metrics_config, taps, losses=loss_c,
+                    kind=self.spec.engine.kind,
+                    n=self.spec.clients.num_clients,
+                    active=bill["active_clients"])
+                if (self.metrics_config.on_nonfinite == "raise"
+                        and metrics.get("health/nonfinite", 0)):
+                    raise NonfiniteError(
+                        round_index=state.round,
+                        step=metrics["health/first_step"],
+                        client=metrics["health/first_client"],
+                        count=metrics["health/nonfinite"])
         if with_eval:
-            state.last_metrics = self.evaluate(state)
+            with obs.span("round/eval", round=state.round):
+                state.last_metrics = self.evaluate(state)
             accuracy = state.last_metrics["accuracy"]
         else:
             accuracy = float("nan")
@@ -422,7 +507,7 @@ class Plan:
             engine=self.engine_label,
             cohort_pids=(() if cohort is None
                          else tuple(int(p) for p in cohort)),
-            metrics={}, **self._round_bill(state.round, mask, cohort, ratio))
+            metrics=metrics, **bill)
 
     def evaluate(self, state: PlanState) -> dict:
         """Held-out classification metrics of the current global model (for
@@ -444,14 +529,42 @@ class Plan:
 
     def run(self, rounds: Optional[int] = None, *, with_eval: bool = True
             ) -> tuple[PlanState, list[RoundRecord]]:
-        """Init + run ``rounds`` (default: the mission-budgeted count)."""
+        """Init + run ``rounds`` (default: the mission-budgeted count). With
+        telemetry the run is one ``run`` span over ``init`` and the rounds'
+        spans; a mission plan also emits its tour legs on the mission clock
+        (``fleet.campaign.mission_obs_events``), and the sink is flushed."""
+        obs = self.obs
         num = self.num_rounds if rounds is None else rounds
-        state = self.init()
         records = []
-        for _ in range(num):
-            state, rec = self.run_round(state, with_eval=with_eval)
-            records.append(rec)
+        with obs.span("run", rounds=num):
+            with obs.span("init"):
+                state = self.init()
+            for _ in range(num):
+                state, rec = self.run_round(state, with_eval=with_eval)
+                records.append(rec)
+        if obs:
+            if self.tour is not None or self.timeline is not None:
+                # deferred: fleet.campaign imports the api package
+                from ..fleet.campaign import mission_obs_events
+                for ev in mission_obs_events(self, records):
+                    obs.event(**ev)
+            obs.flush()
         return state, records
+
+
+def pull_round(losses: torch.Tensor, taps: Optional[dict]):
+    """A round's losses and tap stacks as numpy, in ONE copy from the
+    device (the taps cast to float32, as the reference's are); without taps
+    ``(losses, None)``."""
+    if not taps:
+        return losses.cpu().numpy(), None
+    parts = [losses] + [taps[k] for k in taps]
+    flat = torch.cat([t.reshape(-1).float() for t in parts]).cpu().numpy()
+    out, at = [], 0
+    for t in parts:
+        out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
+    return out[0], dict(zip(taps, out[1:]))
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -465,8 +578,9 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # engines: init_state(params0) / run(state, batches, mask) -> (state, losses
-#          tensor) / predict(state, inputs) -> predicted classes (on the
-#          device). The sequential engines update their modules in place and
+#          tensor[, taps]) / predict(state, inputs) -> predicted classes (on
+#          the device). With metrics taps every engine returns the tap dict
+#          third. The sequential engines update their modules in place and
 #          take no mask (dropout is a fleet policy, refused at validation).
 # ---------------------------------------------------------------------------
 
@@ -490,19 +604,21 @@ class _FLEngine:
     """``fl/scan``: the global model; each client trains a copy from it
     with a fresh AdamW, FedAvg at the end of the round."""
 
-    def __init__(self, spec, stages):
+    def __init__(self, spec, stages, taps=()):
         self.stages = stages
+        self.taps = taps
         self.round_fn = make_fl_round(
             lambda model, bx, by: cross_entropy_loss(
                 model(to_port_layout(bx)), by),
-            adamw(spec.lr))
+            adamw(spec.lr), taps=taps)
 
     def init_state(self, params0):
         return _load(self.stages, params0)
 
     def run(self, model, batches, mask):
         assert mask is None, "dropout needs a fleet engine (validated)"
-        return model, self.round_fn(model, batches)
+        out = self.round_fn(model, batches)
+        return (model, *out) if self.taps else (model, out)
 
     def predict(self, model, x):
         return model(to_port_layout(x)).argmax(dim=-1)
@@ -524,12 +640,13 @@ class _SLScanEngine:
     forward (no link: the reference evaluates the model itself)."""
 
     def __init__(self, spec, step: SplitStep, *, load_client, load_server,
-                 logits):
+                 logits, taps=()):
         self.spec = spec
         self.load_client, self.load_server = load_client, load_server
         self.logits = logits
+        self.taps = taps
         self.round_fn = make_multi_client_round(
-            step, local_rounds=spec.local_steps)
+            step, local_rounds=spec.local_steps, taps=taps)
 
     def init_state(self, params0):
         n = self.spec.clients.num_clients
@@ -542,8 +659,9 @@ class _SLScanEngine:
 
     def run(self, st: SLState, batches, mask):
         assert mask is None, "dropout needs a fleet engine (validated)"
-        return st, self.round_fn(st.clients, st.server, st.client_opts,
-                                 st.server_opt, batches)
+        out = self.round_fn(st.clients, st.server, st.client_opts,
+                            st.server_opt, batches)
+        return (st, *out) if self.taps else (st, out)
 
     def predict(self, st: SLState, x):
         # every client holds the FedAvg'd prefix after a round
@@ -555,7 +673,7 @@ class _FLFleetEngine:
     vmapped program (``fleet.engine.make_fleet_fl_round``), FedAvg (over the
     active clients under dropout) at the end of the round."""
 
-    def __init__(self, spec, stages, device):
+    def __init__(self, spec, stages, device, taps=()):
         self.device = device
         self.model = nn.Sequential(*stages)
         self.masked = _needs_mask(spec)
@@ -564,11 +682,9 @@ class _FLFleetEngine:
             bx, by = batch
             return cross_entropy_loss(self.forward(params, bx), by)
 
-        self.round_fn = make_fleet_fl_round(loss_fn, FunctionalAdamW(spec.lr),
-                                            client_dropout=self.masked)
-        self.seeds_round_fn = make_fleet_fl_round(
+        self.round_fn, self.seeds_round_fn = (make_fleet_fl_round(
             loss_fn, FunctionalAdamW(spec.lr), client_dropout=self.masked,
-            seed_axis=True)
+            seed_axis=seed_axis, taps=taps) for seed_axis in (False, True))
 
     def forward(self, params, x):
         return functional_call(self.model, params, (to_port_layout(x),))
@@ -605,7 +721,7 @@ class _SLFleetEngine:
     gradient, and evaluates with it as it is."""
 
     def __init__(self, spec, step: SplitStep, client: nn.Module,
-                 server: nn.Module, *, params0_tiers, logits):
+                 server: nn.Module, *, params0_tiers, logits, taps=()):
         self.spec = spec
         self.masked = _needs_mask(spec)
         pop = spec.clients.population
@@ -621,7 +737,7 @@ class _SLFleetEngine:
             local_rounds=spec.local_steps,
             server_reduce=spec.engine.server_reduce,
             client_dropout=self.masked, client_tier=self.client_tier,
-            seed_axis=seed_axis) for seed_axis in (False, True))
+            seed_axis=seed_axis, taps=taps) for seed_axis in (False, True))
 
     def init_state(self, params0):
         params_c, params_s = self.params0_tiers(params0)
@@ -631,13 +747,13 @@ class _SLFleetEngine:
 
     def run(self, st, batches, mask):
         out = self.round_fn(*st, batches, *_mask_arg(mask))
-        return out[:4], out[4]
+        return (out[:4], *out[4:])
 
     def run_seeds(self, st, batches, mask):
         """``run`` with a leading seed axis on every tensor (a
         Monte-Carlo sweep's seeds in one program a local step)."""
         out = self.seeds_round_fn(*st, batches, *_mask_arg(mask))
-        return out[:4], out[4]
+        return (out[:4], *out[4:])
 
     def predict(self, st, x):
         params_c, params_s = st[0], st[1]
@@ -655,17 +771,19 @@ class _HeteroSLEngine:
     ``_eval_prefix``), weighted by its client count, summed and divided by
     the fleet size; the argmax of that sum is the prediction."""
 
-    def __init__(self, spec, stages, params0, cut_of_client, link, device):
+    def __init__(self, spec, stages, params0, cut_of_client, link, device,
+                 taps=()):
         self.device = device
         self.masked = _needs_mask(spec)
         self.num_clients = spec.clients.num_clients
         self.fleet = HeteroFleet(
             lambda k: cnn_split_program(stages, params0, k,
                                         loss_fn=cross_entropy_loss,
-                                        link_boundary=link.boundary("nchw")),
+                                        link_boundary=link.boundary("nchw"),
+                                        taps=split_step_tap_names(taps)),
             cut_of_client, FunctionalAdamW(spec.lr), FunctionalAdamW(spec.lr),
             local_rounds=spec.local_steps, client_dropout=self.masked,
-            server_reduce=spec.engine.server_reduce)
+            server_reduce=spec.engine.server_reduce, taps=taps)
         self.logits = [
             tier_call(_cnn_logits, prog.client, prog.server)
             for prog in (self.fleet.programs[b.cut_index]
@@ -960,59 +1078,100 @@ def _resolve_device(device) -> torch.device:
 
 
 def compile_experiment(spec: ExperimentSpec, *, data=None,
-                       device="cuda") -> Plan:
+                       device="cuda", obs=None) -> Plan:
     """Lower ``spec`` to a ``Plan`` on ``device`` (CUDA unless the caller
     asks for the CPU). ``data`` is an optional ``(x_train, y_train, x_test,
     y_test)`` tuple of numpy arrays: NHWC images and labels, or (for the
     split LM) token and next-token arrays (required for
-    ``DataSpec(kind='arrays')``)."""
-    _validate(spec)
-    device = _resolve_device(device)
+    ``DataSpec(kind='arrays')``).
+
+    ``obs`` opts into telemetry: a ``repro_torch.obs.ObsConfig`` (or a live
+    ``Obs`` to share one run dir across plans). The lowering emits
+    ``compile/*`` spans, the plan stamps its row into the run manifest, and
+    every ``run_round`` streams spans, gauges and records to
+    ``<run_root>/<run_id>/``. ``ObsConfig.metrics`` adds the metrics bus,
+    with or without a sink. ``None`` (default) attaches the shared disabled
+    instance."""
+    obs = Obs.ensure(obs)
+    with obs.span("compile", spec=spec.describe()):
+        plan = _compile_plan(spec, data=data, device=device, obs=obs)
+    if obs:
+        obs.manifest(plan={
+            "spec": spec.describe(), "engine": plan.engine_label,
+            "model": (spec.model.name if spec.model.family == "cnn"
+                      else spec.model.family),
+            "num_clients": spec.clients.num_clients,
+            "population": spec.clients.population,
+            "rounds": plan.num_rounds, "local_steps": spec.local_steps,
+            "batch_size": spec.batch_size, "mesh": None,
+            "device": str(plan.device)})
+        obs.flush()
+    return plan
+
+
+def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs) -> Plan:
+    """The lowering; every phase of it runs inside a ``compile/*`` span, so
+    the spans account for the ``compile`` span's wall time."""
     n = spec.clients.num_clients
-    arrays = _resolve_data(spec, data)
-    x_train, y_train, _, _ = arrays
-    parts = _resolve_parts(spec, y_train)
-    edges = [spec.clients.edge_profiles[i % len(spec.clients.edge_profiles)]
-             for i in range(n)]
-    link = FleetLink(config=spec.link_policy.config(),
-                     kernel=resolve_link_kernel(spec.engine.link_kernel,
-                                                device))
+    # the metrics bus: the tap channels, resolved here. No MetricsConfig ->
+    # no taps -> every engine runs its tap-free operations;
+    # ObsConfig(enabled=False, metrics=...) computes the taps with no sink
+    metrics = obs.config.metrics
+    graph_taps = engine_tap_names(
+        metrics, kind=spec.engine.kind,
+        has_link=spec.link_policy.compress == "int8")
+    step_taps = split_step_tap_names(graph_taps)
+    with obs.span("compile/data"):
+        _validate(spec)
+        device = _resolve_device(device)
+        obs.set_device(device)
+        arrays = _resolve_data(spec, data)
+        x_train, y_train, _, _ = arrays
+        parts = _resolve_parts(spec, y_train)
+        edges = [spec.clients.edge_profiles[
+            i % len(spec.clients.edge_profiles)] for i in range(n)]
+        link = FleetLink(config=spec.link_policy.config(),
+                         kernel=resolve_link_kernel(spec.engine.link_kernel,
+                                                    device))
 
     scn = spec.scenario
     tour = timeline = None
-    if spec.mission is not None:
-        coords = client_coords(spec.mission.farm_acres, n, seed=spec.seed)
-        if scn is not None:
-            # a scenario's mission rolls out in time (several UAVs, the
-            # serve geometry); one hovering UAV is plan_tour's plan
-            timeline = rollout_mission(
-                coords, np.zeros(2), params=spec.mission.uav,
-                hover_s_per_stop=spec.mission.hover_s_per_stop,
-                comm_s_per_stop=spec.mission.comm_s_per_stop,
-                num_uavs=scn.num_uavs, serve_mode=scn.serve_mode)
-            if scn.num_uavs == 1:
-                tour = timeline.routes[0].tour
-        else:
-            tour = plan_tour(coords, np.zeros(2), params=spec.mission.uav,
-                             hover_s_per_stop=spec.mission.hover_s_per_stop,
-                             comm_s_per_stop=spec.mission.comm_s_per_stop)
+    with obs.span("compile/mission"):
+        if spec.mission is not None:
+            coords = client_coords(spec.mission.farm_acres, n,
+                                   seed=spec.seed)
+            if scn is not None:
+                # a scenario's mission rolls out in time (several UAVs, the
+                # serve geometry); one hovering UAV is plan_tour's plan
+                timeline = rollout_mission(
+                    coords, np.zeros(2), params=spec.mission.uav,
+                    hover_s_per_stop=spec.mission.hover_s_per_stop,
+                    comm_s_per_stop=spec.mission.comm_s_per_stop,
+                    num_uavs=scn.num_uavs, serve_mode=scn.serve_mode)
+                if scn.num_uavs == 1:
+                    tour = timeline.routes[0].tour
+            else:
+                tour = plan_tour(
+                    coords, np.zeros(2), params=spec.mission.uav,
+                    hover_s_per_stop=spec.mission.hover_s_per_stop,
+                    comm_s_per_stop=spec.mission.comm_s_per_stop)
 
-    # each client's nominal rate: the channel's deterministic rate at its
-    # serve distance (the link policy's without a channel); its link
-    # constants are hoisted at it, and a round's draw scales them by
-    # nominal / sampled
-    serve_dist = (timeline.serve_dist_m if timeline is not None
-                  else np.zeros(n))
-    rate_nominal = np.full(n, spec.link_policy.rate_bps)
-    if scn is not None and scn.channel is not None:
-        rate_nominal = deterministic_rate_bps(
-            scn.channel, serve_dist,
-            spec.link_policy.rate_bps).astype(np.float64)
-    lp = spec.link_policy
-    client_links = [FleetLink(config=LinkConfig(
-        rate_bps=float(rate_nominal[c]), compress=lp.compress,
-        radio_power_w=lp.radio_power_w), kernel=link.kernel)
-        for c in range(n)]
+        # each client's nominal rate: the channel's deterministic rate at
+        # its serve distance (the link policy's without a channel); its
+        # link constants are hoisted at it, and a round's draw scales them
+        # by nominal / sampled
+        serve_dist = (timeline.serve_dist_m if timeline is not None
+                      else np.zeros(n))
+        rate_nominal = np.full(n, spec.link_policy.rate_bps)
+        if scn is not None and scn.channel is not None:
+            rate_nominal = deterministic_rate_bps(
+                scn.channel, serve_dist,
+                spec.link_policy.rate_bps).astype(np.float64)
+        lp = spec.link_policy
+        client_links = [FleetLink(config=LinkConfig(
+            rate_bps=float(rate_nominal[c]), compress=lp.compress,
+            radio_power_w=lp.radio_power_w), kernel=link.kernel)
+            for c in range(n)]
 
     # ---- per-client constants -------------------------------------------
     t_client = np.zeros(n)
@@ -1024,104 +1183,107 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
     flops: dict = {}
     stages = None
     num_classes, eval_chunk = spec.model.num_classes, EVAL_CHUNK
-    sample_x = _to_device(x_train[:spec.batch_size], device)
-    sample_y = torch.from_numpy(
-        y_train[:spec.batch_size].astype(np.int64)).to(device)
 
     if spec.model.family == "transformer":
         cfg = spec.model.arch
         k = stack_cut_index(cfg.n_layers, spec.cut_policy.fraction)
         impl = resolve_attn_impl(spec.model.attn_impl, device)
-        prog = lm_split_program(cfg, torch.Generator().manual_seed(spec.seed),
-                                k, link_boundary=link.boundary("bsd"),
-                                attn_impl=impl)
-        params0 = tuple({key: v.detach().clone()
-                         for key, v in m.state_dict().items()}
-                        for m in (prog.client, prog.server))
-        client, server = prog.client.to(device), prog.server.to(device)
-        # the dispatch-level FLOP counter cannot see inside a kernel launch:
-        # a "pallas" plan is billed through the plain attention of the "ref"
-        # seam, the same O(S^2) work, so its bill does not depend on the
-        # kernel. Likewise the bill counts the plain loss of the whole
-        # logits, the reference's form: the chunked loss the engines train
-        # on forms the same three head products, and its backward's scaling
-        # of the saved gradients is work the plain loss does not do
-        count_step, _ = lm_split_step(
-            cfg, attn_impl="ref" if impl == "pallas" else impl)
-        cut_of_client = [k] * n
-        flops[k] = count_split_step_flops(count_step, client, server,
-                                          sample_x, sample_y)
+        with obs.span("compile/params"):
+            sample_x, sample_y = _sample_batch(spec, x_train, y_train,
+                                               device)
+            prog = lm_split_program(
+                cfg, torch.Generator().manual_seed(spec.seed), k,
+                link_boundary=link.boundary("bsd"), attn_impl=impl,
+                taps=step_taps)
+            params0 = tuple({key: v.detach().clone()
+                             for key, v in m.state_dict().items()}
+                            for m in (prog.client, prog.server))
+            client, server = prog.client.to(device), prog.server.to(device)
+        with obs.span("compile/flops"):
+            # the dispatch-level FLOP counter cannot see inside a kernel
+            # launch: a "pallas" plan is billed through the plain attention
+            # of the "ref" seam, the same O(S^2) work, so its bill does not
+            # depend on the kernel. Likewise the bill counts the plain loss
+            # of the whole logits, the reference's form: the chunked loss
+            # the engines train on forms the same three head products, and
+            # its backward's scaling of the saved gradients is work the
+            # plain loss does not do. The counted step has no taps, so the
+            # bill is the same with the metrics bus on
+            count_step, _ = lm_split_step(
+                cfg, attn_impl="ref" if impl == "pallas" else impl)
+            cut_of_client = [k] * n
+            flops[k] = count_split_step_flops(count_step, client, server,
+                                              sample_x, sample_y)
 
         def lm_logits(c, s_, x):
             return prog.server_logits(s_, prog.step.client_fwd(c, x))
 
-        if spec.engine.is_fleet:
-            engine = _SLFleetEngine(
-                spec, prog.step, client, server, logits=lm_logits,
-                params0_tiers=lambda p: tuple(
-                    {key: v.to(device) for key, v in tier.items()}
-                    for tier in p))
-        else:
-            engine = _SLScanEngine(
-                spec, prog.step,
-                load_client=lambda p: _load_module(client, p[0]),
-                load_server=lambda p: _load_module(server, p[1]),
-                logits=lm_logits)
+        with obs.span("compile/lower"):
+            if spec.engine.is_fleet:
+                engine = _SLFleetEngine(
+                    spec, prog.step, client, server, logits=lm_logits,
+                    params0_tiers=lambda p: tuple(
+                        {key: v.to(device) for key, v in tier.items()}
+                        for tier in p), taps=graph_taps)
+            else:
+                engine = _SLScanEngine(
+                    spec, prog.step,
+                    load_client=lambda p: _load_module(client, p[0]),
+                    load_server=lambda p: _load_module(server, p[1]),
+                    logits=lm_logits, taps=graph_taps)
         num_classes, eval_chunk = cfg.vocab, LM_EVAL_CHUNK
     else:
-        # the port's own initializer; see init_stages
-        stages = CNN_BUILDERS[spec.model.name](spec.model.num_classes)
-        init_stages(torch.Generator().manual_seed(spec.seed), stages)
-        params0 = [{key: v.detach().clone()
-                    for key, v in st.body.state_dict().items()}
-                   for st in stages]
-        for st in stages:
-            st.to(device=device, memory_format=torch.channels_last)
+        with obs.span("compile/params"):
+            sample_x, sample_y = _sample_batch(spec, x_train, y_train,
+                                               device)
+            # the port's own initializer; see init_stages
+            stages = CNN_BUILDERS[spec.model.name](spec.model.num_classes)
+            init_stages(torch.Generator().manual_seed(spec.seed), stages)
+            params0 = [{key: v.detach().clone()
+                        for key, v in st.body.state_dict().items()}
+                       for st in stages]
+            for st in stages:
+                st.to(device=device, memory_format=torch.channels_last)
         if spec.engine.kind == "sl":
-            cut_of_client = _cnn_cuts(spec, stages, sample_x, edges,
-                                      client_links)
-            for k in sorted(set(cut_of_client)):
-                flops[k] = count_sl_step_flops(stages[:k], stages[k:],
-                                               sample_x, sample_y)
-            if len(flops) > 1:
-                engine = _HeteroSLEngine(spec, stages, params0,
-                                         cut_of_client, link, device)
-            else:
-                k = cut_of_client[0]
-                prog = cnn_split_program(stages, params0, k,
-                                         loss_fn=cross_entropy_loss,
-                                         link_boundary=link.boundary("nchw"))
-                if spec.engine.is_fleet:
-                    engine = _SLFleetEngine(
-                        spec, prog.step, prog.client, prog.server,
-                        logits=_cnn_logits,
-                        params0_tiers=lambda p: (tier_params(p[:k], device),
-                                                 tier_params(p[k:], device)))
+            with obs.span("compile/cuts"):
+                cut_of_client = _cnn_cuts(spec, stages, sample_x, edges,
+                                          client_links)
+            with obs.span("compile/flops"):
+                for k in sorted(set(cut_of_client)):
+                    flops[k] = count_sl_step_flops(stages[:k], stages[k:],
+                                                   sample_x, sample_y)
+            with obs.span("compile/lower"):
+                if len(flops) > 1:
+                    engine = _HeteroSLEngine(spec, stages, params0,
+                                             cut_of_client, link, device,
+                                             taps=graph_taps)
                 else:
-                    engine = _SLScanEngine(
-                        spec, prog.step,
-                        load_client=lambda p: _load(stages[:k], p[:k]),
-                        load_server=lambda p: _load(stages[k:], p[k:]),
-                        logits=_cnn_logits)
+                    engine = _sl_cnn_engine(spec, stages, params0,
+                                            cut_of_client[0], link, device,
+                                            graph_taps)
 
     if spec.engine.kind == "fl":
         cut_of_client: list[int] = []
-        step_flops = count_fl_step_flops(stages, sample_x, sample_y)
-        flops["full"] = step_flops
-        for c in range(n):
-            t_client[c] = client_step_time_s(step_flops, edges[c])
+        with obs.span("compile/flops"):
+            step_flops = count_fl_step_flops(stages, sample_x, sample_y)
+            flops["full"] = step_flops
+            for c in range(n):
+                t_client[c] = client_step_time_s(step_flops, edges[c])
         server_base_s = FL_SERVER_AGG_S
-        engine = (_FLFleetEngine(spec, stages, device)
-                  if spec.engine.is_fleet else _FLEngine(spec, stages))
+        with obs.span("compile/lower"):
+            engine = (_FLFleetEngine(spec, stages, device, taps=graph_taps)
+                      if spec.engine.is_fleet
+                      else _FLEngine(spec, stages, taps=graph_taps))
     else:
         # each client at its own cut's counts and smashed tensor
-        for cid, k in enumerate(cut_of_client):
-            fl_client, fl_server, smashed = flops[k]
-            t_client[cid] = client_step_time_s(fl_client, edges[cid])
-            t_server[cid] = roofline_s(fl_server, RTX_A5000)
-            link_bytes[cid] = client_links[cid].step_wire_bytes(smashed)
-            link_time[cid] = client_links[cid].step_time_s(smashed)
-            link_energy[cid] = client_links[cid].step_energy_j(smashed)
+        with obs.span("compile/flops"):
+            for cid, k in enumerate(cut_of_client):
+                fl_client, fl_server, smashed = flops[k]
+                t_client[cid] = client_step_time_s(fl_client, edges[cid])
+                t_server[cid] = roofline_s(fl_server, RTX_A5000)
+                link_bytes[cid] = client_links[cid].step_wire_bytes(smashed)
+                link_time[cid] = client_links[cid].step_time_s(smashed)
+                link_energy[cid] = client_links[cid].step_energy_j(smashed)
     consts = (t_client, t_server, link_bytes, link_time, link_energy,
               server_base_s)
     # one per-step client cost exists for FL and for a single cut; with
@@ -1130,11 +1292,39 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
     client_flops = (flops["full"] if spec.engine.kind == "fl"
                     else flops[cut_of_client[0]][0] if len(flops) == 1
                     else None)
-    return Plan(spec, device=device, arrays=arrays, parts=parts,
-                stages=stages, params0=params0, tour=tour,
-                cut_of_client=cut_of_client, flops=flops, edges=edges,
-                consts=consts, engine=engine, num_classes=num_classes,
-                eval_chunk=eval_chunk,
-                prof_consts=_profile_consts(spec, client_flops),
-                timeline=timeline, serve_dist_m=serve_dist,
-                rate_nominal=rate_nominal)
+    with obs.span("compile/lower"):
+        return Plan(spec, device=device, arrays=arrays, parts=parts,
+                    stages=stages, params0=params0, tour=tour,
+                    cut_of_client=cut_of_client, flops=flops, edges=edges,
+                    consts=consts, engine=engine, num_classes=num_classes,
+                    eval_chunk=eval_chunk,
+                    prof_consts=_profile_consts(spec, client_flops),
+                    timeline=timeline, serve_dist_m=serve_dist,
+                    rate_nominal=rate_nominal, obs=obs, metrics=metrics,
+                    graph_taps=graph_taps)
+
+
+def _sample_batch(spec: ExperimentSpec, x_train, y_train, device):
+    """The first ``batch_size`` training examples on ``device``: the batch
+    the FLOP counters and the cut profile trace."""
+    return (_to_device(x_train[:spec.batch_size], device),
+            torch.from_numpy(
+                y_train[:spec.batch_size].astype(np.int64)).to(device))
+
+
+def _sl_cnn_engine(spec, stages, params0, k: int, link, device, taps):
+    """The single-cut split CNN's engine: ``sl/vmap`` or ``sl/scan``."""
+    prog = cnn_split_program(stages, params0, k, loss_fn=cross_entropy_loss,
+                             link_boundary=link.boundary("nchw"),
+                             taps=split_step_tap_names(taps))
+    if spec.engine.is_fleet:
+        return _SLFleetEngine(
+            spec, prog.step, prog.client, prog.server, logits=_cnn_logits,
+            params0_tiers=lambda p: (tier_params(p[:k], device),
+                                     tier_params(p[k:], device)),
+            taps=taps)
+    return _SLScanEngine(
+        spec, prog.step,
+        load_client=lambda p: _load(stages[:k], p[:k]),
+        load_server=lambda p: _load(stages[k:], p[k:]),
+        logits=_cnn_logits, taps=taps)

@@ -23,6 +23,13 @@ The fleet engines (``fleet.engine``) take the functional forms instead:
 modules (``torch.func.functional_call``), and ``make_split_loss`` is the
 split step's loss as ``(params_c, params_s, batch) -> loss`` for
 ``torch.func.vmap``.
+
+Metrics-bus taps (``repro_torch.obs.metrics``): a ``SplitStep`` with
+``taps`` computes the smashed-tensor channels inside ``loss_fn`` (into
+``aux["taps"]``), and the round builders given ``taps`` also return a
+dict of float32 tap stacks in the loss layout, each value read from the
+gradients and the optimizer's own update tensors of the step that ran. With
+no taps the builders run exactly the tap-free operations.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..obs.metrics import smashed_tap_values, stack_taps, step_taps
 from .fedavg import fedavg_mean, fedavg_modules_
 
 
@@ -117,15 +125,21 @@ class SplitStep:
     client_fwd: Callable
     server_loss: Callable
     link_constraint: Optional[Callable] = None   # smashed -> smashed
+    # metrics-bus channels computed inside the step (they need the smashed
+    # tensor): a subset of {"smashed_mean", "smashed_std",
+    # "smashed_absmax", "quant_error"}, returned in aux["taps"]
+    taps: tuple = ()
 
     def loss_fn(self, client, server, batch):
         inputs, targets = batch["inputs"], batch["targets"]
-        smashed = self.client_fwd(client, inputs)
+        raw = smashed = self.client_fwd(client, inputs)
         if self.link_constraint is not None:
             smashed = self.link_constraint(smashed)
         loss, aux = self.server_loss(server, smashed, targets)
         aux = dict(aux)
         aux["smashed_elems"] = smashed.numel()
+        if self.taps:
+            aux["taps"] = smashed_tap_values(self.taps, raw, smashed)
         return loss, aux
 
     def grads(self, client, server, batch):
@@ -138,19 +152,33 @@ class SplitStep:
         return loss.detach(), aux
 
 
-def make_split_train_step(step: SplitStep):
-    """f(client, server, opt_c, opt_s, batch) -> metrics dict."""
+def _grads(module: nn.Module) -> list:
+    return [p.grad for p in module.parameters() if p.grad is not None]
+
+
+def make_split_train_step(step: SplitStep, taps: tuple = ()):
+    """f(client, server, opt_c, opt_s, batch) -> metrics dict; with
+    ``taps`` the dict's ``"taps"`` is the step's tap dict (0-d tensors)."""
 
     def train_step(client, server, opt_c, opt_s, batch):
         loss, aux = step.grads(client, server, batch)
-        opt_c.step()
-        opt_s.step()
+        if not taps:
+            opt_c.step()
+            opt_s.step()
+            return {"loss": loss, **aux}
+        up_c, up_s = [], []
+        opt_c.step(updates=up_c)
+        opt_s.step(updates=up_s)
+        aux["taps"] = step_taps(taps, loss=loss, aux_taps=aux.get("taps"),
+                                g_c=_grads(client), g_s=_grads(server),
+                                up_c=up_c, up_s=up_s)
         return {"loss": loss, **aux}
 
     return train_step
 
 
-def make_multi_client_round(step: SplitStep, *, local_rounds: int):
+def make_multi_client_round(step: SplitStep, *, local_rounds: int,
+                            taps: tuple = ()):
     """One global round of Algorithm 3 over ``len(clients)`` clients.
 
     ``clients``/``client_opts`` are per-client prefix modules and their
@@ -159,25 +187,35 @@ def make_multi_client_round(step: SplitStep, *, local_rounds: int):
     ``batches`` holds tensors with leading (clients, local_rounds) axes.
     Returns the losses, a (local_rounds, clients) tensor; the client
     prefixes are FedAvg'd in place at the end (optimizer states stay per
-    client, as in the reference)."""
-    train_step = make_split_train_step(step)
+    client, as in the reference). With ``taps`` (engine tap channels) the
+    round returns ``(losses, taps)``, every tap (local_rounds, clients):
+    the server updates once a client visit here, so its channels are per
+    client too."""
+    train_step = make_split_train_step(step, taps)
 
     def global_round(clients, server, client_opts, server_opt, batches):
-        losses = []
+        losses, tap_rows = [], []
         for r in range(local_rounds):
-            row = []
+            row, tap_row = [], []
             for c, (client, opt_c) in enumerate(zip(clients, client_opts)):
                 batch = {k: v[c, r] for k, v in batches.items()}
-                row.append(train_step(client, server, opt_c, server_opt,
-                                      batch)["loss"])
+                out = train_step(client, server, opt_c, server_opt, batch)
+                row.append(out["loss"])
+                if taps:
+                    tap_row.append(out["taps"])
             losses.append(torch.stack(row))
+            if taps:
+                tap_rows.append(stack_taps(tap_row))
         fedavg_modules_(clients)
+        if taps:
+            return torch.stack(losses), stack_taps(tap_rows)
         return torch.stack(losses)
 
     return global_round
 
 
-def make_fl_round(loss_fn: Callable, make_opt: Callable):
+def make_fl_round(loss_fn: Callable, make_opt: Callable, *,
+                  taps: tuple = ()):
     """One global round of the FL baseline.
 
     ``loss_fn(model, bx, by) -> loss``; ``make_opt(params)`` builds a fresh
@@ -185,33 +223,46 @@ def make_fl_round(loss_fn: Callable, make_opt: Callable):
     with a fresh optimizer state, runs its local minibatches, and the round
     ends with the FedAvg of the client models written back into ``model``.
     ``batches`` is ``(bx, by)`` with leading (clients, local_steps) axes.
-    Returns the losses, a (clients, local_steps) tensor."""
+    Returns the losses, a (clients, local_steps) tensor; with ``taps``
+    (engine tap channels: FL has one tier, so the client-side ones)
+    ``(losses, taps)``, every tap (clients, local_steps)."""
 
     def global_round(model: nn.Module, batches):
         bx, by = batches
         params = list(model.parameters())
         global_params = [p.detach().clone() for p in params]
         client_params = []
-        losses = []
+        losses, tap_rows = [], []
         for c in range(bx.shape[0]):
             with torch.no_grad():
                 for p, g in zip(params, global_params):
                     p.copy_(g)
             opt = make_opt(params)
-            row = []
+            row, tap_row = [], []
             for s in range(bx.shape[1]):
                 opt.zero_grad(set_to_none=True)
                 loss = loss_fn(model, bx[c, s], by[c, s])
                 loss.backward()
-                opt.step()
+                if taps:
+                    up = []
+                    opt.step(updates=up)
+                    tap_row.append(step_taps(
+                        taps, loss=loss.detach(), g_c=_grads(model),
+                        up_c=up))
+                else:
+                    opt.step()
                 row.append(loss.detach())
             losses.append(torch.stack(row))
+            if taps:
+                tap_rows.append(stack_taps(tap_row))
             client_params.append([p.detach().clone() for p in params])
         mean = fedavg_mean({i: torch.stack([cp[i] for cp in client_params])
                             for i in range(len(params))})
         with torch.no_grad():
             for i, p in enumerate(params):
                 p.copy_(mean[i])
+        if taps:
+            return torch.stack(losses), stack_taps(tap_rows)
         return torch.stack(losses)
 
     return global_round
@@ -261,6 +312,12 @@ def make_split_loss(step: SplitStep, client: nn.Module, server: nn.Module):
     """The split step's loss as a function the fleet engines vmap:
     ``(params_c, params_s, batch) -> loss``, the client forward, the link
     boundary and the server loss in one function (``SplitStep.loss_fn``),
-    differentiated by the engine's one backward."""
+    differentiated by the engine's one backward. A step with ``taps``
+    gives ``(loss, taps)``, its smashed-tensor tap dict."""
+    if step.taps:
+        def loss_and_taps(c, s, batch):
+            loss, aux = step.loss_fn(c, s, batch)
+            return loss, aux["taps"]
+        return tier_call(loss_and_taps, client, server)
     return tier_call(lambda c, s, batch: step.loss_fn(c, s, batch)[0],
                      client, server)

@@ -44,6 +44,21 @@ counters run per seed. The int8 and flash ``vmap`` rules fold both levels
 into their batch, so each kernel stays one launch for all seeds and
 clients.
 
+Metrics-bus taps (``taps``, ``repro_torch.obs.metrics``): the round also
+returns a dict of float32 tap stacks in the reference's layouts, riding the
+loss stack. The reference forms every client's gradients of its own loss
+(``vmap(step.grads)``) and reduces them; here the one backward of the
+summed losses gives per-client rows only for stacked leaves. When a tap
+needs them (``grad_norm_server``, ``grad_norm_client`` on a shared tier or
+under a mask, ``nonfinite``) the graph is kept for a second backward of
+the clients' losses, ``torch.func.vmap``ped over identity cotangents,
+which gives each client's own gradients of the leaves asked for; the
+updates still come from the first backward, so training is the same with
+taps as without.
+The update-norm channels are the norms of the optimizer's own update
+tensors; a masked client's row is the update its own gradient would take
+(the reference's raw per-slot computation).
+
 ``FLEET_EQUIV_ATOL`` is the reference's loosened bound for vmapped rounds
 against sequential ones (batched convolutions reassociate f32 sums); the
 port's fleet rounds are held to it against the reference's.
@@ -58,6 +73,7 @@ from torch.func import vmap
 
 from ..core.fedavg import (fedavg_mean, fedavg_mean_masked, fedavg_stack,
                            fedavg_stack_masked, stack_replicas)
+from ..obs.metrics import stack_taps, tree_nonfinite, tree_norm
 from ..optim.optimizers import OptState
 
 FLEET_EQUIV_ATOL = 1e-3
@@ -95,19 +111,78 @@ def _guard_state(active, new: OptState, old: OptState) -> OptState:
 
 
 def _losses_and_grads(per_client: Callable, params: tuple, batch,
-                      weights: Optional[torch.Tensor] = None):
+                      weights: Optional[torch.Tensor] = None, *,
+                      rows: Optional[dict] = None, lead: int = 0):
     """One vmapped forward and one backward: the (clients,) losses of
-    ``per_client(*params, batch)`` and the gradients of their sum (each
-    loss times its weight, when ``weights`` is given) with respect to every
-    dict in ``params``."""
+    ``per_client(*params, batch)`` (with the step's tap dict when it
+    returns ``(loss, taps)``) and the gradients of their sum (each loss
+    times its weight, when ``weights`` is given) with respect to every
+    dict in ``params``. Returns (losses, step taps, grads, per-client
+    rows).
+
+    With ``rows`` (``{index into params: stacked}``; ``stacked`` when the
+    dict's leaves carry the client axis) the graph is kept for each
+    client's own gradients of the dicts named: one more backward of the
+    (unweighted) losses, ``vmap``ped over identity cotangents, one a
+    client; each row dict has the client axis after the ``lead`` seed
+    axes."""
     with torch.enable_grad():
         leaves = tuple({k: v.detach().requires_grad_() for k, v in p.items()}
                        for p in params)
-        losses = per_client(*leaves, batch)
+        out = per_client(*leaves, batch)
+        losses, aux = out if isinstance(out, tuple) else (out, {})
         total = (losses if weights is None else losses * weights).sum()
         flat = iter(torch.autograd.grad(
-            total, [v for p in leaves for v in p.values()]))
-    return losses.detach(), tuple({k: next(flat) for k in p} for p in leaves)
+            total, [v for p in leaves for v in p.values()],
+            retain_graph=bool(rows)))
+        grads = tuple({k: next(flat) for k in p} for p in leaves)
+        per_row = {}
+        if rows:
+            n = losses.shape[-1]
+            eye = torch.eye(n, dtype=losses.dtype, device=losses.device)
+            cot = eye.reshape((n,) + (1,) * (losses.dim() - 1) + (n,)
+                              ).expand((n,) + tuple(losses.shape))
+            wanted = [(i, k) for i in rows for k in leaves[i]]
+            inputs = [leaves[i][k] for i, k in wanted]
+            batched = vmap(lambda v: torch.autograd.grad(
+                losses, inputs, v, retain_graph=True))(cot)
+            for (i, k), g in zip(wanted, batched):
+                if rows[i]:
+                    # row c of client c's own gradient: the diagonal
+                    g = torch.diagonal(g, dim1=0, dim2=lead + 1
+                                       ).movedim(-1, lead)
+                else:
+                    g = g.movedim(0, lead)
+                per_row.setdefault(i, {})[k] = g
+    aux = {k: v.detach() for k, v in aux.items()}
+    return losses.detach(), aux, grads, per_row
+
+
+def _nonfinite(losses: torch.Tensor, taps: dict, trees: tuple,
+               lead: int, shared: tuple = ()) -> torch.Tensor:
+    """The per-(seed,) client nonfinite flag: the loss, then each
+    (grad-norm channel, per-client gradient rows) pair — a tapped norm
+    doubles as the guard, an untapped tier pays the elementwise pass.
+
+    The rows of the channels in ``shared`` (leaves the clients share, from
+    the batched backward) see every client's saved activations: the
+    reduction of a shared weight's gradient multiplies another client's
+    NaN or inf activations by its zero cotangent, and 0 x NaN is NaN. A
+    client's shared rows are therefore not counted at a step where another
+    client's loss is nonfinite (such activations reach that loss); its own
+    loss and stacked rows still are."""
+    loss_bad = (~torch.isfinite(losses)).float()
+    others_bad = (loss_bad.sum(dim=-1, keepdim=True) - loss_bad) > 0
+    bad = loss_bad
+    for k, rows in trees:
+        if rows is None:
+            continue
+        flag = ((~torch.isfinite(taps[k])).float() if k in taps
+                else tree_nonfinite(rows, lead + 1))
+        if k in shared:
+            flag = flag.masked_fill(others_bad, 0.0)
+        bad = torch.maximum(bad, flag)
+    return bad
 
 
 def _mean(g: dict, n) -> dict:
@@ -159,7 +234,7 @@ def seed_row(tree, i: int):
 
 def make_fleet_fl_round(loss_fn: Callable, opt, *,
                         client_dropout: bool = False,
-                        seed_axis: bool = False):
+                        seed_axis: bool = False, taps: tuple = ()):
     """FL baseline round with the client axis batched (the reference's
     ``make_fleet_fl_round`` on ``make_fl_round(..., client_axis="vmap")``):
     ``f(global_params, batches[, client_mask]) -> (new_global_params,
@@ -175,7 +250,9 @@ def make_fleet_fl_round(loss_fn: Callable, opt, *,
     global params. With ``seed_axis`` every tensor has a leading seed axis
     (the module docstring): global params (seeds, ...), batches (seeds,
     clients, local_steps, ...), the mask (seeds, clients), losses (seeds,
-    clients, local_steps)."""
+    clients, local_steps). With ``taps`` the round also returns the tap
+    stacks, each laid out like the losses (every client's gradient is its
+    own row here, dropout or not: the loss is not mask-weighted)."""
     per_client = vmap(loss_fn)
     mean, mean_masked = fedavg_mean, fedavg_mean_masked
     if seed_axis:
@@ -192,25 +269,38 @@ def make_fleet_fl_round(loss_fn: Callable, opt, *,
             opt.init(params), step=torch.zeros(bx.shape[:lead + 1],
                                                dtype=torch.int32,
                                                device=bx.device))
-        losses = []
+        losses, tap_rows = [], []
         for s in range(steps):
-            loss, (grads,) = _losses_and_grads(
+            loss, _, (grads,), _ = _losses_and_grads(
                 per_client, (params,),
                 (bx.select(lead + 1, s), by.select(lead + 1, s)))
-            params, state = opt.update(grads, state, params)
+            up = {} if taps else None
+            params, state = opt.update(grads, state, params, updates=up)
             losses.append(loss)
-        return params, torch.stack(losses, dim=-1)
+            if not taps:
+                continue
+            t = {}
+            if "grad_norm_client" in taps:
+                t["grad_norm_client"] = tree_norm(grads, lead + 1)
+            if "update_norm_client" in taps:
+                t["update_norm_client"] = tree_norm(up, lead + 1)
+            if "nonfinite" in taps:
+                t["nonfinite"] = _nonfinite(
+                    loss, t, (("grad_norm_client", grads),), lead)
+            tap_rows.append(t)
+        out = (params, torch.stack(losses, dim=-1))
+        return out + (stack_taps(tap_rows, dim=-1),) if taps else out
 
     if not client_dropout:
         def global_round(global_params, batches):
-            stack, losses = clients_round(global_params, batches)
-            return mean(stack), losses
+            stack, *out = clients_round(global_params, batches)
+            return (mean(stack), *out)
         return global_round
 
     def global_round_masked(global_params, batches, client_mask):
-        stack, losses = clients_round(global_params, batches)
+        stack, *out = clients_round(global_params, batches)
         mask = client_mask.to(torch.float32)
-        return mean_masked(stack, mask, global_params), losses
+        return (mean_masked(stack, mask, global_params), *out)
 
     return global_round_masked
 
@@ -223,7 +313,7 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                         server_reduce: str = "mean",
                         client_dropout: bool = False,
                         client_tier: str = "stacked",
-                        seed_axis: bool = False):
+                        seed_axis: bool = False, taps: tuple = ()):
     """One global round of parallel split learning over the fleet.
 
     ``loss(params_c, params_s, batch) -> loss`` is the split step's loss,
@@ -248,6 +338,14 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
     ``seed_axis``: every tensor carries a leading seed axis (the module
     docstring); batches (seeds, clients, local_rounds, ...), the mask
     (seeds, clients), losses (seeds, local_rounds, clients).
+
+    ``taps`` (engine tap channels; ``loss`` then returns ``(loss, step
+    taps)`` when the step computes smashed channels): the round also
+    returns the tap stacks, per-slot channels (local_rounds, clients) like
+    the losses, the one-update-a-step channels (local_rounds,):
+    ``update_norm_server``, and ``update_norm_client`` on the shared tier.
+    Masked clients still execute; their rows are left out of the state
+    but are on the bus, from their own gradients.
     """
     if server_reduce not in ("mean", "sum"):
         raise ValueError(server_reduce)
@@ -264,6 +362,46 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
         fedavg, fedavg_masked = vmap(fedavg_stack), vmap(fedavg_stack_masked)
     lead = 1 if seed_axis else 0
 
+    # per-client gradients a tap needs: {index into (params_c, params_s):
+    # stacked}, by whether a mask is given (a masked row of the weighted
+    # backward is zero, not the client's own gradient)
+    nan_guard = "nonfinite" in taps
+    want_s = nan_guard or "grad_norm_server" in taps
+    want_c = nan_guard or "grad_norm_client" in taps
+    rows_of = {}
+    for masked in (False, True):
+        rows = {}
+        if shared:
+            if want_c:
+                rows[0] = False
+        elif masked and (want_c or "update_norm_client" in taps):
+            rows[0] = True
+        if want_s:
+            rows[1] = False
+        rows_of[masked] = rows
+
+    def round_taps(loss_r, aux, g_c, rows, up_c, up_s):
+        t = dict(aux)
+        c_rows = rows.get(0, None if shared else g_c)
+        s_rows = rows.get(1)
+        if "grad_norm_client" in taps:
+            t["grad_norm_client"] = tree_norm(c_rows, lead + 1)
+        if "grad_norm_server" in taps:
+            t["grad_norm_server"] = tree_norm(s_rows, lead + 1)
+        if "update_norm_client" in taps:
+            # EPSL: ONE shared client update a step -> a scalar channel
+            t["update_norm_client"] = tree_norm(up_c,
+                                                lead + (0 if shared else 1))
+        if "update_norm_server" in taps:
+            t["update_norm_server"] = tree_norm(up_s, lead)
+        if nan_guard:
+            t["nonfinite"] = _nonfinite(
+                loss_r, t, (("grad_norm_client", c_rows),
+                            ("grad_norm_server", s_rows)), lead,
+                shared=(("grad_norm_client", "grad_norm_server") if shared
+                        else ("grad_norm_server",)))
+        return t
+
     @torch.no_grad()
     def run_round(params_c, params_s, oc, os_, batches, mask):
         n_active = active = None
@@ -273,25 +411,34 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
             n_active = torch.clamp(total, min=1.0)
             active = total > 0
         cohort = n if mask is None else n_active
-        losses = []
+        losses, tap_rows = [], []
+        up_c = up_s = raw_c = None
         for r in range(local_rounds):
             batch = {k: v.select(lead + 1, r) for k, v in batches.items()}
             # masked clients' losses weigh 0: their rows' gradients are 0
             # (and dropped below), and they add nothing to the server's
-            loss_r, (g_c, g_s) = _losses_and_grads(
-                per_client, (params_c, params_s), batch, mask)
+            loss_r, aux, (g_c, g_s), rows = _losses_and_grads(
+                per_client, (params_c, params_s), batch, mask,
+                rows=rows_of[mask is not None], lead=lead)
+            if taps:
+                up_c, up_s = {}, {}
+                raw_c = None if shared or mask is None else rows.get(0)
             losses.append(loss_r)
             if shared:
                 pc_new, oc_new = opt_c.update(_mean(g_c, cohort), oc,
-                                              params_c)
+                                              params_c, updates=up_c)
             else:
-                pc_new, oc_new = opt_c.update(g_c, oc, params_c)
+                pc_new, oc_new = opt_c.update(g_c, oc, params_c,
+                                              updates=up_c, updates_of=raw_c)
                 if mask is not None:
                     pc_new = _keep_masked_rows(mask, pc_new, params_c)
                     oc_new = _keep_masked_state(mask, oc_new, oc)
             if server_reduce == "mean":
                 g_s = _mean(g_s, cohort)
-            ps_new, os_new = opt_s.update(g_s, os_, params_s)
+            ps_new, os_new = opt_s.update(g_s, os_, params_s, updates=up_s)
+            if taps:
+                tap_rows.append(round_taps(loss_r, aux, g_c, rows, up_c,
+                                           up_s))
             if mask is not None:
                 # no active client: the server (and a shared client tier)
                 # sits the round out
@@ -304,7 +451,8 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
         if not shared:
             params_c = (fedavg(params_c) if mask is None
                         else fedavg_masked(params_c, mask))
-        return params_c, params_s, oc, os_, torch.stack(losses, dim=lead)
+        out = (params_c, params_s, oc, os_, torch.stack(losses, dim=lead))
+        return out + (stack_taps(tap_rows, dim=lead),) if taps else out
 
     if client_dropout:
         def global_round_masked(params_c, params_s, oc, os_, batches,

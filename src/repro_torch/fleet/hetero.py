@@ -118,18 +118,19 @@ class SplitProgram:
 
 def cnn_split_program(stages: Sequence[Stage], params: Sequence[dict],
                       k: int, *, loss_fn: Callable,
-                      link_boundary: Optional[Callable] = None
-                      ) -> SplitProgram:
+                      link_boundary: Optional[Callable] = None,
+                      taps: tuple = ()) -> SplitProgram:
     """Split a CNN stage list at stage index ``k``. ``params`` are the
     per-stage parameter dicts (a plan's ``params0``); ``loss_fn(logits,
     targets) -> scalar`` closes the server side; ``link_boundary`` is the
-    NCHW boundary (``FleetLink.boundary("nchw")``) or None."""
+    NCHW boundary (``FleetLink.boundary("nchw")``) or None; ``taps`` are
+    the step-level metrics-bus channels (``SplitStep.taps``)."""
     if not 1 <= k <= len(stages) - 1:
         raise ValueError(f"cut {k} outside (0, {len(stages)})")
     step = SplitStep(
         client_fwd=lambda client, xx: client(to_port_layout(xx)),
         server_loss=lambda server, sm, yy: (loss_fn(server(sm), yy), {}),
-        link_constraint=link_boundary)
+        link_constraint=link_boundary, taps=taps)
     return SplitProgram(step=step, client=nn.Sequential(*stages[:k]),
                         server=nn.Sequential(*stages[k:]),
                         params_c0=tier_params(params[:k]),
@@ -150,8 +151,11 @@ class HeteroFleet:
     global (clients, local_steps, ...) batch dict on the device, runs the
     buckets one after another, and puts their losses back into
     (local_steps, clients). The client axis is ``torch.func.vmap``'s:
-    ``client_axis="shard_map"`` (ROADMAP queue 1 item 16) and ``taps``
-    (item 15) are refused."""
+    ``client_axis="shard_map"`` (ROADMAP queue 1 item 16) is refused.
+    ``taps`` (engine metrics-bus channels; ``build_program`` gives steps
+    with the matching ``SplitStep.taps``) makes each round also return
+    the tap stacks, put back into global (local_steps, clients) tensors:
+    a bucket's one-update-a-step channels fill its clients' columns."""
 
     def __init__(self, build_program: Callable[[int], SplitProgram],
                  cut_indices: Sequence[int], opt_c, opt_s, *,
@@ -165,10 +169,7 @@ class HeteroFleet:
         if client_axis != "vmap":
             raise ValueError(f"client_axis must be 'vmap', got "
                              f"{client_axis!r}")
-        if taps:
-            raise NotImplementedError(
-                "HeteroFleet(taps=...) is not ported to repro_torch yet "
-                "(ROADMAP queue 1 item 15)")
+        self.taps = tuple(taps)
         self.buckets = bucket_by_cut(cut_indices)
         self.local_rounds = local_rounds
         self.num_clients = len(cut_indices)
@@ -184,7 +185,8 @@ class HeteroFleet:
             self._rounds.append(make_fleet_sl_round(
                 make_split_loss(prog.step, prog.client, prog.server),
                 opt_c, opt_s, local_rounds=local_rounds,
-                server_reduce=server_reduce, client_dropout=client_dropout))
+                server_reduce=server_reduce, client_dropout=client_dropout,
+                taps=self.taps))
         # the fleet's own live state (the run_round / bucket_state surface),
         # made on first use: callers that thread state through
         # init_states() / run_round_on never pay for it
@@ -229,22 +231,22 @@ class HeteroFleet:
         """(params_c stack, params_s, oc stack, os_) of bucket ``i``."""
         return self._live_states()[i]
 
-    def run_round(self, batches: dict, client_mask=None) -> torch.Tensor:
+    def run_round(self, batches: dict, client_mask=None):
         """One global round on the fleet's own state: ``batches`` a dict of
         (clients, local_steps, ...) tensors; returns the (local_steps,
-        clients) losses, every client's column filled once.
-        ``client_mask`` (a (clients,) 0/1 vector) needs
-        ``client_dropout=True``."""
-        self._states, losses = self.run_round_on(self._live_states(),
-                                                 batches, client_mask)
-        return losses
+        clients) losses, every client's column filled once (and the tap
+        dict with ``taps``). ``client_mask`` (a (clients,) 0/1 vector)
+        needs ``client_dropout=True``."""
+        self._states, *out = self.run_round_on(self._live_states(),
+                                               batches, client_mask)
+        return tuple(out) if self.taps else out[0]
 
     def run_round_on(self, states: list[tuple], batches: dict,
-                     client_mask=None) -> tuple[list[tuple], torch.Tensor]:
+                     client_mask=None) -> tuple:
         """``run_round`` over caller-owned per-bucket states (from
-        ``init_states``): returns ``(new_states, losses)``. A bucket whose
-        clients are all masked keeps its state (the engine's all-masked
-        guard)."""
+        ``init_states``): returns ``(new_states, losses)``, and the tap dict
+        third with ``taps``. A bucket whose clients are all masked keeps its
+        state (the engine's all-masked guard)."""
         if client_mask is not None and not self.client_dropout:
             raise ValueError("client_mask needs HeteroFleet("
                              "client_dropout=True)")
@@ -254,6 +256,7 @@ class HeteroFleet:
                                           device=device)
         losses = torch.zeros((self.local_rounds, self.num_clients),
                              dtype=torch.float32, device=device)
+        tap_out = {name: torch.zeros_like(losses) for name in self.taps}
         new_states = list(states)
         for i, bucket in enumerate(self.buckets):
             ids = torch.as_tensor(bucket.client_ids, device=device)
@@ -263,9 +266,16 @@ class HeteroFleet:
                 mask = ((torch.ones(len(ids), device=device),)
                         if client_mask is None
                         else (client_mask.index_select(0, ids),))
-            *state, bucket_losses = self._rounds[i](*states[i], sub, *mask)
-            new_states[i] = tuple(state)
-            losses[:, ids] = bucket_losses
+            out = self._rounds[i](*states[i], sub, *mask)
+            new_states[i] = tuple(out[:4])
+            losses[:, ids] = out[4]
+            if self.taps:
+                for name, v in out[5].items():
+                    # a (local_steps,) channel is the bucket's one update
+                    # a step, the same for each of its clients
+                    tap_out[name][:, ids] = v if v.dim() == 2 else v[:, None]
+        if self.taps:
+            return new_states, losses, tap_out
         return new_states, losses
 
 
@@ -471,8 +481,8 @@ def chunked_lm_loss(h: torch.Tensor, head: torch.Tensor,
 
 def lm_split_step(cfg: ArchConfig, *,
                   link_boundary: Optional[Callable] = None, window="cfg",
-                  attn_impl: str = "xla", chunked_loss: bool = False
-                  ) -> tuple[SplitStep, Callable]:
+                  attn_impl: str = "xla", chunked_loss: bool = False,
+                  taps: tuple = ()) -> tuple[SplitStep, Callable]:
     """The split LM's ``SplitStep`` over (LMClient, LMServer) and its
     ``server_logits(server, smashed) -> (B, S, V)``. The server's loss is
     ``lm_loss`` of the whole logits, the reference's form, or with
@@ -499,7 +509,7 @@ def lm_split_step(cfg: ArchConfig, *,
         return lm_loss(server_logits(server, smashed), targets), {}
 
     step = SplitStep(client_fwd=client_fwd, server_loss=server_loss,
-                     link_constraint=link_boundary)
+                     link_constraint=link_boundary, taps=taps)
     return step, server_logits
 
 
@@ -516,11 +526,13 @@ class LMSplitProgram:
 
 def lm_split_program(cfg: ArchConfig, generator: torch.Generator, k: int, *,
                      link_boundary: Optional[Callable] = None, window="cfg",
-                     attn_impl: str = "xla") -> LMSplitProgram:
+                     attn_impl: str = "xla",
+                     taps: tuple = ()) -> LMSplitProgram:
     """Split a next-token LM built on ``cfg``'s dense attention stack at
     layer ``k``. The embedding, the blocks and the head are drawn in that
     order from ``generator`` (embedding and head N(0, 0.02^2) in f32). Its
-    step trains on ``chunked_lm_loss``."""
+    step trains on ``chunked_lm_loss``; ``taps`` are its metrics-bus
+    channels (``SplitStep.taps``)."""
     if not 1 <= k <= cfg.n_layers - 1:
         raise ValueError(f"cut {k} outside (0, {cfg.n_layers})")
     embed = EMBED_SCALE * torch.randn(cfg.vocab, cfg.d_model,
@@ -535,6 +547,6 @@ def lm_split_program(cfg: ArchConfig, generator: torch.Generator, k: int, *,
         server.head.copy_(head)
     step, server_logits = lm_split_step(cfg, link_boundary=link_boundary,
                                         window=window, attn_impl=attn_impl,
-                                        chunked_loss=True)
+                                        chunked_loss=True, taps=taps)
     return LMSplitProgram(step=step, client=client, server=server,
                           cut_index=k, server_logits=server_logits)

@@ -6,7 +6,10 @@ library lands in ``repro_torch/_build/`` (ignored by git) under a name keyed
 by a hash of the source, the headers in ``csrc`` and the flags, so an edited
 source is rebuilt and an unchanged one is reused. No ``--use_fast_math``:
 the kernels rely on IEEE division and separately rounded multiply/add to
-match their plain versions bit for bit.
+match their plain versions bit for bit. Every ``nvcc`` run is reported to
+the registered build listeners (``register_build_listener``) as a
+``BUILD_EVENT`` with its seconds: ``obs.gauges.RecompileCounter`` counts
+them.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -26,8 +30,24 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 KERNEL_SOURCES = ("quant_int8", "flash_attn", "rwkv6_scan",
                   "rwkv6_scan_bwd")
 
+# the event a build listener receives once for each library nvcc built
+BUILD_EVENT = "repro_torch/kernels/build"
+_BUILD_LISTENERS: list = []
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def register_build_listener(fn) -> None:
+    """Call ``fn(BUILD_EVENT, seconds, name=...)`` after every successful
+    ``nvcc`` run of ``build_all``."""
+    if fn not in _BUILD_LISTENERS:
+        _BUILD_LISTENERS.append(fn)
+
+
+def unregister_build_listener(fn) -> None:
+    if fn in _BUILD_LISTENERS:
+        _BUILD_LISTENERS.remove(fn)
 
 
 def nvcc_path() -> str:
@@ -74,9 +94,9 @@ def build_all(names=KERNEL_SOURCES) -> dict:
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+                       tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode != 0:
@@ -84,6 +104,9 @@ def build_all(names=KERNEL_SOURCES) -> dict:
                           f"(exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+        seconds = time.perf_counter() - t0
+        for fn in list(_BUILD_LISTENERS):
+            fn(BUILD_EVENT, seconds, name=name)
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

@@ -38,6 +38,7 @@ import torch
 from ..configs import ARCHS
 from ..configs.base import ArchConfig
 from ..core.energy import EnergyTracker, HardwareProfile
+from ..obs.timeline import fenced
 from ..data.synthetic import synthetic_tokens
 from ..models.transformer import Model, default_cut_layer, lm_loss, model_init
 from ..optim import AdamW, clip_by_global_norm
@@ -77,11 +78,6 @@ def train_step(cfg: ArchConfig, model: Model, opt: AdamW, batch: dict, *,
     return loss.detach(), gnorm
 
 
-def _fence(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
           seq: int = 128, lr: float = 3e-4, client_fraction: float = 0.15,
           device="cuda", generator: torch.Generator | None = None,
@@ -113,16 +109,14 @@ def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
     losses = []
     t0 = time.perf_counter()
     for step in range(steps):
-        tokens = torch.from_numpy(synthetic_tokens(
+        # the step window: the batch is on the device (fenced) before it
+        # opens, and it closes on the step's fenced outputs
+        tokens, _ = fenced(lambda: torch.from_numpy(synthetic_tokens(
             np.random.default_rng([seed, step]), batch, seq,
-            cfg.vocab)).to(device)
-        _fence(device)
-        t_step = time.perf_counter()
-        loss, gnorm = train_step(cfg, model, opt,
-                                 {"tokens": tokens, "labels": tokens},
-                                 cut_layer=cut)
-        _fence(device)
-        dt = time.perf_counter() - t_step
+            cfg.vocab)).to(device))
+        (loss, gnorm), dt = fenced(lambda: train_step(
+            cfg, model, opt, {"tokens": tokens, "labels": tokens},
+            cut_layer=cut))
         tracker.track_time(f"step{step}", dt)
         losses.append(float(loss))
         if step % log_every == 0 or step == steps - 1:

@@ -10,6 +10,12 @@ numbers differ. This one repeats ``optimizers.py:79-98`` op for op, in f32:
 
 with one step counter per optimizer (the reference's ``OptState.step``).
 
+Each step can hand out its applied update, ``(-lr * delta)`` in the
+parameter's dtype (the reference's ``updates``, the metrics bus's
+``update_norm`` source): ``AdamW.step(updates=[])`` appends one tensor a
+parameter, ``FunctionalAdamW.update(..., updates={})`` fills one a key.
+The arithmetic is the same with or without.
+
 ``FunctionalAdamW`` is the same arithmetic over dicts of tensors, returning
 new tensors (the form ``torch.func.vmap`` engines need). Its state may carry
 a leading client axis on every leaf, the step counter included
@@ -20,6 +26,7 @@ keep their own count.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,7 +52,9 @@ class AdamW(torch.optim.Optimizer):
                                       weight_decay=weight_decay))
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, *, updates: Optional[list] = None):
+        """One AdamW step of every parameter with a gradient; with
+        ``updates`` each applied update is appended to it."""
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
         for group in self.param_groups:
@@ -68,7 +77,10 @@ class AdamW(torch.optim.Optimizer):
                 st["mu"], st["nu"], delta = _adamw_leaf(
                     p, p.grad, st["mu"], st["nu"], b1c, b2c, b1=b1, b2=b2,
                     eps=eps, wd=wd)
-                p.add_((-lr * delta).to(p.dtype))
+                up = (-lr * delta).to(p.dtype)
+                p.add_(up)
+                if updates is not None:
+                    updates.append(up)
 
 
 @dataclasses.dataclass
@@ -111,7 +123,14 @@ class FunctionalAdamW:
                         nu=stack_replicas(st.nu, n))
 
     @torch.no_grad()
-    def update(self, grads: dict, state: OptState, params: dict):
+    def update(self, grads: dict, state: OptState, params: dict, *,
+               updates: Optional[dict] = None,
+               updates_of: Optional[dict] = None):
+        """``(new_params, new_state)``. With ``updates`` (a dict) each key's
+        applied update is stored in it; with ``updates_of`` too (gradients
+        keyed as ``grads``) the update those gradients would take from the
+        same state and constants is stored instead (the metrics bus's
+        update of a masked client's row), beside the real step."""
         b1, b2 = self.b1, self.b2
         eps, wd = self.eps, self.weight_decay
         t = state.step + 1
@@ -126,7 +145,16 @@ class FunctionalAdamW:
             mu[k], nu[k], delta = _adamw_leaf(
                 p, grads[k], state.mu[k], state.nu[k], b1c.reshape(shape),
                 b2c.reshape(shape), b1=b1, b2=b2, eps=eps, wd=wd)
-            new_p[k] = p + (-lr * delta).to(p.dtype)
+            up = (-lr * delta).to(p.dtype)
+            new_p[k] = p + up
+            if updates is not None:
+                if updates_of is not None:
+                    _, _, delta = _adamw_leaf(
+                        p, updates_of[k], state.mu[k], state.nu[k],
+                        b1c.reshape(shape), b2c.reshape(shape), b1=b1,
+                        b2=b2, eps=eps, wd=wd)
+                    up = (-lr * delta).to(p.dtype)
+                updates[k] = up
         return new_p, OptState(step=t, mu=mu, nu=nu)
 
 

@@ -33,18 +33,29 @@ rates, cohorts) are the same in both modes, so masks, active clients and
 bills agree exactly and losses within ``FLEET_EQUIV_ATOL``. ``env_draws``
 (one sequence of per-round ``EnvDraws`` a seed) takes the place of the
 sweep's own draws, as ``Plan.env_draws`` does for one run. ``wall_s`` is
-the sweep's host time after one warm-up round, fenced by
-``torch.cuda.synchronize()`` on the card.
+the sweep's host time after one warm-up round, fenced on the card
+(``obs.timeline.fenced``).
+
+Telemetry: the sweep inherits ``plan.obs`` (``obs=`` overrides); enabled,
+it emits the ``mc/setup``, ``mc/compile`` (the warm-up round),
+``mc/execute`` (the fenced sweep) and ``mc/summarize`` spans, a ``note``
+event and the manifest's ``sweep`` entry. A plan compiled with a
+``MetricsConfig`` adds each round's ``metrics/<tap>`` stacks and its
+``loss_stack`` (seeds, rounds, ...) from either mode; ``records_for_seed``
+summarizes them as the plan does (``summarize_round_metrics``), and
+``summary()["metrics"]`` gives each tap's spread over the seeds.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..obs import Obs
+from ..obs.metrics import summarize_round_metrics
+from ..obs.timeline import fenced
 from .scenario import (AvailabilityParams, ScenarioSpec, availability_init,
                        availability_step, cohort_mask)
 
@@ -68,6 +79,22 @@ class MonteCarloResult:
     engine: str
     mode: str                   # "vmap" | "loop"
     wall_s: float               # the sweep's fenced host time
+    # the swept plan's MetricsConfig (None without one): records_for_seed
+    # runs the plan's own numpy reduction on the per-seed stacks
+    metrics_config: object = None
+    kind: str = "sl"
+    num_clients: int = 0
+
+    def _round_metrics(self, i: int, r: int) -> dict:
+        if self.metrics_config is None:
+            return {}
+        s = self.stacks
+        taps = {k.split("/", 1)[1]: s[k][i, r]
+                for k in s if k.startswith("metrics/")}
+        return summarize_round_metrics(
+            self.metrics_config, taps, losses=s["loss_stack"][i, r],
+            kind=self.kind, n=self.num_clients,
+            active=int(s["active_clients"][i, r]))
 
     def records_for_seed(self, i: int) -> list:
         from ..api.records import RoundRecord
@@ -89,7 +116,7 @@ class MonteCarloResult:
             engine=self.engine,
             cohort_pids=(tuple(int(p) for p in s["cohort"][i, r])
                          if "cohort" in s else ()),
-            metrics={}) for r in range(self.rounds)]
+            metrics=self._round_metrics(i, r)) for r in range(self.rounds)]
 
     def summary(self) -> dict:
         """Across-seed statistics of the campaign totals and the last
@@ -108,8 +135,12 @@ class MonteCarloResult:
             "total_link_energy_j": _stats(s["link_energy_j"].sum(axis=1)),
             "total_client_energy_j": _stats(s["client_energy_j"].sum(axis=1)),
             "total_energy_j": _stats(total_energy),
-            # the metrics bus is not ported yet (ROADMAP queue 1 item 15)
-            "metrics": None,
+            # each tap channel's spread over the seeds: a seed's mean over
+            # its (rounds, steps, clients) stack, then _stats
+            "metrics": {k.split("/", 1)[1]:
+                        _stats(s[k].reshape(s[k].shape[0], -1).mean(axis=1))
+                        for k in sorted(s) if k.startswith("metrics/")}
+            or None,
         }
 
 
@@ -182,27 +213,29 @@ class _Sweep:
             return None
         return torch.from_numpy(np.stack(masks)).to(self.plan.device)
 
-    def outputs(self, r, loss_c, cohort, mask, ratio) -> dict:
+    def outputs(self, r, loss_c, cohort, mask, ratio, taps=None) -> dict:
         out = self.plan._round_bill(r, mask, cohort, ratio)
         out["loss"] = self.plan._round_loss(loss_c, mask)
         out["mask"] = mask
         if cohort is not None:
             out["cohort"] = cohort
+        if self.plan.metrics_config is not None:
+            out["loss_stack"] = loss_c
+            for name, v in (taps or {}).items():
+                out[f"metrics/{name}"] = v
         return out
 
 
-def _fence(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _loop(sweep: _Sweep, rounds: int):
-    """Seed after seed, round after round through the plan's engine."""
+    """Seed after seed, round after round through the plan's engine.
+    Returns the per-seed rows, the accuracies and the last engine state."""
+    from ..api.plan import pull_round
     plan = sweep.plan
     engine = plan._engine
     shared = ([plan.gather_batches(sel) for sel in sweep.indices]
               if sweep.pop is None else None)
     rows, accs = [], []
+    state = None
     for i in range(len(sweep.seeds)):
         state = engine.init_state(plan.params0)
         per_round = []
@@ -211,17 +244,20 @@ def _loop(sweep: _Sweep, rounds: int):
             batch = shared[r] if shared is not None \
                 else plan.gather_batches(sel)
             m = sweep.mask_tensor([mask])
-            state, losses = engine.run(state, batch,
-                                       None if m is None else m[0])
-            per_round.append(sweep.outputs(r, losses.cpu().numpy(), cohort,
-                                           mask, ratio))
+            state, losses, *taps = engine.run(state, batch,
+                                              None if m is None else m[0])
+            loss_c, taps = pull_round(losses, taps[0] if taps else None)
+            per_round.append(sweep.outputs(r, loss_c, cohort, mask, ratio,
+                                           taps))
         rows.append(per_round)
         accs.append(plan.evaluate_engine_state(state)["accuracy"])
-    return rows, accs
+    return rows, accs, state
 
 
 def _vmap(sweep: _Sweep, rounds: int):
-    """All seeds in one program a local step: the engine's seed axis."""
+    """All seeds in one program a local step: the engine's seed axis.
+    Returns the per-seed rows, the accuracies and the engine state."""
+    from ..api.plan import pull_round
     from ..fleet.engine import seed_row, stack_seeds
     plan = sweep.plan
     engine = plan._engine
@@ -236,14 +272,16 @@ def _vmap(sweep: _Sweep, rounds: int):
                 plan.gather_batches(sweep.indices[r]))
         else:
             batch = plan.gather_batches(np.stack([h[3] for h in host]))
-        state, losses = engine.run_seeds(
+        state, losses, *taps = engine.run_seeds(
             state, batch, sweep.mask_tensor([h[1] for h in host]))
-        losses = losses.cpu().numpy()
+        losses, taps = pull_round(losses, taps[0] if taps else None)
         for i, (cohort, mask, ratio, _) in enumerate(host):
-            outs[i].append(sweep.outputs(r, losses[i], cohort, mask, ratio))
+            outs[i].append(sweep.outputs(
+                r, losses[i], cohort, mask, ratio,
+                None if taps is None else {k: v[i] for k, v in taps.items()}))
     accs = [plan.evaluate_engine_state(seed_row(state, i))["accuracy"]
             for i in range(num_seeds)]
-    return outs, accs
+    return outs, accs, state
 
 
 def _tree_map(fn, batch):
@@ -254,11 +292,12 @@ def _tree_map(fn, batch):
 
 def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
                     mode: str = "vmap", seed: int = 0,
-                    env_draws=None) -> MonteCarloResult:
+                    env_draws=None, obs=None) -> MonteCarloResult:
     """Sweep ``num_seeds`` scenario realisations of ``plan`` for ``rounds``
     rounds (default the plan's ``num_rounds``), seed ``i`` at environment
     seed ``scn.seed + seed + i``, in ``mode`` ``"vmap"`` or ``"loop"``
-    (the module docstring)."""
+    (the module docstring). ``obs`` (an ``ObsConfig`` or ``Obs``) takes
+    the place of ``plan.obs`` for the sweep's telemetry."""
     if mode not in ("vmap", "loop"):
         raise ValueError(f"mode must be 'vmap' or 'loop', got {mode!r}")
     if num_seeds < 1:
@@ -274,23 +313,40 @@ def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
             f"engines' is not ported yet (ROADMAP queue 1 item 26); use "
             f"mode='loop'")
     run = _vmap if mode == "vmap" else _loop
+    obs = plan.obs if obs is None else Obs.ensure(obs)
+    scn = plan.spec.scenario or ScenarioSpec()
 
+    with obs.span("mc/setup", seeds=num_seeds, rounds=rounds, mode=mode):
+        warm = num_seeds if mode == "vmap" else 1
+        warm_sweep = _Sweep(plan, warm, 1, seed,
+                            None if env_draws is None else env_draws[:warm])
+        sweep = _Sweep(plan, num_seeds, rounds, seed, env_draws)
     # one warm-up round outside the timed sweep (first calls at these
-    # shapes), on a sweep of its own
-    warm = num_seeds if mode == "vmap" else 1
-    run(_Sweep(plan, warm, 1, seed,
-               None if env_draws is None else env_draws[:warm]), 1)
-    sweep = _Sweep(plan, num_seeds, rounds, seed, env_draws)
-    _fence(plan.device)
-    t0 = time.perf_counter()
-    rows, accs = run(sweep, rounds)
-    _fence(plan.device)
-    wall = time.perf_counter() - t0
-
-    stacks = {k: np.asarray([[out[k] for out in per_round]
-                             for per_round in rows])
-              for k in rows[0][0]}
-    stacks["final_accuracy"] = np.asarray(accs, np.float64)
+    # shapes), on a sweep of its own, fenced on its final state
+    with obs.span("mc/compile", mode=mode):
+        fenced(lambda: run(warm_sweep, 1))
+    with obs.span("mc/execute", mode=mode):
+        (rows, accs, _), wall = fenced(lambda: run(sweep, rounds))
+    with obs.span("mc/summarize"):
+        stacks = {k: np.asarray([[out[k] for out in per_round]
+                                 for per_round in rows])
+                  for k in rows[0][0]}
+        stacks["final_accuracy"] = np.asarray(accs, np.float64)
+    if obs:
+        obs.event("note", kind="monte_carlo", num_seeds=num_seeds,
+                  rounds=rounds, mode=mode, engine=plan.engine_label,
+                  wall_s=round(wall, 6))
+        obs.manifest(sweep={"kind": "monte_carlo", "mode": mode,
+                            "num_seeds": num_seeds, "rounds": rounds,
+                            "engine": plan.engine_label,
+                            "seed_base": scn.seed + seed,
+                            "seeds": [scn.seed + seed + i
+                                      for i in range(num_seeds)],
+                            "wall_s": round(wall, 6)})
+        obs.flush()
     return MonteCarloResult(stacks=stacks, num_seeds=num_seeds,
                             rounds=rounds, engine=plan.engine_label,
-                            mode=mode, wall_s=wall)
+                            mode=mode, wall_s=wall,
+                            metrics_config=plan.metrics_config,
+                            kind=plan.spec.engine.kind,
+                            num_clients=plan.spec.clients.num_clients)

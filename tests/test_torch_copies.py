@@ -308,3 +308,47 @@ def test_scenario_dataclasses_field_for_field():
         assert (sim.ChannelParams(**kw).is_stochastic
                 == ref_sim.ChannelParams(**kw).is_stochastic)
     assert sim.COHORT_DOWN_WEIGHT == ref_sim.COHORT_DOWN_WEIGHT
+
+
+# the telemetry layer's framework-neutral pieces: the port keeps copies of
+# the reference's code (``repro_torch.obs.sink``, the numpy half and the
+# configuration of ``repro_torch.obs.metrics``, ``host_rss_bytes``)
+
+SINK_NAMES = ("json_default", "new_run_id", "NullSink", "JsonlSink")
+METRICS_NAMES = ("MetricsConfig", "NonfiniteError", "engine_tap_names",
+                 "split_step_tap_names", "_time_major",
+                 "first_nonfinite_coord", "summarize_round_metrics")
+
+
+@pytest.mark.parametrize("module,names", [
+    ("sink", SINK_NAMES), ("metrics", METRICS_NAMES),
+    ("gauges", ("host_rss_bytes",))])
+def test_obs_copies_are_the_references_code(module, names):
+    import importlib
+    import inspect
+    port = importlib.import_module(f"repro_torch.obs.{module}")
+    ref = importlib.import_module(f"repro.obs.{module}")
+    for name in names:
+        assert (inspect.getsource(getattr(port, name))
+                == inspect.getsource(getattr(ref, name))), name
+    if module == "metrics":
+        assert port.TAPS == ref.TAPS
+
+
+def test_obs_metrics_summaries_equal_the_references():
+    import repro.obs.metrics as ref_m
+    import repro_torch.obs.metrics as m
+    rng = np.random.RandomState(4)
+    taps = {"grad_norm_client": rng.uniform(size=(3, 4)),
+            "update_norm_server": rng.uniform(size=3),
+            "nonfinite": (rng.uniform(size=(3, 4)) > 0.8).astype(np.float32)}
+    losses = rng.uniform(size=(3, 4))
+    for kind in ("sl", "fl"):
+        for taps_sel in (m.TAPS, ("mask",), ("loss_spread", "grad_norms")):
+            got = m.summarize_round_metrics(
+                m.MetricsConfig(taps=taps_sel), taps, losses=losses,
+                kind=kind, n=4, active=3)
+            want = ref_m.summarize_round_metrics(
+                ref_m.MetricsConfig(taps=taps_sel), taps, losses=losses,
+                kind=kind, n=4, active=3)
+            assert got == want

@@ -723,3 +723,132 @@ def test_seed_axis_sweep_on_card_matches_the_per_seed_loop(hopper):
                 FLEET_EQUIV_ATOL if k == "loss" else 1.0 / 24 + 1e-12), k
         else:
             np.testing.assert_array_equal(v.stacks[k], loop.stacks[k], k)
+
+
+# ---------------------------------------------------------------------------
+# run telemetry (repro_torch.obs) on the card
+# ---------------------------------------------------------------------------
+
+class _ListSink:
+    run_dir = None
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, event):
+        self.events.append(event)
+
+
+@pytest.mark.cuda
+def test_fence_books_the_device_wait_on_cuda(hopper):
+    """Queued 4096^2 matmuls: the span's fence waits for them, so its
+    ``sync_s`` is above 0 and at most its ``dur_s``; ``fenced`` times the
+    work, not the launch."""
+    from repro_torch.obs.timeline import Timeline, fenced
+    a = torch.randn(4096, 4096, device=hopper)
+    torch.cuda.synchronize()
+    sink = _ListSink()
+    with Timeline(sink).span("round/execute") as sp:
+        y = a
+        for _ in range(4):
+            y = y @ a
+        sp.fence({"out": (y, [a])})
+    ev = sink.events[0]
+    assert 0 < ev["sync_s"] <= ev["dur_s"]
+    _, wall = fenced(lambda: a @ a @ a)
+    assert wall > 1e-4
+
+
+@pytest.mark.cuda
+def test_tensor_bytes_on_cuda_tensors(hopper):
+    from repro_torch.obs import tensor_bytes
+    from repro_torch.optim.optimizers import FunctionalAdamW
+    params = {"w": torch.zeros(5, 2, device=hopper)}
+    tree = {"a": torch.zeros(4, 4, device=hopper),
+            "b": [torch.zeros(3, dtype=torch.bfloat16, device=hopper)],
+            "c": torch.zeros(2), "st": FunctionalAdamW().init(params)}
+    assert tensor_bytes(tree) == 64 + 6 + 8 + (4 + 2 * 40)
+
+
+@pytest.mark.cuda
+def test_profiler_captures_the_int8_kernel(hopper, tmp_path):
+    from repro_torch.obs.profiler import ProfilerCapture
+    x = torch.randn(1024, 32, device=hopper)
+    a = torch.randn(2048, 2048, device=hopper)
+    quant_dequant_int8(x)                       # built before the window
+    cap = ProfilerCapture((0, 0), str(tmp_path / "prof"), cuda=True)
+    cap.round_started(0)
+    for _ in range(10):                         # a window of milliseconds
+        quant_dequant_int8(a @ a[:, :32])
+    torch.cuda.synchronize()
+    cap.round_finished(0)
+    assert cap.status == f"captured -> {tmp_path / 'prof'}"
+    import collections
+    import json
+    with open(cap.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("quant_dequant_int8" in k for k in kernels), (
+        kernels, collections.Counter(e.get("cat") for e in events))
+
+
+def _tiny_sl_vmap(dropout=0.34):
+    return api.ExperimentSpec(
+        model=api.ModelSpec(name="tinycnn"),
+        data=api.DataSpec(image_size=16, n_train=96, n_test=24),
+        clients=api.ClientSpec(num_clients=3, dropout_rate=dropout),
+        link_policy=api.LinkPolicy(compress="int8"),
+        engine=api.EngineSpec(kind="sl", client_axis="vmap",
+                              link_kernel="fused"),
+        global_rounds=2, local_steps=2, batch_size=4)
+
+
+@pytest.mark.cuda
+def test_taps_add_no_host_syncs_to_a_raw_round(hopper):
+    """``Plan.raw_round`` with the full tap set runs as many synchronizing
+    CUDA operations as without (``torch.cuda.set_sync_debug_mode``), a
+    client masked; and as many int8 launches."""
+    from repro_torch.obs import MetricsConfig, ObsConfig
+    from repro_torch.obs.timeline import count_host_syncs
+    spec = _tiny_sl_vmap()
+    mask = torch.tensor([1.0, 0.0, 1.0], device=hopper)
+    counts, launches = [], []
+    for obs in (ObsConfig(enabled=False, metrics=MetricsConfig()), None):
+        plan = api.compile_experiment(spec, obs=obs)
+        for _ in range(2):                      # the second call counted
+            st = plan.init()
+            batches = plan.round_batches(st)
+            torch.cuda.synchronize()
+            quant_dequant_int8.launches = 0
+            out, n = count_host_syncs(
+                lambda: plan.raw_round(st.engine_state, batches, mask))
+            torch.cuda.synchronize()
+        counts.append(n)
+        launches.append(quant_dequant_int8.launches)
+        assert len(out) == (3 if obs else 2)
+    assert counts[0] == counts[1]
+    assert launches == [2, 2]
+
+
+@pytest.mark.cuda
+def test_nan_localized_on_card_as_on_cpu(hopper):
+    """A NaN at (client 2, step 1) passes through the fused int8 kernel
+    (NaN rows stay NaN) and is localized there, card and CPU alike."""
+    from repro_torch.obs import MetricsConfig, ObsConfig
+    found = []
+    for device in ("cuda", "cpu"):
+        plan = api.compile_experiment(
+            _tiny_sl_vmap(dropout=0.0), device=device,
+            obs=ObsConfig(enabled=False, metrics=MetricsConfig()))
+        st = plan.init()
+        st, _ = plan.run_round(st, with_eval=False)
+        batches = plan.round_batches(st)
+        bx = batches["inputs"].clone()
+        bx[2, 1] = float("nan")
+        st, rec = plan.run_round(st, {"inputs": bx,
+                                      "targets": batches["targets"]},
+                                 with_eval=False)
+        found.append((rec.metrics["health/first_step"],
+                      rec.metrics["health/first_client"],
+                      rec.metrics["health/nonfinite"]))
+    assert found[0] == found[1] and found[0][:2] == (1, 2)

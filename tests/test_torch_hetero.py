@@ -190,8 +190,7 @@ def test_fleet_live_state_and_fresh_states():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(client_axis="shard_map"), NotImplementedError, "queue 1 item 16"),
-    (dict(taps=("grad_norm_client",)), NotImplementedError,
-     "queue 1 item 15"),
+    (dict(server_reduce="median"), ValueError, "median"),
     (dict(client_axis="scan"), ValueError, "must be 'vmap'"),
 ])
 def test_fleet_refusals(kw, exc, match):

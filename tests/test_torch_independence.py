@@ -30,6 +30,9 @@ def test_no_port_file_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
+    assert {f"src/repro_torch/obs/{m}.py" for m in (
+        "__init__", "sink", "timeline", "gauges", "profiler", "metrics")} <= {
+        str(f.relative_to(ROOT)) for f in files}
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -50,6 +53,8 @@ def test_importing_the_port_leaves_jax_out():
                "import repro_torch.sim, repro_torch.sim.monte_carlo\n"
                "import repro_torch.kernels.attn.ops\n"
                "import repro_torch.kernels.rwkv.ops, repro_torch.launch.train\n"
+               "import repro_torch.obs, repro_torch.obs.metrics\n"
+               "import repro_torch.obs.profiler, repro_torch.obs.gauges\n"
                "import chip_smoke\n"
                "print(sorted(m for m in sys.modules\n"
                "             if m.split('.')[0] in ('jax', 'repro')))")
