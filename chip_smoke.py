@@ -124,7 +124,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    sweep with taps (6 int8 launches, its ``mc/*`` spans, seed 0 against
    ``plan.run()``'s metrics in the loop and on the seed axis); and a
    reduced SmolLM ``sl/vmap`` with taps on the card against the CPU, its
-   flash and int8 launches equal with and without taps;
+   flash and int8 launches equal with and without taps; the host syncs of
+   a raw round (and the Python lines that made any), ``round/execute``'s
+   ``sync_s`` share of ``dur_s``, and SmolLM-135M ``sl/vmap`` at batch 8
+   with the default taps, its peak memory; then the explicit-collective
+   engines (``[shard_map]``) on a one-rank NCCL group set up from a
+   ``FileStore`` in a temporary directory and destroyed at the end:
+   MobileNetV2 ``sl/shard_map`` and ``fl/shard_map`` on the spec of 5
+   with dropout 0.25 against the same plans on ``vmap`` (round 0 under
+   cuDNN's default algorithms and 2 rounds under its deterministic ones,
+   losses within ``FLEET_EQUIV_ATOL``, masks, bytes and bills equal), the
+   int8 launches, a raw round's collectives (counted at the call and from
+   the profiler) and host syncs, the raw rounds timed in turns beside the
+   card's name and power limit; and SmolLM-135M ``sl/shard_map`` at batch
+   8 with the flash kernel, 2 rounds, its flash and int8 launches and
+   peak memory;
 9. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
@@ -1860,7 +1874,7 @@ def obs_sl_vmap(api, run_id: str) -> dict:
                                                 quant_dequant_int8_plain)
     import numpy as np
     from repro_torch.obs import MetricsConfig, ObsConfig, tensor_bytes
-    from repro_torch.obs.timeline import count_host_syncs, time_fenced
+    from repro_torch.obs.timeline import time_fenced
     spec = main_spec(api, "sl", 2, client_axis="vmap",
                      dropout_rate=FLEET_DROPOUT)
     on = api.compile_experiment(spec, obs=ObsConfig(
@@ -1959,20 +1973,25 @@ def obs_sl_vmap(api, run_id: str) -> dict:
         raise AssertionError(f"[obs] sl/vmap telemetry checks failed "
                              f"(obs_report rc {report.returncode}: "
                              f"{report.stdout[-2000:]})")
-    # the host syncs of one engine round: taps on against taps off
+    # the host syncs of one engine round: taps on against taps off (the
+    # AdamW scalars are made once on the card: ROADMAP fault J)
     mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=on.device)
-    counts = []
+    counts, sites = [], []
     for plan in (on, off):
         for warm in (True, False):
             st = plan.init()
             batches = plan.round_batches(st)
             torch.cuda.synchronize()
-            _, n = count_host_syncs(
+            n, where = host_sync_sites(
                 lambda: plan.raw_round(st.engine_state, batches, mask))
             torch.cuda.synchronize()
         counts.append(n)
+        sites.append(where)
+    share = [e["sync_s"] / e["dur_s"] for e in execute]
     print(f"[obs] host syncs in one raw_round (a client masked): with taps "
-          f"{counts[0]}, without {counts[1]}")
+          f"{counts[0]}, without {counts[1]} (12 before the AdamW scalars "
+          f"moved to the card); where: {sites}; round/execute sync_s share "
+          f"of dur_s {[round(x, 4) for x in share]}")
     if counts[0] != counts[1]:
         raise AssertionError(f"[obs] taps add host syncs: {counts}")
     # the engine round alone, warm, in turns: without, with, with, without
@@ -1990,7 +2009,89 @@ def obs_sl_vmap(api, run_id: str) -> dict:
           f"{sum(raw_s['on']) / sum(raw_s['off']):.3f})")
     return {"launches": launches_on, "walls": (walls_on, walls_off),
             "execute": [(e["sync_s"], e["dur_s"]) for e in execute],
-            "syncs": counts, "raw_s": raw_s}
+            "sync_share": share, "syncs": counts, "raw_s": raw_s}
+
+
+def host_sync_sites(fn) -> tuple:
+    """``(n, sites)``: the synchronizing CUDA operations ``fn()`` ran (under
+    ``torch.cuda.set_sync_debug_mode("warn")``, as ``obs.timeline.
+    count_host_syncs`` counts them) and, for each distinct one, the call
+    stack's innermost frame in this repository and innermost frame in
+    torch (``file:line function``)."""
+    import traceback
+    import warnings
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = []
+
+    def frame(f) -> str:
+        name = (os.path.relpath(f.filename, here)
+                if f.filename.startswith(here)
+                else f.filename.split("site-packages/")[-1])
+        return f"{name}:{f.lineno} {f.name}"
+
+    inside = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # only what fn() runs: not the switch of the debug mode itself
+        if "synchronizing" not in str(message) or not inside:
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if f.filename.startswith(here)]
+        torch_frames = [f for f in stack if "site-packages/torch" in
+                        f.filename]
+        sites.append(" <- ".join(frame(f) for f in (
+            torch_frames[-1:] + ours[-1:])) or f"{filename}:{lineno}")
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside.append(True)
+            fn()
+        finally:
+            inside.clear()
+            torch.cuda.set_sync_debug_mode(prev)
+    return len(sites), sorted(set(sites))
+
+
+def obs_lm_taps_peak(api) -> dict:
+    """SmolLM-135M at full width on ``sl/vmap`` at batch ``LM_VMAP_BATCH``
+    with the default taps, one round without evaluation: the per-client
+    server gradients of the taps' second backward are formed a client at a
+    time (ROADMAP fault I), so it fits the card; its peak memory and the
+    record's ``grad_norm_server/mean`` are printed."""
+    import gc
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.obs import MetricsConfig, ObsConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plan = api.compile_experiment(
+        lm_spec(api, smollm_135m, "pallas", client_axis="vmap",
+                batch_size=LM_VMAP_BATCH),
+        obs=ObsConfig(enabled=False, metrics=MetricsConfig()))
+    state = plan.init()
+    t0 = time.perf_counter()
+    state, rec = plan.run_round(state, with_eval=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gns = rec.metrics["grad_norm_server/mean"]
+    print(f"[obs] SmolLM-135M sl/vmap batch {LM_VMAP_BATCH} with taps "
+          f"{list(plan.graph_taps)}: fits, peak {peak / 2 ** 30:.2f} GiB "
+          f"({peak} bytes), round wall {wall:.4f} s, loss {rec.loss:.6f}, "
+          f"grad_norm_server/mean {gns:.6g}, health/nonfinite "
+          f"{rec.metrics['health/nonfinite']}")
+    if not (math.isfinite(rec.loss) and math.isfinite(gns)
+            and rec.metrics["health/nonfinite"] == 0):
+        raise AssertionError("[obs] SmolLM sl/vmap with taps")
+    del plan, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lm_taps_peak": peak}
 
 
 def obs_nan_check(api):
@@ -2192,6 +2293,229 @@ def run_obs_path(api) -> dict:
         out.update(obs_lm_check(api))
     finally:
         torch.backends.cudnn.deterministic = False
+    out.update(obs_lm_taps_peak(api))
+    return out
+
+
+def nccl_group() -> str:
+    """A one-rank NCCL default process group on this card, set up from a
+    ``FileStore`` in a new temporary directory (no TCP port); returns the
+    directory. A failed init raises."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=600),
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    return tmp
+
+
+class CollectiveCount:
+    """Counts of ``torch.distributed.all_reduce`` / ``all_gather`` calls
+    while in the ``with`` block (the engines call them through the
+    module)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts = {"all_reduce": 0, "all_gather": 0}
+        self._real = {k: getattr(dist, k) for k in self.counts}
+
+        def counted(name):
+            def call(*a, **kw):
+                self.counts[name] += 1
+                return self._real[name](*a, **kw)
+            return call
+        for k in self.counts:
+            setattr(dist, k, counted(k))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for k, fn in self._real.items():
+            setattr(dist, k, fn)
+        return False
+
+
+def profiled_collectives(fn) -> dict:
+    """``fn()`` once under ``torch.profiler`` (host and device): the events
+    whose names carry ``nccl`` or ``c10d``, with their counts (the host's
+    c10d ops and NCCL's kernels; on one rank NCCL may launch no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for e in prof.events():
+        name = e.name
+        if "nccl" in name.lower() or name.startswith("c10d::"):
+            key = ("device " if e.device_type == torch.autograd.DeviceType
+                   .CUDA else "host ") + name[:60]
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def shard_map_cnn(api, mesh, kind: str) -> dict:
+    """MobileNetV2 ``main_spec`` (4 clients, int8 on the fused kernel,
+    dropout ``FLEET_DROPOUT``) on ``{kind}/shard_map`` over ``mesh`` against
+    the same plan on ``{kind}/vmap``: round 0 under cuDNN's default
+    algorithms, then 2 rounds under its deterministic ones, every round's
+    loss within ``FLEET_EQUIV_ATOL`` and the host's fields (masks, bytes,
+    bills) equal; the int8 launches of the deterministic shard_map run; the
+    collectives of one raw round (counted at the call and from the
+    profiler); the raw round's host syncs; and the raw round of each
+    engine timed in turns (``time_fenced``)."""
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.obs.timeline import time_fenced
+    host_fields = ("round", "link_bytes", "link_time_s", "link_energy_j",
+                   "client_time_s", "client_energy_j", "server_time_s",
+                   "server_energy_j", "uav_energy_j", "active_clients")
+    plans = {}
+    for axis in ("shard_map", "vmap"):
+        plans[axis] = api.compile_experiment(
+            main_spec(api, kind, 2, client_axis=axis,
+                      dropout_rate=FLEET_DROPOUT),
+            mesh=mesh if axis == "shard_map" else None)
+    plans["vmap"].params0 = plans["shard_map"].params0
+    diffs, launches = {}, 0
+    for det, rounds in ((False, 1), (True, 2)):
+        torch.backends.cudnn.deterministic = det
+        try:
+            recs = {}
+            for axis, plan in plans.items():
+                quant_dequant_int8.launches = 0
+                recs[axis] = plan.run(rounds)[1]
+                if axis == "shard_map" and det:
+                    launches = quant_dequant_int8.launches
+        finally:
+            torch.backends.cudnn.deterministic = False
+        for a, b in zip(recs["shard_map"], recs["vmap"]):
+            if any(getattr(a, f) != getattr(b, f) for f in host_fields):
+                raise AssertionError(f"[shard_map] {kind}: host fields "
+                                     f"differ: {a} vs {b}")
+        diffs["deterministic" if det else "default"] = [
+            abs(a.loss - b.loss) for a, b in zip(recs["shard_map"],
+                                                 recs["vmap"])]
+    sm = plans["shard_map"]
+    steps = sm.spec.local_steps
+    want = 2 * steps if kind == "sl" else 0
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=sm.device)
+    st = sm.init()
+    batches = sm.round_batches(st)
+    sm.raw_round(st.engine_state, batches, mask)      # warm
+    torch.cuda.synchronize()
+    with CollectiveCount() as calls:
+        sm.raw_round(st.engine_state, batches, mask)
+        torch.cuda.synchronize()
+    prof = profiled_collectives(
+        lambda: sm.raw_round(st.engine_state, batches, mask))
+    syncs, sites = host_sync_sites(
+        lambda: sm.raw_round(st.engine_state, batches, mask))
+    want_calls = ({"all_reduce": steps + 1, "all_gather": 1} if kind == "sl"
+                  else {"all_reduce": 1, "all_gather": 1})
+    walls = {"shard_map": [], "vmap": []}
+    for axis in ("vmap", "shard_map", "shard_map", "vmap"):
+        plan = plans[axis]
+        st_a = plan.init()
+        b_a = plan.round_batches(st_a)
+        plan.raw_round(st_a.engine_state, b_a, mask)
+        walls[axis].append(time_fenced(
+            lambda: plan.raw_round(st_a.engine_state, b_a, mask),
+            repeats=3) / 3)
+    card = card_line()
+    print(f"[shard_map] {kind}/shard_map MobileNetV2 on a one-rank NCCL "
+          f"group vs {kind}/vmap: |loss diff| round 0 under cuDNN's default "
+          f"algorithms {diffs['default']}, rounds 0-1 deterministic "
+          f"{diffs['deterministic']} (gate {FLEET_EQUIV_ATOL}); host fields "
+          f"equal; int8 launches over the deterministic 2-round run "
+          f"{launches} (want {want})")
+    print(f"[shard_map] {kind} collectives in one raw round (a client "
+          f"masked): called {calls.counts} (want {want_calls}: "
+          + ("one all_reduce a local step for the server's gradient, one "
+             "for FedAvg, one all_gather of the rows"
+             if kind == "sl" else "one all_reduce for FedAvg, one "
+             "all_gather of the losses")
+          + f"); profiler {prof}; host syncs {syncs} {sites}")
+    print(f"[shard_map] {kind} raw_round wall s (fenced, 3 back to back, a "
+          f"client masked), in turns vmap/shard_map/shard_map/vmap: "
+          f"shard_map {walls['shard_map']}, vmap {walls['vmap']} "
+          f"({card})")
+    if not (diffs["default"][0] <= FLEET_EQUIV_ATOL
+            and max(diffs["deterministic"]) <= FLEET_EQUIV_ATOL
+            and launches == want and calls.counts == want_calls):
+        raise AssertionError(f"[shard_map] {kind}/shard_map checks failed")
+    del plans, sm, st, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "calls": calls.counts, "syncs": syncs,
+            "walls": walls, "diffs": diffs, "profiler": prof}
+
+
+def shard_map_lm(api, mesh) -> dict:
+    """SmolLM-135M at full width on ``sl/shard_map`` over ``mesh``
+    (``lm_spec`` at batch ``LM_VMAP_BATCH``, flash attention): 2 rounds,
+    the flash and int8 launches over exactly the run (as ``sl/vmap``'s),
+    the peak memory, each round's wall time."""
+    import gc
+
+    from repro_torch.api.plan import LM_EVAL_CHUNK
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = api.compile_experiment(lm_spec(api, smollm_135m, "pallas",
+                                        client_axis="shard_map",
+                                        batch_size=LM_VMAP_BATCH), mesh=mesh)
+    flash_attention.launches = quant_dequant_int8.launches = 0
+    with CollectiveCount() as calls:
+        run_plan(lm, "shard_map-lm")
+    launches = {"flash_attention": flash_attention.launches,
+                "quant_dequant_int8": quant_dequant_int8.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps, n_layers = lm.spec.local_steps, smollm_135m.n_layers
+    chunks = -(-len(lm.x_test) // LM_EVAL_CHUNK)
+    want = {"flash_attention": lm.num_rounds * n_layers * (steps + chunks),
+            "quant_dequant_int8": lm.num_rounds * steps}
+    print(f"[shard_map] SmolLM-135M sl/shard_map batch {LM_VMAP_BATCH} x "
+          f"{lm.spec.data.seq_len}: launches over the {lm.num_rounds}-round "
+          f"run {launches} (want {want}); collectives called {calls.counts}"
+          f"; peak memory {peak / 2 ** 30:.2f} GiB ({peak} bytes) "
+          f"({card_line()})")
+    if launches != want:
+        raise AssertionError(f"[shard_map] LM launches {launches}, want "
+                             f"{want}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "peak": peak}
+
+
+def run_shard_map_path(api) -> dict:
+    """The ``[shard_map]`` phase: the explicit-collective fleet engines on
+    a one-rank NCCL group (``launch.mesh.data_mesh`` over a default group
+    from a ``FileStore``), destroyed at the end: MobileNetV2 ``sl`` and
+    ``fl`` against ``vmap`` (``shard_map_cnn``), then the SmolLM split LM
+    (``shard_map_lm``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import data_mesh
+    tmp = nccl_group()
+    try:
+        mesh = data_mesh()
+        print(f"[shard_map] mesh {mesh.shape} on {mesh.device}, backend "
+              f"{dist.get_backend(mesh.group)}")
+        out = {"sl": shard_map_cnn(api, mesh, "sl"),
+               "fl": shard_map_cnn(api, mesh, "fl"),
+               "lm": shard_map_lm(api, mesh)}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2474,6 +2798,8 @@ def main() -> int:
     stamp("Monte-Carlo path")
     obs = run_obs_path(api)
     stamp("obs path")
+    sm = run_shard_map_path(api)
+    stamp("shard_map path")
 
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
@@ -2512,14 +2838,23 @@ def main() -> int:
           f"{obs['raw_s']['off']}; "
           f"Monte-Carlo with taps {obs['mc']['launches']} int8 launches, "
           f"peak {obs['mc']['peak'] / 2 ** 30:.2f} GiB; reduced SmolLM "
-          f"sl/vmap with taps (flash, int8) launches {obs['lm_launches']}")
+          f"sl/vmap with taps (flash, int8) launches {obs['lm_launches']}"
+          f"; full-width SmolLM sl/vmap with taps at batch {LM_VMAP_BATCH} "
+          f"peak {obs['lm_taps_peak'] / 2 ** 30:.2f} GiB")
+    print(f"[paths] shard_map on a one-rank NCCL group: sl MobileNetV2 "
+          f"{sm['sl']['launches']} int8 launches, collectives a round "
+          f"{sm['sl']['calls']}, host syncs {sm['sl']['syncs']}; fl "
+          f"{sm['fl']['calls']}; SmolLM-135M {sm['lm']['launches']}, peak "
+          f"{sm['lm']['peak'] / 2 ** 30:.2f} GiB")
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), the int8 kernel's
     # with the [hetero], [scenario] and [mc] vmap runs added (each count
     # read over its own run, and the [obs] phase's sl/vmap and Monte-Carlo
-    # runs with taps), over the RWKV path's 3 steps for the WKV
-    # kernels, over all the paths for the wire-format pair
+    # runs with taps, and the [shard_map] phase's MobileNetV2 sl/shard_map
+    # and SmolLM sl/shard_map runs; the flash kernel's with the latter's
+    # too), over the RWKV path's 3 steps for the WKV kernels, over all the
+    # paths for the wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
              "replaces": f"src/repro/kernels/quant/int8.py:{line}",
@@ -2535,7 +2870,9 @@ def main() -> int:
                 "launches": (lm_launches["quant_dequant_int8"]
                              + hetero["hetero"]["quant_dequant_int8"]
                              + scenario_launches + mc["mc-vmap"]
-                             + obs["launches"] + obs["mc"]["launches"]),
+                             + obs["launches"] + obs["mc"]["launches"]
+                             + sm["sl"]["launches"]
+                             + sm["lm"]["launches"]["quant_dequant_int8"]),
                 "max_abs_err": max_err,
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": "bytes",
@@ -2543,7 +2880,8 @@ def main() -> int:
                {"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attn.cu",
                 "replaces": "src/repro/kernels/attn/flash.py:35",
-                "launches": lm_launches["flash_attention"],
+                "launches": (lm_launches["flash_attention"]
+                             + sm["lm"]["launches"]["flash_attention"]),
                 "max_abs_err": flash_err["float32"],
                 "ms": flash_timing["ms"],
                 "plain_ms": flash_timing["plain_ms"],

@@ -5,9 +5,12 @@ Counterpart of ``repro.api.plan`` for the slices ported so far:
 - the CNN family on the sequential engines (``fl/scan``, the FL baseline,
   and ``sl/scan``, Algorithm 3) and on the fleet engines (``fl/vmap`` and
   ``sl/vmap``, parallel SL with one server update a step on the reduced
-  client gradient; ``fleet.engine``);
+  client gradient; ``fleet.engine``), and their explicit-collective form
+  ``fl/shard_map`` and ``sl/shard_map``, the clients spread over the data
+  group of a ``launch.mesh.FleetMesh`` (``compile_experiment(mesh=)``);
 - the transformer family (the split LM, ``fleet.hetero.lm_split_program``)
-  on ``sl/scan`` and ``sl/vmap``, its attention on the kernel path
+  on ``sl/scan``, ``sl/vmap`` and ``sl/shard_map``, its attention on the
+  kernel path
   ``ModelSpec.attn_impl`` resolves to (the hand-written flash kernel for
   ``"pallas"``);
 
@@ -60,6 +63,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -74,14 +78,16 @@ from ..data.partition import (partition_dirichlet, partition_iid,
                               partition_non_iid, population_partition_count)
 from ..data.synthetic import SyntheticPestImages, synthetic_tokens
 from ..fleet.engine import (fleet_state, make_fleet_fl_round,
-                            make_fleet_sl_round)
+                            make_fleet_sl_round, validate_fleet_mesh)
 from ..fleet.hetero import (HeteroFleet, assign_cuts_cnn, cnn_split_program,
                             lm_split_program, lm_split_step)
 from ..fleet.link import FleetLink
 from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
                                 resolve_link_kernel)
+from ..launch.mesh import (fleet_data_size, make_fleet_mesh,
+                           single_device_fleet_mesh)
 from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
-from ..obs import NULL_OBS, Obs
+from ..obs import NULL_OBS, Obs, ObsConfig
 from ..obs.metrics import (NonfiniteError, engine_tap_names,
                            split_step_tap_names, summarize_round_metrics)
 from ..optim.optimizers import FunctionalAdamW, adamw
@@ -158,9 +164,11 @@ class Plan:
                  timeline: Optional[MissionTimeline] = None,
                  serve_dist_m=None, rate_nominal=None,
                  obs: Optional[Obs] = None, metrics=None,
-                 graph_taps: tuple = ()):
+                 graph_taps: tuple = (), mesh=None):
         self.spec = spec
         self.device = device
+        # the fleet mesh of a shard_map plan (None on the other engines)
+        self.mesh = mesh
         # the metrics bus: the MetricsConfig the plan was compiled with
         # (None = off) and the tap channels its engine rounds return — with
         # any, the engines return (state, losses, taps)
@@ -669,11 +677,13 @@ class _SLScanEngine:
 
 
 class _FLFleetEngine:
-    """``fl/vmap``: the global params dict; the clients train from it in one
-    vmapped program (``fleet.engine.make_fleet_fl_round``), FedAvg (over the
-    active clients under dropout) at the end of the round."""
+    """``fl/vmap`` and ``fl/shard_map``: the global params dict; the clients
+    train from it in one vmapped program (``fleet.engine.
+    make_fleet_fl_round``; under shard_map each rank of ``mesh`` its own
+    clients), FedAvg (over the active clients under dropout) at the end of
+    the round."""
 
-    def __init__(self, spec, stages, device, taps=()):
+    def __init__(self, spec, stages, device, taps=(), mesh=None):
         self.device = device
         self.model = nn.Sequential(*stages)
         self.masked = _needs_mask(spec)
@@ -684,7 +694,9 @@ class _FLFleetEngine:
 
         self.round_fn, self.seeds_round_fn = (make_fleet_fl_round(
             loss_fn, FunctionalAdamW(spec.lr), client_dropout=self.masked,
-            seed_axis=seed_axis, taps=taps) for seed_axis in (False, True))
+            seed_axis=seed_axis, taps=taps,
+            client_axis=spec.engine.client_axis, mesh=mesh)
+            for seed_axis in (False, True))
 
     def forward(self, params, x):
         return functional_call(self.model, params, (to_port_layout(x),))
@@ -705,10 +717,12 @@ class _FLFleetEngine:
 
 
 class _SLFleetEngine:
-    """``sl/vmap``: parallel SL (``fleet.engine.make_fleet_sl_round``) over
-    the client-stacked prefixes, one shared server suffix updated once a
-    local step on the ``server_reduce`` of the clients' gradients, the
-    (masked) FedAvg of the prefixes at the end of the round. State:
+    """``sl/vmap`` and ``sl/shard_map``: parallel SL (``fleet.engine.
+    make_fleet_sl_round``; under shard_map each rank of ``mesh`` its own
+    clients) over the client-stacked prefixes, one shared server suffix
+    updated once a local step on the ``server_reduce`` of the clients'
+    gradients, the (masked) FedAvg of the prefixes at the end of the
+    round. State:
     ``(params_c, params_s, oc, os_)``. ``params0_tiers(params0)`` gives the
     (client, server) parameter dicts of the plan's ``params0``;
     ``logits(client, server, inputs)`` is the evaluation forward, on the
@@ -721,7 +735,8 @@ class _SLFleetEngine:
     gradient, and evaluates with it as it is."""
 
     def __init__(self, spec, step: SplitStep, client: nn.Module,
-                 server: nn.Module, *, params0_tiers, logits, taps=()):
+                 server: nn.Module, *, params0_tiers, logits, taps=(),
+                 mesh=None):
         self.spec = spec
         self.masked = _needs_mask(spec)
         pop = spec.clients.population
@@ -737,7 +752,9 @@ class _SLFleetEngine:
             local_rounds=spec.local_steps,
             server_reduce=spec.engine.server_reduce,
             client_dropout=self.masked, client_tier=self.client_tier,
-            seed_axis=seed_axis, taps=taps) for seed_axis in (False, True))
+            seed_axis=seed_axis, taps=taps,
+            client_axis=spec.engine.client_axis, mesh=mesh)
+            for seed_axis in (False, True))
 
     def init_state(self, params0):
         params_c, params_s = self.params0_tiers(params0)
@@ -955,7 +972,10 @@ def _validate_transformer(spec: ExperimentSpec):
                          "DataSpec(partition='iid')")
     if eng.server_mesh is not None:
         raise ValueError("server_mesh tier specs are wired for the CNN stage "
-                         "path only")
+                         "path only; the transformer family would silently "
+                         "replicate the server suffix (plumb "
+                         "fleet_server_pspecs through _compile_sl_stack to "
+                         "lift this)")
     if arch.ssm_kind or arch.attn_period or arch.enc_dec:
         # the reference's lm_split_program builds "attn" groups only
         # (repro/fleet/hetero.py:225); an RWKV stack trains through
@@ -1058,12 +1078,29 @@ def _validate(spec: ExperimentSpec):
         if scn.num_uavs > cli.num_clients:
             raise ValueError(f"{scn.num_uavs} UAVs for "
                              f"{cli.num_clients} clients")
-    # ---- outside the ported slices: refused, never run some other way ----
-    if eng.client_axis == "shard_map":
-        _not_in_slice("client_axis='shard_map' (the explicit-collective "
-                      "fleet engines)", "item 16")
     if eng.server_mesh is not None:
-        _not_in_slice("EngineSpec.server_mesh", "item 16")
+        if eng.kind != "sl" or not eng.is_fleet:
+            raise ValueError("server_mesh shards the SL server suffix; it "
+                             "needs a fleet SL engine (sl/vmap or "
+                             "sl/shard_map)")
+        f, t = eng.server_mesh
+        if f < 1 or t < 1:
+            raise ValueError(f"server_mesh sizes must be >= 1, got "
+                             f"{eng.server_mesh}")
+    # ---- outside the ported slices: refused, never run some other way ----
+    if spec.cut_policy.mode == "adaptive":
+        if eng.client_axis == "shard_map":
+            _not_in_slice("HeteroFleet(client_axis='shard_map') (adaptive "
+                          "per-client cuts on the explicit-collective "
+                          "engines)", "item 16b")
+        if eng.server_mesh is not None:
+            _not_in_slice("EngineSpec.server_mesh on the adaptive-cut "
+                          "buckets (the reference's _server_only_mesh)",
+                          "item 16b")
+    if eng.server_mesh is not None and tuple(eng.server_mesh) != (1, 1):
+        _not_in_slice(f"EngineSpec.server_mesh={tuple(eng.server_mesh)} "
+                      f"(the server suffix over fsdp x tp: DeviceMesh / "
+                      f"DTensor placements, fleet_server_pspecs)", "item 16b")
 
 
 def _resolve_device(device) -> torch.device:
@@ -1077,13 +1114,65 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def compile_experiment(spec: ExperimentSpec, *, data=None,
+def _resolve_mesh(spec: ExperimentSpec, mesh, device: torch.device):
+    """The fleet mesh of a fleet-axis engine (the reference's rules):
+    ``shard_map`` always gets a concrete mesh (``make_fleet_mesh`` over the
+    default process group, else the single-rank mesh); an explicit mesh
+    must divide the fleet and serve the plan's device. A ``vmap`` plan
+    runs on one device: it takes no mesh of more than one rank (a
+    GSPMD-style placement is item 16b)."""
+    eng = spec.engine
+    if not eng.is_fleet:
+        return mesh
+    n = spec.clients.num_clients
+    if mesh is None and eng.client_axis == "shard_map":
+        # every rank takes part in make_fleet_mesh (it may make a group)
+        mesh = make_fleet_mesh(n, device=device)
+        if mesh is None:
+            if (dist.is_initialized()
+                    and fleet_data_size(n, dist.get_world_size()) > 1):
+                raise ValueError(
+                    f"rank {dist.get_rank()} holds none of the {n} clients "
+                    f"(data={fleet_data_size(n, dist.get_world_size())} of "
+                    f"{dist.get_world_size()} ranks)")
+            mesh = single_device_fleet_mesh(device)
+    if mesh is None:
+        return None
+    validate_fleet_mesh(mesh, n)
+    if mesh.device.type != device.type:
+        raise ValueError(f"the fleet mesh's ranks work on {mesh.device}, "
+                         f"the plan on {device}: the collectives of a "
+                         f"{device.type} fleet stay on its device")
+    if eng.client_axis == "vmap" and mesh.size > 1:
+        _not_in_slice("a vmap plan over a mesh of more than one rank "
+                      "(client placement by DeviceMesh / DTensor)",
+                      "item 16b")
+    return mesh
+
+
+def _rank_obs(obs: Obs, mesh) -> Obs:
+    """Rank 0 of a data group writes the run's telemetry; any other rank
+    computes the same metrics with no sink."""
+    if obs and mesh is not None and mesh.rank != 0:
+        return Obs(ObsConfig(enabled=False, metrics=obs.config.metrics))
+    return obs
+
+
+def compile_experiment(spec: ExperimentSpec, *, mesh=None, data=None,
                        device="cuda", obs=None) -> Plan:
     """Lower ``spec`` to a ``Plan`` on ``device`` (CUDA unless the caller
     asks for the CPU). ``data`` is an optional ``(x_train, y_train, x_test,
     y_test)`` tuple of numpy arrays: NHWC images and labels, or (for the
     split LM) token and next-token arrays (required for
     ``DataSpec(kind='arrays')``).
+
+    ``mesh`` (a ``launch.mesh.FleetMesh``) spreads a ``shard_map`` plan's
+    clients over its data group: every rank compiles and runs the same
+    plan (the same seed draws the same batches and masks), trains its own
+    clients, and holds the whole state; rank 0 writes the telemetry. By
+    default a ``shard_map`` plan takes ``make_fleet_mesh`` over the
+    initialised default process group, or the single-rank mesh, whose
+    collectives are the identity.
 
     ``obs`` opts into telemetry: a ``repro_torch.obs.ObsConfig`` (or a live
     ``Obs`` to share one run dir across plans). The lowering emits
@@ -1092,9 +1181,13 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
     ``<run_root>/<run_id>/``. ``ObsConfig.metrics`` adds the metrics bus,
     with or without a sink. ``None`` (default) attaches the shared disabled
     instance."""
-    obs = Obs.ensure(obs)
+    _validate(spec)
+    device = _resolve_device(device)
+    mesh = _resolve_mesh(spec, mesh, device)
+    obs = _rank_obs(Obs.ensure(obs), mesh)
     with obs.span("compile", spec=spec.describe()):
-        plan = _compile_plan(spec, data=data, device=device, obs=obs)
+        plan = _compile_plan(spec, data=data, device=device, obs=obs,
+                             mesh=mesh)
     if obs:
         obs.manifest(plan={
             "spec": spec.describe(), "engine": plan.engine_label,
@@ -1103,13 +1196,15 @@ def compile_experiment(spec: ExperimentSpec, *, data=None,
             "num_clients": spec.clients.num_clients,
             "population": spec.clients.population,
             "rounds": plan.num_rounds, "local_steps": spec.local_steps,
-            "batch_size": spec.batch_size, "mesh": None,
+            "batch_size": spec.batch_size,
+            "mesh": None if mesh is None else mesh.shape,
             "device": str(plan.device)})
         obs.flush()
     return plan
 
 
-def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs) -> Plan:
+def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs,
+                  mesh=None) -> Plan:
     """The lowering; every phase of it runs inside a ``compile/*`` span, so
     the spans account for the ``compile`` span's wall time."""
     n = spec.clients.num_clients
@@ -1122,8 +1217,6 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs) -> Plan:
         has_link=spec.link_policy.compress == "int8")
     step_taps = split_step_tap_names(graph_taps)
     with obs.span("compile/data"):
-        _validate(spec)
-        device = _resolve_device(device)
         obs.set_device(device)
         arrays = _resolve_data(spec, data)
         x_train, y_train, _, _ = arrays
@@ -1224,7 +1317,7 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs) -> Plan:
                     spec, prog.step, client, server, logits=lm_logits,
                     params0_tiers=lambda p: tuple(
                         {key: v.to(device) for key, v in tier.items()}
-                        for tier in p), taps=graph_taps)
+                        for tier in p), taps=graph_taps, mesh=mesh)
             else:
                 engine = _SLScanEngine(
                     spec, prog.step,
@@ -1260,7 +1353,7 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs) -> Plan:
                 else:
                     engine = _sl_cnn_engine(spec, stages, params0,
                                             cut_of_client[0], link, device,
-                                            graph_taps)
+                                            graph_taps, mesh)
 
     if spec.engine.kind == "fl":
         cut_of_client: list[int] = []
@@ -1271,7 +1364,8 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs) -> Plan:
                 t_client[c] = client_step_time_s(step_flops, edges[c])
         server_base_s = FL_SERVER_AGG_S
         with obs.span("compile/lower"):
-            engine = (_FLFleetEngine(spec, stages, device, taps=graph_taps)
+            engine = (_FLFleetEngine(spec, stages, device, taps=graph_taps,
+                                     mesh=mesh)
                       if spec.engine.is_fleet
                       else _FLEngine(spec, stages, taps=graph_taps))
     else:
@@ -1301,7 +1395,7 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs) -> Plan:
                     prof_consts=_profile_consts(spec, client_flops),
                     timeline=timeline, serve_dist_m=serve_dist,
                     rate_nominal=rate_nominal, obs=obs, metrics=metrics,
-                    graph_taps=graph_taps)
+                    graph_taps=graph_taps, mesh=mesh)
 
 
 def _sample_batch(spec: ExperimentSpec, x_train, y_train, device):
@@ -1312,8 +1406,10 @@ def _sample_batch(spec: ExperimentSpec, x_train, y_train, device):
                 y_train[:spec.batch_size].astype(np.int64)).to(device))
 
 
-def _sl_cnn_engine(spec, stages, params0, k: int, link, device, taps):
-    """The single-cut split CNN's engine: ``sl/vmap`` or ``sl/scan``."""
+def _sl_cnn_engine(spec, stages, params0, k: int, link, device, taps,
+                   mesh=None):
+    """The single-cut split CNN's engine: ``sl/vmap``, ``sl/shard_map`` or
+    ``sl/scan``."""
     prog = cnn_split_program(stages, params0, k, loss_fn=cross_entropy_loss,
                              link_boundary=link.boundary("nchw"),
                              taps=split_step_tap_names(taps))
@@ -1322,7 +1418,7 @@ def _sl_cnn_engine(spec, stages, params0, k: int, link, device, taps):
             spec, prog.step, prog.client, prog.server, logits=_cnn_logits,
             params0_tiers=lambda p: (tier_params(p[:k], device),
                                      tier_params(p[k:], device)),
-            taps=taps)
+            taps=taps, mesh=mesh)
     return _SLScanEngine(
         spec, prog.step,
         load_client=lambda p: _load(stages[:k], p[:k]),

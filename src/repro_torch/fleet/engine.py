@@ -1,6 +1,8 @@
-"""Fleet rounds: the client axis batched with ``torch.func.vmap``.
+"""Fleet rounds: the client axis batched with ``torch.func.vmap``, on one
+device (``client_axis="vmap"``) or spread over a data group
+(``client_axis="shard_map"``).
 
-Counterpart of ``repro.fleet.engine`` for ``client_axis="vmap"``. Every
+Counterpart of ``repro.fleet.engine``. Every
 per-client quantity (params, AdamW moments and step counters, minibatches)
 carries a leading client axis. Per local step the per-client loss runs
 forward once for the whole fleet under ``torch.func.vmap``, and ONE plain
@@ -28,8 +30,23 @@ fixed) but keep their params and optimizer state (step counter included),
 add nothing to the server's gradient (their loss has weight 0 in the
 backward), and are left out of FedAvg; a fully-masked round changes no
 state. The reference's ``lax.scan`` over the local steps is a Python loop
-here. ``client_axis="shard_map"`` is refused by the plan (``api.plan``,
-ROADMAP queue 1 item 16).
+here.
+
+``client_axis="shard_map"`` (the reference's explicit-collective engines):
+the ``data`` axis of a ``launch.mesh.FleetMesh`` is a ``torch.distributed``
+process group, and each rank runs the same vmapped body over its own
+``clients / size`` rows of the batches, the mask and the stacked client
+state (``data.pipeline.shard_batch``). The collective schedule is pinned in
+the program: per local step ONE ``all_reduce(SUM)`` of the server's
+gradient (and a shared client tier's) as one flat f32 buffer, the rank's
+summed rows, divided by the global cohort size after it; at the end of
+the round ONE ``fedavg_pmean*`` all-reduce, and ONE ``all_gather`` of
+every rank's rows of the stacked state, the losses and the per-slot taps.
+State stays replicated: every rank enters and leaves a round with the
+whole fleet's state, as the ``vmap`` engine's. The mask comes whole to
+every rank, so the active count needs no collective. On the single-rank
+mesh (no group) every collective is the identity and the round equals the
+``vmap`` engine's bit for bit.
 
 Seed axis (``seed_axis=True``, the Monte-Carlo sweeps of
 ``sim.monte_carlo``): one more ``vmap`` level, outermost, over scenario
@@ -71,12 +88,78 @@ from typing import Callable, Optional
 import torch
 from torch.func import vmap
 
-from ..core.fedavg import (fedavg_mean, fedavg_mean_masked, fedavg_stack,
-                           fedavg_stack_masked, stack_replicas)
+from ..core.fedavg import (fedavg_mean, fedavg_mean_masked, fedavg_pmean,
+                           fedavg_pmean_masked, fedavg_pmean_stack,
+                           fedavg_pmean_stack_masked, fedavg_stack,
+                           fedavg_stack_masked, psum_flat, stack_replicas)
+from ..data.pipeline import shard_batch
+from ..launch.mesh import (DATA_AXIS, FleetMesh, all_gather_rows,
+                           single_device_fleet_mesh)
 from ..obs.metrics import stack_taps, tree_nonfinite, tree_norm
 from ..optim.optimizers import OptState
 
 FLEET_EQUIV_ATOL = 1e-3
+
+CLIENT_AXES = ("vmap", "shard_map")
+
+
+def _check_client_axis(client_axis: str) -> None:
+    if client_axis not in CLIENT_AXES:
+        raise ValueError(f"fleet client_axis must be one of {CLIENT_AXES}, "
+                         f"got {client_axis!r} (the sequential engine is "
+                         f"core.split's client_axis='scan')")
+
+
+def validate_fleet_mesh(mesh, num_clients: int) -> None:
+    """The client axis must divide evenly over ``data`` — no silent
+    padding (the reference's message)."""
+    if mesh is None:
+        return
+    data = mesh.shape.get(DATA_AXIS, 1)
+    if num_clients % data:
+        raise ValueError(
+            f"{num_clients} clients do not divide over data={data}; pick a "
+            f"fleet size divisible by the mesh's data axis (launch.mesh."
+            f"make_fleet_mesh chooses one automatically)")
+
+
+def _resolve_shard_map_mesh(mesh):
+    """A shard_map engine always needs a concrete mesh: default to the
+    single-rank fleet mesh (collectives become the identity) so the
+    explicit-collective path runs anywhere."""
+    if mesh is None:
+        return single_device_fleet_mesh()
+    if not isinstance(mesh, FleetMesh):
+        raise ValueError(f"fleet shard_map mesh needs a '{DATA_AXIS}' "
+                         f"axis, got {type(mesh).__name__}")
+    return mesh
+
+
+def _local_state(st: OptState, mesh, lead: int) -> OptState:
+    return OptState(*(shard_batch(getattr(st, f), mesh, dim=lead)
+                      for f in ("step", "mu", "nu")))
+
+
+def _reduce_grads(pairs, group) -> list:
+    """The group-wide sum of each summed gradient dict of ``pairs`` (a
+    ``(grads, n)`` list; every leaf in ONE f32 all-reduce), divided by
+    ``n`` (the cohort size, a tensor per seed, or None for a sum) in f32
+    and cast back to each leaf's dtype. With ``group`` None it is
+    ``_mean`` (or the dict as it is, for a sum)."""
+    if group is None:
+        return [g if n is None else _mean(g, n) for g, n in pairs]
+    flat = psum_flat([v for g, _ in pairs for v in g.values()], group)
+    out, at = [], 0
+    for g, n in pairs:
+        d = {}
+        for k, v in g.items():
+            s = flat[at]
+            at += 1
+            if n is not None:
+                s = s / (_lead(n, s) if torch.is_tensor(n) else n)
+            d[k] = s.to(v.dtype)
+        out.append(d)
+    return out
 
 
 def _lead(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -144,8 +227,10 @@ def _losses_and_grads(per_client: Callable, params: tuple, batch,
                               ).expand((n,) + tuple(losses.shape))
             wanted = [(i, k) for i in rows for k in leaves[i]]
             inputs = [leaves[i][k] for i, k in wanted]
+            # one client's cotangent at a time: the peak grows by one
+            # client's gradients, not the fleet's
             batched = vmap(lambda v: torch.autograd.grad(
-                losses, inputs, v, retain_graph=True))(cot)
+                losses, inputs, v, retain_graph=True), chunk_size=1)(cot)
             for (i, k), g in zip(wanted, batched):
                 if rows[i]:
                     # row c of client c's own gradient: the diagonal
@@ -234,7 +319,8 @@ def seed_row(tree, i: int):
 
 def make_fleet_fl_round(loss_fn: Callable, opt, *,
                         client_dropout: bool = False,
-                        seed_axis: bool = False, taps: tuple = ()):
+                        seed_axis: bool = False, taps: tuple = (),
+                        client_axis: str = "vmap", mesh=None):
     """FL baseline round with the client axis batched (the reference's
     ``make_fleet_fl_round`` on ``make_fl_round(..., client_axis="vmap")``):
     ``f(global_params, batches[, client_mask]) -> (new_global_params,
@@ -252,7 +338,19 @@ def make_fleet_fl_round(loss_fn: Callable, opt, *,
     clients, local_steps, ...), the mask (seeds, clients), losses (seeds,
     clients, local_steps). With ``taps`` the round also returns the tap
     stacks, each laid out like the losses (every client's gradient is its
-    own row here, dropout or not: the loss is not mask-weighted)."""
+    own row here, dropout or not: the loss is not mask-weighted).
+
+    ``client_axis="shard_map"``: each rank of ``mesh``'s data group (the
+    single-rank mesh when None) trains its own rows of the clients, the
+    round closes with ``fedavg_pmean`` (``fedavg_pmean_masked`` under a
+    mask, the incoming global params its fallback), and the losses and
+    taps of every rank are gathered; the arguments and results are the
+    ``vmap`` round's, whole on every rank."""
+    _check_client_axis(client_axis)
+    if client_axis == "shard_map":
+        mesh = _resolve_shard_map_mesh(mesh)
+    else:
+        mesh = None
     per_client = vmap(loss_fn)
     mean, mean_masked = fedavg_mean, fedavg_mean_masked
     if seed_axis:
@@ -291,6 +389,31 @@ def make_fleet_fl_round(loss_fn: Callable, opt, *,
         out = (params, torch.stack(losses, dim=-1))
         return out + (stack_taps(tap_rows, dim=-1),) if taps else out
 
+    if mesh is not None:
+        group = mesh.group
+
+        def sharded_round(global_params, batches, mask):
+            validate_fleet_mesh(mesh, batches[0].shape[lead])
+            stack, *out = clients_round(global_params,
+                                        shard_batch(batches, mesh, dim=lead))
+            if mask is None:
+                new = fedavg_pmean(stack, group, lead=lead)
+            else:
+                new = fedavg_pmean_masked(
+                    stack, shard_batch(mask, mesh, dim=lead), global_params,
+                    group, lead=lead)
+            # losses and taps (seeds?, clients, steps): every rank's rows
+            outs = [out[0]] + ([out[1][k] for k in taps] if taps else [])
+            full = all_gather_rows(mesh, [(t, lead) for t in outs])
+            res = (new, full[0])
+            return res + (dict(zip(taps, full[1:])),) if taps else res
+
+        if not client_dropout:
+            return lambda global_params, batches: sharded_round(
+                global_params, batches, None)
+        return lambda global_params, batches, client_mask: sharded_round(
+            global_params, batches, client_mask.to(torch.float32))
+
     if not client_dropout:
         def global_round(global_params, batches):
             stack, *out = clients_round(global_params, batches)
@@ -313,7 +436,8 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                         server_reduce: str = "mean",
                         client_dropout: bool = False,
                         client_tier: str = "stacked",
-                        seed_axis: bool = False, taps: tuple = ()):
+                        seed_axis: bool = False, taps: tuple = (),
+                        client_axis: str = "vmap", mesh=None):
     """One global round of parallel split learning over the fleet.
 
     ``loss(params_c, params_s, batch) -> loss`` is the split step's loss,
@@ -346,12 +470,24 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
     ``update_norm_server``, and ``update_norm_client`` on the shared tier.
     Masked clients still execute; their rows are left out of the state
     but are on the bus, from their own gradients.
+
+    ``client_axis="shard_map"``: each rank of ``mesh``'s data group (the
+    single-rank mesh when None) runs its own rows of the clients; per
+    local step the server's summed gradient (and a shared client tier's)
+    is all-reduced once, the closing FedAvg is ``fedavg_pmean_stack``
+    (``_masked``), and every rank's rows of the stacked client state, the
+    losses and the per-slot taps are gathered at the end. The arguments
+    and results are the ``vmap`` round's, whole on every rank.
     """
     if server_reduce not in ("mean", "sum"):
         raise ValueError(server_reduce)
     if client_tier not in ("stacked", "shared"):
         raise ValueError(f"client_tier must be 'stacked' or 'shared', "
                          f"got {client_tier!r}")
+    _check_client_axis(client_axis)
+    mesh = _resolve_shard_map_mesh(mesh) if client_axis == "shard_map" \
+        else None
+    group = None if mesh is None else mesh.group
     shared = client_tier == "shared"
     per_client = vmap(loss, in_dims=(None if shared else 0, None, 0))
     fedavg, fedavg_masked = fedavg_stack, fedavg_stack_masked
@@ -411,6 +547,15 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
             n_active = torch.clamp(total, min=1.0)
             active = total > 0
         cohort = n if mask is None else n_active
+        if mesh is not None:
+            # the rank's rows; the counts above stay the fleet's
+            validate_fleet_mesh(mesh, n)
+            batches = shard_batch(batches, mesh, dim=lead)
+            mask = None if mask is None else shard_batch(mask, mesh,
+                                                         dim=lead)
+            if not shared:
+                params_c = shard_batch(params_c, mesh, dim=lead)
+                oc = _local_state(oc, mesh, lead)
         losses, tap_rows = [], []
         up_c = up_s = raw_c = None
         for r in range(local_rounds):
@@ -424,17 +569,21 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                 up_c, up_s = {}, {}
                 raw_c = None if shared or mask is None else rows.get(0)
             losses.append(loss_r)
+            # the fleet's reduction of the summed gradients: one
+            # all-reduce a step under shard_map
+            s_mean = cohort if server_reduce == "mean" else None
             if shared:
-                pc_new, oc_new = opt_c.update(_mean(g_c, cohort), oc,
-                                              params_c, updates=up_c)
+                g_c, g_s = _reduce_grads([(g_c, cohort), (g_s, s_mean)],
+                                         group)
+                pc_new, oc_new = opt_c.update(g_c, oc, params_c,
+                                              updates=up_c)
             else:
+                (g_s,) = _reduce_grads([(g_s, s_mean)], group)
                 pc_new, oc_new = opt_c.update(g_c, oc, params_c,
                                               updates=up_c, updates_of=raw_c)
                 if mask is not None:
                     pc_new = _keep_masked_rows(mask, pc_new, params_c)
                     oc_new = _keep_masked_state(mask, oc_new, oc)
-            if server_reduce == "mean":
-                g_s = _mean(g_s, cohort)
             ps_new, os_new = opt_s.update(g_s, os_, params_s, updates=up_s)
             if taps:
                 tap_rows.append(round_taps(loss_r, aux, g_c, rows, up_c,
@@ -448,11 +597,21 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                     pc_new = _guard(active, pc_new, params_c)
                     oc_new = _guard_state(active, oc_new, oc)
             params_c, oc, params_s, os_ = pc_new, oc_new, ps_new, os_new
-        if not shared:
-            params_c = (fedavg(params_c) if mask is None
-                        else fedavg_masked(params_c, mask))
-        out = (params_c, params_s, oc, os_, torch.stack(losses, dim=lead))
-        return out + (stack_taps(tap_rows, dim=lead),) if taps else out
+        tap_stack = stack_taps(tap_rows, dim=lead) if taps else None
+        losses = torch.stack(losses, dim=lead)
+        if mesh is None:
+            if not shared:
+                params_c = (fedavg(params_c) if mask is None
+                            else fedavg_masked(params_c, mask))
+        else:
+            if not shared:
+                params_c = (fedavg_pmean_stack(params_c, group, lead=lead)
+                            if mask is None else fedavg_pmean_stack_masked(
+                                params_c, mask, group, lead=lead))
+            params_c, oc, losses, tap_stack = _gather_round(
+                mesh, shared, lead, params_c, oc, losses, tap_stack)
+        out = (params_c, params_s, oc, os_, losses)
+        return out + (tap_stack,) if taps else out
 
     if client_dropout:
         def global_round_masked(params_c, params_s, oc, os_, batches,
@@ -464,6 +623,35 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
     def global_round(params_c, params_s, oc, os_, batches):
         return run_round(params_c, params_s, oc, os_, batches, None)
     return global_round
+
+
+def _gather_round(mesh, shared: bool, lead: int, params_c, oc, losses,
+                  tap_stack):
+    """Every rank's rows of a shard_map SL round's outputs, in ONE
+    all-gather: the stacked client params and optimizer state (client axis
+    ``lead``), the losses and the per-slot taps (client axis ``lead + 1``;
+    the one-update-a-step channels, the same on every rank, stay)."""
+    items = [(losses, lead + 1)]
+    slot = [k for k, v in (tap_stack or {}).items()
+            if v.dim() > lead + 1]
+    items += [(tap_stack[k], lead + 1) for k in slot]
+    if not shared:
+        items += [(v, lead) for v in params_c.values()]
+        items += [(oc.step, lead)]
+        items += [(v, lead) for v in oc.mu.values()]
+        items += [(v, lead) for v in oc.nu.values()]
+    full = iter(all_gather_rows(mesh, items))
+    losses = next(full)
+    if tap_stack is not None:
+        tap_stack = dict(tap_stack)
+        for k in slot:
+            tap_stack[k] = next(full)
+    if not shared:
+        params_c = {k: next(full) for k in params_c}
+        step = next(full)
+        oc = OptState(step=step, mu={k: next(full) for k in oc.mu},
+                      nu={k: next(full) for k in oc.nu})
+    return params_c, oc, losses, tap_stack
 
 
 def fleet_state(params_c: dict, params_s: dict, opt_c, opt_s, n: int,

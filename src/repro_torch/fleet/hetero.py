@@ -151,7 +151,7 @@ class HeteroFleet:
     global (clients, local_steps, ...) batch dict on the device, runs the
     buckets one after another, and puts their losses back into
     (local_steps, clients). The client axis is ``torch.func.vmap``'s:
-    ``client_axis="shard_map"`` (ROADMAP queue 1 item 16) is refused.
+    ``client_axis="shard_map"`` (ROADMAP queue 1 item 16b) is refused.
     ``taps`` (engine metrics-bus channels; ``build_program`` gives steps
     with the matching ``SplitStep.taps``) makes each round also return
     the tap stacks, put back into global (local_steps, clients) tensors:
@@ -165,7 +165,7 @@ class HeteroFleet:
         if client_axis == "shard_map":
             raise NotImplementedError(
                 "HeteroFleet(client_axis='shard_map') is not ported to "
-                "repro_torch yet (ROADMAP queue 1 item 16)")
+                "repro_torch yet (ROADMAP queue 1 item 16b)")
         if client_axis != "vmap":
             raise ValueError(f"client_axis must be 'vmap', got "
                              f"{client_axis!r}")

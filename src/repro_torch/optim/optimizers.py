@@ -10,6 +10,13 @@ numbers differ. This one repeats ``optimizers.py:79-98`` op for op, in f32:
 
 with one step counter per optimizer (the reference's ``OptState.step``).
 
+The f32 scalars b1, b2 and lr are made on the device once (at an
+optimizer's first step on that device), and ``AdamW``'s f32 step count
+lives there, set each step by a fill (a kernel argument, not a copy), so a
+step copies nothing from the host and never synchronizes with the card.
+The values and the operations are the ones a ``torch.tensor(...,
+device=)`` a step gave.
+
 Each step can hand out its applied update, ``(-lr * delta)`` in the
 parameter's dtype (the reference's ``updates``, the metrics bus's
 ``update_norm`` source): ``AdamW.step(updates=[])`` appends one tensor a
@@ -44,12 +51,23 @@ def _adamw_leaf(p, g, mu, nu, b1c, b2c, *, b1, b2, eps, wd):
     return m, v, delta
 
 
+def _device_scalars(cache: dict, key, device, **values) -> dict:
+    """``values`` as f32 0-d tensors on ``device``, made once for ``key``
+    and those values and kept in ``cache`` (a changed lr makes new ones)."""
+    key = (key, str(device)) + tuple(sorted(values.items()))
+    if key not in cache:
+        cache[key] = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                      for k, v in values.items()}
+    return cache[key]
+
+
 class AdamW(torch.optim.Optimizer):
     def __init__(self, params, lr: float = 1e-3, *, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.01):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
+        self._scalars = {}
 
     @torch.no_grad()
     def step(self, closure=None, *, updates: Optional[list] = None):
@@ -57,18 +75,21 @@ class AdamW(torch.optim.Optimizer):
         ``updates`` each applied update is appended to it."""
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
-        for group in self.param_groups:
+        for i, group in enumerate(self.param_groups):
             b1, b2 = group["b1"], group["b2"]
             eps, wd = group["eps"], group["weight_decay"]
-            group["t"] = t = group.get("t", 0) + 1
+            group["t"] = group.get("t", 0) + 1
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            f32 = dict(dtype=torch.float32, device=params[0].device)
-            tf = torch.tensor(float(t), **f32)
-            b1c = 1 - torch.tensor(b1, **f32) ** tf
-            b2c = 1 - torch.tensor(b2, **f32) ** tf
-            lr = torch.tensor(group["lr"], **f32)
+            c = _device_scalars(self._scalars, i, params[0].device, b1=b1,
+                                b2=b2, lr=group["lr"], t=0.0)
+            # the step count, written on the device by a fill (a kernel
+            # argument, not a copy from the host; exact in f32)
+            tf = c["t"].fill_(float(group["t"]))
+            b1c = 1 - c["b1"] ** tf
+            b2c = 1 - c["b2"] ** tf
+            lr = c["lr"]
             for p in params:
                 st = self.state[p]
                 if not st:
@@ -104,6 +125,7 @@ class FunctionalAdamW:
                  weight_decay: float = 0.01):
         self.lr, self.b1, self.b2 = lr, b1, b2
         self.eps, self.weight_decay = eps, weight_decay
+        self._scalars = {}
 
     def init(self, params: dict) -> OptState:
         first = next(iter(params.values()))
@@ -134,11 +156,12 @@ class FunctionalAdamW:
         b1, b2 = self.b1, self.b2
         eps, wd = self.eps, self.weight_decay
         t = state.step + 1
-        f32 = dict(dtype=torch.float32, device=t.device)
+        c = _device_scalars(self._scalars, 0, t.device, b1=b1, b2=b2,
+                            lr=self.lr)
         tf = t.float()
-        b1c = 1 - torch.tensor(b1, **f32) ** tf
-        b2c = 1 - torch.tensor(b2, **f32) ** tf
-        lr = torch.tensor(self.lr, **f32)
+        b1c = 1 - c["b1"] ** tf
+        b2c = 1 - c["b2"] ** tf
+        lr = c["lr"]
         new_p, mu, nu = {}, {}, {}
         for k, p in params.items():
             shape = tuple(t.shape) + (1,) * (p.dim() - t.dim())

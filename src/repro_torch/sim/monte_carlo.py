@@ -18,11 +18,14 @@ the mask stream, as the reference sweeps it.
 
 Modes:
 
-  * ``"vmap"`` (the fleet engines ``fl/vmap`` and ``sl/vmap``, CNNs and
-    the split LM): all seeds in one program a local step, the engines'
-    seed axis (``fleet.engine``: one more ``vmap`` level over seeds, each
-    seed its own server, the int8 and flash kernels one launch for all
-    seeds and clients). The scan engines raise ``NotImplementedError``
+  * ``"vmap"`` (the fleet engines ``fl/vmap``, ``sl/vmap`` and their
+    ``shard_map`` forms, CNNs and the split LM): all seeds in one program
+    a local step, the engines' seed axis (``fleet.engine``: one more
+    ``vmap`` level over seeds, each seed its own server, the int8 and
+    flash kernels one launch for all seeds and clients; under shard_map
+    each rank its own clients of every seed, the collectives carrying all
+    seeds at once, as the reference's ``vmap`` over its shard_map round
+    does). The scan engines raise ``NotImplementedError``
     (ROADMAP queue 1 item 26); nothing falls back to the loop.
   * ``"loop"``: seed after seed, round after round through the plan's own
     engine, on every single-engine plan the port compiles.
@@ -309,9 +312,9 @@ def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
     if mode == "vmap" and not hasattr(plan._engine, "run_seeds"):
         raise NotImplementedError(
             f"run_monte_carlo(mode='vmap') on {plan.engine_label}: the seed "
-            f"axis runs on the fleet engines (fl/vmap, sl/vmap); the scan "
-            f"engines' is not ported yet (ROADMAP queue 1 item 26); use "
-            f"mode='loop'")
+            f"axis runs on the fleet engines (fl|sl/vmap, fl|sl/shard_map); "
+            f"the scan engines' is not ported yet (ROADMAP queue 1 item "
+            f"26); use mode='loop'")
     run = _vmap if mode == "vmap" else _loop
     obs = plan.obs if obs is None else Obs.ensure(obs)
     scn = plan.spec.scenario or ScenarioSpec()

@@ -141,9 +141,14 @@ OUT_OF_SLICE = {
     "vmap": (dict(engine=T.EngineSpec(client_axis="vmap", server_mesh=(1, 1)),
                   cut_policy=T.CutPolicy(mode="adaptive")),
              (NotImplementedError, "queue 1 item 16")),
-    "shard_map": (dict(engine=T.EngineSpec(client_axis="shard_map")),
+    # the shard_map engines run; adaptive cuts on them are item 16b
+    "shard_map": (dict(engine=T.EngineSpec(client_axis="shard_map"),
+                       cut_policy=T.CutPolicy(mode="adaptive")),
                   _REFUSED),
-    "server_mesh": (dict(engine=T.EngineSpec(server_mesh=(1, 1))), _REFUSED),
+    # server_mesh on sl/scan: the reference's own refusal
+    "server_mesh": (dict(engine=T.EngineSpec(server_mesh=(1, 1))),
+                    (ValueError, "server_mesh shards the SL server suffix; "
+                                 "it needs a fleet SL engine")),
     # dropout runs on the fleet engines; on sl/scan it is the reference's
     # own refusal
     "dropout": (dict(clients=T.ClientSpec(dropout_rate=0.5)),
@@ -164,10 +169,13 @@ OUT_OF_SLICE = {
     # the transformer family runs now, but only on a stack it is given
     "transformer": (dict(model=T.ModelSpec(family="transformer")),
                     (ValueError, "needs arch=")),
-    # the split LM runs on sl/scan and sl/vmap; shard_map is item 16
+    # the split LM runs on sl/scan, sl/vmap and sl/shard_map; a
+    # server_mesh on it is the reference's own refusal
     "lm-vmap": (_lm(configs.smollm_135m.reduced(),
-                    engine=T.EngineSpec(client_axis="shard_map")),
-                (NotImplementedError, "queue 1 item 16")),
+                    engine=T.EngineSpec(client_axis="vmap",
+                                        server_mesh=(1, 1))),
+                (ValueError, "server_mesh tier specs are wired for the CNN "
+                             "stage path only")),
     # population cohorts run on sl/vmap; with adaptive cuts they are the
     # reference's own refusal
     "vmap-population": (dict(engine=T.EngineSpec(client_axis="vmap"),

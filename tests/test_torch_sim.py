@@ -485,7 +485,8 @@ def test_scenario_refusals_are_the_references(case):
 
 def test_scenario_runs_on_every_engine():
     """``sl/scan`` and ``fl/scan`` take a scenario without availability;
-    a shard_map engine stays refused, naming its item."""
+    ``sl/shard_map`` (here on the single-rank mesh) takes it too, with the
+    records of ``sl/vmap`` on the same draws."""
     scn = TS.ScenarioSpec(channel=TS.ChannelParams(kind="a2g"), num_uavs=2,
                           seed=5)
     for kind in ("sl", "fl"):
@@ -497,11 +498,20 @@ def test_scenario_runs_on_every_engine():
         assert [r.active_clients for r in recs] == [4, 4]
         assert recs[0].uav_energy_j == plan.timeline.e_first_j
         assert all(np.isfinite(r.loss) for r in recs)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T.compile_experiment(dataclasses.replace(
+    runs = {}
+    for axis in ("shard_map", "vmap"):
+        plan = T.compile_experiment(dataclasses.replace(
             _cnn_spec(T, TS, scenario=lambda S: scn),
-            engine=T.EngineSpec(kind="sl", client_axis="shard_map")),
+            engine=T.EngineSpec(kind="sl", client_axis=axis,
+                                link_kernel="fused")),
             data=_data(), device="cpu")
+        runs[axis] = plan.run(with_eval=False)[1]
+    assert plan.mesh is None
+    for a, b in zip(runs["shard_map"], runs["vmap"]):
+        assert a.engine == "sl/shard_map"
+        assert dataclasses.replace(a, engine=b.engine) == dataclasses.replace(
+            b, accuracy=a.accuracy)
+        assert a.uav_energy_j == b.uav_energy_j and a.active_clients == 4
 
 
 def test_environment_seed_is_the_scenarios():
