@@ -27,7 +27,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients (with a cotangent of S_T, with w holding exact zeros, and at T
    on the edges of its 4-step sub-segments and 16-step segments) against
    autograd of the plain loop, and at the rwkv6-7b shape against its plain
-   closed form, within 1e-4, two calls there giving the same bits;
+   closed form, within 1e-4, two calls there giving the same bits; both
+   WKV kernels from a carried state S_0 (the decode path's T = 1 and T
+   around the sub-segments and segments, head sizes 16 to 256, and the
+   rwkv6-7b decode shape (4, 64, 1, 64)): y and S_T within 1e-4 of the
+   plain loop from S_0, the first checkpoint S_0 bit for bit, and the six
+   gradients, dS_0 from the backward kernel included, within 1e-4 of
+   autograd of that loop;
 4. each kernel's time at its main paths' shapes, beside its plain
    version's time, its bound and, where one PyTorch call computes the same
    function, that call's time; the memory-bound int8 kernels are timed
@@ -37,6 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    is its 3xTF32 tensor-core work, and it is timed in bf16 beside SDPA
    too (informational); the WKV backward's
    launch (blocks, threads, shared bytes, resident blocks a SM) is printed;
+   the WKV kernel at the decode shape from S_0 in a CUDA graph, L2-resident
+   and L2 cold, beside its bytes bound (S_0 in, S_T out) and its plain
+   version;
 5. the CNN path: ``sl/scan`` (Algorithm 3) on MobileNetV2 at 224x224,
    4 clients, batch 16, 2 local steps, 2 rounds, int8 link on the fused
    kernel, UAV mission; with the kernel's launch count over exactly that
@@ -145,9 +154,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    parameters drawn on the card; with the WKV kernel's launch count over
    exactly those steps (4 x 3 forward and 4 x 3 backward), the peak
    memory, one profiled step, and the reduced rwkv6-7b (head size 256) on
-   the card held against the same run on the CPU; the wire-format pair's
-   launch counts cover paths 5 to 9;
-10. one JSON line listing the kernels, then the card, then the result
+   the card held against the same run on the CPU;
+10. the serving path (``[serve]``): ``repro_torch.launch.serve`` with
+    the reduced rwkv6-7b (head size 256) and the reduced SmolLM on the card
+    held against the CPU (logits within 1e-4, tokens equal); rwkv6-7b at
+    full width and all 32 layers (bf16, ~15 GB of weights drawn on the
+    card) at the reference serve's defaults, batch 4, prompt 32, gen 32,
+    with its tokens/s, peak memory and the WKV kernel's launches over
+    exactly that run (64 steps x 32 layers = 2,048), and one decode step
+    profiled; SmolLM-135M at full width, batch 8, prompt 128, gen 128;
+    SmolLM-135M teacher-forced over 128 tokens with a bf16 and an int8 KV
+    cache against ``model_forward`` (relative max error < 0.05, the
+    reference's criterion; the int8 state under half the bytes of an f32
+    cache). The wire-format pair's launch counts cover paths 5 to 10;
+11. one JSON line listing the kernels, then the card, then the result
     line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
@@ -202,6 +222,18 @@ WKV_T = (1, 7, 64, 1000, 1024)
 WKV_HD = (16, 32, 64, 128, 256)
 WKV_MAIN = (4, 64, 1024, 64)
 WKV_TOL = 1e-4                     # atol and rtol, the reference's own
+# the WKV kernels from a carried state S_0: T around the 4-step
+# sub-segments and 16-step segments, at (B, H) = (2, 3); and the rwkv6-7b
+# decode step at the serve's batch 4 (T = 1 from S_0, one call a layer)
+WKV_STATE_T = (1, 3, 4, 15, 16, 17, 64)
+WKV_STATE_HD = (16, 64, 128, 256)
+WKV_DECODE = (4, 64, 1, 64)
+# the [serve] phase: the reference serve's defaults for rwkv6-7b at its 32
+# layers, and SmolLM-135M at 128 + 128 tokens; the int8 KV cache's
+# criterion, the reference's own (tests/test_perf_options.py:37-58)
+SERVE_RWKV = {"batch": 4, "prompt_len": 32, "gen": 32}
+SERVE_LM = {"batch": 8, "prompt_len": 128, "gen": 128}
+INT8_KV_REL = 0.05
 L2_ROTATE_BYTES = 256 * 2 ** 20    # > 5x the H100's 50 MB L2
 RWKV_LAYERS = 4                    # of rwkv6-7b's 32: the only cut
 # the fleet engines (client_axis="vmap") fold their 4 clients into each
@@ -837,6 +869,139 @@ def check_wkv_kernel(dev) -> tuple:
     print(f"[check] rwkv6_scan_bwd at {WKV_MAIN}: two calls give bit-equal "
           f"gradients")
     return max_err, max(gmax, main_err)
+
+
+def check_wkv_state_kernels(dev) -> tuple:
+    """The WKV kernels from a carried state S_0 ~ N(0, 0.5^2): the forward
+    over T ``WKV_STATE_T`` x hd ``WKV_STATE_HD`` at (B, H) = (2, 3) and at
+    the decode shape ``WKV_DECODE``, y and S_T (with and without the
+    checkpoints) within atol/rtol ``WKV_TOL`` of the plain loop from the
+    same S_0 and the first checkpoint S_0 bit for bit; then ``ops.wkv``'s
+    six gradients (r, k, v, w, u and S_0: the backward kernel's ``gs0_out``)
+    against autograd of the plain loop from S_0, for sum(G_y y) + sum(G_T
+    S_T) with fixed random cotangents. Returns the largest |kernel -
+    plain| of the forward and of the gradients."""
+    from repro_torch.kernels.rwkv.ops import wkv
+    from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
+    g = torch.Generator(device=dev).manual_seed(10)
+    shapes = [(2, 3, t, hd) for hd in WKV_STATE_HD for t in WKV_STATE_T] \
+        + [WKV_DECODE]
+    max_err = 0.0
+    for shape in shapes:
+        ins = wkv_inputs(shape, dev, g)
+        b, h, _, hd = shape
+        s0 = 0.5 * torch.randn((b, h, hd, hd), device=dev, generator=g)
+        y, st, ck = rwkv6_scan(*ins, state=s0, return_state=True,
+                               checkpoints=True)
+        y2, st2 = rwkv6_scan(*ins, state=s0, return_state=True)
+        want_y, want_s = rwkv6_scan_ref(*ins, state=s0, return_state=True)
+        torch.cuda.synchronize()
+        for name, got, want in (("y", y, want_y), ("S_T", st, want_s),
+                                ("y, no checkpoints", y2, want_y),
+                                ("S_T, no checkpoints", st2, want_s)):
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=WKV_TOL, rtol=WKV_TOL):
+                raise AssertionError(f"rwkv6_scan from S_0 != plain at "
+                                     f"{shape} ({name}): max_abs_err {err}")
+            max_err = max(max_err, err)
+        if not torch.equal(ck[:, :, 0], s0):
+            raise AssertionError(f"rwkv6_scan at {shape}: the first "
+                                 f"checkpoint is not S_0 bit for bit")
+        if shape == WKV_DECODE:
+            print(f"[check] rwkv6_scan from S_0 at the decode shape "
+                  f"{WKV_DECODE}: max_abs_err y "
+                  f"{float((y - want_y).abs().max()):.3e}, S_T "
+                  f"{float((st - want_s).abs().max()):.3e}")
+    print(f"[check] rwkv6_scan from a carried S_0: {len(shapes)} shapes (T "
+          f"{WKV_STATE_T} x hd {WKV_STATE_HD} at (2, 3), and "
+          f"{WKV_DECODE}) within atol/rtol {WKV_TOL:g} of the plain loop "
+          f"from S_0, y and S_T with and without checkpoints, the first "
+          f"checkpoint S_0 bit for bit; max_abs_err {max_err:.3e}")
+    gmax = 0.0
+    grad_shapes = [(2, 3, 1, 64), (2, 3, 17, 64), (1, 2, 5, 16),
+                   (1, 2, 17, 48), (1, 2, 17, 128), (2, 2, 3, 256),
+                   (1, 2, 40, 256), WKV_DECODE]
+    before = rwkv6_scan_bwd.launches
+    for shape in grad_shapes:
+        ins = wkv_inputs(shape, dev, g)
+        b, h, _, hd = shape
+        s0 = 0.5 * torch.randn((b, h, hd, hd), device=dev, generator=g)
+        gy = torch.randn(shape, device=dev, generator=g)
+        gs = torch.randn((b, h, hd, hd), device=dev, generator=g)
+        grads = []
+        for fn in (wkv, rwkv6_scan_ref):
+            leaves = [t.clone().requires_grad_(True) for t in (*ins, s0)]
+            y, st = fn(*leaves[:5], state=leaves[5], return_state=True)
+            ((y * gy).sum() + (st * gs).sum()).backward()
+            grads.append([t.grad for t in leaves])
+        for name, a, b_ in zip(("r", "k", "v", "w", "u", "S_0"), *grads):
+            err = float((a - b_).abs().max())
+            if not torch.allclose(a, b_, atol=WKV_TOL, rtol=WKV_TOL):
+                raise AssertionError(f"wkv gradient d{name} from S_0 != "
+                                     f"autograd of the plain loop at {shape}"
+                                     f": max_abs_err {err}")
+            gmax = max(gmax, err)
+    if rwkv6_scan_bwd.launches != before + len(grad_shapes):
+        raise AssertionError("wkv's backward from S_0 did not launch the "
+                             "backward kernel once a call")
+    print(f"[check] wkv's six gradients from a carried S_0 (backward kernel "
+          f"with gs0_out) vs autograd of the plain loop at {grad_shapes}: "
+          f"max_abs_err {gmax:.3e} (atol/rtol {WKV_TOL:g})")
+    return max_err, gmax
+
+
+def time_wkv_decode(dev) -> dict:
+    """The WKV kernel at the rwkv6-7b decode shape ``WKV_DECODE`` (T = 1
+    from a carried S_0, returning S_T: one call a layer a token of the
+    serve path) beside its plain version, in a CUDA graph with its 8.7 MB
+    of inputs replayed (L2-resident) and rotated through 256 MiB (L2
+    cold). No single PyTorch call computes it. The bound: bytes S_0 in and
+    S_T out (2 B H hd^2 4) plus r, k, v, w in and y out (5 B H T hd 4) at
+    3.35 TB/s, against operations B H T (5 hd^2 + 3 hd) at 67 TFLOP/s."""
+    from repro_torch.kernels.rwkv.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, h, t, hd = WKV_DECODE
+
+    def make():
+        return (*wkv_inputs(WKV_DECODE, dev, g),
+                0.5 * torch.randn((b, h, hd, hd), device=dev, generator=g))
+
+    ins = make()
+
+    def kernel(*a):
+        return rwkv6_scan(*a[:5], state=a[5], return_state=True)
+
+    def plain(*a):
+        return rwkv6_scan_ref(*a[:5], state=a[5], return_state=True)
+
+    k1, p1, p2, k2 = (device_ms(lambda: kernel(*ins)),
+                      device_ms(lambda: plain(*ins), iters=50),
+                      device_ms(lambda: plain(*ins), iters=50),
+                      device_ms(lambda: kernel(*ins)))
+    kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
+    nbytes = 2 * b * h * hd * hd * 4 + 5 * b * h * t * hd * 4
+    flops = b * h * t * (5 * hd * hd + 3 * hd)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    c1, c2 = (device_ms_cold(kernel, make, nbytes),
+              device_ms_cold(kernel, make, nbytes))
+    cold_ms = min(c1, c2)
+    print(f"[time] rwkv6_scan decode step {WKV_DECODE} f32 from S_0, device "
+          f"time per call (CUDA graph): L2-resident kernel {kernel_ms:.6f} ms "
+          f"({k1:.6f}, {k2:.6f}), plain {plain_ms:.6f} ms ({p1:.6f}, "
+          f"{p2:.6f}); L2 cold kernel {cold_ms:.6f} ms ({c1:.6f}, "
+          f"{c2:.6f}); bound {bound_ms:.6f} ms (bytes: {nbytes} B = "
+          f"{bytes_ms:.6f} ms; operations: {flops / 1e6:.3f} MFLOP = "
+          f"{ops_ms:.6f} ms); cold kernel at "
+          f"{100 * bound_ms / cold_ms:.1f}% of its bound")
+    print(f"[time] rwkv6_scan decode step eager per call (host dispatch "
+          f"included): kernel {time_ms(lambda: kernel(*ins)):.6f} ms, plain "
+          f"{time_ms(lambda: plain(*ins), iters=50, warmup=5):.6f} ms")
+    return {"ms": kernel_ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
 
 
 def time_wire_kernels(dev, m, d) -> dict:
@@ -2601,6 +2766,158 @@ def run_rwkv_path() -> int:
     return launches
 
 
+def state_bytes(state) -> int:
+    return sum(a.numel() * a.element_size() for g in state for a in g.values())
+
+
+def run_serve_path() -> dict:
+    """The port's serving entry point, ``launch.serve``: the reduced
+    rwkv6-7b (head size 256: the column-split WKV kernel from a carried
+    state) and the reduced SmolLM served on the card and on the CPU from the
+    same weights and prompts (every step's logits within 1e-4, the tokens
+    equal); rwkv6-7b at full width and all 32 layers through ``serve`` at
+    the reference's defaults (batch 4, prompt 32, gen 32) with the WKV
+    kernel's launches over exactly that run (64 steps x 32 layers), its
+    peak memory and one profiled decode step; SmolLM-135M at full width
+    through ``serve`` (batch 8, prompt 128, gen 128); and SmolLM-135M
+    teacher-forced over 128 tokens with a bf16 and an int8 KV cache
+    against ``model_forward``, the int8 run within the reference's
+    relative max error ``INT8_KV_REL`` and its state under half the bytes
+    of an f32 cache (the reference's criterion). Returns the launches."""
+    import gc
+
+    from repro_torch.configs import rwkv6_7b, smollm_135m
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan
+    from repro_torch.launch.serve import generate, serve
+    from repro_torch.models.transformer import (decode_state_init,
+                                                default_cut_layer,
+                                                model_decode_step,
+                                                model_forward, model_init)
+    dev = torch.device("cuda")
+    for cfg in (rwkv6_7b.reduced(), smollm_135m.reduced()):
+        cut = default_cut_layer(cfg, 0.15)
+        model = model_init(cfg, torch.Generator().manual_seed(0),
+                           cut_layer=cut)
+        prompts = torch.randint(0, cfg.vocab, (2, 8),
+                                generator=torch.Generator().manual_seed(1))
+        want, want_logits = generate(cfg, model, prompts, 8, cut_layer=cut,
+                                     keep_logits=True)
+        got, logits = generate(cfg, model.to(dev), prompts.to(dev), 8,
+                               cut_layer=cut, keep_logits=True)
+        err = float((logits.cpu() - want_logits).abs().max())
+        if (not torch.allclose(logits.cpu(), want_logits, atol=1e-4,
+                               rtol=1e-4)
+                or not torch.equal(got.cpu(), want)):
+            raise AssertionError(f"reduced {cfg.name} served on the card != "
+                                 f"on the CPU: logits max_abs_err {err}, "
+                                 f"tokens {got.tolist()} vs {want.tolist()}")
+        print(f"[serve] reduced {cfg.name} (hd {cfg.hd}) served on the card "
+              f"== on the CPU: 16 steps' logits max_abs_err {err:.3e} (atol/"
+              f"rtol 1e-4), tokens equal {got[0].tolist()}")
+        del model
+    stamp("serve card vs CPU")
+
+    cfg = rwkv6_7b
+    cut = default_cut_layer(cfg, 0.15)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = model_init(cfg, gen, cut_layer=cut)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[serve] {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.d_model // cfg.hd} heads of "
+          f"{cfg.hd}, {cfg.dtype}): {n_bytes / 1e9:.2f} GB of weights drawn "
+          f"on the card in {time.perf_counter() - t0:.2f} s, cut {cut}")
+    torch.cuda.reset_peak_memory_stats()
+    rwkv6_scan.launches = 0
+    toks, dt = serve(cfg, device=dev, generator=gen, model=model,
+                     **SERVE_RWKV)
+    launches = {"rwkv6_scan": rwkv6_scan.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = SERVE_RWKV["prompt_len"] + SERVE_RWKV["gen"]
+    want = steps * cfg.n_layers
+    tps = SERVE_RWKV["batch"] * steps / dt
+    print(f"[serve] {cfg.name}: {tps:.2f} tok/s ({dt:.4f} s for "
+          f"{SERVE_RWKV['batch']} x {steps} tokens, prefill included), "
+          f"{1e3 * dt / steps:.3f} ms a step; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} bytes); rwkv6_scan launches "
+          f"{launches['rwkv6_scan']} (want {steps} steps x {cfg.n_layers} "
+          f"layers = {want})")
+    if launches["rwkv6_scan"] != want:
+        raise AssertionError(f"serve launched rwkv6_scan "
+                             f"{launches['rwkv6_scan']} times, want {want}")
+    if toks.shape != (SERVE_RWKV["batch"], SERVE_RWKV["gen"]) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"serve's tokens {toks.shape}: {toks.tolist()}")
+    with torch.no_grad():
+        state = decode_state_init(cfg, SERVE_RWKV["batch"], steps,
+                                  cut_layer=cut, device=dev)
+        tok = toks[:, :1]
+        logits, _ = model_decode_step(cfg, model, state, tok, 0,
+                                      cut_layer=cut)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("rwkv6-7b decode logits are not finite")
+        profile_call(lambda: model_decode_step(cfg, model, state, tok, 1,
+                                               cut_layer=cut),
+                     "serve", "rwkv6-7b decode step (batch 4)", top=10,
+                     cpu=False)
+    del model, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("serve rwkv6-7b")
+
+    cfg = smollm_135m
+    cut = default_cut_layer(cfg, 0.15)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = model_init(cfg, gen, cut_layer=cut)
+    torch.cuda.reset_peak_memory_stats()
+    toks, dt = serve(cfg, device=dev, generator=gen, model=model, **SERVE_LM)
+    steps = SERVE_LM["prompt_len"] + SERVE_LM["gen"]
+    print(f"[serve] {cfg.name} at full width ({cfg.n_layers} layers): "
+          f"{SERVE_LM['batch'] * steps / dt:.2f} tok/s ({dt:.4f} s, "
+          f"{1e3 * dt / steps:.3f} ms a step); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if toks.shape != (SERVE_LM["batch"], SERVE_LM["gen"]):
+        raise AssertionError(f"serve's tokens {toks.shape}")
+    b, n = SERVE_LM["batch"], 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (b, n), device=dev, generator=g)
+    rel, nbytes = {}, {}
+    with torch.no_grad():
+        full, _ = model_forward(cfg, model, {"tokens": tokens}, cut_layer=cut)
+        for kv in ("param", "int8"):
+            state = decode_state_init(cfg, b, n, cut_layer=cut, kv_dtype=kv,
+                                      device=dev)
+            nbytes[kv] = state_bytes(state)
+            outs = [model_decode_step(cfg, model, state, tokens[:, t:t + 1],
+                                      t, cut_layer=cut)[0]
+                    for t in range(n)]
+            dec = torch.cat(outs, dim=1).float()
+            rel[kv] = float((dec - full.float()).abs().max()
+                            / full.float().abs().max())
+        nbytes["f32"] = state_bytes(decode_state_init(
+            cfg, b, n, cut_layer=cut, dtype=torch.float32, device=dev))
+    print(f"[serve] {cfg.name} teacher-forced over {n} tokens at batch {b} "
+          f"against model_forward: relative max error bf16 KV "
+          f"{rel['param']:.4e}, int8 KV {rel['int8']:.4e} (criterion < "
+          f"{INT8_KV_REL}); state bytes int8 {nbytes['int8']}, bf16 "
+          f"{nbytes['param']} (int8/bf16 "
+          f"{nbytes['int8'] / nbytes['param']:.5f} = (hd + 4) / (2 hd) with "
+          f"the f32 scales), f32 {nbytes['f32']} (int8/f32 "
+          f"{nbytes['int8'] / nbytes['f32']:.5f}, criterion < 0.5)")
+    if not rel["int8"] < INT8_KV_REL:
+        raise AssertionError(f"int8 KV decode != forward beyond "
+                             f"{INT8_KV_REL}: {rel}")
+    if not (nbytes["int8"] < 0.5 * nbytes["f32"]
+            and nbytes["int8"] < nbytes["param"]):
+        raise AssertionError(f"int8 KV state bytes {nbytes}")
+    del model, full, state, outs, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("serve SmolLM-135M")
+    return launches
+
+
 def demangle(names):
     """C++ names as ``c++filt`` prints them, or as they are without it."""
     tool = shutil.which("c++filt")
@@ -2722,6 +3039,7 @@ def main() -> int:
     check_int8_plans(dev)
     flash_err = check_flash_kernel(dev)
     wkv_err, wkv_bwd_err = check_wkv_kernel(dev)
+    wkv_state_err, wkv_state_bwd_err = check_wkv_state_kernels(dev)
     stamp("kernel checks")
     time_quant_kernel(dev)
     timing = time_quant_kernel(dev, LM_M, LM_D)
@@ -2730,6 +3048,7 @@ def main() -> int:
     flash_timing = time_flash_kernel(dev)
     wkv_timing = time_wkv_kernel(dev)
     wkv_bwd_timing = time_wkv_bwd(dev)
+    time_wkv_decode(dev)
     stamp("kernel times")
 
     import repro_torch.api as api
@@ -2803,11 +3122,15 @@ def main() -> int:
 
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
+    serve_launches = run_serve_path()
+    stamp("serve path")
     wire_launches = {"quantize_int8": quantize_int8.launches,
                      "dequantize_int8": dequantize_int8.launches}
-    print(f"[paths] wire-format pair launches over the CNN, split-LM, vmap "
-          f"and RWKV paths: {wire_launches} (no path of the port calls "
+    print(f"[paths] wire-format pair launches over the CNN, split-LM, vmap, "
+          f"RWKV and serve paths: {wire_launches} (no path of the port calls "
           f"them)")
+    print(f"[paths] serve: rwkv6-7b at 32 layers {serve_launches} (RWKV "
+          f"training {rwkv_launches})")
     print(f"[paths] fleet engines: sl/vmap MobileNetV2 "
           f"{fleet_launches['sl-vmap']}, fl/vmap MobileNetV2 "
           f"{fleet_launches['fl-vmap']}, sl/vmap SmolLM-135M "
@@ -2853,8 +3176,9 @@ def main() -> int:
     # read over its own run, and the [obs] phase's sl/vmap and Monte-Carlo
     # runs with taps, and the [shard_map] phase's MobileNetV2 sl/shard_map
     # and SmolLM sl/shard_map runs; the flash kernel's with the latter's
-    # too), over the RWKV path's 3 steps for the WKV kernels, over all the
-    # paths for the wire-format pair
+    # too), over the RWKV path's 3 steps and the [serve] phase's rwkv6-7b
+    # generation (rwkv6_scan) for the WKV kernels, over all the paths for
+    # the wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
              "replaces": f"src/repro/kernels/quant/int8.py:{line}",
@@ -2892,8 +3216,9 @@ def main() -> int:
                {"name": "rwkv6_scan", "route": "cuda",
                 "source": "src/repro_torch/csrc/rwkv6_scan.cu",
                 "replaces": "src/repro/kernels/rwkv/scan.py:28",
-                "launches": rwkv_launches["rwkv6_scan"],
-                "max_abs_err": wkv_err,
+                "launches": (rwkv_launches["rwkv6_scan"]
+                             + serve_launches["rwkv6_scan"]),
+                "max_abs_err": max(wkv_err, wkv_state_err),
                 "ms": wkv_timing["ms"], "plain_ms": wkv_timing["plain_ms"],
                 "bound_ms": wkv_timing["bound_ms"],
                 "bound_by": wkv_timing["bound_by"], "library_ms": None},
@@ -2903,7 +3228,7 @@ def main() -> int:
                 # lax.scan (its Pallas kernel has no backward)
                 "replaces": "src/repro/kernels/rwkv/ref.py:9",
                 "launches": rwkv_launches["rwkv6_scan_bwd"],
-                "max_abs_err": wkv_bwd_err,
+                "max_abs_err": max(wkv_bwd_err, wkv_state_bwd_err),
                 "ms": wkv_bwd_timing["ms"],
                 "plain_ms": wkv_bwd_timing["plain_ms"],
                 "bound_ms": wkv_bwd_timing["bound_ms"],

@@ -1,8 +1,9 @@
 """Carry the reference's parameters over to the port.
 
 CNNs: ``from_reference``. The split LM: ``lm_from_reference``. The whole
-transformer model of ``models.transformer`` (the trainer's):
-``model_from_reference``.
+transformer model of ``models.transformer`` (the trainer's and the
+server's): ``model_from_reference``; its decode state:
+``decode_state_from_reference``.
 
 ``from_reference`` takes ``Plan.params0`` of a ``repro`` CNN plan as numpy
 (one nested dict per stage, e.g. ``jax.tree_util.tree_map(np.asarray,
@@ -142,3 +143,12 @@ def model_from_reference(params, cfg, cut_layer=None):
                          f"{[(k, have[k], want[k]) for k in wrong[:8]]}")
     model.load_state_dict(flat, assign=True)
     return model
+
+
+def decode_state_from_reference(state) -> list[dict]:
+    """The reference's decode state (``decode_state_init`` /
+    ``model_decode_step``'s list of per-group dicts, as numpy) -> the
+    port's: the same list, keys and leading layer axis, every leaf a torch
+    tensor of its own dtype (bf16 and int8 kept). The layouts are the same,
+    so nothing is reshuffled."""
+    return [{key: _leaf(a) for key, a in group.items()} for group in state]

@@ -1,8 +1,10 @@
-// RWKV-6 ("Finch") WKV recurrence for Hopper (sm_90a), from a zero state.
+// RWKV-6 ("Finch") WKV recurrence for Hopper (sm_90a), from a zero state
+// or from a carried one.
 //
 // Replaces the Pallas TPU kernel of the JAX package,
 // src/repro/kernels/rwkv/scan.py:51 (rwkv6_scan, body _rwkv_kernel at
-// :28). Per (batch b, head h), with an hd x hd f32 state S and S_0 = 0:
+// :28). Per (batch b, head h), with an hd x hd f32 state S that starts at
+// S_0 (s_in, (B, H, hd, hd) f32, when the caller passes it; else 0):
 //
 //   y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 //   S_t = diag(w_t) S_{t-1} + k_t^T v_t
@@ -16,7 +18,9 @@
 // Checkpoints for the backward (csrc/rwkv6_scan_bwd.cu): when the caller
 // passes a buffer, the kernel writes the state S^(cC) reached after cC
 // steps, for c = 0 .. ceil(T / C) - 1, into ckpt (B, H, ceil(T / C), hd,
-// hd) f32, row-major per state. C is the compile-time constant
+// hd) f32, row-major per state. The first is S_0 itself (s_in's bits, or
+// zeros), so the backward's recompute needs no other change for a carried
+// state. C is the compile-time constant
 // RWKV6_CHECKPOINT_EVERY = 16 (rwkv6_scan.h), shared with the backward.
 // Without a buffer the kernel is compiled without the write.
 //
@@ -84,6 +88,13 @@
 // instructions a thread a step (96 of them FP32); at 2 warps a scheduler
 // that is about half of what the schedulers could dispatch in that time, so
 // latency, not a throughput limit, holds it now.
+//
+// A carried state (the decode path: T = 1 steps from S_0 != 0, one call a
+// layer a token) is read once into the registers that hold S, each thread
+// its own tile (resident) or its column's rows (split), with the same loads
+// that store S_T; with no s_in those registers start at zero as before, and
+// nothing else in the step loop changes. At T = 1 the call is bound by S_0
+// in and S_T out, 2 hd^2 4 bytes per (b, h).
 //
 // Design, hd > 64 ("split"). A column of 256 floats does not fit one thread's
 // registers, and hd threads of more than 64 registers each do not fit an
@@ -217,7 +228,8 @@ template <int HD, bool CKPT>
 __global__ void __launch_bounds__(Resident<HD>::NT, 2)
 rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ w,
-                  const float* __restrict__ u, float* __restrict__ y,
+                  const float* __restrict__ u,
+                  const float* __restrict__ s_in, float* __restrict__ y,
                   float* __restrict__ s_out, float* __restrict__ ckpt,
                   int64_t t_len, int n_heads) {
   using L = Resident<HD>;
@@ -312,12 +324,20 @@ rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
     for (int x = tid; x < n4; x += NT) dst[x] = src[x];
   };
 
-  // S[4 m4 + e][m] is row q RS + 4 m4 + e, column j0 + m
+  // S[4 m4 + e][m] is row q RS + 4 m4 + e, column j0 + m: S_0's tile of
+  // s_in, or zero
   float S[RS][CS];
+  if (s_in != nullptr) {
+    const float* p = s_in + bh * HD * HD + static_cast<int64_t>(q) * RS * HD
+                     + j0;
 #pragma unroll
-  for (int i = 0; i < RS; ++i)
+    for (int i = 0; i < RS; ++i) load_cols<CS>(p + i * HD, S[i]);
+  } else {
 #pragma unroll
-    for (int m = 0; m < CS; ++m) S[i][m] = 0.0f;
+    for (int i = 0; i < RS; ++i)
+#pragma unroll
+      for (int m = 0; m < CS; ++m) S[i][m] = 0.0f;
+  }
   // this thread's tile of the state to S_T (row-major hd x hd)
   auto store_tile = [&](float* dst) {
     float* p = dst + static_cast<int64_t>(q) * RS * HD + j0;
@@ -437,9 +457,11 @@ rwkv6_scan_split_kernel(const float* __restrict__ r,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ w,
-                        const float* __restrict__ u, float* __restrict__ y,
-                        float* __restrict__ s_out, float* __restrict__ ckpt,
-                        int64_t t_len, int n_heads) {
+                        const float* __restrict__ u,
+                        const float* __restrict__ s_in,
+                        float* __restrict__ y, float* __restrict__ s_out,
+                        float* __restrict__ ckpt, int64_t t_len,
+                        int n_heads) {
   constexpr int NT = SPLIT_COLS * NS;
   constexpr int RS = HD / NS;  // rows of S per thread
   __shared__ float4 stage[2][HD];
@@ -453,9 +475,15 @@ rwkv6_scan_split_kernel(const float* __restrict__ r,
   const int64_t n_ckpt = CKPT ? rwkv6_n_checkpoints(t_len) : 0;
   const int64_t row0 = static_cast<int64_t>(q) * RS;
 
-  float S[RS];
+  float S[RS];  // rows row0 .. row0 + RS - 1 of column j: S_0's, or zero
+  if (s_in != nullptr) {
+    const float* si = s_in + bh * HD * HD + row0 * HD + j;
 #pragma unroll
-  for (int i = 0; i < RS; ++i) S[i] = 0.0f;
+    for (int i = 0; i < RS; ++i) S[i] = si[i * HD];
+  } else {
+#pragma unroll
+    for (int i = 0; i < RS; ++i) S[i] = 0.0f;
+  }
 
   for (int64_t t = 0; t < t_len; ++t) {
     const int64_t o = base + t * HD;
@@ -548,9 +576,9 @@ cudaError_t configure(int64_t bh, int64_t* cfg) {
 
 template <int HD>
 cudaError_t launch(const float* r, const float* k, const float* v,
-                   const float* w, const float* u, float* y, float* s_out,
-                   float* ckpt, int64_t bh, int64_t t_len, int n_heads,
-                   cudaStream_t stream) {
+                   const float* w, const float* u, const float* s_in,
+                   float* y, float* s_out, float* ckpt, int64_t bh,
+                   int64_t t_len, int n_heads, cudaStream_t stream) {
   cudaError_t e = prepare<HD>();
   if (e != cudaSuccess) return e;
   if constexpr (HD <= RESIDENT_MAX_HD) {
@@ -558,21 +586,21 @@ cudaError_t launch(const float* r, const float* k, const float* v,
     const unsigned grid = static_cast<unsigned>(bh);
     if (ckpt != nullptr)
       rwkv6_scan_kernel<HD, true><<<grid, L::NT, L::BYTES, stream>>>(
-          r, k, v, w, u, y, s_out, ckpt, t_len, n_heads);
+          r, k, v, w, u, s_in, y, s_out, ckpt, t_len, n_heads);
     else
       rwkv6_scan_kernel<HD, false><<<grid, L::NT, L::BYTES, stream>>>(
-          r, k, v, w, u, y, s_out, nullptr, t_len, n_heads);
+          r, k, v, w, u, s_in, y, s_out, nullptr, t_len, n_heads);
   } else {
     constexpr int NS = HD <= 128 ? 2 : 4;
     const dim3 grid(static_cast<unsigned>(bh), HD / SPLIT_COLS);
     if (ckpt != nullptr)
       rwkv6_scan_split_kernel<HD, NS, true><<<grid, SPLIT_COLS * NS, 0,
                                               stream>>>(
-          r, k, v, w, u, y, s_out, ckpt, t_len, n_heads);
+          r, k, v, w, u, s_in, y, s_out, ckpt, t_len, n_heads);
     else
       rwkv6_scan_split_kernel<HD, NS, false><<<grid, SPLIT_COLS * NS, 0,
                                                stream>>>(
-          r, k, v, w, u, y, s_out, nullptr, t_len, n_heads);
+          r, k, v, w, u, s_in, y, s_out, nullptr, t_len, n_heads);
   }
   return cudaGetLastError();
 }
@@ -599,14 +627,16 @@ extern "C" int rwkv6_scan_launch_config(int64_t batch, int64_t n_heads,
 }
 
 // r, k, v, w: (B, H, T, hd) f32 contiguous, 16-byte aligned; u: (H, hd)
-// f32; y: (B, H, T, hd) f32, 16-byte aligned; s_out: (B, H, hd, hd) f32 or
-// null; ckpt: (B, H, ceil(T / RWKV6_CHECKPOINT_EVERY), hd, hd) f32 or null.
+// f32; s_in: (B, H, hd, hd) f32, 16-byte aligned, the state S_0 the scan
+// starts from, or null (S_0 = 0); y: (B, H, T, hd) f32, 16-byte aligned;
+// s_out: (B, H, hd, hd) f32 or null; ckpt: (B, H, ceil(T / RWKV6_CHECKPOINT_EVERY), hd, hd) f32 or null.
 // hd is a multiple of 16 from 16 to 256. Returns a cudaError_t (0 =
 // success); a shape it does not take returns cudaErrorInvalidValue without
 // launching.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
-                                 const void* w, const void* u, void* y,
-                                 void* s_out, void* ckpt, int64_t batch,
+                                 const void* w, const void* u,
+                                 const void* s_in, void* y, void* s_out,
+                                 void* ckpt, int64_t batch,
                                  int64_t n_heads, int64_t t_len, int64_t hd,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -619,6 +649,7 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
   const auto* vf = static_cast<const float*>(v);
   const auto* wf = static_cast<const float*>(w);
   const auto* uf = static_cast<const float*>(u);
+  const auto* sif = static_cast<const float*>(s_in);
   auto* yf = static_cast<float*>(y);
   auto* sf = static_cast<float*>(s_out);
   auto* cf = static_cast<float*>(ckpt);
@@ -627,7 +658,7 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
 #define RWKV6_CASE(HD)                                                     \
   case HD:                                                                 \
     return static_cast<int>(                                               \
-        launch<HD>(rf, kf, vf, wf, uf, yf, sf, cf, bh, t_len, nh, st));
+        launch<HD>(rf, kf, vf, wf, uf, sif, yf, sf, cf, bh, t_len, nh, st));
     RWKV6_HEAD_SIZES(RWKV6_CASE)
 #undef RWKV6_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

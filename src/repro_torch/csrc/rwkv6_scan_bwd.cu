@@ -5,7 +5,8 @@
 // lax.scan oracle (src/repro/kernels/rwkv/ref.py:9-26, and the time mix's
 // own scan in src/repro/models/ssm.py:97-106); its Pallas kernel has no
 // backward. With y_t = r_t (S_{t-1} + diag(u) k_t^T v_t), S_t =
-// diag(w_t) S_{t-1} + k_t^T v_t, S_0 = 0, the cotangents gy (B, H, T, hd)
+// diag(w_t) S_{t-1} + k_t^T v_t from a state S_0 (zero or carried: the
+// forward's first checkpoint holds it), the cotangents gy (B, H, T, hd)
 // and G_T = dL/dS_T (B, H, hd, hd) (or 0), going back in t:
 //
 //   dr_t[i] = sum_j gy_t[j] S_{t-1}[i][j] + u[i] k_t[i] gv_t
@@ -14,6 +15,11 @@
 //   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
 //   du[i]   = sum_{b,t} r_t[i] k_t[i] gv_t,     gv_t = sum_j gy_t[j] v_t[j]
 //   G_{t-1} = diag(w_t) G_t + r_t^T gy_t
+//
+// and the sweep ends with G_0 = dL/dS_0, the cotangent of a carried state:
+// when the caller passes gs0_out (B, H, hd, hd) f32, each thread stores its
+// own part of that G there (its row's columns of its chunk: disjoint, no
+// atomics). Without gs0_out nothing else changes.
 //
 // S_{t-1} is recomputed forward, never recovered by dividing by w, which
 // underflows to exactly 0 in practice. The forward kernel writes the state
@@ -183,7 +189,8 @@ rwkv6_scan_bwd_resident(const float* __restrict__ r,
                         const float* __restrict__ ckpt,
                         float* __restrict__ dr, float* __restrict__ dk,
                         float* __restrict__ dv, float* __restrict__ dw,
-                        float* __restrict__ du_part, int64_t t_len,
+                        float* __restrict__ du_part,
+                        float* __restrict__ gs0_out, int64_t t_len,
                         int n_heads) {
   using L = Resident<HD>;
   constexpr int NT = L::NT;
@@ -463,6 +470,14 @@ rwkv6_scan_bwd_resident(const float* __restrict__ r,
     }
     slot0 = (slot0 + 1) % NSUB;
   }
+  if (gs0_out != nullptr && row_ok) {  // G = dL/dS_0, this thread's columns
+    float4* g4 = reinterpret_cast<float4*>(gs0_out + (bh * HD + i) * HD
+                                           + col0);
+#pragma unroll
+    for (int j4 = 0; j4 < CC / 4; ++j4)
+      g4[j4] = make_float4(G[4 * j4], G[4 * j4 + 1], G[4 * j4 + 2],
+                           G[4 * j4 + 3]);
+  }
   for (int x = tid; x < HD; x += NT)
     du_part[(b * n_heads + h) * HD + x] = static_cast<float>(dus[x]);
 }
@@ -481,7 +496,8 @@ rwkv6_scan_bwd_split(const float* __restrict__ r,
                      const float* __restrict__ ckpt,
                      float* __restrict__ dr, float* __restrict__ dk,
                      float* __restrict__ dv, float* __restrict__ dw,
-                     float* __restrict__ du_part, float* scratch,
+                     float* __restrict__ du_part,
+                     float* __restrict__ gs0_out, float* scratch,
                      int64_t t_len, int n_heads) {
   constexpr int CW = cols_of(HD);
   constexpr int NCH = HD / CW;
@@ -612,9 +628,15 @@ rwkv6_scan_bwd_split(const float* __restrict__ r,
       }
     }
   }
-  if (row_ok)
+  if (row_ok) {
     du_part[((b * NCH + chunk) * n_heads + h) * HD + i] =
         static_cast<float>(du_acc);
+    if (gs0_out != nullptr) {  // G = dL/dS_0, this chunk's columns of row i
+      float* g0 = gs0_out + (bh * HD + i) * HD + col0;
+#pragma unroll
+      for (int j = 0; j < CW; ++j) g0[j] = G[j];
+    }
+  }
 }
 
 // Opt the resident kernel of head size HD in to its shared memory (above 48
@@ -667,8 +689,8 @@ template <int HD>
 cudaError_t launch(const float* r, const float* k, const float* v,
                    const float* w, const float* u, const float* gy,
                    const float* gs, const float* ckpt, float* dr, float* dk,
-                   float* dv, float* dw, float* du_part, float* scratch,
-                   int64_t bh, int64_t t_len, int n_heads,
+                   float* dv, float* dw, float* du_part, float* gs0_out,
+                   float* scratch, int64_t bh, int64_t t_len, int n_heads,
                    cudaStream_t stream) {
   cudaError_t e = prepare<HD>();
   if (e != cudaSuccess) return e;
@@ -676,13 +698,13 @@ cudaError_t launch(const float* r, const float* k, const float* v,
     using L = Resident<HD>;
     rwkv6_scan_bwd_resident<HD>
         <<<static_cast<unsigned>(bh), L::NT, L::BYTES, stream>>>(
-            r, k, v, w, u, gy, gs, ckpt, dr, dk, dv, dw, du_part, t_len,
-            n_heads);
+            r, k, v, w, u, gy, gs, ckpt, dr, dk, dv, dw, du_part, gs0_out,
+            t_len, n_heads);
   } else {
     const dim3 grid(static_cast<unsigned>(bh), HD / cols_of(HD));
     rwkv6_scan_bwd_split<HD><<<grid, (HD + 31) / 32 * 32, 0, stream>>>(
-        r, k, v, w, u, gy, gs, ckpt, dr, dk, dv, dw, du_part, scratch, t_len,
-        n_heads);
+        r, k, v, w, u, gy, gs, ckpt, dr, dk, dv, dw, du_part, gs0_out,
+        scratch, t_len, n_heads);
   }
   return cudaGetLastError();
 }
@@ -734,13 +756,15 @@ extern "C" int rwkv6_scan_bwd_launch_config(int64_t batch, int64_t n_heads,
 // gs: (B, H, hd, hd) or null (G_T = 0); ckpt: (B, H, ceil(T / C), hd, hd)
 // from rwkv6_scan_launch (C = RWKV6_CHECKPOINT_EVERY), 16-byte aligned; dr,
 // dk, dv, dw: (B, H, T, hd), zeroed when rwkv6_scan_bwd_chunks(hd) > 1;
-// du_part: (B, chunks, H, hd); scratch: rwkv6_scan_bwd_scratch_floats(...)
-// floats (null when that is 0). Returns a cudaError_t (0 = success); a
+// du_part: (B, chunks, H, hd); gs0_out: (B, H, hd, hd) f32, 16-byte aligned,
+// for dL/dS_0, or null; scratch: rwkv6_scan_bwd_scratch_floats(...) floats
+// (null when that is 0). Returns a cudaError_t (0 = success); a
 // shape it does not take returns cudaErrorInvalidValue without launching.
 extern "C" int rwkv6_scan_bwd_launch(
     const void* r, const void* k, const void* v, const void* w,
     const void* u, const void* gy, const void* gs, const void* ckpt, void* dr,
-    void* dk, void* dv, void* dw, void* du_part, void* scratch, int64_t batch,
+    void* dk, void* dv, void* dw, void* du_part, void* gs0_out, void* scratch,
+    int64_t batch,
     int64_t n_heads, int64_t t_len, int64_t hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t bh = batch * n_heads;
@@ -760,14 +784,15 @@ extern "C" int rwkv6_scan_bwd_launch(
   auto* dvf = static_cast<float*>(dv);
   auto* dwf = static_cast<float*>(dw);
   auto* duf = static_cast<float*>(du_part);
+  auto* gsof = static_cast<float*>(gs0_out);
   auto* scf = static_cast<float*>(scratch);
   const int nh = static_cast<int>(n_heads);
   switch (hd) {
 #define RWKV6_BWD_CASE(HD)                                                  \
   case HD:                                                                  \
     return static_cast<int>(launch<HD>(rf, kf, vf, wf, uf, gyf, gsf, cf,    \
-                                       drf, dkf, dvf, dwf, duf, scf, bh,    \
-                                       t_len, nh, st));
+                                       drf, dkf, dvf, dwf, duf, gsof, scf,  \
+                                       bh, t_len, nh, st));
     RWKV6_BWD_HEAD_SIZES(RWKV6_BWD_CASE)
 #undef RWKV6_BWD_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

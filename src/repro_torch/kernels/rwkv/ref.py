@@ -3,14 +3,16 @@ versions).
 
 ``rwkv6_scan_ref`` is the counterpart of
 ``repro.kernels.rwkv.ref.rwkv6_scan_ref``: a loop over time with an f32
-(B, H, hd, hd) state that starts from zero. It can also keep the state
-every ``CHECKPOINT_EVERY`` steps, as the forward kernel does for the
-backward.
+(B, H, hd, hd) state that starts from zero or from a given S_0 (the time
+mix's carried state, ``repro.models.ssm._rwkv6_inner``'s ``lax.scan``). It
+can also keep the state every ``CHECKPOINT_EVERY`` steps, as the forward
+kernel does for the backward.
 
 ``rwkv6_scan_bwd_ref`` is the closed-form vector-Jacobian product of the
 scan, the algorithm of ``csrc/rwkv6_scan_bwd.cu``: from those checkpoints
-it recomputes each segment's states and sweeps back in time. It is not
-autograd; the reference's gradient is JAX's autodiff of its ``lax.scan``.
+it recomputes each segment's states and sweeps back in time, ending on the
+cotangent of S_0. It is not autograd; the reference's gradient is JAX's
+autodiff of its ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ CHECKPOINT_EVERY = 16
 
 
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   w: torch.Tensor, u: torch.Tensor, *,
+                   w: torch.Tensor, u: torch.Tensor, *, state=None,
                    return_state: bool = False, checkpoints: bool = False):
     """r/k/v/w (B, H, T, hd); u (H, hd) -> y (B, H, T, hd) f32, and with
-    ``return_state`` also the final state S_T (B, H, hd, hd) f32:
+    ``return_state`` also the final state S_T (B, H, hd, hd) f32, from S =
+    ``state`` (B, H, hd, hd) (None: 0):
 
         kv  = k_t^T v_t
         y_t = r_t (S + diag(u) kv)
@@ -34,12 +37,12 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     With ``checkpoints`` it returns ``(y, S_T or None, checkpoints)``, the
     checkpoints (B, H, ceil(T / C), hd, hd) f32 being the states after 0,
-    C, 2C, ... steps, C = ``CHECKPOINT_EVERY``.
+    C, 2C, ... steps, C = ``CHECKPOINT_EVERY`` (the first is S_0).
     """
     rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
     b, h, t, hd = rf.shape
     uu = u.float()[None, :, :, None]
-    S = rf.new_zeros((b, h, hd, hd))
+    S = rf.new_zeros((b, h, hd, hd)) if state is None else state.float()
     ys, ckpts = [], []
     # unbind, not indexing, along T: the backward of T index ops would
     # build and add a full (B, H, T, hd) gradient per step (O(T^2) bytes);
@@ -61,11 +64,14 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor,
-                       gs, checkpoints: torch.Tensor):
+                       gs, checkpoints: torch.Tensor, *,
+                       want_gs0: bool = False):
     """The gradients (dr, dk, dv, dw (B, H, T, hd), du (H, hd)), all f32, of
     ``rwkv6_scan_ref`` for the cotangents ``gy`` of y and ``gs`` of S_T
     (None: 0), from the ``checkpoints`` it kept every ``CHECKPOINT_EVERY``
-    steps. Going back in t, with G = dL/dS_t:
+    steps (the first being S_0, zero or carried); with ``want_gs0`` a sixth,
+    dS_0 (B, H, hd, hd) f32, the G the sweep ends with. Going back in t,
+    with G = dL/dS_t:
 
         dr_t = S_{t-1} gy_t + u k_t (gy_t . v_t)
         dk_t = G v_t + u r_t (gy_t . v_t)
@@ -108,4 +114,6 @@ def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dw[:, :, tt] = (G * S).sum(-1)
             du += (r_t * k_t * gv).sum(0).double()
             G = w_t[..., :, None] * G + r_t[..., :, None] * gy_t[..., None, :]
+    if want_gs0:
+        return dr, dk, dv, dw, du.float(), G
     return dr, dk, dv, dw, du.float()

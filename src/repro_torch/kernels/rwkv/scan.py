@@ -2,17 +2,20 @@
 
 ``rwkv6_scan`` is the port of the JAX package's Pallas kernel
 (``repro/kernels/rwkv/scan.py:51``, body ``_rwkv_kernel`` at ``:28``): per
-(batch, head), the Finch recurrence from a zero state,
+(batch, head), the Finch recurrence
 
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
 
-over (B, H, T, hd) r/k/v/w and an (H, hd) bonus u, giving y (B, H, T, hd)
-f32, on request the final state S_T (B, H, hd, hd), and on request the
-states every ``CHECKPOINT_EVERY`` steps that the backward starts from.
-``rwkv6_scan_bwd`` is its backward (the reference's is autodiff of
+over (B, H, T, hd) r/k/v/w and an (H, hd) bonus u, from a zero state or
+from a carried S_0 (B, H, hd, hd) (``state=``: the reference's time mix
+carries it in its own ``lax.scan``, ``repro/models/ssm.py:97-106``; a
+decode step is T = 1 from it), giving y (B, H, T, hd) f32, on request the
+final state S_T (B, H, hd, hd), and on request the states every
+``CHECKPOINT_EVERY`` steps that the backward starts from (the first is
+S_0). ``rwkv6_scan_bwd`` is its backward (the reference's is autodiff of
 ``lax.scan``, ``repro/kernels/rwkv/ref.py``): the gradients of all five
-inputs from those checkpoints.
+inputs from those checkpoints, and on request the cotangent of S_0.
 
 On a CUDA tensor each launches its kernel (``csrc/rwkv6_scan.cu``,
 ``csrc/rwkv6_scan_bwd.cu``; see the notes there), which takes contiguous,
@@ -49,7 +52,7 @@ def _library(name):
 @functools.lru_cache(maxsize=None)
 def _fwd_library():
     lib = _library("rwkv6_scan")
-    lib.rwkv6_scan_launch.argtypes = [ctypes.c_void_p] * 8 \
+    lib.rwkv6_scan_launch.argtypes = [ctypes.c_void_p] * 9 \
         + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
     lib.rwkv6_scan_launch.restype = ctypes.c_int
     lib.rwkv6_scan_launch_config.argtypes = [ctypes.c_int64] * 3 \
@@ -61,7 +64,7 @@ def _fwd_library():
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
     lib = _library("rwkv6_scan_bwd")
-    lib.rwkv6_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 14 \
+    lib.rwkv6_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 15 \
         + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
     lib.rwkv6_scan_bwd_launch.restype = ctypes.c_int
     lib.rwkv6_scan_bwd_chunks.argtypes = [ctypes.c_int64]
@@ -107,6 +110,16 @@ def _check(r, k, v, w, u, **more):
                          f"multiple of 16 from 16 to {MAX_HEAD_DIM}, got {hd}")
 
 
+def _check_state(a, name: str, shape, device):
+    """A (B, H, hd, hd) state the kernels read or write: contiguous,
+    16-byte aligned float32 of ``shape`` on ``device``."""
+    if (a.shape != shape or a.dtype != torch.float32 or a.device != device
+            or not a.is_contiguous() or a.data_ptr() % 16):
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                         f"float32 {shape} on {device}, got "
+                         f"{a.dtype} {tuple(a.shape)} on {a.device}")
+
+
 def _device(r, name):
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on CUDA (kernel) or CPU (plain "
@@ -119,22 +132,29 @@ def _stream(dev):
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               w: torch.Tensor, u: torch.Tensor, *,
+               w: torch.Tensor, u: torch.Tensor, *, state=None,
                return_state: bool = False, checkpoints: bool = False):
-    """y (B, H, T, hd) f32, and S_T with ``return_state``; with
-    ``checkpoints``, ``(y, S_T or None, checkpoints)``, the checkpoints
-    (B, H, ceil(T / C), hd, hd) f32 being the states after 0, C, 2C, ...
-    steps, C = ``CHECKPOINT_EVERY``. CUDA tensors: launches the kernel on
+    """y (B, H, T, hd) f32 from S_0 = ``state`` (B, H, hd, hd) f32 (None:
+    0), and S_T with ``return_state``; with ``checkpoints``, ``(y, S_T or
+    None, checkpoints)``, the checkpoints (B, H, ceil(T / C), hd, hd) f32
+    being the states after 0, C, 2C, ... steps, C = ``CHECKPOINT_EVERY``
+    (the first is S_0, bit for bit). CUDA tensors: launches the kernel on
     the current stream and adds one to ``rwkv6_scan.launches``. CPU
     tensors: the plain version."""
     if not _device(r, "rwkv6_scan"):
-        return rwkv6_scan_ref(r, k, v, w, u, return_state=return_state,
+        return rwkv6_scan_ref(r, k, v, w, u, state=state,
+                              return_state=return_state,
                               checkpoints=checkpoints)
     _check(r, k, v, w, u)
     b, h, t, hd = r.shape
+    if state is not None:
+        _check_state(state, "rwkv6_scan: state", (b, h, hd, hd), r.device)
     y = torch.empty_like(r)
-    state = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                         device=r.device) if return_state else None)
+    s_out = None
+    if return_state:       # T = 0 launches nothing: S_T is then S_0
+        s_out = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                             device=r.device) if state is None
+                 else torch.empty_like(state) if t > 0 else state.clone())
     ckpt = (torch.empty((b, h, -(-t // CHECKPOINT_EVERY), hd, hd),
                         dtype=torch.float32, device=r.device)
             if checkpoints else None)
@@ -142,8 +162,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.cuda.device(r.device):
             err = _fwd_library().rwkv6_scan_launch(
                 r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                u.data_ptr(), y.data_ptr(),
-                None if state is None else state.data_ptr(),
+                u.data_ptr(), None if state is None else state.data_ptr(),
+                y.data_ptr(), None if s_out is None else s_out.data_ptr(),
                 None if ckpt is None else ckpt.data_ptr(),
                 b, h, t, hd, _stream(r.device))
         if err != 0:
@@ -151,33 +171,31 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                f"{err}")
         rwkv6_scan.launches += 1
     if checkpoints:
-        return y, state, ckpt
-    return (y, state) if return_state else y
+        return y, s_out, ckpt
+    return (y, s_out) if return_state else y
 
 
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor, gs,
-                   checkpoints: torch.Tensor):
+                   checkpoints: torch.Tensor, *, want_gs0: bool = False):
     """(dr, dk, dv, dw (B, H, T, hd), du (H, hd)) f32 for the cotangents
     ``gy`` of y and ``gs`` of S_T (None: 0), from the ``checkpoints`` that
-    ``rwkv6_scan(..., checkpoints=True)`` returned. CUDA tensors: one
-    launch of the backward kernel on the current stream (one more in
-    ``rwkv6_scan_bwd.launches``), then du's per-(b, chunk) partials summed.
-    CPU tensors: the plain version."""
+    ``rwkv6_scan(..., checkpoints=True)`` returned; with ``want_gs0`` a
+    sixth, dS_0 (B, H, hd, hd) f32, the cotangent of the state the scan
+    started from. CUDA tensors: one launch of the backward kernel on the
+    current stream (one more in ``rwkv6_scan_bwd.launches``), then du's
+    per-(b, chunk) partials summed. CPU tensors: the plain version."""
     if not _device(r, "rwkv6_scan_bwd"):
-        return rwkv6_scan_bwd_ref(r, k, v, w, u, gy, gs, checkpoints)
+        return rwkv6_scan_bwd_ref(r, k, v, w, u, gy, gs, checkpoints,
+                                  want_gs0=want_gs0)
     _check(r, k, v, w, u, gy=gy)
     b, h, t, hd = r.shape
-    wants = {"checkpoints": (checkpoints,
-                             (b, h, -(-t // CHECKPOINT_EVERY), hd, hd))}
+    if checkpoints is None:
+        raise ValueError("rwkv6_scan_bwd needs the forward's checkpoints")
+    _check_state(checkpoints, "rwkv6_scan_bwd: checkpoints",
+                 (b, h, -(-t // CHECKPOINT_EVERY), hd, hd), r.device)
     if gs is not None:
-        wants["gs"] = (gs, (b, h, hd, hd))
-    for name, (a, shape) in wants.items():
-        if (a is None or a.shape != shape or a.dtype != torch.float32
-                or a.device != r.device or not a.is_contiguous()
-                or a.data_ptr() % 16):
-            raise ValueError(f"rwkv6_scan_bwd: {name} must be a contiguous, "
-                             f"16-byte aligned float32 {shape} on {r.device}")
+        _check_state(gs, "rwkv6_scan_bwd: gs", (b, h, hd, hd), r.device)
     lib = _bwd_library()
     chunks = lib.rwkv6_scan_bwd_chunks(hd)
     new = torch.zeros if chunks > 1 else torch.empty     # > 1: atomicAdd
@@ -185,8 +203,13 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       for _ in range(4))
     du_part = torch.empty((b, chunks, h, hd), dtype=torch.float32,
                           device=r.device)
+    gs0 = (torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+           if want_gs0 else None)
     if b * h == 0 or t == 0:
-        return dr, dk, dv, dw, torch.zeros_like(u)
+        if want_gs0:           # no step: dS_0 is G_T
+            gs0 = gs.clone() if gs is not None else torch.zeros_like(gs0)
+        return (dr, dk, dv, dw, torch.zeros_like(u)) + (
+            (gs0,) if want_gs0 else ())
     n_scratch = lib.rwkv6_scan_bwd_scratch_floats(b, h, hd)  # 0 at hd <= 64
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=r.device)
                if n_scratch else None)
@@ -196,13 +219,15 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             u.data_ptr(), gy.data_ptr(), None if gs is None else gs.data_ptr(),
             checkpoints.data_ptr(), dr.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+            None if gs0 is None else gs0.data_ptr(),
             None if scratch is None else scratch.data_ptr(), b, h, t, hd,
             _stream(r.device))
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA error "
                            f"{err}")
     rwkv6_scan_bwd.launches += 1
-    return dr, dk, dv, dw, du_part.sum(dim=(0, 1))
+    grads = (dr, dk, dv, dw, du_part.sum(dim=(0, 1)))
+    return grads + (gs0,) if want_gs0 else grads
 
 
 def _launch_config(fn, name, batch, n_heads, hd) -> dict:

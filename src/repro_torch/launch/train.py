@@ -21,9 +21,11 @@ differs from the reference:
   17).
 
 Memory: rwkv6-7b at its 32 layers needs about 87 GB for bf16 weights and
-gradients and f32 AdamW moments, more than one 80 GB card holds; its
-reduced config has head size 256, which the WKV kernel refuses (it takes
-up to 64). ``chip_smoke.py`` calls ``train`` on rwkv6-7b cut to 4 layers.
+gradients and f32 AdamW moments, more than one 80 GB card holds
+(``launch.serve`` holds its 15 GB of bf16 weights alone and serves it
+whole). ``chip_smoke.py`` calls ``train`` on rwkv6-7b cut to 4 layers, and
+on its reduced config, whose head size 256 the WKV kernels take (they
+take 16 to 256).
 """
 from __future__ import annotations
 

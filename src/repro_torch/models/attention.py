@@ -1,12 +1,16 @@
-"""Attention in model layout (B, S, H, D): GQA repeat, the chunked
-online-softmax path and the O(S^2) oracle.
+"""Attention in model layout (B, S, H, D): GQA repeat, the q/k/v
+projection, the chunked online-softmax path, cached decode and the O(S^2)
+oracle.
 
-Counterpart of ``repro.models.attention`` (training/prefill part).
+Counterpart of ``repro.models.attention``.
 ``chunked_causal_attention`` is the spec's default ``attn_impl="xla"``: the
 reference's q-block / kv-block online softmax, with the same block choice
 (``while s % q_block: q_block //= 2``) and the same clip of the kv span to
 the window, as plain PyTorch ops over Python loops. The hand-written
-kernel path (``attn_impl="pallas"``) is ``kernels/attn``.
+kernel path (``attn_impl="pallas"``) is ``kernels/attn``. The decode
+pieces (``decode_attention``, ``update_kv_cache``) are plain PyTorch, as
+the reference's are plain jnp outside any Pallas kernel; the cache is
+written in place.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import math
 from typing import Optional
 
 import torch
+
+from . import modules as M
 
 NEG_INF = -1e30
 
@@ -25,6 +31,21 @@ def gqa_repeat(kv: torch.Tensor, n_rep: int) -> torch.Tensor:
     b, s, kh, d = kv.shape
     return kv[:, :, :, None, :].expand(b, s, kh, n_rep, d).reshape(
         b, s, kh * n_rep, d)
+
+
+def qkv_project(p, x: torch.Tensor, n_heads: int, n_kv_heads: int,
+                head_dim: int, positions: torch.Tensor, *,
+                rope_theta: float = 10000.0):
+    """x (B, S, d) -> q (B, S, H, D), k and v (B, S, Kh, D), q and k
+    rotated at ``positions`` (B, S). ``p`` holds the ``wq``/``wk``/``wv``
+    linears (an ``AttnLayer``'s ``attn``)."""
+    b, s, _ = x.shape
+    q = p["wq"](x).reshape(b, s, n_heads, head_dim)
+    k = p["wk"](x).reshape(b, s, n_kv_heads, head_dim)
+    v = p["wv"](x).reshape(b, s, n_kv_heads, head_dim)
+    q = M.apply_rope(q, positions, theta=rope_theta)
+    k = M.apply_rope(k, positions, theta=rope_theta)
+    return q, k, v
 
 
 def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
@@ -97,6 +118,39 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
             m = m_new
         blocks.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     return torch.cat(blocks, dim=2).transpose(1, 2)   # (B, S, H, D)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """One new token against a KV cache: q (B, 1, H, D); caches (B, S, Kh,
+    D); attends to cache positions < ``cache_len`` (an int or a 0-d
+    tensor). The grouped form: each KV head serves its H / Kh query heads
+    without a repeated copy of the cache. Scores and the weighted sum
+    accumulate in f32 (the reference's ``preferred_element_type``), the
+    softmax weights are rounded to the cache's dtype first, and the output
+    is in q's dtype."""
+    b, _, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    n_rep = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, 1, kh, n_rep, d) * scale
+    scores = torch.einsum("bqgrd,bsgd->bgrqs", qg.float(),
+                          k_cache.float())               # (B, Kh, rep, 1, S)
+    pos = torch.arange(s, device=q.device)
+    scores = torch.where(pos < cache_len, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqs,bsgd->bqgrd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, pos) -> tuple:
+    """Write one token (B, 1, Kh, D) at cache position ``pos`` (an int),
+    in the caches' dtype, in place. Returns the two caches."""
+    k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def reference_attention(q, k, v, *, window=None, causal=True):

@@ -9,10 +9,10 @@ head size) the time mix runs the recurrence
 with the data-dependent decay w_t = exp(-exp(w0 + (x_t A) B)) and
 token-shift lerps on the inputs. The recurrence goes through
 ``kernels.rwkv.ops.wkv`` (the hand-written CUDA kernel on a CUDA tensor),
-which starts from S = 0: ``rwkv6_apply`` takes no carried state, and a
-caller that passes one (a decode step, a chunked prefill) is refused until
-the decode path is ported (ROADMAP queue 1 item 17, queue 2 item 6).
-Parameter names are the reference's pytree keys. Mamba is not ported.
+from the zero state or from a carried one: ``rwkv6_apply(state=...)``
+continues a sequence (a chunked prefill) and ``rwkv6_step`` is the decode
+step, one token from the state the previous one left. Parameter names are
+the reference's pytree keys. Mamba is not ported.
 """
 from __future__ import annotations
 
@@ -94,9 +94,8 @@ class RWKV6ChannelMix(nn.Module):
 def rwkv6_empty_state(batch: int, d_model: int, *, head_size: int = 64,
                       dtype: torch.dtype = torch.float32, device=None) -> dict:
     """The zero recurrent state: ``S`` (B, H, hd, hd) f32 and the token
-    shift's ``x_prev`` (B, d) in ``dtype``. The decode path (``rwkv6_step``,
-    ROADMAP queue 1 item 17) starts from it; ``rwkv6_apply`` does not take
-    it yet."""
+    shift's ``x_prev`` (B, d) in ``dtype``, which ``rwkv6_apply`` and
+    ``rwkv6_step`` take as ``state``."""
     h = d_model // head_size
     return {"S": torch.zeros((batch, h, head_size, head_size),
                              dtype=torch.float32, device=device),
@@ -109,11 +108,18 @@ def _token_shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
-def _rwkv6_inner(p: RWKV6TimeMix, x: torch.Tensor, head_size: int):
-    """x (B, S, D) from the zero state. Returns (y (B, S, D), new state)."""
+def _rwkv6_inner(p: RWKV6TimeMix, x: torch.Tensor, state,
+                 head_size: int):
+    """x (B, S, D) from ``state`` (``{"S", "x_prev"}``; None: the zero
+    state, which the WKV kernel then takes as no S_0 at all). Returns
+    (y (B, S, D), new state)."""
     b, s, d = x.shape
     h = d // head_size
-    x_sh = _token_shift(x, x.new_zeros((b, d)))
+    if state is None:
+        x_prev, s0 = x.new_zeros((b, d)), None
+    else:
+        x_prev, s0 = state["x_prev"], state["S"].float().contiguous()
+    x_sh = _token_shift(x, x_prev)
 
     def lerp(mu):
         return x + (x_sh - x) * mu.to(x.dtype)
@@ -130,7 +136,7 @@ def _rwkv6_inner(p: RWKV6TimeMix, x: torch.Tensor, head_size: int):
         return a.float().transpose(1, 2).contiguous()
 
     y, S_new = wkv(heads(r), heads(k), heads(v), heads(w), p.u.float(),
-                   return_state=True)
+                   state=s0, return_state=True)
     y = y.transpose(1, 2).reshape(b, s, d)     # (B,S,D) f32
     y = p.ln_x(y).to(x.dtype) * M.silu(g)      # per-head norm, then the gate
     return p.wo(y), {"S": S_new, "x_prev": x[:, -1, :]}
@@ -138,16 +144,19 @@ def _rwkv6_inner(p: RWKV6TimeMix, x: torch.Tensor, head_size: int):
 
 def rwkv6_apply(p: RWKV6TimeMix, x: torch.Tensor, state=None, *,
                 head_size: int = 64):
-    """The time mix over a whole sequence from the zero state (training and
-    a prefill from scratch). Returns (y, {"S": S_T, "x_prev"}). A carried
-    ``state`` raises: the WKV kernel starts from S = 0."""
-    if state is not None:
-        raise NotImplementedError(
-            "the RWKV-6 time mix from a carried state (decode step, chunked "
-            "prefill) is not ported to repro_torch yet: the WKV kernel starts "
-            "from S = 0 (ROADMAP queue 1 item 17, the decode path; queue 2 "
-            "item 6)")
-    return _rwkv6_inner(p, x, head_size)
+    """The time mix over a sequence x (B, S, D), from the zero state
+    (training, a prefill from scratch) or from a carried ``state``
+    (``{"S": (B, H, hd, hd) f32, "x_prev": (B, D)}``, e.g. the last chunk's:
+    a chunked prefill). Returns (y, {"S": S_T, "x_prev"}). Differentiable in
+    the state too."""
+    return _rwkv6_inner(p, x, state, head_size)
+
+
+def rwkv6_step(p: RWKV6TimeMix, x1: torch.Tensor, state, *,
+               head_size: int = 64):
+    """One decode step: x1 (B, 1, D) from ``state``, a WKV scan of T = 1
+    from S_0 = ``state["S"]``. Returns (y (B, 1, D), new state)."""
+    return _rwkv6_inner(p, x1, state, head_size)
 
 
 def rwkv6_ffn_apply(p: RWKV6ChannelMix, x: torch.Tensor,

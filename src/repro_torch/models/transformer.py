@@ -4,18 +4,20 @@ Counterpart of ``repro.models.transformer`` for the ``"attn"`` (dense) and
 ``"rwkv"`` (RWKV-6) group kinds: the group plan (``build_groups``,
 ``_split_at``, ``default_cut_layer``), one module per layer, the model
 (``model_init``: embedding, groups tagged client or server, final norm, a
-head only when the embedding is not tied) and the full-sequence
-``model_forward`` / ``lm_loss``. A group is a homogeneous run of layers;
-where the reference stacks each leaf on a leading layer axis and scans,
-the port keeps one layer module per layer in an ``nn.ModuleList`` and
-loops. Parameter names are the reference's pytree paths (``ln1.scale``,
+head only when the embedding is not tied), the full-sequence
+``model_forward`` / ``lm_loss``, and the decode path: ``decode_state_init``
+(KV caches, plain or int8, and RWKV states, in the reference's layout) and
+``model_decode_step`` (one token through every group). A group is a
+homogeneous run of layers; where the reference stacks each leaf on a
+leading layer axis and scans, the port keeps one layer module per layer
+in an ``nn.ModuleList`` and loops. Parameter names are the reference's pytree paths (``ln1.scale``,
 ``attn.wq.w``, ``mix.w_lora_a``, ...) so ``repro_torch.convert`` maps one
 onto the other.
 
 The other group kinds (``jamba``, ``enc``, ``xdec``), MoE FFNs and the
-modality frontends are not ported yet: they raise ``NotImplementedError``
-(ROADMAP queue 1 item 17). The reference's ``shard_act`` has no
-counterpart on one card.
+modality frontends are not ported yet, for the forward and for decode:
+they raise ``NotImplementedError`` (ROADMAP queue 1 item 17). The
+reference's ``shard_act`` has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.attn.ops import attention
 from . import modules as M
-from .attention import chunked_causal_attention
+from .attention import (chunked_causal_attention, decode_attention,
+                        qkv_project, update_kv_cache)
 from .ssm import (RWKV6ChannelMix, RWKV6TimeMix, rwkv6_apply,
-                  rwkv6_ffn_apply)
+                  rwkv6_ffn_apply, rwkv6_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,3 +350,139 @@ def lm_loss(cfg: ArchConfig, model: Model, batch: dict, *, window="cfg",
     ce = -ll.mean()
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# decode: state init + one-token step
+# ---------------------------------------------------------------------------
+
+def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int, *,
+                      window="cfg", cut_layer: Optional[int] = None,
+                      dtype: Optional[torch.dtype] = None,
+                      kv_dtype: str = "param", device=None) -> list[dict]:
+    """The decode state of each group of ``build_groups(cfg, cut_layer)``,
+    zero, in the reference's layout: every leaf has a leading layer axis of
+    ``g.count``. An ``attn`` group holds ``k``/``v`` (count, B, C, Kh, hd)
+    in ``dtype`` (default ``cfg.param_dtype``), C = min(window, max_len)
+    under a sliding window and max_len without, or int8 codes with f32
+    ``k_scale``/``v_scale`` (count, B, C, Kh) when ``kv_dtype="int8"``; an
+    ``rwkv`` group holds ``S`` (count, B, H, hd, hd) f32 and the two token
+    shifts ``x_prev``/``ffn_x_prev`` (count, B, d) in ``dtype``."""
+    if window == "cfg":
+        window = cfg.swa_window
+    dtype = dtype or cfg.param_dtype
+    cache_len = min(window, max_len) if window else max_len
+    state = []
+    for g in build_groups(cfg, cut_layer=cut_layer):
+        def zeros(*shape, dt=dtype):
+            return torch.zeros((g.count, batch_size) + shape, dtype=dt,
+                               device=device)
+
+        if g.kind == "attn":
+            kv = (cache_len, cfg.n_kv_heads, cfg.hd)
+            kdt = torch.int8 if kv_dtype == "int8" else dtype
+            st = {"k": zeros(*kv, dt=kdt), "v": zeros(*kv, dt=kdt)}
+            if kv_dtype == "int8":
+                st["k_scale"] = zeros(*kv[:2], dt=torch.float32)
+                st["v_scale"] = zeros(*kv[:2], dt=torch.float32)
+        elif g.kind == "rwkv":
+            st = {"S": zeros(cfg.d_model // cfg.hd, cfg.hd, cfg.hd,
+                             dt=torch.float32),
+                  "x_prev": zeros(cfg.d_model),
+                  "ffn_x_prev": zeros(cfg.d_model)}
+        else:
+            _not_ported(f"the decode state of the {g.kind!r} group")
+        state.append(st)
+    return state
+
+
+def _quant_kv(x: torch.Tensor):
+    """(B, 1, Kh, hd) -> int8 codes and the per-(B, 1, Kh) f32 scale
+    absmax / 127 (at least 1e-8), codes rounded half to even."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _decode_attn_sub(cfg: ArchConfig, p_attn, h: torch.Tensor, pos: int,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, *,
+                     window, scales=None):
+    """One token's attention against a (possibly ring) cache, which it
+    writes in place: h (B, 1, d); caches (B, C, Kh, hd) in the compute
+    dtype, or int8 with ``scales`` ``{"k", "v"}`` (B, C, Kh) f32. Under a
+    window the token goes to the ring slot ``pos % C``. Returns the
+    attention's output (B, 1, d)."""
+    b = h.shape[0]
+    posb = torch.full((b, 1), pos, dtype=torch.int64, device=h.device)
+    q, k, v = qkv_project(p_attn, h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                          posb, rope_theta=cfg.rope_theta)
+    cache_size = cache_k.shape[1]
+    slot = pos % cache_size if window else pos
+    if scales is not None:                      # the int8 KV cache
+        kq, ks = _quant_kv(k)
+        vq, vs = _quant_kv(v)
+        update_kv_cache(cache_k, cache_v, kq, vq, slot)
+        scales["k"][:, slot:slot + 1] = ks
+        scales["v"][:, slot:slot + 1] = vs
+        # dequantized straight to the compute dtype, as the reference does
+        k_eff = cache_k.to(q.dtype) * scales["k"][..., None].to(q.dtype)
+        v_eff = cache_v.to(q.dtype) * scales["v"][..., None].to(q.dtype)
+    else:
+        update_kv_cache(cache_k, cache_v, k, v, slot)
+        k_eff, v_eff = cache_k, cache_v
+    out = decode_attention(q, k_eff, v_eff, min(pos + 1, cache_size))
+    return p_attn["wo"](out.reshape(b, 1, cfg.n_heads * cfg.hd))
+
+
+def _group_decode(cfg: ArchConfig, g: GroupSpec, layers, gstate: dict,
+                  x: torch.Tensor, pos: int, *, window):
+    """One token through the group's layers, each reading and writing its
+    row of the group's state in place. Returns x."""
+    _check_group(g)
+    if g.kind == "attn":
+        for li, layer in enumerate(layers):
+            scales = ({"k": gstate["k_scale"][li],
+                       "v": gstate["v_scale"][li]}
+                      if "k_scale" in gstate else None)
+            x = x + _decode_attn_sub(
+                cfg, layer.attn, layer.ln1(x), pos, gstate["k"][li],
+                gstate["v"][li], window=window, scales=scales)
+            x = x + layer.ffn(layer.ln2(x))
+        return x
+    for li, layer in enumerate(layers):             # rwkv
+        mix, mst = rwkv6_step(layer.mix, layer.ln1(x),
+                              {"S": gstate["S"][li],
+                               "x_prev": gstate["x_prev"][li]},
+                              head_size=cfg.hd)
+        x = x + mix
+        hf = layer.ln2(x)
+        x = x + rwkv6_ffn_apply(layer.ffn, hf, gstate["ffn_x_prev"][li])
+        gstate["S"][li].copy_(mst["S"])
+        gstate["x_prev"][li].copy_(mst["x_prev"])
+        gstate["ffn_x_prev"][li].copy_(hf[:, -1, :])
+    return x
+
+
+def model_decode_step(cfg: ArchConfig, model: Model, state: list,
+                      token: torch.Tensor, pos: int, *, window="cfg",
+                      cut_layer: Optional[int] = None):
+    """One decode step: token (B, 1) ids at position ``pos`` (an int: the
+    tokens so far) through every group, from ``state``
+    (``decode_state_init``), which it updates in place. Returns (logits
+    (B, 1, V_pad), state). Call it under ``torch.no_grad()``: the WKV
+    kernel then keeps no checkpoints and nothing keeps a graph."""
+    if window == "cfg":
+        window = cfg.swa_window
+    specs = build_groups(cfg, cut_layer=cut_layer)
+    if specs != model.specs:
+        raise ValueError(f"the model was built for groups {model.specs}, "
+                         f"not {specs} (cut_layer={cut_layer})")
+    pos = int(pos)
+    x = model.embed(token)
+    for g, layers, gs in zip(specs, model.groups, state):
+        x = _group_decode(cfg, g, layers, gs, x, pos, window=window)
+    x = model.final_norm(x)
+    logits = (model.embed.logits(x) if model.head is None
+              else model.head(x))
+    return logits, state

@@ -531,6 +531,106 @@ def test_rwkv_train_step_launches_the_wkv_kernel_per_layer(hopper):
     assert all(torch.isfinite(torch.tensor(losses)))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 48, 64, 128, 256])
+def test_wkv_kernel_from_a_carried_state_matches_plain(hopper, hd):
+    """The forward from S_0 != 0 at T = 1 (a decode step), 3, 16 and 17:
+    y, S_T and the checkpoints within 1e-4 of the plain loop from the same
+    S_0, the first checkpoint S_0 bit for bit, one launch a call."""
+    g = torch.Generator(device=hopper).manual_seed(8)
+    for t in (1, 3, CHECKPOINT_EVERY, CHECKPOINT_EVERY + 1):
+        r, k, v, w, u = _wkv_inputs((2, 3, t, hd), hopper, g)
+        s0 = 0.5 * torch.randn((2, 3, hd, hd), device=hopper, generator=g)
+        before = rwkv6_scan.launches
+        got = rwkv6_scan(r, k, v, w, u, state=s0, return_state=True,
+                         checkpoints=True)
+        want = rwkv6_scan_ref(r, k, v, w, u, state=s0, return_state=True,
+                              checkpoints=True)
+        torch.cuda.synchronize()
+        assert rwkv6_scan.launches == before + 1
+        assert torch.equal(got[2][:, :, 0], s0)
+        for name, a, b_ in zip(("y", "S_T", "checkpoints"), got, want):
+            torch.testing.assert_close(
+                a, b_, atol=1e-4, rtol=1e-4,
+                msg=lambda m: f"{name} at T {t}: {m}")
+    # a state the kernel does not take is refused before any launch
+    off = torch.zeros(s0.numel() + 1, device=hopper)[1:].view(s0.shape)
+    before = rwkv6_scan.launches
+    for bad in (s0.to(torch.bfloat16), s0[:1], s0.transpose(2, 3), off):
+        with pytest.raises(ValueError, match="state"):
+            rwkv6_scan(r, k, v, w, u, state=bad)
+    assert rwkv6_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+def test_wkv_backward_kernel_gives_the_state_cotangent(hopper, hd):
+    """The backward kernel with ``want_gs0``: the six gradients (dS_0
+    included) against its plain closed form and against autograd of the
+    plain loop from S_0, at T = 1, 5 and 17, with and without G_T;
+    without ``want_gs0`` the five others are the same bits."""
+    g = torch.Generator(device=hopper).manual_seed(9)
+    for t in (1, SUB_SEGMENT + 1, CHECKPOINT_EVERY + 1):
+        r, k, v, w, u = _wkv_inputs((2, 3, t, hd), hopper, g)
+        s0 = 0.5 * torch.randn((2, 3, hd, hd), device=hopper, generator=g)
+        gy = torch.randn(r.shape, device=hopper, generator=g)
+        for gs in (None,
+                   torch.randn((2, 3, hd, hd), device=hopper, generator=g)):
+            _, _, ckpt = rwkv6_scan(r, k, v, w, u, state=s0,
+                                    checkpoints=True)
+            got = rwkv6_scan_bwd(r, k, v, w, u, gy, gs, ckpt, want_gs0=True)
+            five = rwkv6_scan_bwd(r, k, v, w, u, gy, gs, ckpt)
+            plain = rwkv6_scan_bwd_ref(r, k, v, w, u, gy, gs, ckpt,
+                                       want_gs0=True)
+            leaves = [a.clone().requires_grad_(True)
+                      for a in (r, k, v, w, u, s0)]
+            y, st = rwkv6_scan_ref(*leaves[:5], state=leaves[5],
+                                   return_state=True)
+            torch.autograd.backward([y, st] if gs is not None else [y],
+                                    [gy, gs] if gs is not None else [gy])
+            torch.cuda.synchronize()
+            assert len(got) == 6 and len(five) == 5
+            if hd <= 64:                 # no atomics: the same bits
+                for a, b_ in zip(got, five):
+                    assert torch.equal(a, b_)
+            for name, a, b_, leaf in zip(("r", "k", "v", "w", "u", "S_0"),
+                                         got, plain, leaves):
+                want = (leaf.grad if leaf.grad is not None
+                        else torch.zeros_like(leaf))
+                for other in (b_, want):
+                    torch.testing.assert_close(
+                        a, other, atol=1e-4, rtol=1e-4,
+                        msg=lambda m: f"d{name} at T {t}: {m}")
+
+
+@pytest.mark.cuda
+def test_serve_on_card_matches_cpu(hopper):
+    """Reduced rwkv6-7b (head size 256: the column-split kernels) and
+    SmolLM served on the card and on the CPU from the same weights and
+    prompts: every step's logits within 1e-4, the tokens equal, and one
+    WKV launch a layer a step on the card."""
+    from repro_torch.configs import rwkv6_7b, smollm_135m
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import default_cut_layer, model_init
+    for cfg in (rwkv6_7b.reduced(), smollm_135m.reduced()):
+        cut = default_cut_layer(cfg, 0.15)
+        model = model_init(cfg, torch.Generator().manual_seed(0),
+                           cut_layer=cut)
+        prompts = torch.randint(0, cfg.vocab, (2, 6),
+                                generator=torch.Generator().manual_seed(1))
+        want, want_logits = generate(cfg, model, prompts, 5, cut_layer=cut,
+                                     keep_logits=True)
+        rwkv6_scan.launches = 0
+        got, logits = generate(cfg, model.to(hopper), prompts.to(hopper), 5,
+                               cut_layer=cut, keep_logits=True)
+        torch.cuda.synchronize()
+        if cfg.ssm_kind == "rwkv6":
+            assert rwkv6_scan.launches == cfg.n_layers * 11
+        torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4,
+                                   rtol=1e-4)
+        assert torch.equal(got.cpu(), want)
+
+
 # ---------------------------------------------------------------------------
 # the fleet engines' vmap rules and an sl/vmap plan on the card
 # ---------------------------------------------------------------------------

@@ -33,7 +33,8 @@ def test_no_port_file_imports_jax_or_the_reference():
     assert {f"src/repro_torch/obs/{m}.py" for m in (
         "__init__", "sink", "timeline", "gauges", "profiler", "metrics")} | {
         "src/repro_torch/launch/mesh.py", "src/repro_torch/data/pipeline.py",
-        "src/repro_torch/core/fedavg.py"} <= {
+        "src/repro_torch/core/fedavg.py",
+        "src/repro_torch/launch/serve.py"} <= {
         str(f.relative_to(ROOT)) for f in files}
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
@@ -58,6 +59,7 @@ def test_importing_the_port_leaves_jax_out():
                "import repro_torch.obs, repro_torch.obs.metrics\n"
                "import repro_torch.obs.profiler, repro_torch.obs.gauges\n"
                "import repro_torch.launch.mesh, repro_torch.data.pipeline\n"
+               "import repro_torch.launch.serve\n"
                "import chip_smoke\n"
                "print(sorted(m for m in sys.modules\n"
                "             if m.split('.')[0] in ('jax', 'repro')))")

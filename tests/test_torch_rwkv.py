@@ -11,13 +11,22 @@ the time mix and the channel mix.
   and without a cotangent of the final state S_T, at T = 1 and at T that
   the checkpoint interval does not divide, and with w holding exact zeros
   and values near 1e-30;
+- the scan from a carried state S_0: y and S_T against a float64 loop
+  from S_0 written here, the first checkpoint S_0 bit for bit, and the
+  six gradients (r, k, v, w, u and dS_0, the plain closed form's) against
+  that loop's, 1e-4, at T = 1 (a decode step) and T on the edges of the
+  16-step checkpoint segment, hd 16 to 256;
 - ``rwkv6_apply`` (output and the final state S_T the reference's
   ``lax.scan`` returns) and ``rwkv6_ffn_apply`` against the reference, with
   the reference's weights carried over by ``convert.model_from_reference``:
-  f32 to 1e-4, bf16 to one bf16 rounding at the output's scale;
-- what the slice refuses: a carried state, and a device other than CUDA
-  or the CPU (the kernel's own refusals of a head size or dtype need the
-  card: ``test_torch_cuda.py``).
+  f32 to 1e-4, bf16 to one bf16 rounding at the output's scale; and
+  ``rwkv6_apply`` from a nonzero carried state (S and the token shift's
+  x_prev), y and S_T to 1e-4 in f32, with the gradients of x, of the
+  state's S and x_prev and of every time-mix parameter against
+  ``jax.grad`` of the reference's time mix from the same state;
+- what the slice refuses: a device other than CUDA or the CPU (the
+  kernel's own refusals of a head size or dtype need the card:
+  ``test_torch_cuda.py``).
 """
 import dataclasses
 
@@ -65,15 +74,16 @@ def _scan_inputs(shape, seed=0, w_zeros=False):
     return r, k, v, w, u
 
 
-def _scan_f64(r, k, v, w, u):
-    """y and S_T of the recurrence in float64, a plain loop over numpy
-    inputs written here (neither the port's nor the reference's code), as
-    torch tensors that take gradients."""
+def _scan_f64(r, k, v, w, u, s0=None):
+    """y and S_T of the recurrence in float64 from S_0 = ``s0`` (None: 0),
+    a plain loop over numpy inputs written here (neither the port's nor the
+    reference's code), as torch tensors that take gradients; the leaves
+    are r, k, v, w, u (and S_0 when given)."""
     leaves = [torch.from_numpy(a).double().requires_grad_(True)
-              for a in (r, k, v, w, u)]
-    rr, kk, vv, ww, uu = leaves
+              for a in (r, k, v, w, u) + (() if s0 is None else (s0,))]
+    rr, kk, vv, ww, uu = leaves[:5]
     b, h, t, hd = rr.shape
-    S = rr.new_zeros((b, h, hd, hd))
+    S = rr.new_zeros((b, h, hd, hd)) if s0 is None else leaves[5]
     ys = []
     for i in range(t):
         kv = kk[:, :, i, :, None] * vv[:, :, i, None, :]
@@ -357,16 +367,87 @@ def test_channel_mix_matches_reference(dtype):
     _close(got, want, dtype)
 
 
-def test_time_mix_refuses_a_carried_state():
-    _, cfg = _configs("float32", 64)
-    layer = model_from_reference(
-        jax.tree_util.tree_map(np.asarray, ref_model_init(
-            _configs("float32", 64)[0], jax.random.PRNGKey(0))),
-        cfg).groups[0][0]
-    x = torch.zeros(1, 4, cfg.d_model)
-    state = rwkv6_empty_state(1, cfg.d_model, head_size=cfg.hd)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        rwkv6_apply(layer.mix, x, state, head_size=cfg.hd)
+@pytest.mark.parametrize("head_dim", [None, 64])
+def test_time_mix_from_a_carried_state_matches_reference(head_dim):
+    """From a nonzero state (S ~ N(0, 0.5^2), x_prev ~ N(0, 1)) in f32:
+    y and S_T to 1e-4, then for the loss sum(G_y y) + sum(G_S S_T) with
+    fixed random cotangents, the gradients of x, of S_0 and x_prev, and
+    of every parameter of the time mix against ``jax.grad`` of the
+    reference's ``rwkv6_apply`` from the same state, to 1e-4."""
+    ref_cfg, cfg = _configs("float32", head_dim)
+    ref_layer, layer = _reference_layer(ref_cfg, cfg, seed=2)
+    xj, xt = _x(cfg, jnp.float32, seed=6)
+    rng = np.random.RandomState(7)
+    b, h, hd = xt.shape[0], cfg.d_model // cfg.hd, cfg.hd
+    s0 = (0.5 * rng.standard_normal((b, h, hd, hd))).astype(np.float32)
+    xp = rng.standard_normal((b, cfg.d_model)).astype(np.float32)
+    gy = rng.standard_normal(tuple(xt.shape)).astype(np.float32)
+    gs = rng.standard_normal(s0.shape).astype(np.float32)
+    ref_mix = jax.tree_util.tree_map(jnp.asarray, ref_layer["mix"])
+
+    def ref_loss(p, x, S, x_prev):
+        y, st = ref_rwkv6_apply(p, x, {"S": S, "x_prev": x_prev},
+                                head_size=ref_cfg.hd)
+        return jnp.sum(y * gy) + jnp.sum(st["S"] * gs), (y, st["S"])
+
+    (_, (want_y, want_s)), want_g = jax.jit(jax.value_and_grad(
+        ref_loss, argnums=(0, 1, 2, 3), has_aux=True))(
+            ref_mix, xj, jnp.asarray(s0), jnp.asarray(xp))
+    x = xt.clone().requires_grad_(True)
+    state = {"S": torch.from_numpy(s0).requires_grad_(True),
+             "x_prev": torch.from_numpy(xp).requires_grad_(True)}
+    y, st = rwkv6_apply(layer.mix, x, state, head_size=cfg.hd)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(st["S"].detach().numpy(), np.asarray(want_s),
+                               atol=TOL, rtol=TOL)
+    assert torch.equal(st["x_prev"], xt[:, -1])
+    ((y * torch.from_numpy(gy)).sum()
+     + (st["S"] * torch.from_numpy(gs)).sum()).backward()
+    got = {"x": x.grad, "S_0": state["S"].grad,
+           "x_prev": state["x_prev"].grad}
+    want = {"x": want_g[1], "S_0": want_g[2], "x_prev": want_g[3]}
+    for path, g in jax.tree_util.tree_flatten_with_path(want_g[0])[0]:
+        name = ".".join(str(getattr(k, "key", k)) for k in path)
+        want[name] = g
+        got[name] = layer.mix.get_parameter(name).grad
+    assert len(got) == len(want) == 18      # 15 leaves of the mix, 3 inputs
+    for name, g in want.items():
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(g),
+                                   atol=TOL, rtol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 1, 16), (1, 2, 17, 64),
+                                   (1, 1, 1, 256), (1, 1, 16, 256)])
+def test_wkv_from_a_carried_state_and_its_six_gradients(shape):
+    """``wkv(state=S_0)``: y and S_T against the float64 loop from S_0,
+    the plain scan's first checkpoint S_0 bit for bit, and the gradients of
+    r, k, v, w, u and S_0 for sum(G_y y) + sum(G_T S_T) against the loop's,
+    all at 1e-4; w holds exact zeros."""
+    ins = _scan_inputs(shape, seed=8, w_zeros=True)
+    b, h, t, hd = shape
+    rng = np.random.RandomState(12)
+    s0 = (0.5 * rng.standard_normal((b, h, hd, hd))).astype(np.float32)
+    gy = rng.standard_normal(shape).astype(np.float32)
+    gs = rng.standard_normal(s0.shape).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in ins + (s0,)]
+    y, st = wkv(*leaves[:5], state=leaves[5], return_state=True)
+    ((y * torch.from_numpy(gy)).sum()
+     + (st * torch.from_numpy(gs)).sum()).backward()
+    exact, y64, st64 = _scan_f64(*ins, s0=s0)
+    ((y64 * torch.from_numpy(gy).double()).sum()
+     + (st64 * torch.from_numpy(gs).double()).sum()).backward()
+    torch.testing.assert_close(y.detach().double(), y64.detach(), atol=TOL,
+                               rtol=TOL)
+    torch.testing.assert_close(st.detach().double(), st64.detach(), atol=TOL,
+                               rtol=TOL)
+    for name, got, want in zip(("r", "k", "v", "w", "u", "S_0"), leaves,
+                               exact):
+        torch.testing.assert_close(got.grad.double(), want.grad, atol=TOL,
+                                   rtol=TOL, msg=lambda m: f"{name}: {m}")
+    _, _, ckpt = rwkv6_scan(*(torch.from_numpy(a) for a in ins),
+                            state=torch.from_numpy(s0), checkpoints=True)
+    assert torch.equal(ckpt[:, :, 0], torch.from_numpy(s0))
 
 
 def test_empty_state_shapes():
