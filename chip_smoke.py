@@ -167,7 +167,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     cache against ``model_forward`` (relative max error < 0.05, the
     reference's criterion; the int8 state under half the bytes of an f32
     cache). The wire-format pair's launch counts cover paths 5 to 10;
-11. one JSON line listing the kernels, then the card, then the result
+11. the MoE and hybrid families (``[moe]``), each model freed before the
+    next: (a) one deepseek-moe-16b MoE layer (d 2048, 64 experts of 1408,
+    top 6, 2 shared, bf16) over 4 x 256 tokens, ``moe_apply`` at a capacity
+    that drops nothing against the dense oracle ``moe_ref`` (relative max
+    error < 2^-7), and the share of picks dropped at the config's 1.25
+    read off the dispatch table; (b) deepseek-moe-16b at full width cut to
+    4 of its 28 layers (layer 0 dense, 3 MoE, cut 1) through
+    ``launch.train.train``, batch 4 x 1024, AdamW lr 3e-4, 3 steps (each
+    step's loss, aux and wall time), its peak memory and one profiled
+    step; (c) deepseek-moe-16b at all 28 layers (32.2 GB of bf16 weights)
+    through ``launch.serve.serve`` at batch 4, prompt 32, gen 32: tokens/s,
+    ms a step, peak memory and one profiled decode step; (d)
+    jamba-1.5-large's Mamba sub-layer at its published width (d 8192,
+    d_inner 16,384, N 16, conv 4, dt_rank 512, bf16) over 4 x 512 tokens
+    forward and backward (gradients finite), 32 decode steps from its
+    state, and step by step over 64 tokens against one pass (relative max
+    error < 2^-5); (e) the reduced deepseek-moe-16b, arctic-480b and
+    jamba-1.5-large-398b on the card and on the CPU from the same weights:
+    ``lm_loss`` and every gradient, 16 teacher-forced decode steps and 4
+    greedy tokens, within 1e-4 and the tokens equal. The port's kernels'
+    launches over the phase are printed: the trainer and the server attend
+    with the plain path, as the reference's do, so none runs;
+12. one JSON line listing the kernels, then the card, then the result
     line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
@@ -236,6 +258,32 @@ SERVE_LM = {"batch": 8, "prompt_len": 128, "gen": 128}
 INT8_KV_REL = 0.05
 L2_ROTATE_BYTES = 256 * 2 ** 20    # > 5x the H100's 50 MB L2
 RWKV_LAYERS = 4                    # of rwkv6-7b's 32: the only cut
+# the [moe] phase: one deepseek-moe-16b MoE layer over 4 x 256 tokens;
+# deepseek cut to 4 of its 28 layers (layer 0 dense, 3 MoE) through the
+# trainer at batch 4 x 1024, 3 steps; all 28 layers served at the
+# reference serve's defaults; jamba-1.5-large's Mamba sub-layer at its
+# published width (d 8192, d_inner 16,384, N 16, conv 4, dt_rank 512)
+# over 4 x 512 tokens, then 32 decode steps, and step by step over the
+# first 64 tokens against one pass
+MOE_TOKENS = (4, 256)
+MOE_LAYERS = 4
+MOE_TRAIN = {"steps": 3, "batch": 4, "seq": 1024}
+SERVE_MOE = {"batch": 4, "prompt_len": 32, "gen": 32}
+MAMBA_TOKENS = (4, 512)
+MAMBA_STEPS = 32
+MAMBA_CHECK = 64
+# bf16 criteria, relative to the reference's largest magnitude: the
+# dispatch against the dense oracle differs by the expert matmuls' shapes
+# (cuBLAS's accumulation order, one bf16 rounding of an expert's output)
+# and the f32 sum's order (index_add_ accumulates with atomics on the
+# card): 2^-7, one bf16 rounding twice over. Mamba step by step against
+# one pass: the projections at M = B and M = B S round apart at a dozen
+# places, 2^-5
+MOE_BF16_REL = 2 ** -7
+MAMBA_STEP_REL = 2 ** -5
+# the reduced configs on the card against the CPU (f32, TF32 off; the MoE
+# scatter's f32 sums run in another order on the card)
+MOE_CPU_TOL = 1e-4
 # the fleet engines (client_axis="vmap") fold their 4 clients into each
 # kernel's batch. The split LM's vmap step holds all 4 clients'
 # activations at once; it runs at lm_spec's batch 8, its server loss over
@@ -2918,6 +2966,323 @@ def run_serve_path() -> dict:
     return launches
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def moe_dispatch_check(dev) -> dict:
+    """One deepseek-moe-16b MoE layer (d 2048, 64 experts of width 1408,
+    top 6, 2 shared, bf16) over ``MOE_TOKENS``: ``moe_apply`` at a capacity
+    that drops nothing (C = T) against ``moe_ref``, the share of picks
+    dropped at the config's 1.25 (read off the dispatch table), and the
+    layer's forward time at 1.25."""
+    from repro_torch.configs import deepseek_moe_16b as cfg
+    from repro_torch.models.moe import (MoE, _router, capacity_of,
+                                        dispatch_table, moe_apply, moe_ref)
+    e, k = cfg.n_experts, cfg.top_k
+    with torch.device(dev):
+        moe = MoE(cfg.d_model, e, cfg.moe_d_ff, k,
+                  n_shared=cfg.n_shared_experts, dtype=torch.bfloat16)
+    moe.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    b, s = MOE_TOKENS
+    t = b * s
+    x = torch.randn(b, s, cfg.d_model, device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        y, aux = moe_apply(moe, x, top_k=k, capacity_factor=e / k)
+        y_ref, aux_ref = moe_ref(moe, x, top_k=k)
+        top_p, top_i, _ = _router(moe, x.reshape(t, -1), k)
+        cap = capacity_of(t, k, e, cfg.capacity_factor)
+        table, _ = dispatch_table(top_p, top_i, e, cap)
+        kept = int((table < t).sum())
+        ms = time_ms(lambda: moe_apply(moe, x, top_k=k,
+                                       capacity_factor=cfg.capacity_factor),
+                     iters=20, warmup=3)
+    rel = rel_err(y, y_ref)
+    drop = 1.0 - kept / (t * k)
+    print(f"[moe] (a) {cfg.name} MoE layer (d {cfg.d_model}, {e} experts of "
+          f"{cfg.moe_d_ff}, top {k}, {cfg.n_shared_experts} shared, bf16) "
+          f"over {b} x {s} tokens: moe_apply at C = {capacity_of(t, k, e, e / k)}"
+          f" (nothing drops) against moe_ref: relative max error {rel:.4e} "
+          f"(criterion < {MOE_BF16_REL:g}), aux {float(aux):.6f} vs "
+          f"{float(aux_ref):.6f}; at capacity factor {cfg.capacity_factor} "
+          f"(C = {cap}) {t * k - kept} of {t * k} picks dropped, share "
+          f"{drop:.6f}; moe_apply there {ms:.3f} ms a call (eager)")
+    if not (rel < MOE_BF16_REL and bool(torch.isfinite(y).all())
+            and abs(float(aux) - float(aux_ref)) <= 1e-6):
+        raise AssertionError(f"moe_apply != moe_ref: rel {rel}, aux "
+                             f"{float(aux)} vs {float(aux_ref)}")
+    del moe, x, y, y_ref
+    torch.cuda.empty_cache()
+    return {"rel": rel, "drop_share": drop, "ms": ms}
+
+
+def moe_train_path(dev) -> dict:
+    """deepseek-moe-16b at full width cut to ``MOE_LAYERS`` layers through
+    ``launch.train.train`` (its log lines: each step's loss, aux and wall
+    time), the peak memory, then one step under the profiler on a fresh
+    model after a warm step."""
+    import gc
+
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.launch.train import train, train_step
+    from repro_torch.models.transformer import default_cut_layer, model_init
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(deepseek_moe_16b, n_layers=MOE_LAYERS)
+    cut = default_cut_layer(cfg, 0.15)
+    n = MOE_TRAIN
+    print(f"[moe] (b) {cfg.name} at full width (d {cfg.d_model}, {cfg.n_heads}"
+          f" heads, {cfg.n_experts} experts of {cfg.moe_d_ff}, top "
+          f"{cfg.top_k}, {cfg.n_shared_experts} shared, vocab {cfg.vocab}, "
+          f"{cfg.dtype}) cut to {cfg.n_layers} of {deepseek_moe_16b.n_layers}"
+          f" layers (layer 0 dense, {cfg.n_layers - 1} MoE), cut {cut}; batch"
+          f" {n['batch']} x {n['seq']}, AdamW lr 3e-4, {n['steps']} steps")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train(cfg, lr=3e-4, client_fraction=0.15, device=dev,
+                   log_every=1,
+                   generator=torch.Generator(device=dev).manual_seed(0), **n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[moe] (b) losses {losses}; train() took {wall:.2f} s (init "
+          f"included); peak memory {peak / 2 ** 30:.2f} GiB ({peak} bytes)")
+    if len(losses) != n["steps"] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"deepseek training losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = model_init(cfg, torch.Generator(device=dev).manual_seed(1),
+                       cut_layer=cut)
+    opt = AdamW(model.parameters(), 3e-4, weight_decay=0.01)
+    tokens = torch.randint(0, cfg.vocab, (n["batch"], n["seq"]), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": tokens, "labels": tokens}
+    train_step(cfg, model, opt, batch, cut_layer=cut)
+    profile_call(lambda: train_step(cfg, model, opt, batch, cut_layer=cut),
+                 "moe-train", "deepseek 4-layer step", top=15, cpu=False)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak": peak}
+
+
+def moe_serve_path(dev) -> dict:
+    """deepseek-moe-16b at all 28 layers through ``launch.serve.serve`` at
+    the reference serve's defaults: tokens/s, ms a step, peak memory, then
+    one decode step profiled."""
+    import gc
+
+    from repro_torch.configs import deepseek_moe_16b as cfg
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import (decode_state_init,
+                                                default_cut_layer,
+                                                model_decode_step,
+                                                model_init)
+    cut = default_cut_layer(cfg, 0.15)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = model_init(cfg, gen, cut_layer=cut)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[moe] (c) {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers): {n_params} parameters, {n_bytes / 1e9:.2f} GB drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s, cut {cut}")
+    torch.cuda.reset_peak_memory_stats()
+    toks, dt = serve(cfg, device=dev, generator=gen, model=model,
+                     **SERVE_MOE)
+    peak = torch.cuda.max_memory_allocated()
+    steps = SERVE_MOE["prompt_len"] + SERVE_MOE["gen"]
+    tps = SERVE_MOE["batch"] * steps / dt
+    print(f"[moe] (c) {cfg.name}: {tps:.2f} tok/s ({dt:.4f} s for "
+          f"{SERVE_MOE['batch']} x {steps} tokens, prefill included), "
+          f"{1e3 * dt / steps:.3f} ms a step; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} bytes)")
+    if toks.shape != (SERVE_MOE["batch"], SERVE_MOE["gen"]) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"deepseek serve's tokens {toks.tolist()}")
+    with torch.no_grad():
+        state = decode_state_init(cfg, SERVE_MOE["batch"], steps,
+                                  cut_layer=cut, device=dev)
+        tok = toks[:, :1]
+        logits, _ = model_decode_step(cfg, model, state, tok, 0,
+                                      cut_layer=cut)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("deepseek decode logits are not finite")
+        profile_call(lambda: model_decode_step(cfg, model, state, tok, 1,
+                                               cut_layer=cut),
+                     "moe-serve", "deepseek decode step (batch 4)", top=12,
+                     cpu=False)
+    del model, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tok_s": tps, "ms_step": 1e3 * dt / steps, "peak": peak}
+
+
+def mamba_width_path(dev) -> dict:
+    """jamba-1.5-large-398b's Mamba sub-layer at its published width, bf16:
+    ``mamba_apply`` over ``MAMBA_TOKENS`` forward and backward (gradients
+    finite), ``MAMBA_STEPS`` ``mamba_step``s continuing from its state, and
+    step by step over the first ``MAMBA_CHECK`` tokens against one pass."""
+    import gc
+
+    from repro_torch.configs import jamba_1_5_large_398b as cfg
+    from repro_torch.models.ssm import (Mamba, mamba_apply,
+                                        mamba_empty_state, mamba_step)
+    kw = dict(expand=cfg.ssm_expand, state_dim=cfg.ssm_state_dim,
+              conv_width=cfg.ssm_conv_width)
+    with torch.device(dev):
+        mix = Mamba(cfg.d_model, dtype=torch.bfloat16, **kw)
+    mix.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    b, s = MAMBA_TOKENS
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(b, s, cfg.d_model, device=dev, dtype=torch.bfloat16,
+                    generator=g)
+    x_next = torch.randn(b, MAMBA_STEPS, cfg.d_model, device=dev,
+                         dtype=torch.bfloat16, generator=g)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, st = mamba_apply(mix, x, **kw)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0 - t_fwd
+    peak = torch.cuda.max_memory_allocated()
+    bad = [name for name, p in mix.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    with torch.no_grad():
+        st = {k_: v.detach() for k_, v in st.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MAMBA_STEPS):
+            y1, st = mamba_step(mix, x_next[:, i:i + 1], st)
+        torch.cuda.synchronize()
+        t_step = (time.perf_counter() - t0) / MAMBA_STEPS
+        whole, _ = mamba_apply(mix, x[:, :MAMBA_CHECK], **kw)
+        st1 = mamba_empty_state(b, cfg.d_model, dtype=torch.bfloat16,
+                                device=dev, **kw)
+        outs = []
+        for i in range(MAMBA_CHECK):
+            y1_, st1 = mamba_step(mix, x[:, i:i + 1], st1)
+            outs.append(y1_)
+        rel = rel_err(torch.cat(outs, dim=1), whole)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    print(f"[moe] (d) {cfg.name} Mamba sub-layer (d {cfg.d_model}, d_inner "
+          f"{d_inner}, N {cfg.ssm_state_dim}, conv {cfg.ssm_conv_width}, "
+          f"dt_rank {mix.w_dt_a.shape[1]}, bf16): mamba_apply over {b} x {s} "
+          f"forward {1e3 * t_fwd:.1f} ms, backward {1e3 * t_bwd:.1f} ms "
+          f"(host clock, fenced), peak {peak / 2 ** 30:.2f} GiB; "
+          f"{MAMBA_STEPS} mamba_steps from its state {1e3 * t_step:.3f} ms "
+          f"each; step by step over {MAMBA_CHECK} tokens against one pass: "
+          f"relative max error {rel:.4e} (criterion < {MAMBA_STEP_REL:g}); "
+          f"non-finite gradients {bad}")
+    if bad or not rel < MAMBA_STEP_REL or not bool(
+            torch.isfinite(y1).all()):
+        raise AssertionError(f"Mamba at jamba's width: gradients {bad}, "
+                             f"step vs pass {rel}")
+    del mix, x, y, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd_s": t_fwd, "bwd_s": t_bwd, "step_s": t_step, "rel": rel,
+            "peak": peak}
+
+
+def moe_card_vs_cpu(dev) -> dict:
+    """The reduced deepseek-moe-16b, arctic-480b and jamba-1.5-large-398b
+    with the same weights on the card and on the CPU: ``lm_loss``'s loss
+    and every gradient, a 16-token teacher-forced decode, a 4-token greedy
+    ``generate``; tokens equal, the rest within ``MOE_CPU_TOL``."""
+    import copy
+
+    from repro_torch.configs import (arctic_480b, deepseek_moe_16b,
+                                     jamba_1_5_large_398b)
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import (decode_state_init,
+                                                default_cut_layer, lm_loss,
+                                                model_decode_step,
+                                                model_init)
+    errs = {}
+    for full in (deepseek_moe_16b, arctic_480b, jamba_1_5_large_398b):
+        cfg = full.reduced()
+        cut = default_cut_layer(cfg, 0.15)
+        cpu = model_init(cfg, torch.Generator().manual_seed(0), cut_layer=cut)
+        card = copy.deepcopy(cpu).to(dev)
+        tokens = torch.randint(0, cfg.vocab, (2, 16),
+                               generator=torch.Generator().manual_seed(1))
+        res = []
+        for model, d in ((cpu, "cpu"), (card, dev)):
+            tk = tokens.to(d)
+            loss, metrics = lm_loss(cfg, model, {"tokens": tk, "labels": tk},
+                                    cut_layer=cut)
+            loss.backward()
+            with torch.no_grad():
+                state = decode_state_init(cfg, 2, 16, cut_layer=cut, device=d)
+                dec = torch.cat([model_decode_step(
+                    cfg, model, state, tk[:, t:t + 1], t,
+                    cut_layer=cut)[0] for t in range(16)], dim=1)
+            gen, gen_logits = generate(cfg, model, tk[:, :8], 4,
+                                       cut_layer=cut, keep_logits=True)
+            res.append({"loss": loss.detach(), "aux": metrics["aux"].detach(),
+                        "dec": dec, "gen_logits": gen_logits,
+                        **{f"grad {n}": p.grad
+                           for n, p in model.named_parameters()}, "gen": gen})
+        want, got = res
+        err = max(float((got[k_].cpu().float() - v.float()).abs().max())
+                  for k_, v in want.items() if k_ != "gen")
+        bad = [k_ for k_, v in want.items() if k_ != "gen" and not
+               torch.allclose(got[k_].cpu(), v, atol=MOE_CPU_TOL,
+                              rtol=MOE_CPU_TOL)]
+        same = torch.equal(got["gen"].cpu(), want["gen"])
+        errs[cfg.name] = err
+        print(f"[moe] (e) reduced {cfg.name} on the card == on the CPU: loss "
+              f"{float(got['loss']):.6f} vs {float(want['loss']):.6f}, aux "
+              f"{float(got['aux']):.6f}, {sum(1 for k_ in want if k_.startswith('grad'))}"
+              f" gradients, 16 decode steps, 4 greedy tokens "
+              f"{got['gen'][0].tolist()}: max_abs_err {err:.3e} (atol/rtol "
+              f"{MOE_CPU_TOL:g}; the MoE scatter's f32 sums in another "
+              f"order on the card), tokens equal {same}")
+        if bad or not same:
+            raise AssertionError(f"reduced {cfg.name} card != CPU: {bad[:8]}"
+                                 f", tokens equal {same}")
+        del cpu, card
+    return errs
+
+
+def run_moe_path() -> dict:
+    """The ``[moe]`` phase, (a) to (e) in order, each model freed before the
+    next so that each peak printed is its own; the port's kernels' launches
+    over the phase (the reference's trainer and server attend with the
+    plain path: none of them runs here)."""
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.kernels.quant.int8 import (dequantize_int8,
+                                                quant_dequant_int8,
+                                                quantize_int8)
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
+    counted = (quant_dequant_int8, quantize_int8, dequantize_int8,
+               flash_attention, rwkv6_scan, rwkv6_scan_bwd)
+    for fn in counted:
+        fn.launches = 0
+    dev = torch.device("cuda")
+    out = {"dispatch": moe_dispatch_check(dev)}
+    stamp("moe (a) dispatch")
+    out["train"] = moe_train_path(dev)
+    stamp("moe (b) deepseek training")
+    out["serve"] = moe_serve_path(dev)
+    stamp("moe (c) deepseek serving")
+    out["mamba"] = mamba_width_path(dev)
+    stamp("moe (d) Mamba at jamba's width")
+    out["cpu"] = moe_card_vs_cpu(dev)
+    stamp("moe (e) reduced configs card vs CPU")
+    out["launches"] = {fn.__name__: fn.launches for fn in counted}
+    print(f"[moe] the port's kernels launched over the [moe] phase: "
+          f"{out['launches']}")
+    return out
+
+
 def demangle(names):
     """C++ names as ``c++filt`` prints them, or as they are without it."""
     tool = shutil.which("c++filt")
@@ -3129,6 +3494,17 @@ def main() -> int:
     print(f"[paths] wire-format pair launches over the CNN, split-LM, vmap, "
           f"RWKV and serve paths: {wire_launches} (no path of the port calls "
           f"them)")
+    moe = run_moe_path()
+    stamp("moe path")
+    print(f"[paths] moe: deepseek-moe-16b MoE layer drop share at 1.25 "
+          f"{moe['dispatch']['drop_share']:.6f}; 4-layer training losses "
+          f"{moe['train']['losses']} peak "
+          f"{moe['train']['peak'] / 2 ** 30:.2f} GiB; 28 layers served "
+          f"{moe['serve']['tok_s']:.2f} tok/s, {moe['serve']['ms_step']:.3f} "
+          f"ms a step, peak {moe['serve']['peak'] / 2 ** 30:.2f} GiB; jamba "
+          f"Mamba fwd/bwd {moe['mamba']['fwd_s']:.4f}/"
+          f"{moe['mamba']['bwd_s']:.4f} s; reduced card vs CPU "
+          f"{moe['cpu']}; kernel launches {moe['launches']}")
     print(f"[paths] serve: rwkv6-7b at 32 layers {serve_launches} (RWKV "
           f"training {rwkv_launches})")
     print(f"[paths] fleet engines: sl/vmap MobileNetV2 "

@@ -3,7 +3,8 @@
 CNNs: ``from_reference``. The split LM: ``lm_from_reference``. The whole
 transformer model of ``models.transformer`` (the trainer's and the
 server's): ``model_from_reference``; its decode state:
-``decode_state_from_reference``.
+``decode_state_from_reference``; one layer's tree (an MoE FFN, a Mamba
+mixer, ...): ``module_from_reference``.
 
 ``from_reference`` takes ``Plan.params0`` of a ``repro`` CNN plan as numpy
 (one nested dict per stage, e.g. ``jax.tree_util.tree_map(np.asarray,
@@ -108,15 +109,61 @@ def lm_from_reference(params_c0, params_s0, cfg) -> tuple[dict, dict]:
     return port
 
 
+def _layer_leaves(path: str, row):
+    """One layer's leaf -> (port path, tensor) pairs. The MoE's shared
+    experts are stacked on a leading ``n_shared`` axis in the reference
+    (``shared.gate.w`` (n_shared, d, F)); the port holds one SwiGLU each
+    (``shared.{j}.gate.w``)."""
+    parts = path.split(".")
+    if "shared" not in parts:
+        yield path, _leaf(row)
+        return
+    i = parts.index("shared") + 1
+    for j, expert in enumerate(np.asarray(row)):
+        yield ".".join(parts[:i] + [str(j)] + parts[i:]), _leaf(expert)
+
+
+def _load_checked(module, flat: dict, what: str):
+    """Load ``flat`` into ``module`` (built on the meta device: the tensors
+    are assigned) after checking it has exactly the module's keys, shapes
+    and dtypes."""
+    want = {k: (tuple(v.shape), v.dtype)
+            for k, v in module.state_dict().items()}
+    have = {k: (tuple(v.shape), v.dtype) for k, v in flat.items()}
+    if want != have:
+        missing = sorted(set(want) - set(have))
+        extra = sorted(set(have) - set(want))
+        wrong = sorted(k for k in set(want) & set(have) if want[k] != have[k])
+        raise ValueError(f"reference params do not match the port's {what}: "
+                         f"missing {missing[:8]}, extra {extra[:8]}, shape "
+                         f"or dtype differs at "
+                         f"{[(k, have[k], want[k]) for k in wrong[:8]]}")
+    module.load_state_dict(flat, assign=True)
+    return module
+
+
+def module_from_reference(tree, module):
+    """One layer's reference tree (e.g. ``moe_init``'s or ``mamba_init``'s,
+    as numpy, no layer axis) -> ``module`` (a ``models.moe.MoE``,
+    ``models.ssm.Mamba``, ... built on the meta device) holding those
+    leaves in their own dtypes; the shared experts' stack unstacked.
+    Checked as ``model_from_reference`` checks."""
+    flat = dict(kv for path, a in _flatten(tree)
+                for kv in _layer_leaves(path, a))
+    return _load_checked(module, flat, type(module).__name__)
+
+
 def model_from_reference(params, cfg, cut_layer=None):
     """The reference's ``model_init(cfg, key, cut_layer=cut_layer)`` tree,
     as numpy (``{"embed": {"table"}, "final_norm", "groups": [one tree per
     group, every leaf stacked on a leading layer axis], "head"}`` with the
     head only when the embedding is not tied) -> the port's
-    ``models.transformer.Model``, each leaf in its own dtype (bf16 kept),
-    the layers unstacked into ``groups.{g}.{layer}.<path>``. Checked
-    against the port's model of ``cfg``: the same keys, shapes and
-    dtypes."""
+    ``models.transformer.Model``, each leaf in its own dtype (bf16 kept;
+    the MoE router's f32), the layers unstacked into
+    ``groups.{g}.{layer}.<path>`` (a jamba super-block's sub-layers
+    ``sub{i}.*`` as they are, the shared experts' stack unstacked into
+    ``moe.shared.{j}.*``). Checked against the port's model of ``cfg``: the
+    same keys, shapes and dtypes."""
     from .models.transformer import Model, build_groups
     flat = {}
     for key, tree in params.items():
@@ -124,31 +171,21 @@ def model_from_reference(params, cfg, cut_layer=None):
             for gi, group in enumerate(tree):
                 for path, a in _flatten(group):
                     for li, row in enumerate(np.asarray(a)):
-                        flat[f"groups.{gi}.{li}.{path}"] = _leaf(row)
+                        for port_path, leaf in _layer_leaves(path, row):
+                            flat[f"groups.{gi}.{li}.{port_path}"] = leaf
         else:
             for path, a in _flatten(tree, key + "."):
                 flat[path] = _leaf(a)
     with torch.device("meta"):
         model = Model(cfg, build_groups(cfg, cut_layer=cut_layer))
-    want = {k: (tuple(v.shape), v.dtype)
-            for k, v in model.state_dict().items()}
-    have = {k: (tuple(v.shape), v.dtype) for k, v in flat.items()}
-    if want != have:
-        missing = sorted(set(want) - set(have))
-        extra = sorted(set(have) - set(want))
-        wrong = sorted(k for k in set(want) & set(have) if want[k] != have[k])
-        raise ValueError(f"reference params do not match the port's model: "
-                         f"missing {missing[:8]}, extra {extra[:8]}, shape "
-                         f"or dtype differs at "
-                         f"{[(k, have[k], want[k]) for k in wrong[:8]]}")
-    model.load_state_dict(flat, assign=True)
-    return model
+    return _load_checked(model, flat, "model")
 
 
 def decode_state_from_reference(state) -> list[dict]:
     """The reference's decode state (``decode_state_init`` /
     ``model_decode_step``'s list of per-group dicts, as numpy) -> the
-    port's: the same list, keys and leading layer axis, every leaf a torch
-    tensor of its own dtype (bf16 and int8 kept). The layouts are the same,
+    port's: the same list, keys and leading layer (or super-block) axis,
+    every leaf a torch tensor of its own dtype (bf16 and int8 kept; a jamba
+    group's ``h{i}``, ``c{i}``, ``k{P-1}``, ...). The layouts are the same,
     so nothing is reshuffled."""
     return [{key: _leaf(a) for key, a in group.items()} for group in state]

@@ -23,6 +23,16 @@ falls back. Where it differs from the reference:
   written in place, where the reference ``jit``s a functional step.
 
 The enc-dec config is refused, as the reference refuses it.
+
+Memory (bf16 weights; arithmetic from the configs, not a measurement):
+rwkv6-7b is 15.0 GB and deepseek-moe-16b 32.2 GB whole, so both serve at
+all their layers on one 80 GB card. A deepseek decode step routes B
+tokens into C = max(4, ceil(B k 1.25 / E)) slots an expert (nothing drops)
+and its batched expert matmuls read every expert's weights whatever the
+routing (30.8 GB of its 27 MoE layers): with the rest, all 32.2 GB a step,
+9.6 ms at 3.35 TB/s before host dispatch. One jamba-1.5-large-398b
+super-block is 88.3 GB (82.3 GiB) and an arctic-480b MoE layer 26.8 GB:
+neither serves at full width on one card; their reduced configs do.
 """
 from __future__ import annotations
 

@@ -20,12 +20,28 @@ differs from the reference:
 - ``--ckpt`` is refused: checkpoints are not ported (ROADMAP queue 1 item
   17).
 
-Memory: rwkv6-7b at its 32 layers needs about 87 GB for bf16 weights and
-gradients and f32 AdamW moments, more than one 80 GB card holds
-(``launch.serve`` holds its 15 GB of bf16 weights alone and serves it
-whole). ``chip_smoke.py`` calls ``train`` on rwkv6-7b cut to 4 layers, and
-on its reduced config, whose head size 256 the WKV kernels take (they
-take 16 to 256).
+Memory (bf16 weights and gradients and f32 AdamW moments: 12 bytes a
+parameter; arithmetic from the configs, not a measurement):
+
+- rwkv6-7b at its 32 layers needs about 87 GB, more than one 80 GB card
+  holds (``launch.serve`` holds its 15 GB of bf16 weights alone and serves
+  it whole). ``chip_smoke.py`` calls ``train`` on rwkv6-7b cut to 4
+  layers, and on its reduced config, whose head size 256 the WKV kernels
+  take (they take 16 to 256).
+- deepseek-moe-16b has 16.11B parameters (32.2 GB in bf16): an MoE layer
+  is 587.9M, the dense layer 0 25.4M, the tied embedding 209.7M. Whole, it
+  needs ~193 GB to train; cut to 4 layers (layer 0 dense, 3 MoE; the cut
+  at 1) it is 2.0B parameters, ~24 GB, and a step at batch 4 x 1024 does
+  about 13.5 TFLOP with C = 480 slots an expert. ``chip_smoke.py`` trains
+  it so.
+- jamba-1.5-large-398b: one MoE sub-layer is 9.66B parameters (19.3 GB
+  in bf16), one super-block 44.2B (88.3 GB, 82.3 GiB), more than the
+  card holds, so no
+  jamba model trains or serves at full width on one card; arctic-480b's
+  MoE layer is 13.4B (26.8 GB). Both run as their reduced configs.
+
+The step's log line adds the routers' auxiliary loss (``aux``) for an MoE
+config.
 """
 from __future__ import annotations
 
@@ -70,14 +86,15 @@ def cuda_hardware_profile(device=None) -> HardwareProfile:
 def train_step(cfg: ArchConfig, model: Model, opt: AdamW, batch: dict, *,
                cut_layer: int):
     """One step: the loss and its gradient, the global-norm clip at 1.0,
-    then AdamW. Returns (loss, gnorm) as 0-d tensors on the model's
-    device."""
+    then AdamW. Returns (loss, gnorm, {"ce", "aux"}) as detached 0-d
+    tensors on the model's device."""
     opt.zero_grad(set_to_none=True)
-    loss, _ = lm_loss(cfg, model, batch, cut_layer=cut_layer)
+    loss, metrics = lm_loss(cfg, model, batch, cut_layer=cut_layer)
     loss.backward()
     gnorm = clip_by_global_norm([p.grad for p in model.parameters()], 1.0)
     opt.step()
-    return loss.detach(), gnorm
+    return (loss.detach(), gnorm,
+            {k: v.detach() for k, v in metrics.items()})
 
 
 def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
@@ -116,13 +133,15 @@ def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
         tokens, _ = fenced(lambda: torch.from_numpy(synthetic_tokens(
             np.random.default_rng([seed, step]), batch, seq,
             cfg.vocab)).to(device))
-        (loss, gnorm), dt = fenced(lambda: train_step(
+        (loss, gnorm, metrics), dt = fenced(lambda: train_step(
             cfg, model, opt, {"tokens": tokens, "labels": tokens},
             cut_layer=cut))
         tracker.track_time(f"step{step}", dt)
         losses.append(float(loss))
         if step % log_every == 0 or step == steps - 1:
-            print(f"[train] step {step:4d} loss {losses[-1]:.4f} gnorm "
+            aux = (f" aux {float(metrics['aux']):.4f}" if cfg.n_experts
+                   else "")
+            print(f"[train] step {step:4d} loss {losses[-1]:.4f}{aux} gnorm "
                   f"{float(gnorm):.3f} ({time.perf_counter() - t0:.1f}s; "
                   f"step {dt:.4f}s)")
     tot = tracker.total()

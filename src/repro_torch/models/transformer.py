@@ -1,23 +1,27 @@
 """Transformer layer groups and the whole model, in PyTorch.
 
-Counterpart of ``repro.models.transformer`` for the ``"attn"`` (dense) and
-``"rwkv"`` (RWKV-6) group kinds: the group plan (``build_groups``,
-``_split_at``, ``default_cut_layer``), one module per layer, the model
-(``model_init``: embedding, groups tagged client or server, final norm, a
-head only when the embedding is not tied), the full-sequence
-``model_forward`` / ``lm_loss``, and the decode path: ``decode_state_init``
-(KV caches, plain or int8, and RWKV states, in the reference's layout) and
-``model_decode_step`` (one token through every group). A group is a
-homogeneous run of layers; where the reference stacks each leaf on a
-leading layer axis and scans, the port keeps one layer module per layer
-in an ``nn.ModuleList`` and loops. Parameter names are the reference's pytree paths (``ln1.scale``,
-``attn.wq.w``, ``mix.w_lora_a``, ...) so ``repro_torch.convert`` maps one
-onto the other.
+Counterpart of ``repro.models.transformer`` for the ``"attn"`` (dense or
+MoE FFNs, with arctic's dense residual), ``"rwkv"`` (RWKV-6) and
+``"jamba"`` (Mamba and attention sub-layers, dense and MoE FFNs) group
+kinds: the group plan (``build_groups``, ``_split_at``,
+``default_cut_layer``), one module per layer (a ``JambaBlock`` is one
+super-block of ``attn_period`` sub-layers), the model (``model_init``:
+embedding, groups tagged client or server, final norm, a head only when the
+embedding is not tied), the full-sequence ``model_forward`` / ``lm_loss``
+(the routers' auxiliary loss summed over the MoE FFNs), and the decode
+path: ``decode_state_init`` (KV caches, plain or int8, RWKV states and
+Mamba states, in the reference's layout) and ``model_decode_step`` (one
+token through every group). A group is a homogeneous run of layers; where
+the reference stacks each leaf on a leading layer axis and scans, the port
+keeps one layer module per layer in an ``nn.ModuleList`` and loops.
+Parameter names are the reference's pytree paths (``ln1.scale``,
+``attn.wq.w``, ``mix.w_lora_a``, ``moe.w_gate``, ``sub0.mamba.A_log``, ...)
+so ``repro_torch.convert`` maps one onto the other.
 
-The other group kinds (``jamba``, ``enc``, ``xdec``), MoE FFNs and the
-modality frontends are not ported yet, for the forward and for decode:
-they raise ``NotImplementedError`` (ROADMAP queue 1 item 17). The
-reference's ``shard_act`` has no counterpart on one card.
+The encoder-decoder kinds (``enc``, ``xdec``) and the modality frontends
+are not ported yet, for the forward and for decode: they raise
+``NotImplementedError`` (ROADMAP queue 1 item 17.4b). The reference's
+``shard_act`` has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ from ..kernels.attn.ops import attention
 from . import modules as M
 from .attention import (chunked_causal_attention, decode_attention,
                         qkv_project, update_kv_cache)
-from .ssm import (RWKV6ChannelMix, RWKV6TimeMix, rwkv6_apply,
-                  rwkv6_ffn_apply, rwkv6_step)
+from .moe import MoE, moe_apply
+from .ssm import (Mamba, RWKV6ChannelMix, RWKV6TimeMix, mamba_apply,
+                  mamba_step, rwkv6_apply, rwkv6_ffn_apply, rwkv6_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,14 +121,12 @@ def default_cut_layer(cfg: ArchConfig, client_fraction: float) -> int:
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to repro_torch yet "
-                              f"(ROADMAP queue 1 item 17)")
+                              f"(ROADMAP queue 1 item 17.4b)")
 
 
 def _check_group(g: GroupSpec):
     if g.kind not in LAYERS:
         _not_ported(f"the {g.kind!r} layer group")
-    if g.moe:
-        _not_ported("the MoE FFN")
 
 
 def _norm(cfg: ArchConfig) -> nn.Module:
@@ -132,29 +135,61 @@ def _norm(cfg: ArchConfig) -> nn.Module:
     return M.RMSNorm(cfg.d_model, dtype=cfg.param_dtype)
 
 
-class AttnLayer(nn.Module):
-    """[norm -> GQA attention -> residual] + [norm -> FFN -> residual]."""
+def _ffn(cfg: ArchConfig) -> nn.Module:
+    return (M.GeluFFN if cfg.ffn == "gelu" else M.SwiGLU)(
+        cfg.d_model, cfg.d_ff, dtype=cfg.param_dtype)
 
-    def __init__(self, cfg: ArchConfig):
+
+def _moe(cfg: ArchConfig) -> MoE:
+    """``_moe_init``: experts of width ``moe_d_ff`` (default ``d_ff``),
+    the shared ones too."""
+    d_ff = cfg.moe_d_ff or cfg.d_ff
+    return MoE(cfg.d_model, cfg.n_experts, d_ff, cfg.top_k,
+               n_shared=cfg.n_shared_experts, shared_d_ff=d_ff,
+               dtype=cfg.param_dtype)
+
+
+def _attn(cfg: ArchConfig, qkv_bias: bool) -> nn.ModuleDict:
+    """``attn_init``: ``wq`` (d, H hd), ``wk``/``wv`` (d, Kh hd), ``wo``."""
+    dt, d, hd = cfg.param_dtype, cfg.d_model, cfg.hd
+    return nn.ModuleDict({
+        "wq": M.Linear(d, cfg.n_heads * hd, bias=qkv_bias, dtype=dt),
+        "wk": M.Linear(d, cfg.n_kv_heads * hd, bias=qkv_bias, dtype=dt),
+        "wv": M.Linear(d, cfg.n_kv_heads * hd, bias=qkv_bias, dtype=dt),
+        "wo": M.Linear(cfg.n_heads * hd, d, bias=False, dtype=dt),
+    })
+
+
+def _reset(module: nn.Module, generator: torch.Generator):
+    """Draw a layer's parameters: each ``MoE`` and ``Mamba`` by its own
+    ``reset_parameters``, every other ``Linear`` directly; norms keep
+    their unit scales and zero biases."""
+    inner = set()
+    for mod in module.modules():
+        if mod in inner:
+            continue
+        if isinstance(mod, (MoE, Mamba)):
+            mod.reset_parameters(generator)
+            inner.update(mod.modules())
+        elif isinstance(mod, M.Linear):
+            mod.reset_parameters(generator)
+
+
+class AttnLayer(nn.Module):
+    """[norm -> GQA attention -> residual] + [norm -> FFN -> residual]; with
+    ``moe`` the FFN is an ``MoE`` (``moe``), plus a dense ``ffn`` beside it
+    under ``cfg.dense_residual`` (arctic)."""
+
+    def __init__(self, cfg: ArchConfig, moe: bool = False):
         super().__init__()
-        dt, d, hd = cfg.param_dtype, cfg.d_model, cfg.hd
         self.ln1 = _norm(cfg)
-        self.attn = nn.ModuleDict({
-            "wq": M.Linear(d, cfg.n_heads * hd, bias=cfg.qkv_bias, dtype=dt),
-            "wk": M.Linear(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
-                           dtype=dt),
-            "wv": M.Linear(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
-                           dtype=dt),
-            "wo": M.Linear(cfg.n_heads * hd, d, bias=False, dtype=dt),
-        })
+        self.attn = _attn(cfg, cfg.qkv_bias)
         self.ln2 = _norm(cfg)
-        self.ffn = (M.GeluFFN if cfg.ffn == "gelu" else M.SwiGLU)(
-            d, cfg.d_ff, dtype=dt)
+        self.moe = _moe(cfg) if moe else None
+        self.ffn = _ffn(cfg) if not moe or cfg.dense_residual else None
 
     def reset_parameters(self, generator: torch.Generator):
-        for mod in self.modules():
-            if isinstance(mod, M.Linear):
-                mod.reset_parameters(generator)
+        _reset(self, generator)
 
 
 class RWKVLayer(nn.Module):
@@ -174,7 +209,44 @@ class RWKVLayer(nn.Module):
         self.ffn.reset_parameters(generator)
 
 
-LAYERS = {"attn": AttnLayer, "rwkv": RWKVLayer}
+class JambaSub(nn.Module):
+    """Sub-layer i of a super-block of P: ``ln1``, then ``attn`` (i = P - 1)
+    or ``mamba``; ``ln2``, then ``moe`` where i % moe_layer_period ==
+    moe_layer_period - 1, else a dense ``ffn``."""
+
+    def __init__(self, cfg: ArchConfig, i: int):
+        super().__init__()
+        is_attn = i == cfg.attn_period - 1
+        is_moe = cfg.n_experts > 0 and (
+            i % cfg.moe_layer_period == cfg.moe_layer_period - 1)
+        self.ln1 = _norm(cfg)
+        self.ln2 = _norm(cfg)
+        self.attn = _attn(cfg, False) if is_attn else None
+        self.mamba = None if is_attn else Mamba(
+            cfg.d_model, expand=cfg.ssm_expand, state_dim=cfg.ssm_state_dim,
+            conv_width=cfg.ssm_conv_width, dtype=cfg.param_dtype)
+        self.moe = _moe(cfg) if is_moe else None
+        self.ffn = None if is_moe else _ffn(cfg)
+
+
+class JambaBlock(nn.Module):
+    """``_jamba_super_init``: one super-block, ``sub0`` ... ``sub{P-1}``
+    (P = ``attn_period``): P - 1 Mamba sub-layers, then attention."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.period = cfg.attn_period
+        for i in range(cfg.attn_period):
+            self.add_module(f"sub{i}", JambaSub(cfg, i))
+
+    def subs(self) -> list[JambaSub]:
+        return [getattr(self, f"sub{i}") for i in range(self.period)]
+
+    def reset_parameters(self, generator: torch.Generator):
+        _reset(self, generator)
+
+
+LAYERS = {"attn": AttnLayer, "rwkv": RWKVLayer, "jamba": JambaBlock}
 
 
 def group_init(generator: torch.Generator, cfg: ArchConfig,
@@ -196,6 +268,9 @@ def group_modules(cfg: ArchConfig, g: GroupSpec) -> nn.ModuleList:
     parameters uninitialized (``group_init`` draws them; on the meta device
     they give shapes)."""
     _check_group(g)
+    if g.kind == "attn":
+        return nn.ModuleList(AttnLayer(cfg, moe=g.moe)
+                             for _ in range(g.count))
     return nn.ModuleList(LAYERS[g.kind](cfg) for _ in range(g.count))
 
 
@@ -225,19 +300,32 @@ def _attn_block(cfg: ArchConfig, p: AttnLayer, x: torch.Tensor, positions,
     return x + out
 
 
-def _ffn_block(cfg: ArchConfig, p: AttnLayer, x: torch.Tensor, aux,
-               moe: bool = False):
-    if moe:
-        _not_ported("the MoE FFN")
-    return x + p.ffn(p.ln2(x)), aux
+def _ffn_block(cfg: ArchConfig, p, x: torch.Tensor, aux,
+               moe_groups: int = 1):
+    """[norm -> FFN -> residual]: ``p.moe`` (with ``p.ffn`` added under
+    ``cfg.dense_residual``) when the layer has one, its router's auxiliary
+    loss added to ``aux``; else the dense ``p.ffn``."""
+    h = p.ln2(x)
+    if p.moe is not None:
+        y, a = moe_apply(p.moe, h, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         n_groups=moe_groups)
+        aux = aux + a
+        if cfg.dense_residual:
+            y = y + p.ffn(h)
+    else:
+        y = p.ffn(h)
+    return x + y, aux
 
 
 def group_apply(cfg: ArchConfig, g: GroupSpec, layers, x: torch.Tensor, aux,
                 *, positions, window: Optional[int],
-                attn_impl: str = "xla"):
+                attn_impl: str = "xla", moe_groups: int = 1):
     """Full-sequence pass (train/prefill) over the group's layers.
     Returns (x, aux). RWKV layers start from the zero state: the time mix's
-    new state is dropped, and the channel mix's ``x_prev`` is zero."""
+    new state is dropped, and the channel mix's ``x_prev`` is zero; so do
+    a jamba block's Mamba sub-layers. ``moe_groups`` is the MoE FFNs'
+    grouped dispatch (``moe_apply(n_groups=)``)."""
     _check_group(g)
     if g.kind == "rwkv":
         for layer in layers:
@@ -246,10 +334,23 @@ def group_apply(cfg: ArchConfig, g: GroupSpec, layers, x: torch.Tensor, aux,
             hf = layer.ln2(x)
             x = x + rwkv6_ffn_apply(layer.ffn, hf, torch.zeros_like(hf[:, 0]))
         return x, aux
+    if g.kind == "jamba":
+        for block in layers:
+            for sub in block.subs():
+                if sub.attn is not None:
+                    x = _attn_block(cfg, sub, x, positions, window=window,
+                                    attn_impl=attn_impl)
+                else:
+                    x = x + mamba_apply(sub.mamba, sub.ln1(x),
+                                        expand=cfg.ssm_expand,
+                                        state_dim=cfg.ssm_state_dim,
+                                        conv_width=cfg.ssm_conv_width)[0]
+                x, aux = _ffn_block(cfg, sub, x, aux, moe_groups)
+        return x, aux
     for layer in layers:
         x = _attn_block(cfg, layer, x, positions, window=window,
                         attn_impl=attn_impl)
-        x, aux = _ffn_block(cfg, layer, x, aux, moe=g.moe)
+        x, aux = _ffn_block(cfg, layer, x, aux, moe_groups)
     return x, aux
 
 
@@ -317,10 +418,12 @@ def _embed_inputs(cfg: ArchConfig, model: Model, batch: dict):
 
 
 def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
-                  window="cfg", cut_layer: Optional[int] = None):
-    """Full-sequence forward. Returns (logits (B, S, V_pad), aux). Attention
-    groups take the chunked plain path (``attn_impl="xla"``), as the
-    reference's ``model_forward`` does; RWKV groups the WKV kernel."""
+                  window="cfg", cut_layer: Optional[int] = None,
+                  moe_groups: int = 1):
+    """Full-sequence forward. Returns (logits (B, S, V_pad), aux: the MoE
+    routers' auxiliary losses summed, f32). Attention takes the chunked
+    plain path (``attn_impl="xla"``), as the reference's ``model_forward``
+    does; RWKV groups the WKV kernel."""
     if window == "cfg":
         window = cfg.swa_window
     specs = build_groups(cfg, cut_layer=cut_layer)
@@ -331,7 +434,7 @@ def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g, layers in zip(specs, model.groups):
         x, aux = group_apply(cfg, g, layers, x, aux, positions=positions,
-                             window=window)
+                             window=window, moe_groups=moe_groups)
     x = model.final_norm(x)
     logits = (model.embed.logits(x) if model.head is None
               else model.head(x))
@@ -339,11 +442,11 @@ def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
 
 
 def lm_loss(cfg: ArchConfig, model: Model, batch: dict, *, window="cfg",
-            cut_layer: Optional[int] = None):
-    """Next-token cross entropy (+ router aux): f32 log-softmax over the
-    padded vocab. Returns (loss, {"ce", "aux"})."""
+            cut_layer: Optional[int] = None, moe_groups: int = 1):
+    """Next-token cross entropy (+ ``router_aux_coef`` x the router aux):
+    f32 log-softmax over the padded vocab. Returns (loss, {"ce", "aux"})."""
     logits, aux = model_forward(cfg, model, batch, window=window,
-                                cut_layer=cut_layer)
+                                cut_layer=cut_layer, moe_groups=moe_groups)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp[:, :-1], -1, labels[:, 1:, None])[..., 0]
@@ -378,13 +481,26 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int, *,
             return torch.zeros((g.count, batch_size) + shape, dtype=dt,
                                device=device)
 
-        if g.kind == "attn":
+        def kv_cache(suffix=""):
             kv = (cache_len, cfg.n_kv_heads, cfg.hd)
             kdt = torch.int8 if kv_dtype == "int8" else dtype
-            st = {"k": zeros(*kv, dt=kdt), "v": zeros(*kv, dt=kdt)}
+            st = {f"k{suffix}": zeros(*kv, dt=kdt),
+                  f"v{suffix}": zeros(*kv, dt=kdt)}
             if kv_dtype == "int8":
-                st["k_scale"] = zeros(*kv[:2], dt=torch.float32)
-                st["v_scale"] = zeros(*kv[:2], dt=torch.float32)
+                st[f"k{suffix}_scale"] = zeros(*kv[:2], dt=torch.float32)
+                st[f"v{suffix}_scale"] = zeros(*kv[:2], dt=torch.float32)
+            return st
+
+        if g.kind == "attn":
+            st = kv_cache()
+        elif g.kind == "jamba":
+            d_inner = cfg.ssm_expand * cfg.d_model
+            st = {}
+            for i in range(cfg.attn_period - 1):
+                st[f"h{i}"] = zeros(d_inner, cfg.ssm_state_dim,
+                                    dt=torch.float32)
+                st[f"c{i}"] = zeros(cfg.ssm_conv_width - 1, d_inner)
+            st.update(kv_cache(cfg.attn_period - 1))
         elif g.kind == "rwkv":
             st = {"S": zeros(cfg.d_model // cfg.hd, cfg.hd, cfg.hd,
                              dt=torch.float32),
@@ -435,20 +551,44 @@ def _decode_attn_sub(cfg: ArchConfig, p_attn, h: torch.Tensor, pos: int,
     return p_attn["wo"](out.reshape(b, 1, cfg.n_heads * cfg.hd))
 
 
+def _kv_scales(gstate: dict, li: int, suffix=""):
+    if f"k{suffix}_scale" not in gstate:
+        return None
+    return {"k": gstate[f"k{suffix}_scale"][li],
+            "v": gstate[f"v{suffix}_scale"][li]}
+
+
 def _group_decode(cfg: ArchConfig, g: GroupSpec, layers, gstate: dict,
                   x: torch.Tensor, pos: int, *, window):
     """One token through the group's layers, each reading and writing its
-    row of the group's state in place. Returns x."""
+    row of the group's state in place. Returns x. An MoE FFN routes the
+    step's B tokens (capacity max(4, ceil(B k factor / E)): nothing drops
+    at decode) and its router's aux is dropped."""
     _check_group(g)
     if g.kind == "attn":
         for li, layer in enumerate(layers):
-            scales = ({"k": gstate["k_scale"][li],
-                       "v": gstate["v_scale"][li]}
-                      if "k_scale" in gstate else None)
             x = x + _decode_attn_sub(
                 cfg, layer.attn, layer.ln1(x), pos, gstate["k"][li],
-                gstate["v"][li], window=window, scales=scales)
-            x = x + layer.ffn(layer.ln2(x))
+                gstate["v"][li], window=window,
+                scales=_kv_scales(gstate, li))
+            x, _ = _ffn_block(cfg, layer, x, 0.0)
+        return x
+    if g.kind == "jamba":
+        for li, block in enumerate(layers):
+            for i, sub in enumerate(block.subs()):
+                if sub.attn is not None:
+                    x = x + _decode_attn_sub(
+                        cfg, sub.attn, sub.ln1(x), pos, gstate[f"k{i}"][li],
+                        gstate[f"v{i}"][li], window=window,
+                        scales=_kv_scales(gstate, li, i))
+                else:
+                    h, conv = gstate[f"h{i}"][li], gstate[f"c{i}"][li]
+                    y, ms = mamba_step(sub.mamba, sub.ln1(x),
+                                       {"h": h, "conv": conv})
+                    x = x + y
+                    h.copy_(ms["h"])
+                    conv.copy_(ms["conv"])
+                x, _ = _ffn_block(cfg, sub, x, 0.0)
         return x
     for li, layer in enumerate(layers):             # rwkv
         mix, mst = rwkv6_step(layer.mix, layer.ln1(x),

@@ -9,6 +9,8 @@ machine with the card, where jax is not installed. There ``tests/conftest``
 Elsewhere the ``cuda`` tests skip; the others run everywhere. Whether a card
 is present is decided inside the ``hopper`` fixture, never at import.
 """
+import copy
+
 import pytest
 import torch
 
@@ -629,6 +631,51 @@ def test_serve_on_card_matches_cpu(hopper):
         torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4,
                                    rtol=1e-4)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "arctic-480b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_mamba_on_card_match_cpu(hopper, name):
+    """The MoE FFN (at the config's capacity and at 0.5, where picks drop)
+    and the Mamba mixer of the reduced config on the card against the same
+    weights and inputs on the CPU, outputs, aux and the gradients of every
+    leaf and of x within 1e-4, or 2e-5 of the tensor's largest magnitude
+    where that is larger (f32, TF32 off: the gradients of sum(y^2) reach
+    a few hundred, and the CPU's own f32 result is up to 2.8e-6 of a
+    tensor's largest magnitude from a float64 one; the MoE scatter
+    accumulates with atomics on the card, so its f32 sums run in another
+    order)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.ssm import mamba_apply
+    from repro_torch.models.transformer import model_init
+    cfg = ARCHS[name].reduced()
+    model = model_init(cfg, torch.Generator().manual_seed(0))
+    moe = next(m for m in model.modules() if type(m).__name__ == "MoE")
+    mixers = [m for m in model.modules() if type(m).__name__ == "Mamba"]
+    x = torch.randn(2, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    runs = [(moe, lambda m, xx, cf=cf: moe_apply(
+        m, xx, top_k=cfg.top_k, capacity_factor=cf))
+        for cf in (cfg.capacity_factor, 0.5)]
+    if mixers:
+        runs.append((mixers[0], lambda m, xx: (mamba_apply(
+            m, xx, expand=cfg.ssm_expand, state_dim=cfg.ssm_state_dim,
+            conv_width=cfg.ssm_conv_width)[0], torch.zeros(()))))
+    for module, fn in runs:
+        results = []
+        for dev in ("cpu", hopper):
+            m = copy.deepcopy(module).to(dev)
+            xx = x.detach().to(dev).requires_grad_(True)
+            y, aux = fn(m, xx)
+            (y.square().sum() + aux).backward()
+            results.append([y.detach(), aux.detach(), xx.grad] + [
+                p.grad for _, p in sorted(m.named_parameters())])
+        for got, want in zip(results[1], results[0]):
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=max(1e-4, 2e-5 * scale))
 
 
 # ---------------------------------------------------------------------------

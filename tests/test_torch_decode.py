@@ -16,11 +16,17 @@ the decode state, the one-token decode step and the greedy serve loop.
   ``tests/test_perf_options.py:37``), on SmolLM (GQA), Qwen1.5 (qkv bias),
   H2O-Danube with more steps than its window of 32 (the ring slot wraps),
   RWKV-6 (head size 256: the WKV kernel's plain version from a carried
-  state on the CPU) and SmolLM with an int8 KV cache;
+  state on the CPU), SmolLM with an int8 KV cache, deepseek-moe-16b,
+  arctic-480b and jamba-1.5-large-398b with an int8 KV cache (MoE FFNs at
+  decode, Mamba states); decode == forward at a capacity that drops
+  nothing for deepseek and jamba (plain KV);
 - ``launch.serve.generate`` against the reference serve's loop
   (``repro/launch/serve.py:53-66``) on the reference's prompts: tokens
-  equal, every step's logits within 1e-4; and ``serve`` on the CPU.
+  equal, every step's logits within 1e-4 (deepseek-moe-16b too); and
+  ``serve`` on the CPU, the MoE and hybrid families too.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,10 +47,19 @@ from repro_torch.launch.serve import generate, serve
 from repro_torch.models.attention import decode_attention, update_kv_cache
 from repro_torch.models.transformer import (decode_state_init,
                                             default_cut_layer,
-                                            model_decode_step, model_forward)
+                                            model_decode_step, model_forward,
+                                            model_init)
+from test_torch_harness import drawn_model_params
 
 TOL = 1e-4
 CLIENT_FRACTION = 0.15           # the reference serve's default
+# decoded uncut in the teacher-forced test: the serve's cut splits jamba's
+# two super-blocks into two groups, whose decode bodies the reference
+# traces apart; test_torch_lm_train holds what a cut does
+UNCUT = ("jamba-1.5-large-398b",)
+# the int8 KV cases in which a cached code may round one apart from the
+# reference's; every other int8 case keeps the reference's codes and 1e-4
+MAY_FLIP = ("jamba-1.5-large-398b",)
 
 
 def _np(a) -> np.ndarray:
@@ -96,7 +111,10 @@ def test_decode_attention_and_cache_write_match_reference(dtype):
 
 @pytest.mark.parametrize("arch,kv_dtype,max_len", [
     ("smollm-135m", "param", 12), ("smollm-135m", "int8", 12),
-    ("h2o-danube-1.8b", "param", 40), ("rwkv6-7b", "param", 12)])
+    ("h2o-danube-1.8b", "param", 40), ("rwkv6-7b", "param", 12),
+    ("deepseek-moe-16b", "param", 12), ("arctic-480b", "param", 12),
+    ("jamba-1.5-large-398b", "param", 40),
+    ("jamba-1.5-large-398b", "int8", 12)])
 def test_decode_state_init_matches_reference(arch, kv_dtype, max_len):
     ref_cfg = ref_configs.ARCHS[arch].reduced()
     cfg = configs.ARCHS[arch].reduced()
@@ -117,25 +135,51 @@ def test_decode_state_init_matches_reference(arch, kv_dtype, max_len):
                          for g in want for a in g.values())
     if arch == "h2o-danube-1.8b":              # the ring: the window of 32
         assert got[0]["k"].shape[2] == cfg.swa_window == 32 < max_len
+    if arch == "jamba-1.5-large-398b":         # h0..h6, c0..c6, then k7, v7
+        assert got[0]["k7"].shape[2] == min(cfg.swa_window, max_len)
+        assert got[0]["h0"].shape == (1, 3, 2 * cfg.d_model, 16)
 
 
-def _reference_and_port(arch, seed=0):
+def _reference_and_port(arch, seed=0, cut="serve"):
+    """The reduced config split at the serve's cut (or ``cut``), the
+    reference's weights (for the MoE and hybrid configs drawn by numpy at
+    ``model_init``'s structure: their eager init costs seconds) and the
+    port's model holding them."""
     ref_cfg = ref_configs.ARCHS[arch].reduced()
     cfg = configs.ARCHS[arch].reduced()
-    cut = default_cut_layer(cfg, CLIENT_FRACTION)
-    params = jax.tree_util.tree_map(
-        np.asarray, ref_model_init(ref_cfg, jax.random.PRNGKey(seed),
-                                   cut_layer=cut))
+    if cut == "serve":
+        cut = default_cut_layer(cfg, CLIENT_FRACTION)
+    if cfg.n_experts or cfg.ssm_kind == "mamba":
+        params = drawn_model_params(ref_cfg, cut, seed)
+    else:
+        params = jax.tree_util.tree_map(
+            np.asarray, ref_model_init(ref_cfg, jax.random.PRNGKey(seed),
+                                       cut_layer=cut))
     return ref_cfg, cfg, cut, params, model_from_reference(params, cfg, cut)
 
 
 @pytest.mark.parametrize("arch,kv_dtype,steps", [
     ("smollm-135m", "param", 10), ("qwen1.5-32b", "param", 10),
     ("h2o-danube-1.8b", "param", 40), ("rwkv6-7b", "param", 10),
-    ("smollm-135m", "int8", 10)])
+    ("smollm-135m", "int8", 10), ("deepseek-moe-16b", "param", 10),
+    ("arctic-480b", "param", 10), ("jamba-1.5-large-398b", "int8", 10)])
 def test_decode_step_teacher_forced_matches_reference_and_forward(
         arch, kv_dtype, steps):
-    ref_cfg, cfg, cut, params, model = _reference_and_port(arch)
+    """MoE configs: a decode step routes B tokens and drops none, a
+    full-sequence forward at the config's capacity factor can drop picks,
+    so the stacked steps are held against the forward at a capacity that
+    drops nothing (the reference's
+    ``test_moe_decode_consistency_full_capacity``). int8 KV: in jamba
+    (``MAY_FLIP``) a cached code may round one apart from the reference's
+    (its k or v differs in the last bits on the way there, through seven
+    Mamba sub-layers); elsewhere the codes must stay equal. From the step
+    where one has moved, that key or value has moved by one scale (1/127
+    of its row's largest magnitude), and the logits, and at the end every
+    float leaf of the state, are held to the reference's own int8 KV
+    criterion, relative max error < 0.05 (``tests/test_perf_options.py:37``);
+    before it, and in every other case, to 1e-4."""
+    ref_cfg, cfg, cut, params, model = _reference_and_port(
+        arch, cut=None if arch in UNCUT else "serve")
     tokens = np.random.RandomState(1).randint(0, cfg.vocab, (2, steps))
     step = jax.jit(lambda p, s, t, pos: ref_decode_step(
         ref_cfg, p, s, t, pos, cut_layer=cut))
@@ -144,7 +188,7 @@ def test_decode_step_teacher_forced_matches_reference_and_forward(
     state = decode_state_init(cfg, 2, steps, cut_layer=cut,
                               kv_dtype=kv_dtype)
     tok = torch.from_numpy(tokens)
-    outs = []
+    outs, flipped = [], False
     with torch.no_grad():
         for t in range(steps):
             want, ref_state = step(params, ref_state,
@@ -153,10 +197,21 @@ def test_decode_step_teacher_forced_matches_reference_and_forward(
             got, state = model_decode_step(cfg, model, state,
                                            tok[:, t:t + 1], t, cut_layer=cut)
             assert not got.requires_grad
-            np.testing.assert_allclose(_t(got), _np(want), atol=TOL,
-                                       rtol=TOL, err_msg=f"step {t}")
+            if kv_dtype == "int8" and _codes_differ(state, ref_state):
+                assert arch in MAY_FLIP, f"step {t}: an int8 code moved"
+                flipped = True
+            if flipped:
+                rel = np.abs(_t(got) - _np(want)).max() / np.abs(
+                    _np(want)).max()
+                assert rel < 0.05, (t, rel)
+            else:
+                np.testing.assert_allclose(_t(got), _np(want), atol=TOL,
+                                           rtol=TOL, err_msg=f"step {t}")
             outs.append(got)
-        full, _ = model_forward(cfg, model, {"tokens": tok}, cut_layer=cut)
+        fwd_cfg = (dataclasses.replace(cfg, capacity_factor=float(
+            cfg.n_experts)) if cfg.n_experts else cfg)
+        full, _ = model_forward(fwd_cfg, model, {"tokens": tok},
+                                cut_layer=cut)
     want_state = decode_state_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_state))
     for g, w in zip(state, want_state):
@@ -164,6 +219,10 @@ def test_decode_step_teacher_forced_matches_reference_and_forward(
             assert g[key].dtype == w[key].dtype, key
             if w[key].dtype == torch.int8:     # codes: a tie may round apart
                 assert (g[key].int() - w[key].int()).abs().max() <= 1, key
+            elif flipped:                      # downstream of a moved code
+                rel = float((g[key] - w[key]).abs().max()
+                            / w[key].abs().max().clamp(min=1e-30))
+                assert rel < 0.05, (key, rel)
             else:
                 torch.testing.assert_close(g[key], w[key], atol=TOL,
                                            rtol=TOL, msg=key)
@@ -173,6 +232,37 @@ def test_decode_step_teacher_forced_matches_reference_and_forward(
         assert rel < 0.05, rel
     else:
         torch.testing.assert_close(dec, full, atol=TOL, rtol=TOL)
+
+
+def _codes_differ(state, ref_state) -> bool:
+    return any(not np.array_equal(g[key].numpy(), np.asarray(w[key]))
+               for g, w in zip(state, ref_state) for key in g
+               if g[key].dtype == torch.int8)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_decode_equals_forward_at_full_capacity(arch):
+    """The reference's ``test_moe_decode_consistency_full_capacity`` on the
+    port: the reduced config at capacity_factor 16 (nothing drops, uncut),
+    8 teacher-forced decode steps (jamba: its Mamba states and plain KV
+    cache) equal ``model_forward`` to 1e-4; at 0.5 the forward drops picks
+    and differs."""
+    cfg = dataclasses.replace(configs.ARCHS[arch].reduced(),
+                              capacity_factor=16.0)
+    model = model_init(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab, (2, 8)))
+    state = decode_state_init(cfg, 2, 8)
+    with torch.no_grad():
+        dec = torch.cat([model_decode_step(cfg, model, state,
+                                           tokens[:, t:t + 1], t)[0]
+                         for t in range(8)], dim=1)
+        full, _ = model_forward(cfg, model, {"tokens": tokens})
+        tight, _ = model_forward(dataclasses.replace(cfg, capacity_factor=0.5),
+                                 model, {"tokens": tokens})
+    torch.testing.assert_close(dec, full, atol=TOL, rtol=TOL)
+    assert float((tight - full).abs().max()) > 1e-2
 
 
 def test_chunked_rwkv_prefill_equals_one_pass():
@@ -197,7 +287,8 @@ def test_chunked_rwkv_prefill_equals_one_pass():
     torch.testing.assert_close(last, full[:, 24:], atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "rwkv6-7b",
+                                  "deepseek-moe-16b"])
 def test_generate_matches_the_reference_serve_loop(arch):
     """The reference serve's loop, written out with its own jitted step, on
     its own prompts (``synthetic_tokens`` from PRNGKey(0)), batch 2,
@@ -243,3 +334,13 @@ def test_serve_on_the_cpu_prints_the_reference_lines(capsys):
     assert len(lines) == 2 and "tok/s incl. prefill" in lines[0]
     with pytest.raises(SystemExit):
         serve(configs.whisper_tiny.reduced(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_runs_the_moe_and_hybrid_families(arch):
+    cfg = configs.ARCHS[arch].reduced()
+    out, dt = serve(cfg, batch=2, prompt_len=4, gen=3, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 3) and dt > 0
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab

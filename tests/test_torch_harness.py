@@ -8,6 +8,7 @@ to both packages: the JAX reference (``repro``) and the port
 card are in ``test_torch_cuda.py``, which imports no jax.
 """
 import dataclasses
+import functools
 import math
 import os
 
@@ -189,9 +190,60 @@ def reference_env_draws(env_seed: int, rounds: int, *, mask_n: int = 0,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def drawn_model_params(ref, cut, seed: int = 0):
+    """The reference's ``model_init(ref, key, cut_layer=cut)`` tree, traced
+    (``jax.eval_shape``), not run, with leaves drawn by numpy at its
+    scales: N(0, 1/fan_in) for a matrix or stack, 1 + N(0, 0.1^2) for norm
+    scales and Mamba's ``D``, log(1..N) + N(0, 0.1^2) for ``A_log``,
+    N(0, 0.1^2) for other vectors; in the leaves' dtypes. The MoE and
+    hybrid configs' eager init costs seconds (jamba's ~6 s a process).
+    One tree per arguments in a process: callers copy, never write it."""
+    from repro.models.transformer import model_init as ref_model_init
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda: ref_model_init(
+        ref, jax.random.PRNGKey(0), cut_layer=cut))
+
+    def draw(path, a):
+        key = jax.tree_util.keystr(path)
+        noise = rng.standard_normal(a.shape, dtype=np.float32)
+        if "A_log" in key:
+            v = np.log(np.arange(1, a.shape[-1] + 1)) + 0.1 * noise
+        elif "scale" in key or key.endswith("['D']"):
+            v = 1.0 + 0.1 * noise
+        elif len(a.shape) >= 2 + ("groups" in key):
+            v = noise / np.sqrt(a.shape[-2])
+        else:
+            v = 0.1 * noise
+        return np.asarray(v, np.float32).astype(a.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 # ---------------------------------------------------------------------------
 # tests of the helpers
 # ---------------------------------------------------------------------------
+
+def test_drawn_model_params_follow_the_reference_tree():
+    from repro.configs import deepseek_moe_16b
+    from repro.models.transformer import model_init as ref_model_init
+    ref = dataclasses.replace(deepseek_moe_16b.reduced(), dtype="bfloat16")
+    params = drawn_model_params(ref, 1, seed=2)
+    want = jax.eval_shape(lambda: ref_model_init(ref, jax.random.PRNGKey(0),
+                                                 cut_layer=1))
+    assert (jax.tree_util.tree_structure(params)
+            == jax.tree_util.tree_structure(want))
+    for a, s in zip(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(want)):
+        assert a.shape == s.shape and a.dtype == s.dtype
+    router = params["groups"][1]["moe"]["router"]["w"]
+    assert router.dtype == np.float32
+    assert abs(float(router.std()) * math.sqrt(router.shape[-2]) - 1) < 0.2
+    again = drawn_model_params(ref, 1, seed=2)
+    for a, b in zip(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(again)):
+        np.testing.assert_array_equal(a, b)
+
 
 def test_reference_params_follow_the_reference_tree():
     stages, params = reference_params("tinycnn", seed=3)

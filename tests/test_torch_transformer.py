@@ -117,8 +117,8 @@ def test_group_apply_matches_reference(impl):
 
 def test_group_kinds_outside_the_slice_are_refused():
     cfg, _ = _cfg()
-    for g in (GroupSpec("jamba", 1, 0), GroupSpec("attn", 1, 0, moe=True)):
-        with pytest.raises(NotImplementedError, match="item 17"):
+    for g in (GroupSpec("enc", 1, 0), GroupSpec("xdec", 1, 0)):
+        with pytest.raises(NotImplementedError, match="item 17.4b"):
             group_apply(cfg, g, [], torch.zeros(1, 1, cfg.d_model), 0.0,
                         positions=None, window=None)
 
