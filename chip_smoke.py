@@ -14,9 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes of its sweep and its main paths' shapes: the int8 link kernel and
    the wire format's quantize/dequantize pair bit for bit (NaN positions
    included; widths that reach both paths of ``csrc/quant_int8.cu``, all
-   four dtype pairs, misaligned views), the int8 launch plans against
-   their Python mirror with a ``[launch]`` line at both link shapes and
-   the ``[hetero]`` buckets' (the vector path, one wave at (12,544, 32)),
+   four dtype pairs, misaligned views; pixtral's split-LM link (2048,
+   5120) among them), the int8 launch plans against their Python mirror
+   with a ``[launch]`` line at both link shapes and the ``[hetero]``
+   buckets' (the vector path, one wave at (12,544, 32)) and at pixtral's,
    the flash attention kernel within
    the reference's own tolerances (f32 2e-5, bf16 3e-2), a case with
    fully masked rows (finite everywhere, the rows that see a key equal),
@@ -189,7 +190,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     greedy tokens, within 1e-4 and the tokens equal. The port's kernels'
     launches over the phase are printed: the trainer and the server attend
     with the plain path, as the reference's do, so none runs;
-12. one JSON line listing the kernels, then the card, then the result
+12. the encoder-decoder groups and the frontends (``[encdec]``): (a) the
+    flash kernel at every head dim from 144 to 256 against its plain
+    version (f32 and bf16; causal, non-causal and windowed; S, Sk in
+    ``FLASH_NEW_PAIRS``), at pixtral-12b's split-LM shape (2, 32, 1024,
+    160) in both dtypes with its gradient, and timed there in f32 beside
+    SDPA and its 3xTF32 bound; the int8 link kernel timed at pixtral's
+    link (2048, 5120) f32 (held against its plain version in phase 3);
+    (b) pixtral-12b's decoder
+    (hf:mistralai/Pixtral-12B-2409 at its published width: d 5120, 32/8
+    heads of 160, d_ff 14336, vocab 131,072) cut to 4 of its 40 layers as
+    a split-LM plan on the flash kernel (``sl/scan``, 2 clients, batch
+    2 x 1024, 1 round, int8 link on the fused kernel): the flash (20) and
+    int8 (4) launches over exactly that run, its peak memory and a
+    profiled round; (c) the same 4 layers
+    through ``launch.train`` at batch 2 x (1024 patch + 1024 text), 3
+    steps, peak and a profiled step; (d) whisper-tiny (arXiv:2212.04356)
+    whole through ``launch.train`` (batch 8 x 448 over 1500 frames, 3
+    steps) and ``launch.serve.transcribe`` (batch 8, 64 tokens: tokens/s,
+    ms a step); (e) pixtral-12b served whole at 40 layers, text only,
+    batch 4, 32 + 32, with a profiled decode step; (f) the reduced
+    whisper-tiny and pixtral-12b card == CPU (logits, loss and gradients
+    within 1e-4, tokens equal). (c)-(f) launch no kernel: the trainer and
+    the server attend with the plain path, as the reference's do;
+13. one JSON line listing the kernels, then the card, then the result
     line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
@@ -284,6 +308,28 @@ MAMBA_STEP_REL = 2 ** -5
 # the reduced configs on the card against the CPU (f32, TF32 off; the MoE
 # scatter's f32 sums run in another order on the card)
 MOE_CPU_TOL = 1e-4
+# the [encdec] phase: the flash kernel's head dims above 128 over lengths
+# and masks, and at pixtral-12b's split-LM shape (batch 2, 32 heads of
+# 160); pixtral-12b's decoder at its published width cut to
+# PIXTRAL_LAYERS of its 40 layers as a split-LM plan on the flash kernel
+# and through the trainer (1024 patch + 1024 text positions), and served
+# whole, text only; whisper-tiny whole through the trainer (448 text
+# tokens over 1500 frames) and transcribe
+FLASH_NEW_D = tuple(range(144, 257, 16))
+FLASH_NEW_PAIRS = ((1, 1), (257, 257), (131, 1024), (1024, 100))
+FLASH_NEW_MASKS = ((True, None), (False, None), (True, 100), (False, 16))
+FLASH_PIXTRAL = (2, 32, 1024, 160)
+PIXTRAL_LAYERS = 4
+# pixtral's split-LM link: the f32 smashed activations of batch 2 x 1024
+# tokens at d 5120 (the int8 kernel's generic path: 1280 chunks a row)
+PIXTRAL_INT8 = (2 * 1024, 5120)
+PIXTRAL_TRAIN = {"steps": 3, "batch": 2, "seq": 1024}
+SERVE_PIXTRAL = {"batch": 4, "prompt_len": 32, "gen": 32}
+WHISPER_TRAIN = {"steps": 3, "batch": 8, "seq": 448}
+WHISPER_GEN = {"batch": 8, "gen": 64}
+# the reduced configs on the card against the CPU (f32, TF32 off): the
+# CPU tests' tolerance against the reference
+ENCDEC_CPU_TOL = 1e-4
 # the fleet engines (client_axis="vmap") fold their 4 clients into each
 # kernel's batch. The split LM's vmap step holds all 4 clients'
 # activations at once; it runs at lm_spec's batch 8, its server loss over
@@ -390,9 +436,10 @@ def check_quant_kernel(dev) -> float:
                 for res in (None, r):
                     check(x, res, out_dtype, f"a misaligned view (509, {d}) "
                           f"{dtype} -> {out_dtype} residual={res is not None}")
-    for dtype in INT8_DTYPES:                  # the split LM's cut
-        x = torch.randn(LM_M, LM_D, device=dev, generator=g).to(dtype)
-        check(x, None, dtype, f"M={LM_M} D={LM_D} {dtype}")
+    for m, d in ((LM_M, LM_D), PIXTRAL_INT8):  # the split LMs' cuts
+        for dtype in INT8_DTYPES:
+            x = torch.randn(m, d, device=dev, generator=g).to(dtype)
+            check(x, None, dtype, f"M={m} D={d} {dtype}")
     x = torch.randn(64, 32, device=dev, generator=g)
     x[3, 5] = float("nan")
     x[9, 0] = float("inf")
@@ -510,60 +557,117 @@ def time_quant_kernel(dev, m=MAIN_M, d=MAIN_D) -> dict:
                          floor=lambda x: torch.empty_like(x).copy_(x))
 
 
-def check_flash_kernel(dev) -> dict:
-    """The flash kernel against its plain version over the sweep and at the
-    split LM's shape ``FLASH_MAIN``, in f32 and bf16 (standard normal
-    inputs), then its gradient (kernel forward + closed-form backward)
-    against autograd through the plain version, ``FLASH_MAIN`` included.
-    Returns the largest |kernel - plain| per dtype over all these cases."""
-    from repro_torch.kernels.attn.flash import (flash_attention,
-                                                flash_attention_fwd,
+def flash_sweep(dev, g, dims, pairs, masks) -> tuple:
+    """The flash kernel against its plain version over ``dims`` x ``pairs``
+    (S, Sk) x ``masks`` (causal, window) in f32 and bf16, standard normal
+    inputs at (B, H) = (2, 3): finite everywhere, and within the
+    reference's tolerances on the rows that see a key (the others differ
+    by design: ROADMAP queue 3). Returns (the largest |kernel - plain| per
+    dtype, the number of cases)."""
+    from repro_torch.kernels.attn.flash import (flash_attention_fwd,
                                                 flash_attention_plain)
-    g = torch.Generator(device=dev).manual_seed(1)
-    pairs = [(s, s) for s in FLASH_S] + list(FLASH_SK_PAIRS)
     errs = {name: 0.0 for name in FLASH_ATOL}
     cases = 0
-    for s, sk in pairs:
-        for d in FLASH_D:
-            for causal in (True, False):
-                for window in FLASH_WINDOWS:
-                    for dtype in (torch.float32, torch.bfloat16):
-                        q = torch.randn(2, 3, s, d, device=dev,
+    for d in dims:
+        for s, sk in pairs:
+            qp = torch.arange(s, device=dev)[:, None]
+            kp = torch.arange(sk, device=dev)[None, :]
+            for causal, window in masks:
+                seen = torch.ones(s, sk, dtype=torch.bool, device=dev)
+                if causal:
+                    seen &= qp >= kp
+                if window is not None:
+                    seen &= qp - kp < window
+                sees = seen.any(dim=1)
+                for dtype in (torch.float32, torch.bfloat16):
+                    q = torch.randn(2, 3, s, d, device=dev,
+                                    generator=g).to(dtype)
+                    k, v = (torch.randn(2, 3, sk, d, device=dev,
                                         generator=g).to(dtype)
-                        k, v = (torch.randn(2, 3, sk, d, device=dev,
-                                            generator=g).to(dtype)
-                                for _ in range(2))
-                        got = flash_attention_fwd(q, k, v, causal=causal,
-                                                  window=window)
-                        want = flash_attention_plain(q, k, v, causal=causal,
-                                                     window=window)
-                        torch.cuda.synchronize()
-                        name = str(dtype).split(".")[-1]
-                        err = float((got.float() - want.float()).abs().max())
-                        if not (got.dtype == dtype and err <= FLASH_ATOL[name]):
-                            raise AssertionError(
-                                f"flash_attention kernel != plain at S={s} "
-                                f"Sk={sk} D={d} causal={causal} "
-                                f"window={window} {name}: {err}")
-                        errs[name] = max(errs[name], err)
-                        cases += 1
-    b, h, s, d = FLASH_MAIN                 # the split LM's own shape
+                            for _ in range(2))
+                    got = flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window)
+                    want = flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+                    torch.cuda.synchronize()
+                    name = str(dtype).split(".")[-1]
+                    err = float((got.float() - want.float())[:, :, sees]
+                                .abs().max())
+                    finite = bool(torch.isfinite(got.float()).all())
+                    if not (got.dtype == dtype and finite
+                            and err <= FLASH_ATOL[name]):
+                        raise AssertionError(
+                            f"flash_attention kernel != plain at D={d} "
+                            f"S={s} Sk={sk} causal={causal} window={window} "
+                            f"{name}: {err}, finite {finite}")
+                    errs[name] = max(errs[name], err)
+                    cases += 1
+    return errs, cases
+
+
+def flash_at_shape(dev, g, shape, errs: dict):
+    """The flash kernel at a main path's own (B, H, S, D), causal, against
+    its plain version in f32 and bf16; folds the errors into ``errs``."""
+    from repro_torch.kernels.attn.flash import (flash_attention_fwd,
+                                                flash_attention_plain)
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
+        q, k, v = (torch.randn(*shape, device=dev, generator=g).to(dtype)
                    for _ in range(3))
         got = flash_attention_fwd(q, k, v, causal=True)
         want = flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         name = str(dtype).split(".")[-1]
         err = float((got.float() - want.float()).abs().max())
-        print(f"[check] flash_attention at the main path's shape {FLASH_MAIN} "
+        print(f"[check] flash_attention at the main path's shape {shape} "
               f"{name} causal: max_abs_err {err:.3e} (atol "
               f"{FLASH_ATOL[name]:g})")
         if not (got.dtype == dtype and err <= FLASH_ATOL[name]):
             raise AssertionError(f"flash_attention kernel != plain at "
-                                 f"{FLASH_MAIN} {name}: {err}")
+                                 f"{shape} {name}: {err}")
         errs[name] = max(errs[name], err)
-        cases += 1
+
+
+def flash_grad_err(dev, g, cases) -> float:
+    """The flash kernel's gradient (kernel forward + closed-form backward)
+    against autograd through the plain version at each (shape, causal,
+    window) of ``cases``, f32, within 2e-4. Returns the largest error."""
+    from repro_torch.kernels.attn.flash import (flash_attention,
+                                                flash_attention_plain)
+    gmax = 0.0
+    for shape, causal, window in cases:
+        ins = [torch.randn(*shape, device=dev, generator=g) for _ in range(3)]
+        grads = []
+        for fn in (flash_attention, flash_attention_plain):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            o = fn(*leaves, causal=causal, window=window)
+            (o * torch.cos(o)).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for got, want in zip(*grads):
+            err = float((got - want).abs().max())
+            if not err <= 2e-4:
+                raise AssertionError(f"flash_attention gradient differs at "
+                                     f"{shape}: {err}")
+            gmax = max(gmax, err)
+        del grads, ins
+    torch.cuda.empty_cache()
+    return gmax
+
+
+def check_flash_kernel(dev) -> dict:
+    """The flash kernel against its plain version over the sweep and at the
+    split LM's shape ``FLASH_MAIN``, in f32 and bf16 (standard normal
+    inputs), then its gradient (kernel forward + closed-form backward)
+    against autograd through the plain version, ``FLASH_MAIN`` included.
+    Returns the largest |kernel - plain| per dtype over all these cases."""
+    from repro_torch.kernels.attn.flash import (flash_attention_fwd,
+                                                flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(1)
+    pairs = [(s, s) for s in FLASH_S] + list(FLASH_SK_PAIRS)
+    errs, cases = flash_sweep(dev, g, FLASH_D, pairs,
+                              [(c, w) for c in (True, False)
+                               for w in FLASH_WINDOWS])
+    flash_at_shape(dev, g, FLASH_MAIN, errs)
+    cases += 2
     # fully masked rows: finite everywhere (no NaN from 0/0), and the rows
     # that see a key equal the plain version; the rows that see none differ
     # by design (the kernel: the mean over its live tiles or 0; the plain
@@ -595,25 +699,10 @@ def check_flash_kernel(dev) -> dict:
           f"tolerances of the plain version; max_abs_err f32 "
           f"{errs['float32']:.3e} (atol 2e-5), bf16 {errs['bfloat16']:.3e} "
           f"(atol 3e-2)")
-    gmax = 0.0
-    for shape, causal, window in (((2, 3, 257, 64), True, None),
-                                  ((2, 3, 131, 128), False, 16),
-                                  ((2, 3, 100, 32), True, 100),
-                                  (FLASH_MAIN, True, None)):
-        ins = [torch.randn(*shape, device=dev, generator=g) for _ in range(3)]
-        grads = []
-        for fn in (flash_attention, flash_attention_plain):
-            leaves = [t.clone().requires_grad_(True) for t in ins]
-            o = fn(*leaves, causal=causal, window=window)
-            (o * torch.cos(o)).sum().backward()
-            grads.append([t.grad for t in leaves])
-        for got, want in zip(*grads):
-            err = float((got - want).abs().max())
-            if not err <= 2e-4:
-                raise AssertionError(f"flash_attention gradient differs at "
-                                     f"{shape}: {err}")
-            gmax = max(gmax, err)
-        del grads
+    gmax = flash_grad_err(dev, g, (((2, 3, 257, 64), True, None),
+                                   ((2, 3, 131, 128), False, 16),
+                                   ((2, 3, 100, 32), True, 100),
+                                   (FLASH_MAIN, True, None)))
     print(f"[check] flash_attention gradients (kernel forward + closed-form "
           f"backward) vs autograd of the plain version, {FLASH_MAIN} "
           f"included: max_abs_err "
@@ -740,7 +829,8 @@ def check_int8_plans(dev):
     kernel and ``quantize_int8`` at both link shapes (f32, as the paths
     call them), and for the fused kernel at the ``[hetero]`` buckets'
     shapes, held equal to the mirror too. The vector path must take every
-    shape, in one wave at the MobileNetV2 cut."""
+    shape, in one wave at the MobileNetV2 cut. Last, the fused kernel's
+    plan at pixtral's link (``PIXTRAL_INT8``), held equal to the mirror."""
     from repro_torch.kernels.quant.int8 import (quant_int8_device_plan,
                                                 quant_int8_launch_plan)
     n = 0
@@ -789,6 +879,15 @@ def check_int8_plans(dev):
                 raise AssertionError(f"{kernel} at ({m}, {d}): want the "
                                      f"vector path (in one wave at "
                                      f"({MAIN_M}, {MAIN_D})), got {p}")
+    m, d = PIXTRAL_INT8
+    p = quant_int8_device_plan(m, d, torch.float32)
+    want = quant_int8_launch_plan(m, d, torch.float32)
+    if {k: p[k] for k in want} != want:
+        raise AssertionError(f"quant_dequant_int8 at ({m}, {d}): library "
+                             f"plan {p}, mirror {want}")
+    print(f"[launch] quant_dequant_int8 ({m}, {d}) f32 (pixtral's split "
+          f"LM): {p['path']} path, {p['rows_per_block']} rows a block, "
+          f"{p['blocks']} blocks of {p['threads']} threads")
 
 
 def wkv_inputs(shape, dev, g):
@@ -3283,6 +3382,332 @@ def run_moe_path() -> dict:
     return out
 
 
+def check_flash_head_dims(dev) -> dict:
+    """The flash kernel at every head dim above 128 (``FLASH_NEW_D``) over
+    ``FLASH_NEW_PAIRS`` x ``FLASH_NEW_MASKS`` (``flash_sweep``), at
+    ``FLASH_PIXTRAL`` causal in both dtypes, and its gradient there.
+    Returns the largest |kernel - plain| per dtype."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    errs, cases = flash_sweep(dev, g, FLASH_NEW_D, FLASH_NEW_PAIRS,
+                              FLASH_NEW_MASKS)
+    print(f"[encdec] (a) flash_attention at D {FLASH_NEW_D[0]}.."
+          f"{FLASH_NEW_D[-1]}: {cases} cases (S, Sk in {FLASH_NEW_PAIRS}; "
+          f"causal, non-causal, windowed) within the reference's "
+          f"tolerances of the plain version; max_abs_err f32 "
+          f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
+    flash_at_shape(dev, g, FLASH_PIXTRAL, errs)
+    gerr = flash_grad_err(dev, g, ((FLASH_PIXTRAL, True, None),))
+    print(f"[encdec] (a) flash_attention gradients at {FLASH_PIXTRAL} "
+          f"(kernel forward + closed-form backward) vs autograd of the plain "
+          f"version: max_abs_err {gerr:.3e} (atol 2e-4)")
+    return errs
+
+
+def pixtral_split_lm_path(api) -> dict:
+    """pixtral-12b's decoder at full width cut to ``PIXTRAL_LAYERS`` layers
+    as a split-LM plan on the flash kernel at head dim 160 (``sl/scan``, 2
+    clients, batch 2 x 1024, 1 round, int8 link): the flash and int8
+    launches over exactly the run, the peak memory from the compile on,
+    one profiled round."""
+    import gc
+
+    from repro_torch.api.plan import LM_EVAL_CHUNK
+    from repro_torch.configs import pixtral_12b
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    cfg = dataclasses.replace(pixtral_12b, n_layers=PIXTRAL_LAYERS)
+    spec = dataclasses.replace(
+        lm_spec(api, cfg, "pallas", n_train=16, n_test=LM_EVAL_CHUNK,
+                num_clients=2, batch_size=2), global_rounds=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = api.compile_experiment(spec)
+    k = plan.cut_of_client[0]
+    print(f"[encdec] (b) {cfg.name} split LM ({cfg.n_layers} of "
+          f"{pixtral_12b.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}) compiled in {time.perf_counter() - t0:.2f} s: cut "
+          f"{k}/{cfg.n_layers}, smashed {plan.flops[k][2].shape}, "
+          f"{spec.clients.num_clients} clients, batch {spec.batch_size} x "
+          f"{spec.data.seq_len}, sl/scan, int8 link, attention on the flash "
+          f"kernel")
+    flash_attention.launches = 0
+    quant_dequant_int8.launches = 0
+    state, _ = run_plan(plan, "encdec-lm")
+    launches = {"flash_attention": flash_attention.launches,
+                "quant_dequant_int8": quant_dequant_int8.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = spec.local_steps * spec.clients.num_clients
+    chunks = -(-len(plan.x_test) // LM_EVAL_CHUNK)
+    want = {"flash_attention": plan.num_rounds * cfg.n_layers
+            * (steps + chunks),
+            "quant_dequant_int8": plan.num_rounds * steps}
+    print(f"[encdec] (b) launches over the {plan.num_rounds}-round run: "
+          f"{launches} (want {want}: flash {cfg.n_layers} x ({steps} split "
+          f"steps + {chunks} evaluation chunk), int8 one link {PIXTRAL_INT8} "
+          f"a split step); peak memory {peak / 2 ** 30:.2f} GiB ({peak} "
+          f"bytes)")
+    if launches != want or 0 in launches.values():
+        raise AssertionError(f"pixtral split LM launches {launches}, want "
+                             f"{want}")
+    profile_call(lambda: plan.run_round(state), "encdec-lm",
+                 "pixtral 4-layer round", cpu=False)
+    del plan, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "peak": peak}
+
+
+def pixtral_train_path(dev) -> dict:
+    """pixtral-12b at full width cut to ``PIXTRAL_LAYERS`` layers through
+    ``launch.train.train`` (1024 patch embeddings + 1024 text tokens a
+    sequence; each step's loss and wall time on its log line), the peak
+    memory, then one step profiled on a fresh model after a warm step."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import pixtral_12b
+    from repro_torch.launch.train import step_batch, train, train_step
+    from repro_torch.models.transformer import default_cut_layer, model_init
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(pixtral_12b, n_layers=PIXTRAL_LAYERS)
+    cut = default_cut_layer(cfg, 0.15)
+    n = PIXTRAL_TRAIN
+    print(f"[encdec] (c) {cfg.name} through launch.train: {cfg.n_layers} of "
+          f"{pixtral_12b.n_layers} layers, cut {cut}, batch {n['batch']} x "
+          f"({cfg.frontend_tokens} patch + {n['seq']} text) positions, "
+          f"{cfg.dtype}, AdamW lr 3e-4, {n['steps']} steps")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train(cfg, lr=3e-4, client_fraction=0.15, device=dev,
+                   log_every=1,
+                   generator=torch.Generator(device=dev).manual_seed(0), **n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[encdec] (c) losses {losses}; train() took "
+          f"{time.perf_counter() - t0:.2f} s (init included); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} bytes)")
+    if len(losses) != n["steps"] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"pixtral training losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = model_init(cfg, torch.Generator(device=dev).manual_seed(1),
+                       cut_layer=cut)
+    opt = AdamW(model.parameters(), 3e-4, weight_decay=0.01)
+    batch = step_batch(cfg, np.random.default_rng(2), n["batch"], n["seq"],
+                       dev)
+    train_step(cfg, model, opt, batch, cut_layer=cut)
+    profile_call(lambda: train_step(cfg, model, opt, batch, cut_layer=cut),
+                 "encdec-train", "pixtral 4-layer step", top=12, cpu=False)
+    del model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak": peak}
+
+
+def whisper_paths(dev) -> dict:
+    """whisper-tiny whole through ``launch.train.train`` (``WHISPER_TRAIN``,
+    frames (B, 1500, 384)) with its peak memory, then ``transcribe`` at
+    ``WHISPER_GEN`` after a 2-token warm-up: tokens/s and ms a step
+    (the encoder's prefill included), its peak memory."""
+    import gc
+
+    from repro_torch.configs import whisper_tiny as cfg
+    from repro_torch.launch.serve import transcribe
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import default_cut_layer, model_init
+    from repro_torch.obs.timeline import fenced
+    n = WHISPER_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    losses = train(cfg, lr=3e-4, client_fraction=0.15, device=dev,
+                   log_every=1,
+                   generator=torch.Generator(device=dev).manual_seed(0), **n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[encdec] (d) {cfg.name} through launch.train ({cfg.n_enc_layers}"
+          f" + {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.enc_seq_len} frames, batch {n['batch']} x {n['seq']}): "
+          f"losses {losses}; peak memory {peak / 2 ** 30:.2f} GiB")
+    if len(losses) != n["steps"] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"whisper training losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = default_cut_layer(cfg, 0.15)
+    model = model_init(cfg, torch.Generator(device=dev).manual_seed(1),
+                       cut_layer=cut)
+    b, gen = WHISPER_GEN["batch"], WHISPER_GEN["gen"]
+    frames = 0.02 * torch.randn(b, cfg.enc_seq_len, cfg.d_model, device=dev,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(2))
+    transcribe(cfg, model, frames, 2, cut_layer=cut)
+    torch.cuda.reset_peak_memory_stats()
+    toks, dt = fenced(lambda: transcribe(cfg, model, frames, gen,
+                                         cut_layer=cut))
+    serve_peak = torch.cuda.max_memory_allocated()
+    tps = b * gen / dt
+    print(f"[encdec] (d) {cfg.name} transcribe, batch {b}, {gen} tokens "
+          f"(cut {cut}): {tps:.2f} tok/s ({dt:.4f} s, the encoder's prefill "
+          f"included), {1e3 * dt / gen:.3f} ms a step; peak memory "
+          f"{serve_peak / 2 ** 30:.3f} GiB; tokens {toks[0, :10].tolist()}")
+    if toks.shape != (b, gen) or not (0 <= int(toks.min())
+                                      and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"whisper transcribe tokens {toks.tolist()}")
+    del model, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak": peak, "tok_s": tps,
+            "ms_step": 1e3 * dt / gen}
+
+
+def pixtral_serve_path(dev) -> dict:
+    """pixtral-12b at all 40 layers through ``launch.serve.serve``, text
+    only: tokens/s, ms a step, peak memory, one decode step profiled."""
+    import gc
+
+    from repro_torch.configs import pixtral_12b as cfg
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import (decode_state_init,
+                                                default_cut_layer,
+                                                model_decode_step,
+                                                model_init)
+    cut = default_cut_layer(cfg, 0.15)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = model_init(cfg, gen, cut_layer=cut)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[encdec] (e) {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers): {n_bytes / 1e9:.2f} GB drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s, cut {cut}")
+    torch.cuda.reset_peak_memory_stats()
+    toks, dt = serve(cfg, device=dev, generator=gen, model=model,
+                     **SERVE_PIXTRAL)
+    peak = torch.cuda.max_memory_allocated()
+    steps = SERVE_PIXTRAL["prompt_len"] + SERVE_PIXTRAL["gen"]
+    tps = SERVE_PIXTRAL["batch"] * steps / dt
+    print(f"[encdec] (e) {cfg.name}: {tps:.2f} tok/s ({dt:.4f} s for "
+          f"{SERVE_PIXTRAL['batch']} x {steps} tokens, prefill included), "
+          f"{1e3 * dt / steps:.3f} ms a step; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} bytes)")
+    if toks.shape != (SERVE_PIXTRAL["batch"], SERVE_PIXTRAL["gen"]) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"pixtral serve's tokens {toks.tolist()}")
+    with torch.no_grad():
+        state = decode_state_init(cfg, SERVE_PIXTRAL["batch"], steps,
+                                  cut_layer=cut, device=dev)
+        tok = toks[:, :1]
+        model_decode_step(cfg, model, state, tok, 0, cut_layer=cut)
+        profile_call(lambda: model_decode_step(cfg, model, state, tok, 1,
+                                               cut_layer=cut),
+                     "encdec-serve", "pixtral decode step (batch 4)",
+                     top=10, cpu=False)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tok_s": tps, "ms_step": 1e3 * dt / steps, "peak": peak}
+
+
+def encdec_card_vs_cpu(dev, names=("whisper-tiny", "pixtral-12b")) -> dict:
+    """The reduced whisper-tiny (cut inside its encoder) and pixtral-12b
+    with the same weights and batch on the card and on the CPU: the logits,
+    ``lm_loss`` and every gradient within ``ENCDEC_CPU_TOL`` (f32, TF32
+    off); whisper's 8 ``transcribe`` tokens and pixtral's 4 greedy
+    ``generate`` tokens (and their logits) equal. Neither launches the
+    flash kernel: their attention is the plain path, as the reference's.
+    ``tests/test_torch_cuda.py`` runs the same check a config a case."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.launch.serve import generate, transcribe
+    from repro_torch.models.transformer import (default_cut_layer, lm_loss,
+                                                model_forward, model_init)
+    before = flash_attention.launches
+    errs = {}
+    for name in names:
+        cfg = ARCHS[name].reduced()
+        cut = default_cut_layer(cfg, 0.15)
+        cpu = model_init(cfg, torch.Generator().manual_seed(0), cut_layer=cut)
+        card = copy.deepcopy(cpu).to(dev)
+        g = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+        batch = {"tokens": tokens, "labels": tokens}
+        if cfg.enc_dec:
+            batch["frames"] = torch.randn(2, cfg.enc_seq_len, cfg.d_model,
+                                          generator=g)
+        else:
+            batch["patch_embeds"] = torch.randn(
+                2, cfg.frontend_tokens, cfg.d_model, generator=g)
+        res = []
+        for model, d in ((cpu, "cpu"), (card, dev)):
+            b = {k_: v.to(d) for k_, v in batch.items()}
+            loss, _ = lm_loss(cfg, model, b, cut_layer=cut)
+            loss.backward()
+            with torch.no_grad():
+                logits, _ = model_forward(cfg, model, b, cut_layer=cut)
+            out = {"loss": loss.detach(), "logits": logits,
+                   **{f"grad {n}": p.grad for n, p in model.named_parameters()}}
+            if cfg.enc_dec:
+                toks = transcribe(cfg, model, b["frames"], 8, cut_layer=cut)
+            else:
+                toks, out["gen_logits"] = generate(
+                    cfg, model, b["tokens"][:, :8], 4, cut_layer=cut,
+                    keep_logits=True)
+            res.append((out, toks))
+        (want, want_toks), (got, got_toks) = res
+        err = max(float((got[k_].cpu().float() - v.float()).abs().max())
+                  for k_, v in want.items())
+        bad = [k_ for k_, v in want.items() if not torch.allclose(
+            got[k_].cpu(), v, atol=ENCDEC_CPU_TOL, rtol=ENCDEC_CPU_TOL)]
+        same = torch.equal(got_toks.cpu(), want_toks)
+        errs[cfg.name] = err
+        print(f"[encdec] (f) reduced {cfg.name} on the card == on the CPU: "
+              f"loss {float(got['loss']):.6f} vs {float(want['loss']):.6f}, "
+              f"logits and {sum(1 for k_ in want if k_.startswith('grad'))} "
+              f"gradients max_abs_err {err:.3e} (atol/rtol "
+              f"{ENCDEC_CPU_TOL:g}), tokens {got_toks[0].tolist()} equal "
+              f"{same}")
+        if bad or not same:
+            raise AssertionError(f"reduced {cfg.name} card != CPU: {bad[:8]}"
+                                 f", tokens equal {same}")
+        del cpu, card
+    torch.cuda.synchronize()
+    if flash_attention.launches != before:
+        raise AssertionError(f"the reduced {names} launched flash "
+                             f"{flash_attention.launches - before} times")
+    return errs
+
+
+def run_encdec_path(api) -> dict:
+    """The ``[encdec]`` phase, (a) to (f) in order, each model freed before
+    the next so that each peak printed is its own. The flash kernel's
+    launches are counted over (b)'s run alone: the trainer's and the
+    server's attention is the plain path, as the reference's is."""
+    from repro_torch.kernels.attn.flash import flash_attention
+    dev = torch.device("cuda")
+    out = {"flash_err": check_flash_head_dims(dev)}
+    out["flash_timing"] = time_flash_kernel(dev, FLASH_PIXTRAL)
+    out["int8_timing"] = time_quant_kernel(dev, *PIXTRAL_INT8)
+    stamp("encdec (a) flash head dims, pixtral's int8 link")
+    out["lm"] = pixtral_split_lm_path(api)
+    stamp("encdec (b) pixtral split LM")
+    flash_attention.launches = 0
+    out["train"] = pixtral_train_path(dev)
+    stamp("encdec (c) pixtral training")
+    out["whisper"] = whisper_paths(dev)
+    stamp("encdec (d) whisper training and transcribe")
+    out["serve"] = pixtral_serve_path(dev)
+    stamp("encdec (e) pixtral serving")
+    out["cpu"] = encdec_card_vs_cpu(dev)
+    stamp("encdec (f) reduced configs card vs CPU")
+    if flash_attention.launches:
+        raise AssertionError(f"the trainer, transcribe and the server "
+                             f"launched flash {flash_attention.launches} "
+                             f"times; their attention is the plain path")
+    return out
+
+
 def demangle(names):
     """C++ names as ``c++filt`` prints them, or as they are without it."""
     tool = shutil.which("c++filt")
@@ -3496,6 +3921,27 @@ def main() -> int:
           f"them)")
     moe = run_moe_path()
     stamp("moe path")
+    encdec = run_encdec_path(api)
+    stamp("encdec path")
+    print(f"[paths] encdec: flash at D 144..256 max_abs_err "
+          f"{encdec['flash_err']}; pixtral {FLASH_PIXTRAL} f32 causal "
+          f"{encdec['flash_timing']['ms']:.6f} ms (bound "
+          f"{encdec['flash_timing']['bound_ms']:.6f}, SDPA "
+          f"{encdec['flash_timing']['library_ms']:.6f}); pixtral "
+          f"{PIXTRAL_LAYERS}-layer split LM launches {encdec['lm']['launches']}"
+          f" (int8 link {PIXTRAL_INT8} f32 "
+          f"{encdec['int8_timing']['ms']:.6f} ms L2 cold, bound "
+          f"{encdec['int8_timing']['bound_ms']:.6f}), peak "
+          f"{encdec['lm']['peak'] / 2 ** 30:.2f} GiB; "
+          f"{PIXTRAL_LAYERS}-layer training losses {encdec['train']['losses']}"
+          f" peak {encdec['train']['peak'] / 2 ** 30:.2f} GiB; whisper-tiny "
+          f"training losses {encdec['whisper']['losses']}, transcribe "
+          f"{encdec['whisper']['tok_s']:.2f} tok/s "
+          f"{encdec['whisper']['ms_step']:.3f} ms a step; pixtral 40 layers "
+          f"served {encdec['serve']['tok_s']:.2f} tok/s, "
+          f"{encdec['serve']['ms_step']:.3f} ms a step, peak "
+          f"{encdec['serve']['peak'] / 2 ** 30:.2f} GiB; reduced card vs CPU "
+          f"{encdec['cpu']}")
     print(f"[paths] moe: deepseek-moe-16b MoE layer drop share at 1.25 "
           f"{moe['dispatch']['drop_share']:.6f}; 4-layer training losses "
           f"{moe['train']['losses']} peak "
@@ -3551,10 +3997,11 @@ def main() -> int:
     # with the [hetero], [scenario] and [mc] vmap runs added (each count
     # read over its own run, and the [obs] phase's sl/vmap and Monte-Carlo
     # runs with taps, and the [shard_map] phase's MobileNetV2 sl/shard_map
-    # and SmolLM sl/shard_map runs; the flash kernel's with the latter's
-    # too), over the RWKV path's 3 steps and the [serve] phase's rwkv6-7b
-    # generation (rwkv6_scan) for the WKV kernels, over all the paths for
-    # the wire-format pair
+    # and SmolLM sl/shard_map runs; the flash kernel's with the latter's),
+    # both with the [encdec] pixtral split LM's run added; over the RWKV
+    # path's 3 steps and the [serve] phase's rwkv6-7b generation
+    # (rwkv6_scan) for the WKV kernels, over all the paths for the
+    # wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
              "replaces": f"src/repro/kernels/quant/int8.py:{line}",
@@ -3572,7 +4019,8 @@ def main() -> int:
                              + scenario_launches + mc["mc-vmap"]
                              + obs["launches"] + obs["mc"]["launches"]
                              + sm["sl"]["launches"]
-                             + sm["lm"]["launches"]["quant_dequant_int8"]),
+                             + sm["lm"]["launches"]["quant_dequant_int8"]
+                             + encdec["lm"]["launches"]["quant_dequant_int8"]),
                 "max_abs_err": max_err,
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": "bytes",
@@ -3581,8 +4029,10 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/flash_attn.cu",
                 "replaces": "src/repro/kernels/attn/flash.py:35",
                 "launches": (lm_launches["flash_attention"]
-                             + sm["lm"]["launches"]["flash_attention"]),
-                "max_abs_err": flash_err["float32"],
+                             + sm["lm"]["launches"]["flash_attention"]
+                             + encdec["lm"]["launches"]["flash_attention"]),
+                "max_abs_err": max(flash_err["float32"],
+                                   encdec["flash_err"]["float32"]),
                 "ms": flash_timing["ms"],
                 "plain_ms": flash_timing["plain_ms"],
                 "bound_ms": flash_timing["bound_ms"],

@@ -601,9 +601,10 @@ def _load(stages, params):
     return model
 
 
-def _load_module(module: nn.Module, state_dict: dict) -> nn.Module:
-    """A deep copy of ``module`` loaded with ``state_dict``."""
-    out = copy.deepcopy(module)
+def _load_module(module: nn.Module, state_dict: dict,
+                 device) -> nn.Module:
+    """A deep copy of ``module`` on ``device`` loaded with ``state_dict``."""
+    out = copy.deepcopy(module).to(device)
     out.load_state_dict(state_dict)
     return out
 
@@ -976,9 +977,10 @@ def _validate_transformer(spec: ExperimentSpec):
                          "replicate the server suffix (plumb "
                          "fleet_server_pspecs through _compile_sl_stack to "
                          "lift this)")
-    if arch.ssm_kind or arch.attn_period or arch.enc_dec:
-        # the reference's lm_split_program builds "attn" groups only
-        # (repro/fleet/hetero.py:225); an RWKV stack trains through
+    if arch.ssm_kind or arch.attn_period:
+        # the reference's lm_split_program builds "attn" groups of any arch
+        # (repro/fleet/hetero.py:225), an enc-dec one's decoder width
+        # included; a recurrent or hybrid stack trains through
         # repro_torch.launch.train
         _not_in_slice(f"a split-LM plan of the {arch.name} stack "
                       f"({arch.family})", "item 17")
@@ -1319,10 +1321,14 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs,
                         {key: v.to(device) for key, v in tier.items()}
                         for tier in p), taps=graph_taps, mesh=mesh)
             else:
+                # each init() copies the two tiers from these templates; they
+                # wait on the host, not on the card beside their copies
+                client.cpu()
+                server.cpu()
                 engine = _SLScanEngine(
                     spec, prog.step,
-                    load_client=lambda p: _load_module(client, p[0]),
-                    load_server=lambda p: _load_module(server, p[1]),
+                    load_client=lambda p: _load_module(client, p[0], device),
+                    load_server=lambda p: _load_module(server, p[1], device),
                     logits=lm_logits, taps=graph_taps)
         num_classes, eval_chunk = cfg.vocab, LM_EVAL_CHUNK
     else:

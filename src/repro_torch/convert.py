@@ -161,9 +161,11 @@ def model_from_reference(params, cfg, cut_layer=None):
     ``models.transformer.Model``, each leaf in its own dtype (bf16 kept;
     the MoE router's f32), the layers unstacked into
     ``groups.{g}.{layer}.<path>`` (a jamba super-block's sub-layers
-    ``sub{i}.*`` as they are, the shared experts' stack unstacked into
-    ``moe.shared.{j}.*``). Checked against the port's model of ``cfg``: the
-    same keys, shapes and dtypes."""
+    ``sub{i}.*`` as they are, an ``xdec`` layer's ``lnx.*`` and
+    ``xattn.*`` too, the shared experts' stack unstacked into
+    ``moe.shared.{j}.*``), an enc-dec config's ``enc_norm`` as it is.
+    Checked against the port's model of ``cfg``: the same keys, shapes and
+    dtypes."""
     from .models.transformer import Model, build_groups
     flat = {}
     for key, tree in params.items():
@@ -186,6 +188,7 @@ def decode_state_from_reference(state) -> list[dict]:
     ``model_decode_step``'s list of per-group dicts, as numpy) -> the
     port's: the same list, keys and leading layer (or super-block) axis,
     every leaf a torch tensor of its own dtype (bf16 and int8 kept; a jamba
-    group's ``h{i}``, ``c{i}``, ``k{P-1}``, ...). The layouts are the same,
-    so nothing is reshuffled."""
+    group's ``h{i}``, ``c{i}``, ``k{P-1}``, ...; an ``xdec`` group's
+    ``k``, ``v``, ``ck``, ``cv``; an ``enc`` group's empty dict). The
+    layouts are the same, so nothing is reshuffled."""
     return [{key: _leaf(a) for key, a in group.items()} for group in state]

@@ -42,20 +42,21 @@
 //   bf16 for p v, as flash kernels do.
 // - exp is exp2(x log2 e) (one MUFU.EX2), exact at x = 0.
 //
-// Layout. One block per (b*h, tile of 128 query rows), launched last tile
-// first, so that under a causal mask the blocks that see the most keys are
-// scheduled first and do not form the tail. Each warp owns 32 rows (two
-// m16 tiles, f32 at D <= 64: 4 warps, each k and v fragment split once for
-// both) or 16 rows (f32 at D > 64 and bf16: 8 warps). A loop over 64-key
-// tiles inside the block takes the place of the TPU's sequential nk grid
-// axis. K and V tiles are copied with 16-byte cp.async into two
-// shared-memory stages, tile k+1 in flight while tile k is multiplied; rows
-// past Sk (and q rows past S) are zero-filled by the copy (src-size 0) and
-// masked by position, and only tiles that cross a mask edge are masked per
-// element. Under a causal mask with no window a warp leaves out a tile its
-// block loads when all its keys lie after the warp's last row (no row of
-// the warp can be all masked then). The score fragment stays in registers
-// and feeds p v without a trip through shared memory:
+// Layout. One block per (b*h, tile of BQ query rows; BQ = 128, or 64 for
+// f32 at D > 208), launched last tile first, so that under a causal mask
+// the blocks that see the most keys are scheduled first and do not form the
+// tail. Each warp owns 32 rows (two m16 tiles, f32 at D <= 64: 4 warps,
+// each k and v fragment split once for both) or 16 rows (f32 at D > 64 and
+// bf16: BQ / 16 warps). A loop over 64-key tiles inside the block takes the
+// place of the TPU's sequential nk grid axis. K and V tiles are copied with
+// 16-byte cp.async into two shared-memory stages, tile k+1 in flight while
+// tile k is multiplied; rows past Sk (and q rows past S) are zero-filled by
+// the copy (src-size 0) and masked by position, and only tiles that cross a
+// mask edge are masked per element. Under a causal mask with no window a
+// warp leaves out a tile its block loads when all its keys lie after the
+// warp's last row (no row of the warp can be all masked then). The score
+// fragment stays in registers and feeds p v without a trip through shared
+// memory:
 // - f32: the m16n8k8 C fragment holds key columns (2t, 2t+1) where the A
 //   fragment wants (t, t+4). The sum over keys does not care about their
 //   order, so key 2t of a tile is taken as k-index t and key 2t+1 as t+4,
@@ -64,8 +65,27 @@
 // - bf16: the m16n8k16 C fragment is the A fragment's layout already.
 // Shared rows are padded so that fragment loads hit distinct banks: f32 q
 // and k rows D+8 floats, v rows D+4, bf16 rows D+8. Shared memory: f32
-// D=64 106 KB (two blocks an SM), D=128 202 KB (one); bf16 D=64 54 KB.
-// Dynamic shared memory, opted in at every launch.
+// D=64 106 KB (two blocks an SM), D=128 202 KB (one); bf16 D=64 54 KB,
+// D=256 198 KB. Dynamic shared memory, opted in at every launch.
+//
+// Head dims above 128 (pixtral-12b's 160). In f32 two stages of k and v do
+// not fit beside a 128-row q tile (D=160: 250 KB of the 227 KB a block may
+// have), so at D > 128 the f32 kernel keeps ONE stage of k and one of v and
+// overlaps them with each other: v of tile kt is copied while q k^T of tile
+// kt runs, k of tile kt+1 while p v of tile kt runs (D=160: 167 KB; D=208:
+// 215 KB). From D = 224 the q tile is 64 rows (4 warps; D=256: 197 KB). p v
+// splits the output's n-tiles 8 at a time there, so that one k-step's v
+// fragments (2 x 4 registers an n-tile) are not all live beside the
+// accumulator (D/2 registers). bf16 keeps two stages and 128 rows at every
+// D; its q fragments (D/4 registers) stay in registers. Registers a thread
+// of the new instantiations (nvcc 12.8 -Xptxas -v, as chip_smoke.py prints
+// them), f32 / bf16:
+//   D     144  160  176  192  208  224  240  256
+//   f32   176  175  196  206  211  248  235  232   no spills
+//   bf16  220  229  240  250  255  255  255  255   spills at 240 (8 B
+//         stores, 16 B loads) and 256 (84 B stores, 44 B loads, 32 B
+//         stack): q's 64 fragment registers beside a 128-register
+//         accumulator; no path runs bf16 above 160.
 //
 // Bound: at the split LM's shape (B 8, H 9, S = Sk = 1024, D 64, f32,
 // causal) the two products take 2*B*H*D*S*(S+1) = 9.67 GFLOP (the causal
@@ -89,30 +109,37 @@
 
 namespace {
 
-constexpr int kBQ = 128;       // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kNT = kBK / 8;   // n-tiles of 8 keys in a score tile
 constexpr float kNegInf = -1e30f;
+constexpr size_t kMaxShared = 232448;  // the opt-in limit a block, sm_90
 
-// Per dtype and head dim: the threads of a block (f32: MT m16 tiles of 16
-// query rows per warp, kBQ / (16 MT) warps; bf16: one m16 tile per warp)
-// and the shared-memory rows, padded so that fragment loads hit distinct
-// banks.
+// Per dtype and head dim: the query rows of a block (BQ), its threads (f32:
+// MT m16 tiles of 16 query rows per warp, BQ / (16 MT) warps; bf16: one m16
+// tile per warp), the stages of k and v, and the shared-memory rows, padded
+// so that fragment loads hit distinct banks.
 template <typename T, int D>
 struct Cfg;
 template <int D>
 struct Cfg<float, D> {
+  static constexpr int BQ = D <= 208 ? 128 : 64;
   static constexpr int MT = D <= 64 ? 2 : 1;
-  static constexpr int kThreads = 32 * kBQ / (16 * MT);
+  static constexpr int kThreads = 32 * BQ / (16 * MT);
+  // D > 128: one k and one v stage, copied in turns (the note above)
+  static constexpr bool kSplitKV = D > 128;
+  static constexpr int kStages = kSplitKV ? 1 : 2;
   static constexpr int LDQ = D + 8, LDK = D + 8, LDV = D + 4;
   static constexpr size_t bytes =
-      sizeof(float) * (kBQ * LDQ + 2 * kBK * LDK + 2 * kBK * LDV);
+      sizeof(float) * (BQ * LDQ + kStages * kBK * (LDK + LDV));
+  static_assert(bytes <= kMaxShared, "f32 tiles exceed shared memory");
 };
 template <int D>
 struct Cfg<__nv_bfloat16, D> {
-  static constexpr int kThreads = 32 * kBQ / 16;
+  static constexpr int BQ = 128;
+  static constexpr int kThreads = 32 * BQ / 16;
   static constexpr int LD = D + 8;
-  static constexpr size_t bytes = sizeof(uint16_t) * (kBQ + 4 * kBK) * LD;
+  static constexpr size_t bytes = sizeof(uint16_t) * (BQ + 4 * kBK) * LD;
+  static_assert(bytes <= kMaxShared, "bf16 tiles exceed shared memory");
 };
 
 // ---- PTX
@@ -161,21 +188,26 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-// 3xTF32 over N n-tiles: c[j] += a_lo b_hi[j] + a_hi b_lo[j] + a_hi b_hi[j],
-// the small terms first, one pass over j per term so that N independent
-// MMAs stand between two that add into the same accumulator
-template <int N>
-__device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
+// 3xTF32 over N n-tiles, into c[j0 + j] for j0 + j < M (j0 is a constant
+// once the caller's loop is unrolled): c[j0 + j] += a_lo b_hi[j] +
+// a_hi b_lo[j] + a_hi b_hi[j], the small terms first, one pass over j per
+// term so that N independent MMAs stand between two that add into the same
+// accumulator
+template <int N, int M>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[M][4], int j0,
                                            const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4],
                                            const uint32_t (&bh)[N][2],
                                            const uint32_t (&bl)[N][2]) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], al, bh[j]);
+  for (int j = 0; j < N; ++j)
+    if (j0 + j < M) mma_tf32(c[j0 + j], al, bh[j]);
 #pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], ah, bl[j]);
+  for (int j = 0; j < N; ++j)
+    if (j0 + j < M) mma_tf32(c[j0 + j], ah, bl[j]);
 #pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], ah, bh[j]);
+  for (int j = 0; j < N; ++j)
+    if (j0 + j < M) mma_tf32(c[j0 + j], ah, bh[j]);
 }
 // c += a b: m16n8k16, bf16 in, f32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -218,13 +250,14 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
   }
 }
 
-// The key tiles [begin, end) a block of query rows [q_lo, q_lo + kBQ)
+// The key tiles [begin, end) a block of query rows [q_lo, q_lo + BQ)
 // sees: the reference's tile-skip rules (causal: no key past the block's
 // last query; window: no key tile wholly before q_lo - window + 1).
+template <int BQ>
 __device__ __forceinline__ void key_tiles(int q_lo, int Sk, int causal,
                                           int window, int& begin, int& end) {
   const int nk = (Sk + kBK - 1) / kBK;
-  end = causal ? min(nk, (q_lo + kBQ - 1) / kBK + 1) : nk;
+  end = causal ? min(nk, (q_lo + BQ - 1) / kBK + 1) : nk;
   begin = 0;
   if (window >= 0) {
     const int x = q_lo - window - kBK + 1;  // skip tile kt iff kt*kBK <= x
@@ -338,16 +371,20 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int S,
               int Sk, float scale, int causal, int window) {
   using C = Cfg<float, D>;
-  constexpr int MT = C::MT, NTH = C::kThreads;
+  constexpr int MT = C::MT, NTH = C::kThreads, BQ = C::BQ;
+  constexpr bool kSplit = C::kSplitKV;
   constexpr int KS = D / 8;  // k-steps of q k^T
   constexpr int NO = D / 8;  // n-tiles of the output
+  // output n-tiles a pass of p v (the last pass of D = 144, 176, 208, 240
+  // takes the remaining 2 or 6)
+  constexpr int NC = D > 128 ? 8 : NO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kBQ][LDQ]: q * scale
-  float* sK = sQ + kBQ * C::LDQ;                    // [2][kBK][LDK]
-  float* sV = sK + 2 * kBK * C::LDK;                // [2][kBK][LDV]
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [BQ][LDQ]: q * scale
+  float* sK = sQ + BQ * C::LDQ;                     // [kStages][kBK][LDK]
+  float* sV = sK + C::kStages * kBK * C::LDK;       // [kStages][kBK][LDV]
 
   const int64_t bh = blockIdx.x;
-  const int q_lo = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;  // heavy tiles first
   const float* qb = q + bh * S * D;
   const float* kb = k + bh * Sk * D;
   const float* vb = v + bh * Sk * D;
@@ -357,20 +394,31 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int r_first = q_lo + rw, r_last = r_first + 16 * MT - 1;
 
   int kt_begin, kt_end;
-  key_tiles(q_lo, Sk, causal, window, kt_begin, kt_end);
-  auto load_kv = [&](int kt, int st) {
-    if (kt < kt_end) {
+  key_tiles<BQ>(q_lo, Sk, causal, window, kt_begin, kt_end);
+  auto load_k = [&](int kt, int st) {
+    if (kt < kt_end)
       load_tile<float, D, C::LDK, kBK, NTH>(sK + st * kBK * C::LDK, kb,
                                             kt * kBK, Sk);
+  };
+  auto load_v = [&](int kt, int st) {
+    if (kt < kt_end)
       load_tile<float, D, C::LDV, kBK, NTH>(sV + st * kBK * C::LDV, vb,
                                             kt * kBK, Sk);
-    }
-    cp_async_commit();
   };
-  // q and the first key tile in one group, the second tile in the next
-  load_tile<float, D, C::LDQ, kBQ, NTH>(sQ, qb, q_lo, S);
-  load_kv(kt_begin, 0);
-  load_kv(kt_begin + 1, 1);
+  // q and the first key tile in one group; then the second tile (two
+  // stages) or the first tile's v (one stage) in the next
+  load_tile<float, D, C::LDQ, BQ, NTH>(sQ, qb, q_lo, S);
+  load_k(kt_begin, 0);
+  if constexpr (kSplit) {
+    cp_async_commit();
+    load_v(kt_begin, 0);
+  } else {
+    load_v(kt_begin, 0);
+    cp_async_commit();
+    load_k(kt_begin + 1, 1);
+    load_v(kt_begin + 1, 1);
+  }
+  cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
   // q * scale once, in place, each warp its own rows
@@ -392,19 +440,20 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int st = (kt - kt_begin) & 1;
-    if (kt > kt_begin) {
+    const int st = kSplit ? 0 : (kt - kt_begin) & 1;
+    if (!kSplit && kt > kt_begin) {
       cp_async_wait<1>();  // tile kt has landed
       __syncthreads();
     }
     const float* cK = sK + st * kBK * C::LDK;
     const float* cV = sV + st * kBK * C::LDV;
     const int k_lo = kt * kBK;
+    const bool live = !warp_skips(r_last, k_lo, causal, window);
 
-    if (!warp_skips(r_last, k_lo, causal, window)) {
-      // s = (q * scale) k^T; the head dim permuted within each k-step:
-      // k-index t is column 8ks + 2t, t + 4 is 8ks + 2t + 1
-      float s[MT][kNT][4];
+    // s = (q * scale) k^T; the head dim permuted within each k-step:
+    // k-index t is column 8ks + 2t, t + 4 is 8ks + 2t + 1
+    float s[MT][kNT][4];
+    if (live) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -434,9 +483,19 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_3xtf32(s[mt], ah[mt], al[mt], bh_, bl_);
+          mma_3xtf32(s[mt], 0, ah[mt], al[mt], bh_, bl_);
       }
+    }
 
+    if constexpr (kSplit) {
+      __syncthreads();     // every warp is done with k of tile kt
+      load_k(kt + 1, 0);   // in flight while p v of tile kt runs
+      cp_async_commit();
+      cp_async_wait<1>();  // v of tile kt has landed
+      __syncthreads();
+    }
+
+    if (live) {
       const bool mask =
           tile_needs_mask(r_first, r_last, k_lo, Sk, causal, window);
 #pragma unroll
@@ -460,20 +519,33 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
           split_tf32(s[mt][kk][3], ph[mt][3], pl[mt][3]);
         }
         const float* vr = cV + (8 * kk + 2 * t) * C::LDV + g;
-        uint32_t bh_[NO][2], bl_[NO][2];
 #pragma unroll
-        for (int j = 0; j < NO; ++j) {
-          split_tf32(vr[8 * j], bh_[j][0], bl_[j][0]);
-          split_tf32(vr[C::LDV + 8 * j], bh_[j][1], bl_[j][1]);
+        for (int j0 = 0; j0 < NO; j0 += NC) {
+          uint32_t bh_[NC][2], bl_[NC][2];
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            if (j0 + j >= NO) continue;
+            split_tf32(vr[8 * (j0 + j)], bh_[j][0], bl_[j][0]);
+            split_tf32(vr[C::LDV + 8 * (j0 + j)], bh_[j][1], bl_[j][1]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_3xtf32(acc[mt], j0, ph[mt], pl[mt], bh_, bl_);
         }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          mma_3xtf32(acc[mt], ph[mt], pl[mt], bh_, bl_);
       }
     }
 
     __syncthreads();  // every warp is done with stage st
-    load_kv(kt + 2, st);
+    if constexpr (kSplit) {
+      load_v(kt + 1, 0);   // in flight while q k^T of tile kt + 1 runs
+      cp_async_commit();
+      cp_async_wait<1>();  // k of tile kt + 1 has landed
+      __syncthreads();
+    } else {
+      load_k(kt + 2, st);
+      load_v(kt + 2, st);
+      cp_async_commit();
+    }
   }
 
   float* ob = out + bh * S * D;
@@ -500,16 +572,16 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                __nv_bfloat16* __restrict__ out, int S, int Sk, float scale,
                int causal, int window) {
   using C = Cfg<__nv_bfloat16, D>;
-  constexpr int LD = C::LD, NTH = C::kThreads;
+  constexpr int LD = C::LD, NTH = C::kThreads, BQ = C::BQ;
   constexpr int KS = D / 16;  // k-steps of q k^T
   constexpr int NO = D / 8;   // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);  // [kBQ][LD]
-  uint16_t* sK = sQ + kBQ * LD;                           // [2][kBK][LD]
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);  // [BQ][LD]
+  uint16_t* sK = sQ + BQ * LD;                            // [2][kBK][LD]
   uint16_t* sV = sK + 2 * kBK * LD;                       // [2][kBK][LD]
 
   const int64_t bh = blockIdx.x;
-  const int q_lo = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;  // heavy tiles first
   const uint16_t* qb = reinterpret_cast<const uint16_t*>(q) + bh * S * D;
   const uint16_t* kb = reinterpret_cast<const uint16_t*>(k) + bh * Sk * D;
   const uint16_t* vb = reinterpret_cast<const uint16_t*>(v) + bh * Sk * D;
@@ -519,7 +591,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int r_first = q_lo + rw, r_last = r_first + 15;
 
   int kt_begin, kt_end;
-  key_tiles(q_lo, Sk, causal, window, kt_begin, kt_end);
+  key_tiles<BQ>(q_lo, Sk, causal, window, kt_begin, kt_end);
   auto load_kv = [&](int kt, int st) {
     if (kt < kt_end) {
       load_tile<uint16_t, D, LD, kBK, NTH>(sK + st * kBK * LD, kb, kt * kBK,
@@ -529,7 +601,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     }
     cp_async_commit();
   };
-  load_tile<uint16_t, D, LD, kBQ, NTH>(sQ, qb, q_lo, S);
+  load_tile<uint16_t, D, LD, BQ, NTH>(sQ, qb, q_lo, S);
   load_kv(kt_begin, 0);
   load_kv(kt_begin + 1, 1);
   cp_async_wait<1>();
@@ -621,16 +693,19 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
 // Opt in to > 48 KB of shared memory and launch. The attribute belongs to
 // the current device, so it is set at every launch (one runtime call beside
-// a kernel of ~0.1 ms) rather than once per process.
+// a kernel of ~0.1 ms) rather than once per process. The grid's y extent is
+// one block row per BQ query rows, at most 65535.
 template <typename T, int D, typename Kernel>
 cudaError_t launch(Kernel kernel, const void* q, const void* k, const void* v,
                    void* out, int64_t BH, int S, int Sk, float scale,
                    int causal, int window, cudaStream_t stream) {
   using C = Cfg<T, D>;
+  const int tiles = (S + C::BQ - 1) / C::BQ;
+  if (tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)BH, (unsigned)((S + kBQ - 1) / kBQ));
+  dim3 grid((unsigned)BH, (unsigned)tiles);
   kernel<<<grid, C::kThreads, C::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, Sk, scale, causal,
@@ -659,10 +734,9 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      int64_t D, int dtype, float scale,
                                      int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // positions are int inside the kernel; the grid's y extent is S / kBQ
+  // positions are int inside the kernel; launch() checks the grid's y
   if (B * H <= 0 || B * H > 0x7fffffffLL || S <= 0 || Sk <= 0 ||
-      S > (1LL << 30) || Sk > (1LL << 30) || (S + kBQ - 1) / kBQ > 65535 ||
-      (dtype != 0 && dtype != 1))
+      S > (1LL << 30) || Sk > (1LL << 30) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   switch (D) {
 #define FLASH_CASE(d)                                                        \
@@ -677,6 +751,14 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
     FLASH_CASE(96)
     FLASH_CASE(112)
     FLASH_CASE(128)
+    FLASH_CASE(144)
+    FLASH_CASE(160)
+    FLASH_CASE(176)
+    FLASH_CASE(192)
+    FLASH_CASE(208)
+    FLASH_CASE(224)
+    FLASH_CASE(240)
+    FLASH_CASE(256)
 #undef FLASH_CASE
     default:
       return (int)cudaErrorInvalidValue;

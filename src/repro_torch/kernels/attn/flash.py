@@ -10,7 +10,9 @@ causal and sliding-window masks on absolute positions and q scaled by
 - forward: on a CUDA tensor the kernel ``csrc/flash_attn.cu`` (see the note
   there: both products on the tensor cores with ``mma.sync``, 3xTF32 for
   float32 so that it keeps float32 accuracy, bf16 MMAs for bfloat16; k/v
-  tiles copied with ``cp.async`` into two stages; 128 query rows a block),
+  tiles copied with ``cp.async`` into two stages, or at f32 head dims
+  above 128 one k and one v stage copied in turns; 128 query rows a block,
+  64 at f32 head dims above 208; head dims 16 to 256 in steps of 16),
   on a CPU tensor ``flash_attention_plain``; any other device raises, and
   nothing falls back;
 - backward: the reference's closed form (``_flash_vjp_bwd``,
@@ -31,9 +33,8 @@ import torch
 from .ref import flash_attention_ref, masked_probs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
-QUERY_TILE = 128     # query rows per block of the kernel (``kBQ``)
-MAX_GRID_Y = 65535   # the grid's y extent: one block row per query tile
+MAX_HEAD_DIM = 256
+_INVALID_VALUE = 1   # cudaErrorInvalidValue: sizes the launcher refuses
 
 # The plain version of the kernel is the O(S^2) masked softmax of the
 # reference's oracle (``flash.py:139-151`` / ``ref.py``): the same function
@@ -80,9 +81,6 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention needs at least one key")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if -(-s // QUERY_TILE) > MAX_GRID_Y:
-        raise ValueError(f"flash_attention: S={s} is too long for the grid "
-                         f"({MAX_GRID_Y} tiles of {QUERY_TILE} query rows)")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,6 +106,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
                           int(causal), -1 if window is None else int(window),
                           stream)
+    if err == _INVALID_VALUE:
+        # the checks above pass, so the launcher refused the sizes: its grid
+        # has one block row per tile of query rows (the tile is the
+        # kernel's own, by dtype and head dim), at most 65535 of them, and
+        # B*H, S and Sk must fit its ints
+        raise ValueError(f"flash_attention: the launcher refused q "
+                         f"{tuple(q.shape)} {q.dtype}, Sk={k.shape[2]}: more "
+                         f"query tiles than the grid's 65535, or a size past "
+                         f"its int range")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

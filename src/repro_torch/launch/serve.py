@@ -22,7 +22,12 @@ falls back. Where it differs from the reference:
 - the decode step runs eagerly under ``torch.no_grad()``, with the caches
   written in place, where the reference ``jit``s a functional step.
 
-The enc-dec config is refused, as the reference refuses it.
+``serve`` refuses an enc-dec config, as the reference's CLI does; such a
+model is served by ``transcribe``: the steps of the reference's
+``examples/whisper_serve.py`` (encoder prefill, ``enc_norm``, the
+cross-attention's K/V written into the decode state, greedy decode from
+token 0). A ``patch_embed`` config (pixtral-12b) is served text only, as
+the reference's serve does.
 
 Memory (bf16 weights; arithmetic from the configs, not a measurement):
 rwkv6-7b is 15.0 GB and deepseek-moe-16b 32.2 GB whole, so both serve at
@@ -37,6 +42,7 @@ neither serves at full width on one card; their reduced configs do.
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,9 +50,9 @@ import torch
 from ..configs import ARCHS
 from ..configs.base import ArchConfig
 from ..data.synthetic import synthetic_tokens
-from ..models.transformer import (Model, decode_state_init,
-                                  default_cut_layer, model_decode_step,
-                                  model_init)
+from ..models.transformer import (Model, build_groups, decode_state_init,
+                                  default_cut_layer, group_apply,
+                                  model_decode_step, model_init)
 from ..obs.timeline import fenced
 
 
@@ -84,6 +90,53 @@ def generate(cfg: ArchConfig, model: Model, prompts: torch.Tensor, gen: int,
     return tokens
 
 
+@torch.no_grad()
+def transcribe(cfg: ArchConfig, model: Model, frames: torch.Tensor, gen: int,
+               *, cut_layer: Optional[int] = None) -> torch.Tensor:
+    """Enc-dec serving, the steps of the reference's
+    ``examples/whisper_serve.py``: the encoder groups over ``frames`` (B,
+    enc_seq_len, d) on the model's device (cast to the embedding's dtype;
+    like the example, no position table is added, which ``model_forward``
+    adds), ``enc_norm``, each ``xdec`` layer's cross-attention K/V of the
+    encoder's output written into a fresh ``decode_state_init`` of length
+    ``gen + 1``, then ``gen`` greedy steps from token 0, each token the
+    argmax over the real vocab fed back at the next position. Returns the
+    (B, gen) int64 tokens."""
+    if not cfg.enc_dec:
+        raise ValueError(f"transcribe serves an enc-dec config, not "
+                         f"{cfg.name}")
+    specs = build_groups(cfg, cut_layer=cut_layer)
+    if specs != model.specs:
+        raise ValueError(f"the model was built for groups {model.specs}, "
+                         f"not {specs} (cut_layer={cut_layer})")
+    b, senc = frames.shape[0], frames.shape[1]
+    if senc != cfg.enc_seq_len:
+        raise ValueError(f"frames of {senc} steps; the cross-attention's "
+                         f"cache holds enc_seq_len={cfg.enc_seq_len}")
+    enc_x = frames.to(model.embed.table.dtype)
+    for g, layers in zip(specs, model.groups):
+        if g.kind == "enc":
+            enc_x, _ = group_apply(cfg, g, layers, enc_x, 0.0,
+                                   positions=None, window=None)
+    enc_out = model.enc_norm(enc_x)
+    state = decode_state_init(cfg, b, gen + 1, cut_layer=cut_layer,
+                              device=frames.device)
+    kv = (b, senc, cfg.n_kv_heads, cfg.hd)
+    for g, layers, gs in zip(specs, model.groups, state):
+        if g.kind == "xdec":
+            for li, layer in enumerate(layers):
+                gs["ck"][li].copy_(layer.xattn["wk"](enc_out).reshape(kv))
+                gs["cv"][li].copy_(layer.xattn["wv"](enc_out).reshape(kv))
+    tok = torch.zeros((b, 1), dtype=torch.int64, device=frames.device)
+    out = []
+    for t in range(gen):
+        logits, state = model_decode_step(cfg, model, state, tok, t,
+                                          cut_layer=cut_layer)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
 def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
           gen: int = 32, client_fraction: float = 0.15, device="cuda",
           generator: torch.Generator | None = None,
@@ -99,8 +152,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
         raise RuntimeError("serve(device='cuda') needs a CUDA device; pass "
                            "device='cpu' to run on the CPU")
     if cfg.enc_dec:
-        raise SystemExit("enc-dec serving is not ported (the reference "
-                         "serves it from examples/whisper_serve.py)")
+        raise SystemExit("use launch.serve.transcribe for enc-dec serving "
+                         "(the reference serves it from "
+                         "examples/whisper_serve.py)")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     cut = default_cut_layer(cfg, client_fraction)

@@ -14,6 +14,10 @@ differs from the reference:
 
 - the tokens come from the port's own ``synthetic_tokens`` with a numpy
   generator seeded by (the torch generator's seed, step), not threefry;
+  the frontends' stand-ins (``patch_embeds`` (B, frontend_tokens, d) for
+  pixtral-12b, ``frames`` (B, enc_seq_len, d) for whisper-tiny), 0.02 x a
+  normal draw as in the reference, come from that generator too, after
+  the tokens;
 - each step's window is fenced with ``torch.cuda.synchronize()``;
 - energy is billed at the card's power limit (``cuda_hardware_profile``),
   not at the reference's TPU v5e profile; a CPU run names its profile;
@@ -39,6 +43,13 @@ parameter; arithmetic from the configs, not a measurement):
   card holds, so no
   jamba model trains or serves at full width on one card; arctic-480b's
   MoE layer is 13.4B (26.8 GB). Both run as their reduced configs.
+- pixtral-12b: a decoder layer is 285.7M parameters, the tied embedding
+  671.1M (131,072 x 5120); whole (12.10B, 24.2 GB in bf16) it needs ~145
+  GB to train. Cut to 4 layers it is 1.81B, ~22 GB; ``chip_smoke.py``
+  trains it so at batch 2 x (1024 patch + 1024 text) positions, and serves
+  it whole, text only.
+- whisper-tiny (4 + 4 layers, d 384, 1500 frames) is 36.5M parameters,
+  trained and served whole.
 
 The step's log line adds the routers' auxiliary loss (``aux``) for an MoE
 config.
@@ -97,6 +108,24 @@ def train_step(cfg: ArchConfig, model: Model, opt: AdamW, batch: dict, *,
             {k: v.detach() for k, v in metrics.items()})
 
 
+def step_batch(cfg: ArchConfig, rng: np.random.Generator, batch: int,
+               seq: int, device) -> dict:
+    """One step's batch on ``device``: ``batch`` x ``seq`` synthetic tokens
+    (``tokens`` and ``labels``), then from the same ``rng`` the frontend's
+    f32 stand-ins, 0.02 x N(0, 1): ``patch_embeds`` (batch,
+    frontend_tokens, d) for a ``patch_embed`` config, ``frames`` (batch,
+    enc_seq_len, d) for an enc-dec one."""
+    tokens = torch.from_numpy(synthetic_tokens(rng, batch, seq, cfg.vocab))
+    out = {"tokens": tokens, "labels": tokens}
+    if cfg.frontend == "patch_embed":
+        out["patch_embeds"] = torch.from_numpy(0.02 * rng.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.d_model), dtype=np.float32))
+    if cfg.enc_dec:
+        out["frames"] = torch.from_numpy(0.02 * rng.standard_normal(
+            (batch, cfg.enc_seq_len, cfg.d_model), dtype=np.float32))
+    return {k: v.to(device) for k, v in out.items()}
+
+
 def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
           seq: int = 128, lr: float = 3e-4, client_fraction: float = 0.15,
           device="cuda", generator: torch.Generator | None = None,
@@ -130,12 +159,10 @@ def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
     for step in range(steps):
         # the step window: the batch is on the device (fenced) before it
         # opens, and it closes on the step's fenced outputs
-        tokens, _ = fenced(lambda: torch.from_numpy(synthetic_tokens(
-            np.random.default_rng([seed, step]), batch, seq,
-            cfg.vocab)).to(device))
+        data, _ = fenced(lambda: step_batch(
+            cfg, np.random.default_rng([seed, step]), batch, seq, device))
         (loss, gnorm, metrics), dt = fenced(lambda: train_step(
-            cfg, model, opt, {"tokens": tokens, "labels": tokens},
-            cut_layer=cut))
+            cfg, model, opt, data, cut_layer=cut))
         tracker.track_time(f"step{step}", dt)
         losses.append(float(loss))
         if step % log_every == 0 or step == steps - 1:

@@ -4,9 +4,13 @@ oracle.
 
 Counterpart of ``repro.models.attention``.
 ``chunked_causal_attention`` is the spec's default ``attn_impl="xla"``: the
-reference's q-block / kv-block online softmax, with the same block choice
-(``while s % q_block: q_block //= 2``) and the same clip of the kv span to
-the window, as plain PyTorch ops over Python loops. The hand-written
+reference's q-block / kv-block online softmax with the same clip of the kv
+span to the window, as plain PyTorch ops over Python loops. Where a length
+is not a multiple of its block, the last block is shorter, where the
+reference halves the block until it divides the length (its Pallas
+kernel pads instead, for the same reason): the same function, summed over
+fewer and larger blocks. At whisper's 1500 frames the halving gives blocks
+of 4, 140,625 block pairs a layer in a Python loop; here 6. The hand-written
 kernel path (``attn_impl="pallas"``) is ``kernels/attn``. The decode
 pieces (``decode_attention``, ``update_kv_cache``) are plain PyTorch, as
 the reference's are plain jnp outside any Pallas kernel; the cache is
@@ -66,11 +70,7 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 
     q_block = min(q_block, s)
     kv_block = min(kv_block, sk)
-    while s % q_block:
-        q_block //= 2
-    while sk % kv_block:
-        kv_block //= 2
-    nq, nk = s // q_block, sk // kv_block
+    nq, nk = -(-s // q_block), -(-sk // kv_block)   # the last ones ragged
 
     qt = q.transpose(1, 2) * scale                    # (B, H, S, D)
     kt = k.transpose(1, 2)
@@ -85,24 +85,25 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     blocks = []
     for qi in range(nq):
         qb = qt[:, :, qi * q_block:(qi + 1) * q_block]
-        q_pos = qi * q_block + torch.arange(q_block, device=q.device)
+        rows = qb.shape[2]
+        q_pos = qi * q_block + torch.arange(rows, device=q.device)
         if window is not None:
             lo_pos = max(qi * q_block - (window - 1), 0)
             kv_lo = max(min(lo_pos // kv_block, nk - kv_span), 0)
         else:
             kv_lo = 0
-        m = torch.full((b, h, q_block), NEG_INF, dtype=torch.float32,
+        m = torch.full((b, h, rows), NEG_INF, dtype=torch.float32,
                        device=q.device)
-        l = torch.zeros((b, h, q_block), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, q_block, d), dtype=torch.float32,
+        l = torch.zeros((b, h, rows), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, rows, d), dtype=torch.float32,
                           device=q.device)
         for j in range(kv_span):
             kj = kv_lo + j
             kb = kt[:, :, kj * kv_block:(kj + 1) * kv_block]
             vb = vt[:, :, kj * kv_block:(kj + 1) * kv_block]
             scores = torch.matmul(qb.float(), kb.float().transpose(-1, -2))
-            k_pos = kj * kv_block + torch.arange(kv_block, device=q.device)
-            mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+            k_pos = kj * kv_block + torch.arange(kb.shape[2], device=q.device)
+            mask = torch.ones((rows, kb.shape[2]), dtype=torch.bool,
                               device=q.device)
             if causal:
                 mask &= q_pos[:, None] >= k_pos[None, :]

@@ -1,26 +1,28 @@
 """Transformer layer groups and the whole model, in PyTorch.
 
-Counterpart of ``repro.models.transformer`` for the ``"attn"`` (dense or
-MoE FFNs, with arctic's dense residual), ``"rwkv"`` (RWKV-6) and
-``"jamba"`` (Mamba and attention sub-layers, dense and MoE FFNs) group
-kinds: the group plan (``build_groups``, ``_split_at``,
+Counterpart of ``repro.models.transformer`` for every group kind: ``"attn"``
+(dense or MoE FFNs, with arctic's dense residual), ``"rwkv"`` (RWKV-6),
+``"jamba"`` (Mamba and attention sub-layers, dense and MoE FFNs), and the
+encoder-decoder's ``"enc"`` (bidirectional attention, no RoPE) and
+``"xdec"`` (self-attention, cross-attention over the encoder's output,
+FFN): the group plan (``build_groups``, ``_split_at``,
 ``default_cut_layer``), one module per layer (a ``JambaBlock`` is one
 super-block of ``attn_period`` sub-layers), the model (``model_init``:
-embedding, groups tagged client or server, final norm, a head only when the
-embedding is not tied), the full-sequence ``model_forward`` / ``lm_loss``
-(the routers' auxiliary loss summed over the MoE FFNs), and the decode
-path: ``decode_state_init`` (KV caches, plain or int8, RWKV states and
-Mamba states, in the reference's layout) and ``model_decode_step`` (one
-token through every group). A group is a homogeneous run of layers; where
-the reference stacks each leaf on a leading layer axis and scans, the port
-keeps one layer module per layer in an ``nn.ModuleList`` and loops.
-Parameter names are the reference's pytree paths (``ln1.scale``,
-``attn.wq.w``, ``mix.w_lora_a``, ``moe.w_gate``, ``sub0.mamba.A_log``, ...)
-so ``repro_torch.convert`` maps one onto the other.
-
-The encoder-decoder kinds (``enc``, ``xdec``) and the modality frontends
-are not ported yet, for the forward and for decode: they raise
-``NotImplementedError`` (ROADMAP queue 1 item 17.4b). The reference's
+embedding, groups tagged client or server, final norm, the encoder's norm
+``enc_norm`` for an enc-dec config, a head only when the embedding is not
+tied), the modality frontends (``patch_embed``: patch embeddings prepended
+to the text; ``audio_frames``: the encoder's frames plus a sinusoidal
+table), the full-sequence ``model_forward`` / ``lm_loss`` (the routers'
+auxiliary loss summed over the MoE FFNs; the patch positions' logits
+skipped), and the decode path: ``decode_state_init`` (KV caches, plain or
+int8, the cross-attention's K/V, RWKV states and Mamba states, in the
+reference's layout) and ``model_decode_step`` (one token through every
+decoder group). A group is a homogeneous run of layers; where the reference
+stacks each leaf on a leading layer axis and scans, the port keeps one
+layer module per layer in an ``nn.ModuleList`` and loops. Parameter names
+are the reference's pytree paths (``ln1.scale``, ``attn.wq.w``,
+``xattn.wk.w``, ``mix.w_lora_a``, ``moe.w_gate``, ``sub0.mamba.A_log``,
+...) so ``repro_torch.convert`` maps one onto the other. The reference's
 ``shard_act`` has no counterpart on one card.
 """
 from __future__ import annotations
@@ -119,16 +121,6 @@ def default_cut_layer(cfg: ArchConfig, client_fraction: float) -> int:
     return k
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet "
-                              f"(ROADMAP queue 1 item 17.4b)")
-
-
-def _check_group(g: GroupSpec):
-    if g.kind not in LAYERS:
-        _not_ported(f"the {g.kind!r} layer group")
-
-
 def _norm(cfg: ArchConfig) -> nn.Module:
     if cfg.norm == "layernorm":
         return M.LayerNorm(cfg.d_model, dtype=cfg.param_dtype)
@@ -178,13 +170,18 @@ def _reset(module: nn.Module, generator: torch.Generator):
 class AttnLayer(nn.Module):
     """[norm -> GQA attention -> residual] + [norm -> FFN -> residual]; with
     ``moe`` the FFN is an ``MoE`` (``moe``), plus a dense ``ffn`` beside it
-    under ``cfg.dense_residual`` (arctic)."""
+    under ``cfg.dense_residual`` (arctic). With ``cross`` (an ``xdec``
+    layer, ``_attn_layer_init(cross=True)``) it also holds the
+    cross-attention's norm ``lnx`` and projections ``xattn`` (no biases)."""
 
-    def __init__(self, cfg: ArchConfig, moe: bool = False):
+    def __init__(self, cfg: ArchConfig, moe: bool = False,
+                 cross: bool = False):
         super().__init__()
         self.ln1 = _norm(cfg)
         self.attn = _attn(cfg, cfg.qkv_bias)
         self.ln2 = _norm(cfg)
+        self.lnx = _norm(cfg) if cross else None
+        self.xattn = _attn(cfg, False) if cross else None
         self.moe = _moe(cfg) if moe else None
         self.ffn = _ffn(cfg) if not moe or cfg.dense_residual else None
 
@@ -246,7 +243,8 @@ class JambaBlock(nn.Module):
         _reset(self, generator)
 
 
-LAYERS = {"attn": AttnLayer, "rwkv": RWKVLayer, "jamba": JambaBlock}
+LAYERS = {"attn": AttnLayer, "enc": AttnLayer, "xdec": AttnLayer,
+          "rwkv": RWKVLayer, "jamba": JambaBlock}
 
 
 def group_init(generator: torch.Generator, cfg: ArchConfig,
@@ -267,9 +265,10 @@ def group_modules(cfg: ArchConfig, g: GroupSpec) -> nn.ModuleList:
     """``g.count`` layers of ``g.kind`` on the current default device,
     parameters uninitialized (``group_init`` draws them; on the meta device
     they give shapes)."""
-    _check_group(g)
-    if g.kind == "attn":
-        return nn.ModuleList(AttnLayer(cfg, moe=g.moe)
+    if g.kind not in LAYERS:
+        raise ValueError(f"unknown layer group kind {g.kind!r}")
+    if LAYERS[g.kind] is AttnLayer:
+        return nn.ModuleList(AttnLayer(cfg, moe=g.moe, cross=g.kind == "xdec")
                              for _ in range(g.count))
     return nn.ModuleList(LAYERS[g.kind](cfg) for _ in range(g.count))
 
@@ -319,14 +318,17 @@ def _ffn_block(cfg: ArchConfig, p, x: torch.Tensor, aux,
 
 
 def group_apply(cfg: ArchConfig, g: GroupSpec, layers, x: torch.Tensor, aux,
-                *, positions, window: Optional[int],
+                *, positions, window: Optional[int], enc_out=None,
                 attn_impl: str = "xla", moe_groups: int = 1):
     """Full-sequence pass (train/prefill) over the group's layers.
     Returns (x, aux). RWKV layers start from the zero state: the time mix's
     new state is dropped, and the channel mix's ``x_prev`` is zero; so do
-    a jamba block's Mamba sub-layers. ``moe_groups`` is the MoE FFNs'
-    grouped dispatch (``moe_apply(n_groups=)``)."""
-    _check_group(g)
+    a jamba block's Mamba sub-layers. An ``enc`` group attends both ways
+    and rotates nothing (``positions`` unused); an ``xdec`` layer attends
+    over ``enc_out`` (B, Senc, d) after its self-attention. ``moe_groups``
+    is the MoE FFNs' grouped dispatch (``moe_apply(n_groups=)``)."""
+    if g.kind not in LAYERS:
+        raise ValueError(f"unknown layer group kind {g.kind!r}")
     if g.kind == "rwkv":
         for layer in layers:
             mix, _ = rwkv6_apply(layer.mix, layer.ln1(x), head_size=cfg.hd)
@@ -347,11 +349,29 @@ def group_apply(cfg: ArchConfig, g: GroupSpec, layers, x: torch.Tensor, aux,
                                         conv_width=cfg.ssm_conv_width)[0]
                 x, aux = _ffn_block(cfg, sub, x, aux, moe_groups)
         return x, aux
-    for layer in layers:
+    for layer in layers:                             # attn, enc, xdec
         x = _attn_block(cfg, layer, x, positions, window=window,
-                        attn_impl=attn_impl)
+                        causal=g.kind != "enc", attn_impl=attn_impl)
+        if g.kind == "xdec":
+            x = x + _x_cross(cfg, layer, x, enc_out)
         x, aux = _ffn_block(cfg, layer, x, aux, moe_groups)
     return x, aux
+
+
+def _x_cross(cfg: ArchConfig, layer: AttnLayer, h: torch.Tensor,
+             enc_out: torch.Tensor) -> torch.Tensor:
+    """The cross-attention sublayer of a whisper decoder layer: ``lnx``, q
+    from the decoder, k and v from the encoder's output, no RoPE, no mask,
+    through the chunked plain path (no kernel, as in the reference)."""
+    q_in = layer.lnx(h)
+    b, s, _ = q_in.shape
+    sk = enc_out.shape[1]
+    xp = layer.xattn
+    q = xp["wq"](q_in).reshape(b, s, cfg.n_heads, cfg.hd)
+    k = xp["wk"](enc_out).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+    v = xp["wv"](enc_out).reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+    out = chunked_causal_attention(q, k, v, window=None, causal=False)
+    return xp["wo"](out.reshape(b, s, cfg.n_heads * cfg.hd))
 
 
 # ---------------------------------------------------------------------------
@@ -368,25 +388,23 @@ class Model(nn.Module):
     """``model_init``'s tree as a module: ``embed.table`` (V_pad, d),
     ``final_norm``, ``groups`` (one ``ModuleList`` of layers per
     ``GroupSpec`` of ``build_groups(cfg, cut_layer)``, in order; their
-    tiers are in ``specs``) and, when the embedding is not tied,
-    ``head.w`` (d, V_pad). Given a ``generator``, the embedding, then each
-    group's layers (``group_init``), then the head are drawn from it in
-    that order; without one the parameters stay uninitialized (``convert``
-    builds the model so on the meta device, for shapes)."""
+    tiers are in ``specs``), ``enc_norm`` for an enc-dec config and, when
+    the embedding is not tied, ``head.w`` (d, V_pad). Given a
+    ``generator``, the embedding, then each group's layers
+    (``group_init``), then the head are drawn from it in that order; without
+    one the parameters stay uninitialized (``convert`` builds the model so
+    on the meta device, for shapes)."""
 
     def __init__(self, cfg: ArchConfig, specs: list[GroupSpec],
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.enc_dec:
-            _not_ported("the encoder-decoder stack")
-        if cfg.frontend != "none":
-            _not_ported(f"the {cfg.frontend!r} frontend")
         self.specs = list(specs)
         self.embed = M.Embed(vocab_padded(cfg), cfg.d_model,
                              dtype=cfg.param_dtype)
         if generator is not None:
             self.embed.reset_parameters(generator)
         self.final_norm = _norm(cfg)
+        self.enc_norm = _norm(cfg) if cfg.enc_dec else None
         self.groups = nn.ModuleList(
             group_modules(cfg, g) if generator is None
             else group_init(generator, cfg, g) for g in self.specs)
@@ -407,34 +425,65 @@ def model_init(cfg: ArchConfig, generator: torch.Generator, *,
     return model if device is None else model.to(device)
 
 
+def _sinusoids(length: int, d: int, device=None) -> torch.Tensor:
+    """The encoder's (length, d) f32 position table: [sin | cos] of
+    pos / 10000^(2i/d) for i < d/2 (``_embed_inputs``)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def _embed_inputs(cfg: ArchConfig, model: Model, batch: dict):
-    """Token embedding and positions; text only (a ``Model`` refuses a
-    frontend). Returns (x, positions)."""
-    tokens = batch["tokens"]
-    x = model.embed(tokens)
+    """Token embedding (+ frontend). ``patch_embed``: the batch's
+    ``patch_embeds`` (B, Np, d) in the embedding's dtype, prepended to the
+    text, positions over Np + S. Enc-dec: the encoder's input, the batch's
+    ``frames`` (B, Senc, d) in the embedding's dtype plus ``_sinusoids``
+    cast to it. Returns (x, positions, enc_x), enc_x None without an
+    encoder."""
+    x = model.embed(batch["tokens"])
+    if cfg.frontend == "patch_embed":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    return x, positions
+    enc_x = None
+    if cfg.enc_dec:
+        enc_x = batch["frames"].to(x.dtype)
+        enc_x = enc_x + _sinusoids(enc_x.shape[1], cfg.d_model,
+                                  device=x.device).to(enc_x.dtype)
+    return x, positions, enc_x
 
 
 def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
                   window="cfg", cut_layer: Optional[int] = None,
                   moe_groups: int = 1):
     """Full-sequence forward. Returns (logits (B, S, V_pad), aux: the MoE
-    routers' auxiliary losses summed, f32). Attention takes the chunked
-    plain path (``attn_impl="xla"``), as the reference's ``model_forward``
-    does; RWKV groups the WKV kernel."""
+    routers' auxiliary losses summed, f32); S counts the patch positions of
+    a ``patch_embed`` config. The encoder groups run first, over the
+    frames; ``enc_norm`` of the last one's output is what every ``xdec``
+    group attends to. Attention takes the chunked plain path
+    (``attn_impl="xla"``), as the reference's ``model_forward`` does; RWKV
+    groups the WKV kernel."""
     if window == "cfg":
         window = cfg.swa_window
     specs = build_groups(cfg, cut_layer=cut_layer)
     if specs != model.specs:
         raise ValueError(f"the model was built for groups {model.specs}, "
                          f"not {specs} (cut_layer={cut_layer})")
-    x, positions = _embed_inputs(cfg, model, batch)
+    x, positions, enc_x = _embed_inputs(cfg, model, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g, layers in zip(specs, model.groups):
-        x, aux = group_apply(cfg, g, layers, x, aux, positions=positions,
-                             window=window, moe_groups=moe_groups)
+    n_enc = sum(g.kind == "enc" for g in specs)
+    enc_out = None
+    for i, (g, layers) in enumerate(zip(specs, model.groups)):
+        if g.kind == "enc":
+            enc_x, aux = group_apply(cfg, g, layers, enc_x, aux,
+                                     positions=None, window=None)
+            if i == n_enc - 1:
+                enc_out = model.enc_norm(enc_x)
+        else:
+            x, aux = group_apply(cfg, g, layers, x, aux, positions=positions,
+                                 window=window, enc_out=enc_out,
+                                 moe_groups=moe_groups)
     x = model.final_norm(x)
     logits = (model.embed.logits(x) if model.head is None
               else model.head(x))
@@ -444,9 +493,13 @@ def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
 def lm_loss(cfg: ArchConfig, model: Model, batch: dict, *, window="cfg",
             cut_layer: Optional[int] = None, moe_groups: int = 1):
     """Next-token cross entropy (+ ``router_aux_coef`` x the router aux):
-    f32 log-softmax over the padded vocab. Returns (loss, {"ce", "aux"})."""
+    f32 log-softmax over the padded vocab, on the text positions only (a
+    ``patch_embed`` config's first Np logits are skipped). Returns (loss,
+    {"ce", "aux"})."""
     logits, aux = model_forward(cfg, model, batch, window=window,
                                 cut_layer=cut_layer, moe_groups=moe_groups)
+    if cfg.frontend == "patch_embed":
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp[:, :-1], -1, labels[:, 1:, None])[..., 0]
@@ -470,7 +523,11 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int, *,
     under a sliding window and max_len without, or int8 codes with f32
     ``k_scale``/``v_scale`` (count, B, C, Kh) when ``kv_dtype="int8"``; an
     ``rwkv`` group holds ``S`` (count, B, H, hd, hd) f32 and the two token
-    shifts ``x_prev``/``ffn_x_prev`` (count, B, d) in ``dtype``."""
+    shifts ``x_prev``/``ffn_x_prev`` (count, B, d) in ``dtype``; an ``enc``
+    group nothing; an ``xdec`` group ``k``/``v`` (count, B, max_len, Kh,
+    hd) and the cross-attention's ``ck``/``cv`` (count, B, enc_seq_len,
+    Kh, hd), all in ``dtype`` whatever ``kv_dtype`` and window (the
+    reference's layout; ``launch.serve.transcribe`` fills ``ck``/``cv``)."""
     if window == "cfg":
         window = cfg.swa_window
     dtype = dtype or cfg.param_dtype
@@ -506,8 +563,15 @@ def decode_state_init(cfg: ArchConfig, batch_size: int, max_len: int, *,
                              dt=torch.float32),
                   "x_prev": zeros(cfg.d_model),
                   "ffn_x_prev": zeros(cfg.d_model)}
+        elif g.kind == "enc":
+            st = {}
+        elif g.kind == "xdec":
+            kv = (cfg.n_kv_heads, cfg.hd)
+            st = {"k": zeros(max_len, *kv), "v": zeros(max_len, *kv),
+                  "ck": zeros(cfg.enc_seq_len, *kv),
+                  "cv": zeros(cfg.enc_seq_len, *kv)}
         else:
-            _not_ported(f"the decode state of the {g.kind!r} group")
+            raise ValueError(f"unknown layer group kind {g.kind!r}")
         state.append(st)
     return state
 
@@ -563,14 +627,23 @@ def _group_decode(cfg: ArchConfig, g: GroupSpec, layers, gstate: dict,
     """One token through the group's layers, each reading and writing its
     row of the group's state in place. Returns x. An MoE FFN routes the
     step's B tokens (capacity max(4, ceil(B k factor / E)): nothing drops
-    at decode) and its router's aux is dropped."""
-    _check_group(g)
-    if g.kind == "attn":
+    at decode) and its router's aux is dropped. An ``xdec`` layer's token
+    attends, after its self-attention, over the whole of its ``ck``/``cv``
+    (the encoder's length), which it leaves as they are."""
+    if g.kind in ("attn", "xdec"):
         for li, layer in enumerate(layers):
             x = x + _decode_attn_sub(
                 cfg, layer.attn, layer.ln1(x), pos, gstate["k"][li],
                 gstate["v"][li], window=window,
                 scales=_kv_scales(gstate, li))
+            if g.kind == "xdec":
+                b = x.shape[0]
+                q = layer.xattn["wq"](layer.lnx(x)).reshape(
+                    b, 1, cfg.n_heads, cfg.hd)
+                ck = gstate["ck"][li]
+                xo = decode_attention(q, ck, gstate["cv"][li], ck.shape[1])
+                x = x + layer.xattn["wo"](xo.reshape(b, 1,
+                                                     cfg.n_heads * cfg.hd))
             x, _ = _ffn_block(cfg, layer, x, 0.0)
         return x
     if g.kind == "jamba":
@@ -590,7 +663,9 @@ def _group_decode(cfg: ArchConfig, g: GroupSpec, layers, gstate: dict,
                     conv.copy_(ms["conv"])
                 x, _ = _ffn_block(cfg, sub, x, 0.0)
         return x
-    for li, layer in enumerate(layers):             # rwkv
+    if g.kind != "rwkv":
+        raise ValueError(f"no decode step for the {g.kind!r} group")
+    for li, layer in enumerate(layers):
         mix, mst = rwkv6_step(layer.mix, layer.ln1(x),
                               {"S": gstate["S"][li],
                                "x_prev": gstate["x_prev"][li]},
@@ -608,7 +683,8 @@ def model_decode_step(cfg: ArchConfig, model: Model, state: list,
                       token: torch.Tensor, pos: int, *, window="cfg",
                       cut_layer: Optional[int] = None):
     """One decode step: token (B, 1) ids at position ``pos`` (an int: the
-    tokens so far) through every group, from ``state``
+    tokens so far) through every decoder group (``enc`` groups are passed
+    by; a ``patch_embed`` config decodes text only), from ``state``
     (``decode_state_init``), which it updates in place. Returns (logits
     (B, 1, V_pad), state). Call it under ``torch.no_grad()``: the WKV
     kernel then keeps no checkpoints and nothing keeps a graph."""
@@ -621,7 +697,8 @@ def model_decode_step(cfg: ArchConfig, model: Model, state: list,
     pos = int(pos)
     x = model.embed(token)
     for g, layers, gs in zip(specs, model.groups, state):
-        x = _group_decode(cfg, g, layers, gs, x, pos, window=window)
+        if g.kind != "enc":
+            x = _group_decode(cfg, g, layers, gs, x, pos, window=window)
     x = model.final_norm(x)
     logits = (model.embed.logits(x) if model.head is None
               else model.head(x))

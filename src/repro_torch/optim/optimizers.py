@@ -23,8 +23,9 @@ parameter's dtype (the reference's ``updates``, the metrics bus's
 parameter, ``FunctionalAdamW.update(..., updates={})`` fills one a key.
 The arithmetic is the same with or without.
 
-``FunctionalAdamW`` is the same arithmetic over dicts of tensors, returning
-new tensors (the form ``torch.func.vmap`` engines need). Its state may carry
+``AdamW`` updates its moments in place (``_adamw_leaf_``: the same
+operations in the same order, fewer temporaries); ``FunctionalAdamW`` is
+the same arithmetic over dicts of tensors, returning new tensors (the form ``torch.func.vmap`` engines need). Its state may carry
 a leading client axis on every leaf, the step counter included
 (``init_stacked``, the reference's ``optimizers.py:134-141``): each row then
 has its own bias correction, so rows that sat a round out (client dropout)
@@ -49,6 +50,22 @@ def _adamw_leaf(p, g, mu, nu, b1c, b2c, *, b1, b2, eps, wd):
     v = b2 * nu + (1 - b2) * g * g
     delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * p.float()
     return m, v, delta
+
+
+def _adamw_leaf_(p, g, mu, nu, b1c, b2c, *, b1, b2, eps, wd):
+    """``_adamw_leaf`` with the moments updated in place: the same
+    operations in the same order, so the same bits, with two leaf-sized f32
+    temporaries where the out-of-place form holds five (a 131,072 x 5120
+    f32 head's step then needs 5 GiB above its state, not 12.5). Returns
+    ``delta``, a new tensor."""
+    g = g.float()
+    t = (1 - b1) * g
+    mu.mul_(b1).add_(t)
+    torch.mul(g, 1 - b2, out=t)
+    nu.mul_(b2).add_(t.mul_(g))
+    t = torch.div(nu, b2c, out=t).sqrt_().add_(eps)
+    delta = torch.div(mu, b1c).div_(t)
+    return delta.add_(t.copy_(p).mul_(wd))
 
 
 def _device_scalars(cache: dict, key, device, **values) -> dict:
@@ -95,10 +112,9 @@ class AdamW(torch.optim.Optimizer):
                 if not st:
                     st["mu"] = torch.zeros_like(p, dtype=torch.float32)
                     st["nu"] = torch.zeros_like(p, dtype=torch.float32)
-                st["mu"], st["nu"], delta = _adamw_leaf(
-                    p, p.grad, st["mu"], st["nu"], b1c, b2c, b1=b1, b2=b2,
-                    eps=eps, wd=wd)
-                up = (-lr * delta).to(p.dtype)
+                delta = _adamw_leaf_(p, p.grad, st["mu"], st["nu"], b1c,
+                                     b2c, b1=b1, b2=b2, eps=eps, wd=wd)
+                up = delta.mul_(-lr).to(p.dtype)
                 p.add_(up)
                 if updates is not None:
                     updates.append(up)

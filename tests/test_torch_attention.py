@@ -8,8 +8,9 @@
   within 2e-5, gradients within 2e-4, bf16 within 3e-2: the reference's
   tolerances.
 - ``kernels/attn/ops.attention`` with GQA (h, kh) in {(4, 2), (4, 1), (2, 2)}.
-- ``models/attention.py``: ``chunked_causal_attention`` (block choice and
-  window clip included) and ``reference_attention``, 2e-5.
+- ``models/attention.py``: ``chunked_causal_attention`` (block choice,
+  ragged last blocks and window clip included) and ``reference_attention``,
+  2e-5.
 - ``models/modules.py``: RMSNorm, LayerNorm, RoPE, SwiGLU and GELU FFNs, 1e-6.
 
 Inputs are standard normal from a numpy seed, handed to both packages.
@@ -173,6 +174,10 @@ def test_ops_attention_gqa(h, kh):
     (48, dict(q_block=32, kv_block=64, window=20)),   # blocks shrink to 16
     (40, dict(causal=False)),
     (24, dict(q_block=8, kv_block=8, window=5, causal=False)),
+    # ragged last blocks here (the reference's halve to 2)
+    (50, dict(q_block=16, kv_block=32)),
+    (50, dict(q_block=16, kv_block=32, window=7)),
+    (50, dict(q_block=16, kv_block=32, causal=False)),
 ])
 def test_chunked_causal_attention(s, kw):
     rng = np.random.RandomState(s)

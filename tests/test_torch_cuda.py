@@ -10,6 +10,8 @@ Elsewhere the ``cuda`` tests skip; the others run everywhere. Whether a card
 is present is decided inside the ``hopper`` fixture, never at import.
 """
 import copy
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -184,6 +186,29 @@ def test_flash_kernel_fully_masked_rows_are_finite(hopper, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [144, 160, 192, 256])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_kernel_head_dims_above_128(hopper, d, dtype, atol):
+    """The head dims past 128 (pixtral-12b's 160; f32 keeps one k and one v
+    stage there, and 64-row query tiles from 224): S = 131 over Sk = 257,
+    causal, non-causal and windowed, one launch each, within the
+    reference's tolerances of the plain version."""
+    g = torch.Generator(device=hopper).manual_seed(d)
+    for causal, window in ((True, None), (False, None), (True, 100)):
+        q, k, v = (torch.randn(2, 3, n, d, device=hopper, generator=g
+                               ).to(dtype) for n in (131, 257, 257))
+        before = flash_attention.launches
+        got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
 def test_flash_one_call_is_one_launch(hopper):
     """A differentiable call launches the forward kernel once; its backward
     (the closed form in plain PyTorch) launches nothing."""
@@ -208,6 +233,22 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(hopper):
                 (q, q[:, :1].contiguous(), q[:, :1].contiguous())):
         with pytest.raises(ValueError):
             flash_attention_fwd(*bad)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tile", [(torch.float32, 64),
+                                        (torch.bfloat16, 128)])
+def test_flash_grid_longer_than_65535_tiles_is_a_value_error(hopper, dtype,
+                                                              tile):
+    """At D = 256 the f32 kernel takes 64 query rows a block and the bf16
+    one 128: one more row than 65535 such tiles is refused by the launcher
+    with a ValueError, and nothing is launched."""
+    q = torch.zeros(1, 1, tile * 65535 + 1, 256, dtype=dtype, device=hopper)
+    kv = torch.zeros(1, 1, 1, 256, dtype=dtype, device=hopper)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="grid"):
+        flash_attention_fwd(q, kv, kv, causal=False)
     assert flash_attention.launches == before
 
 
@@ -676,6 +717,22 @@ def test_moe_and_mamba_on_card_match_cpu(hopper, name):
             scale = float(want.abs().max())
             torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
                                        atol=max(1e-4, 2e-5 * scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whisper-tiny", "pixtral-12b"])
+def test_encdec_and_frontend_on_card_match_cpu(hopper, name):
+    """The reduced whisper-tiny (cut inside its encoder) and pixtral-12b on
+    the card against the same weights and batch on the CPU: the logits,
+    the loss and every gradient within 1e-4 (f32, TF32 off); whisper's
+    ``transcribe`` tokens and pixtral's greedy ``generate`` tokens equal.
+    Neither launches the flash kernel (the plain path, as the
+    reference's). The check is ``chip_smoke.encdec_card_vs_cpu``'s, which
+    raises on any difference."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    assert chip_smoke.ENCDEC_CPU_TOL == 1e-4
+    chip_smoke.encdec_card_vs_cpu(hopper, (name,))
 
 
 # ---------------------------------------------------------------------------

@@ -220,6 +220,31 @@ def drawn_model_params(ref, cut, seed: int = 0):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+def reference_loss_and_logits(ref, params, batch, monkeypatch, **kw):
+    """The reference's ``lm_loss`` value and gradient, jitted, and the
+    logits its ``model_forward`` made on the way, from one trace: the
+    forward is wrapped (for the calling test only, through its
+    ``monkeypatch``) to hand its logits out as the loss's aux, where tracing
+    the model again for them would double the case's time. Returns ((loss,
+    (metrics, logits)), grads)."""
+    import repro.models.transformer as ref_transformer
+    forward, seen = ref_transformer.model_forward, []
+
+    def recording(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        seen.append(out[0])
+        return out
+
+    monkeypatch.setattr(ref_transformer, "model_forward", recording)
+
+    def loss(p):
+        value, metrics = ref_transformer.lm_loss(ref, p, batch, **kw)
+        return value, (metrics, seen.pop())
+
+    return jax.block_until_ready(
+        jax.jit(jax.value_and_grad(loss, has_aux=True))(params))
+
+
 # ---------------------------------------------------------------------------
 # tests of the helpers
 # ---------------------------------------------------------------------------

@@ -30,7 +30,6 @@ import torch
 
 import repro.configs as ref_configs
 from repro.core.split import merge_stack
-import repro.models.transformer as ref_transformer
 from repro.models.transformer import _split_at as ref_split_at
 from repro.models.transformer import build_groups as ref_build_groups
 from repro.models.transformer import default_cut_layer as ref_default_cut
@@ -48,7 +47,8 @@ from repro_torch.models.transformer import (_split_at, build_groups,
                                             model_forward, model_init,
                                             vocab_padded)
 from repro_torch.optim import AdamW, clip_by_global_norm
-from test_torch_harness import drawn_model_params
+from test_torch_harness import (drawn_model_params,
+                                reference_loss_and_logits)
 
 B, S = 2, 16
 ARCHS = ("rwkv6-7b", "smollm-135m", "deepseek-moe-16b", "arctic-480b",
@@ -123,29 +123,6 @@ def _batch(vocab, seed=1):
              "labels": torch.from_numpy(tokens)})
 
 
-def _reference_loss_and_logits(ref, params, batch, monkeypatch, **kw):
-    """The reference's ``lm_loss`` value and gradient, jitted, and the
-    logits its ``model_forward`` made on the way, from one trace: the
-    forward is wrapped (for this test only) to hand its logits out as the
-    loss's aux, where tracing the model again for them would double the
-    case's time. Returns ((loss, (metrics, logits)), grads)."""
-    forward, seen = ref_transformer.model_forward, []
-
-    def recording(*args, **kwargs):
-        out = forward(*args, **kwargs)
-        seen.append(out[0])
-        return out
-
-    monkeypatch.setattr(ref_transformer, "model_forward", recording)
-
-    def loss(p):
-        value, metrics = ref_lm_loss(ref, p, batch, **kw)
-        return value, (metrics, seen.pop())
-
-    return jax.block_until_ready(
-        jax.jit(jax.value_and_grad(loss, has_aux=True))(params))
-
-
 @pytest.mark.parametrize("name", ARCHS)
 def test_model_forward_loss_and_gradients_match_reference(name, monkeypatch):
     cfg, ref = _pair(name)
@@ -156,7 +133,7 @@ def test_model_forward_loss_and_gradients_match_reference(name, monkeypatch):
     rb, tb = _batch(cfg.vocab)
     kw = dict(cut_layer=cut, moe_groups=groups)
     # read back before the port runs
-    (want_loss, (want_m, want_logits)), want_g = _reference_loss_and_logits(
+    (want_loss, (want_m, want_logits)), want_g = reference_loss_and_logits(
         ref, params, rb, monkeypatch, **kw)
     got_logits, aux = model_forward(cfg, model, tb, **kw)
     assert got_logits.shape == (B, S, vocab_padded(cfg))
@@ -352,13 +329,6 @@ def test_model_init_draws_on_the_generator_and_ties_the_head():
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     assert [g.tier for g in a.specs] == ["client", "server"]
-
-
-@pytest.mark.parametrize("name", ["whisper-tiny", "pixtral-12b"])
-def test_kinds_outside_the_slice_are_refused(name):
-    cfg = configs.ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="item 17.4b"):
-        model_init(cfg, torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("name", ["deepseek-moe-16b", "arctic-480b",

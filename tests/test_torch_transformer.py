@@ -116,11 +116,16 @@ def test_group_apply_matches_reference(impl):
 
 
 def test_group_kinds_outside_the_slice_are_refused():
+    """Every kind of the reference's plan is ported (``enc`` and ``xdec``
+    included); a kind outside it is refused."""
+    from repro_torch.models.transformer import group_modules
     cfg, _ = _cfg()
-    for g in (GroupSpec("enc", 1, 0), GroupSpec("xdec", 1, 0)):
-        with pytest.raises(NotImplementedError, match="item 17.4b"):
-            group_apply(cfg, g, [], torch.zeros(1, 1, cfg.d_model), 0.0,
-                        positions=None, window=None)
+    g = GroupSpec("conv", 1, 0)
+    with pytest.raises(ValueError, match="unknown layer group kind"):
+        group_apply(cfg, g, [], torch.zeros(1, 1, cfg.d_model), 0.0,
+                    positions=None, window=None)
+    with pytest.raises(ValueError, match="unknown layer group kind"):
+        group_modules(cfg, g)
 
 
 def _ref_loss_and_grads(prog, params, tokens, targets):
