@@ -213,7 +213,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     whisper-tiny and pixtral-12b card == CPU (logits, loss and gradients
     within 1e-4, tokens equal). (c)-(f) launch no kernel: the trainer and
     the server attend with the plain path, as the reference's do;
-13. one JSON line listing the kernels, then the card, then the result
+13. checkpoints (``[ckpt]``): rwkv6-7b at full width cut to 4 layers
+    (1.14B bf16 parameters; the WKV kernels, 4 forward and 4 backward
+    launches a step) and SmolLM-135M whole, each trained 2 steps at batch
+    4 x 1024 through ``launch.train.train(ckpt=)``: the file's size and
+    meta, a second save of the same tree timed (its bytes equal to the
+    trainer's file), the file restored straight onto the card into a fresh
+    model and timed, its parameters and one forward's logits bit-equal to
+    the trained model's;
+14. the step builders (``[steps]``): ``launch.steps.build_train_step`` for
+    that rwkv6-7b on a one-rank mesh at batch 4 x 1024, with remat and
+    without: loss and gradients bit-equal to ``launch.train.train_step``'s
+    (remat off) on the same params and batch, wall time, peak memory and
+    WKV launches (8 forward + 4 backward with remat, 4 + 4 without), the
+    host syncs of a scheduled AdamW step and FunctionalAdamW update (0);
+    SmolLM-135M's built prefill and decode steps bit-equal to
+    ``model_forward`` and ``model_decode_step``;
+15. the dry run (``[dryrun]``): ``python -m repro_torch.launch.dryrun``
+    for smollm-135m x {train_4k, prefill_32k, decode_32k} and rwkv6-7b x
+    decode_32k on the 16x16 fake mesh, one process each, all started
+    together: each record's status, global FLOPs, rank 0's argument bytes,
+    collectives and trace seconds;
+16. one JSON line listing the kernels, then the card, then the result
     line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
@@ -330,6 +351,18 @@ WHISPER_GEN = {"batch": 8, "gen": 64}
 # the reduced configs on the card against the CPU (f32, TF32 off): the
 # CPU tests' tolerance against the reference
 ENCDEC_CPU_TOL = 1e-4
+# the [ckpt] phase: rwkv6-7b cut to RWKV_LAYERS layers and SmolLM-135M
+# whole, each trained through launch.train for 2 steps at batch 4 x 1024
+# with a checkpoint, restored into a fresh model on the card; the [steps]
+# phase: the built train step at that batch (an InputShape of its own:
+# train_4k's 256 x 4096 does not fit one card), the built prefill at
+# batch 4 x 1024 and 8 built decode steps; the [dryrun] phase's four
+# combinations, one process each, all started together
+CKPT_TRAIN = {"steps": 2, "batch": 4, "seq": 1024}
+STEPS_SEQ, STEPS_BATCH = 1024, 4
+STEPS_DECODE = 8
+DRYRUN = (("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
+          ("smollm-135m", "decode_32k"), ("rwkv6-7b", "decode_32k"))
 # the fleet engines (client_axis="vmap") fold their 4 clients into each
 # kernel's batch. The split LM's vmap step holds all 4 clients'
 # activations at once; it runs at lm_spec's batch 8, its server loss over
@@ -3708,6 +3741,369 @@ def run_encdec_path(api) -> dict:
     return out
 
 
+def ckpt_round_trip(cfg, dev, tmp: str) -> dict:
+    """``cfg`` trained through ``launch.train.train(ckpt=)``, its file read
+    back into a fresh model on the card: the file's size, a second save of
+    the same tree timed (its bytes equal to the trainer's file), the
+    restore timed, the parameters and one forward's logits bit-equal to the
+    trained model's; the WKV launches over the training run."""
+    import filecmp
+    import gc
+
+    from repro_torch.checkpoint import (checkpoint_meta, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.checkpoint.ckpt import (tree_flatten_with_paths,
+                                             tree_unflatten_like)
+    from repro_torch.convert import model_from_reference, model_to_reference
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import (Model, build_groups,
+                                                default_cut_layer,
+                                                model_forward)
+    path = os.path.join(tmp, f"{cfg.name}.msgpack")
+    trained = []
+    rwkv6_scan.launches = rwkv6_scan_bwd.launches = 0
+    losses = train(cfg, **CKPT_TRAIN, lr=3e-4, client_fraction=0.15,
+                   device=dev, log_every=1, ckpt=path, model_out=trained,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    launches = {"rwkv6_scan": rwkv6_scan.launches,
+                "rwkv6_scan_bwd": rwkv6_scan_bwd.launches}
+    model = trained[0]
+    meta = checkpoint_meta(path)
+    if meta != {"arch": cfg.name, "steps": CKPT_TRAIN["steps"],
+                "loss": losses[-1]} or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ckpt {cfg.name}: meta {meta}, losses {losses}")
+    size = os.path.getsize(path)
+    again = path + ".again"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    save_checkpoint(again, model_to_reference(model, cfg), meta=meta)
+    save_s = time.perf_counter() - t0
+    save_extra = torch.cuda.max_memory_allocated() - before
+    same_bytes = filecmp.cmp(path, again, shallow=False)
+    os.remove(again)
+    cut = default_cut_layer(cfg, 0.15)
+    with torch.device("meta"):
+        like = model_to_reference(Model(cfg, build_groups(cfg, cut_layer=cut)),
+                                  cfg)
+    to_card = tree_unflatten_like(like, {k: dev for k in
+                                         tree_flatten_with_paths(like)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = restore_checkpoint(path, like, shardings=to_card)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    fresh = model_from_reference(tree, cfg, cut)
+    want, got = model.state_dict(), fresh.state_dict()
+    params_equal = want.keys() == got.keys() and all(
+        torch.equal(want[k], got[k]) for k in want)
+    tokens = torch.randint(0, cfg.vocab, (CKPT_TRAIN["batch"],
+                                          CKPT_TRAIN["seq"]), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        a, _ = model_forward(cfg, model, {"tokens": tokens}, cut_layer=cut)
+        b, _ = model_forward(cfg, fresh, {"tokens": tokens}, cut_layer=cut)
+    logits_equal = torch.equal(a, b)
+    mib = size / 2 ** 20
+    print(f"[ckpt] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{sum(t.numel() for t in want.values())} parameters): losses "
+          f"{losses}; file {size} bytes ({mib:.1f} MiB, {len(want)} port "
+          f"leaves); save {save_s:.3f} s ({mib / save_s:.1f} MiB/s, the "
+          f"card's tensors copied to the host row by row; the card's "
+          f"peak {save_extra} bytes above its allocation before), restore "
+          f"{restore_s:.3f} s ({mib / restore_s:.1f} MiB/s, each leaf read "
+          f"into a buffer and copied to the card before the next); a "
+          f"second save's bytes == the trainer's file: {same_bytes}; "
+          f"params bit-equal {params_equal}; "
+          f"logits bit-equal {logits_equal}; WKV launches over the 2 steps "
+          f"{launches}")
+    # the save streams rows to the host: at most one row's copy on the card
+    row_bytes = max(t.numel() * t.element_size() for t in want.values())
+    if not (same_bytes and params_equal and logits_equal
+            and save_extra <= row_bytes):
+        raise AssertionError(f"ckpt {cfg.name}: bytes {same_bytes}, params "
+                             f"{params_equal}, logits {logits_equal}, the "
+                             f"save's peak {save_extra} above the card's "
+                             f"allocation (at most {row_bytes})")
+    del model, fresh, tree, trained, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"size": size, "save_s": save_s, "restore_s": restore_s,
+            "save_extra": save_extra, "launches": launches}
+
+
+def run_ckpt_path() -> dict:
+    """The ``[ckpt]`` phase: rwkv6-7b at full width cut to RWKV_LAYERS
+    layers (on the WKV kernels: 4 forward and 4 backward launches a step),
+    then SmolLM-135M whole, each through ``ckpt_round_trip``; the files in
+    a temporary directory, removed after."""
+    import tempfile
+
+    from repro_torch.configs import rwkv6_7b, smollm_135m
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        rwkv = ckpt_round_trip(dataclasses.replace(
+            rwkv6_7b, n_layers=RWKV_LAYERS), dev, tmp)
+        want = RWKV_LAYERS * CKPT_TRAIN["steps"]
+        if set(rwkv["launches"].values()) != {want}:
+            raise AssertionError(f"ckpt: rwkv6-7b launched the WKV kernels "
+                                 f"{rwkv['launches']}, want {want} each")
+        stamp("ckpt rwkv6-7b")
+        lm = ckpt_round_trip(smollm_135m, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"rwkv": rwkv, "lm": lm}
+
+
+def _zero_opt_state(params: dict, dev):
+    from repro_torch.optim import OptState
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                    mu={k: torch.zeros_like(v, dtype=torch.float32)
+                        for k, v in params.items()},
+                    nu={k: torch.zeros_like(v, dtype=torch.float32)
+                        for k, v in params.items()})
+
+
+def steps_train_path(dev) -> dict:
+    """``launch.steps.build_train_step`` for rwkv6-7b cut to RWKV_LAYERS
+    layers on a one-rank mesh (every spec replicated) at batch
+    STEPS_BATCH x STEPS_SEQ, with remat and without: each step's loss and
+    gradients against ``launch.train.train_step``'s (remat off) on the
+    same params and batch, its wall time (a warm call first), peak memory
+    and WKV launches; then the host syncs of a scheduled AdamW step and a
+    scheduled FunctionalAdamW update."""
+    import gc
+
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels.rwkv.scan import rwkv6_scan, rwkv6_scan_bwd
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import train_step
+    from repro_torch.models.transformer import model_init
+    from repro_torch.obs.timeline import count_host_syncs
+    from repro_torch.optim import AdamW, FunctionalAdamW, warmup_cosine
+    cfg = dataclasses.replace(rwkv6_7b, n_layers=RWKV_LAYERS)
+    shape = InputShape("train_steps", STEPS_SEQ, STEPS_BATCH, "train")
+    mesh = abstract_mesh((1, 1), ("data", "model"))
+    built = {remat: build_train_step(cfg, shape, mesh, remat=remat)
+             for remat in (True, False)}
+    cut = built[True].meta["cut_layer"]
+    model = model_init(cfg, torch.Generator(device=dev).manual_seed(3),
+                       cut_layer=cut)
+    tokens = torch.randint(0, cfg.vocab, (STEPS_BATCH, STEPS_SEQ),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(4))
+    batch = {"tokens": tokens, "labels": tokens}
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    out, grads_remat = {}, {}
+    for remat in (True, False):
+        fn = built[remat].fn
+        fn(params, _zero_opt_state(params, dev), batch)          # warm
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st = _zero_opt_state(params, dev)
+        grads = {}
+        rwkv6_scan.launches = rwkv6_scan_bwd.launches = 0
+        t0 = time.perf_counter()
+        new_p, new_st, metrics = fn(params, st, batch, grads_out=grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[remat] = {"wall": wall, "peak": torch.cuda.max_memory_allocated(),
+                      "launches": {"rwkv6_scan": rwkv6_scan.launches,
+                                   "rwkv6_scan_bwd": rwkv6_scan_bwd.launches},
+                      "loss": metrics["loss"]}
+        if remat:
+            grads_remat = grads
+        else:
+            out["remat_diff"] = max(float((grads[k].float() - g.float())
+                                          .abs().max())
+                                    for k, g in grads_remat.items())
+        del new_p, new_st, st, grads, metrics
+    want_launches = {True: {"rwkv6_scan": 2 * RWKV_LAYERS,
+                            "rwkv6_scan_bwd": RWKV_LAYERS},
+                     False: {"rwkv6_scan": RWKV_LAYERS,
+                             "rwkv6_scan_bwd": RWKV_LAYERS}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_grads = []
+    opt = AdamW(model.parameters(), 1e-4, weight_decay=0.01)
+    loss, _, _ = train_step(cfg, model, opt, batch, cut_layer=cut,
+                            grads_out=want_grads)
+    diffs = {k: float((grads_remat[k].float() - g.float()).abs().max())
+             for (k, _), g in zip(model.named_parameters(), want_grads)}
+    loss_equal = torch.equal(out[True]["loss"], loss)
+    grads_equal = all(torch.equal(grads_remat[k], g) for (k, _), g in
+                      zip(model.named_parameters(), want_grads))
+    del grads_remat, want_grads
+    # a scheduled AdamW step and FunctionalAdamW update: no host sync
+    sched = AdamW(model.parameters(), warmup_cosine(3e-4, 2, 10),
+                  weight_decay=0.01)
+    sched.step()                          # makes its scalars and moments
+    torch.cuda.synchronize()
+    _, syncs = count_host_syncs(sched.step)
+    sub = dict(list(params.items())[:6])
+    fopt = FunctionalAdamW(warmup_cosine(3e-4, 2, 10), weight_decay=0.01)
+    fst = fopt.init(sub)
+    g_sub = {k: torch.ones_like(v) for k, v in sub.items()}
+    _, fst = fopt.update(g_sub, fst, sub)
+    torch.cuda.synchronize()
+    _, fsyncs = count_host_syncs(lambda: fopt.update(g_sub, fst, sub))
+    torch.cuda.synchronize()
+    for remat in (True, False):
+        r = out[remat]
+        print(f"[steps] {cfg.name} ({cfg.n_layers} layers) built train "
+              f"step, remat {remat}, batch {STEPS_BATCH} x {STEPS_SEQ} on a "
+              f"one-rank mesh: loss {float(r['loss']):.6f}, wall "
+              f"{r['wall']:.4f} s, peak {r['peak'] / 2 ** 30:.2f} GiB "
+              f"({r['peak']} bytes), WKV launches {r['launches']} (want "
+              f"{want_launches[remat]})")
+    print(f"[steps] built step (remat) vs launch.train.train_step (remat "
+          f"off) on the same params and batch: loss bit-equal {loss_equal} "
+          f"({float(out[True]['loss'])!r} vs {float(loss)!r}), gradients "
+          f"bit-equal {grads_equal} (max abs diff {max(diffs.values())}); "
+          f"remat on vs off max abs grad diff {out['remat_diff']}; host "
+          f"syncs of a scheduled AdamW step {syncs}, of a scheduled "
+          f"FunctionalAdamW update {fsyncs}")
+    bad = [remat for remat in (True, False)
+           if out[remat]["launches"] != want_launches[remat]]
+    if bad or not (loss_equal and grads_equal) or syncs or fsyncs:
+        raise AssertionError(f"steps: launches off for remat {bad}, loss "
+                             f"{loss_equal}, grads {grads_equal} "
+                             f"({sorted(diffs.items(), key=lambda kv: -kv[1])[:4]}"
+                             f"), syncs {syncs}/{fsyncs}")
+    del model, opt, sched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_serve_path(dev) -> dict:
+    """``build_prefill_step`` and ``build_decode_step`` for SmolLM-135M on
+    the one-rank mesh against ``model_forward`` and ``model_decode_step``
+    on the same model: the logits bit-equal, prefill at batch
+    STEPS_BATCH x STEPS_SEQ, STEPS_DECODE decode steps from empty states."""
+    import gc
+
+    from repro_torch.configs import smollm_135m as cfg
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.transformer import (decode_state_init,
+                                                model_decode_step,
+                                                model_forward, model_init)
+    mesh = abstract_mesh((1, 1), ("data", "model"))
+    prefill = build_prefill_step(cfg, InputShape(
+        "prefill_steps", STEPS_SEQ, STEPS_BATCH, "prefill"), mesh)
+    decode = build_decode_step(cfg, InputShape(
+        "decode_steps", STEPS_SEQ, STEPS_BATCH, "decode"), mesh)
+    cut = prefill.meta["cut_layer"]
+    model = model_init(cfg, torch.Generator(device=dev).manual_seed(6),
+                       cut_layer=cut)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    tokens = torch.randint(0, cfg.vocab, (STEPS_BATCH, STEPS_SEQ),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    with torch.no_grad():
+        got = prefill.fn(params, {"tokens": tokens})
+        want, _ = model_forward(cfg, model, {"tokens": tokens},
+                                cut_layer=cut)
+        prefill_equal = torch.equal(got, want)
+        states = [decode_state_init(cfg, STEPS_BATCH, STEPS_SEQ, cut_layer=cut,
+                                    device=dev) for _ in range(2)]
+        decode_equal = True
+        for t in range(STEPS_DECODE):
+            a, states[0] = decode.fn(params, states[0], tokens[:, t:t + 1], t)
+            b, states[1] = model_decode_step(cfg, model, states[1],
+                                             tokens[:, t:t + 1], t,
+                                             cut_layer=cut)
+            decode_equal &= torch.equal(a, b)
+    print(f"[steps] {cfg.name} built prefill (batch {STEPS_BATCH} x "
+          f"{STEPS_SEQ}) == model_forward: {prefill_equal}; built decode "
+          f"{STEPS_DECODE} steps == model_decode_step: {decode_equal}")
+    if not (prefill_equal and decode_equal):
+        raise AssertionError("steps: a built serving step differs")
+    del model, params, states, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_equal": prefill_equal, "decode_equal": decode_equal}
+
+
+def run_steps_path() -> dict:
+    """The ``[steps]`` phase: ``steps_train_path``, ``steps_serve_path``."""
+    dev = torch.device("cuda")
+    out = {"train": steps_train_path(dev)}
+    stamp("steps train")
+    out["serve"] = steps_serve_path(dev)
+    return out
+
+
+def run_dryrun_path() -> dict:
+    """The ``[dryrun]`` phase: ``python -m repro_torch.launch.dryrun`` for
+    each combination of DRYRUN, one process each, all started together
+    (the dry run starts a fake process group of its own), writing to a
+    temporary directory; each record's status, global FLOPs, rank 0's
+    argument bytes, collectives, the ops resharded or run on an added
+    rule and the retries' own collectives, and trace seconds. A process
+    that exits non-zero, or a record not ``ok``, fails the phase."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = []
+    try:
+        for arch, shape in DRYRUN:
+            procs.append(((arch, shape), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--outdir", tmp], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        recs = {}
+        for (arch, shape), proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun {arch} x {shape} exited "
+                                     f"{proc.returncode}: {out[-2000:]} "
+                                     f"{err[-2000:]}")
+            with open(os.path.join(tmp, f"{arch}__{shape}__pod16x16.json")) \
+                    as f:
+                rec = json.load(f)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun {arch} x {shape}: {rec}")
+            coll = {k: v for k, v in rec["collectives"].items()
+                    if k != "total_bytes" and v["count"]}
+            print(f"[dryrun] {arch} x {shape} on pod16x16: {rec['status']}, "
+                  f"flops_global {rec['flops_global']:.6e}, argument bytes "
+                  f"rank 0 {rec['argument_bytes_rank0']}, output bytes rank 0 "
+                  f"{rec['output_bytes_rank0']}, collectives {coll} (total "
+                  f"{rec['collectives']['total_bytes']} bytes), resharded "
+                  f"{rec['resharded']} (their collectives "
+                  f"{rec['collectives_resharded']['total_bytes']} bytes), "
+                  f"rules added {rec['rules_added']}, trace "
+                  f"{rec['trace_s']} s, bodies "
+                  f"{[(b['kind'], b['count'], b['flops_global']) for b in rec['bodies']]}"
+                  f", arguments fit {rec['fits']['card']} "
+                  f"({rec['fits']['card_from']}): "
+                  f"{rec['fits']['arguments_fit']}")
+            recs[(arch, shape)] = rec
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"[dryrun] {len(DRYRUN)} combinations in {wall:.1f} s (one process "
+          f"each, started together)")
+    return {"recs": recs, "wall": wall}
+
+
 def demangle(names):
     """C++ names as ``c++filt`` prints them, or as they are without it."""
     tool = shutil.which("c++filt")
@@ -3923,6 +4319,26 @@ def main() -> int:
     stamp("moe path")
     encdec = run_encdec_path(api)
     stamp("encdec path")
+    ckpt = run_ckpt_path()
+    stamp("ckpt path")
+    steps = run_steps_path()
+    stamp("steps path")
+    dry = run_dryrun_path()
+    stamp("dryrun path")
+    print(f"[paths] ckpt: rwkv6-7b {RWKV_LAYERS} layers "
+          f"{ckpt['rwkv']['size']} bytes, save/restore "
+          f"{ckpt['rwkv']['save_s']:.3f}/{ckpt['rwkv']['restore_s']:.3f} s, "
+          f"WKV launches {ckpt['rwkv']['launches']}; smollm-135m "
+          f"{ckpt['lm']['size']} bytes, save/restore "
+          f"{ckpt['lm']['save_s']:.3f}/{ckpt['lm']['restore_s']:.3f} s; "
+          f"steps: rwkv6-7b train step remat on/off "
+          f"{steps['train'][True]['wall']:.4f}/"
+          f"{steps['train'][False]['wall']:.4f} s, peak "
+          f"{steps['train'][True]['peak'] / 2 ** 30:.2f}/"
+          f"{steps['train'][False]['peak'] / 2 ** 30:.2f} GiB, WKV launches "
+          f"{steps['train'][True]['launches']}/"
+          f"{steps['train'][False]['launches']}; dryrun "
+          f"{len(dry['recs'])} combinations ok in {dry['wall']:.1f} s")
     print(f"[paths] encdec: flash at D 144..256 max_abs_err "
           f"{encdec['flash_err']}; pixtral {FLASH_PIXTRAL} f32 causal "
           f"{encdec['flash_timing']['ms']:.6f} ms (bound "
@@ -3999,9 +4415,10 @@ def main() -> int:
     # runs with taps, and the [shard_map] phase's MobileNetV2 sl/shard_map
     # and SmolLM sl/shard_map runs; the flash kernel's with the latter's),
     # both with the [encdec] pixtral split LM's run added; over the RWKV
-    # path's 3 steps and the [serve] phase's rwkv6-7b generation
-    # (rwkv6_scan) for the WKV kernels, over all the paths for the
-    # wire-format pair
+    # path's 3 steps, the [serve] phase's rwkv6-7b generation
+    # (rwkv6_scan), the [ckpt] phase's 2 training steps and the [steps]
+    # phase's two built steps (remat on and off) for the WKV kernels, over
+    # all the paths for the wire-format pair
     wire = [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/quant_int8.cu",
              "replaces": f"src/repro/kernels/quant/int8.py:{line}",
@@ -4043,7 +4460,11 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/rwkv6_scan.cu",
                 "replaces": "src/repro/kernels/rwkv/scan.py:28",
                 "launches": (rwkv_launches["rwkv6_scan"]
-                             + serve_launches["rwkv6_scan"]),
+                             + serve_launches["rwkv6_scan"]
+                             + ckpt["rwkv"]["launches"]["rwkv6_scan"]
+                             + steps["train"][True]["launches"]["rwkv6_scan"]
+                             + steps["train"][False]["launches"][
+                                 "rwkv6_scan"]),
                 "max_abs_err": max(wkv_err, wkv_state_err),
                 "ms": wkv_timing["ms"], "plain_ms": wkv_timing["plain_ms"],
                 "bound_ms": wkv_timing["bound_ms"],
@@ -4053,7 +4474,12 @@ def main() -> int:
                 # the reference's gradient: JAX's autodiff of this oracle's
                 # lax.scan (its Pallas kernel has no backward)
                 "replaces": "src/repro/kernels/rwkv/ref.py:9",
-                "launches": rwkv_launches["rwkv6_scan_bwd"],
+                "launches": (rwkv_launches["rwkv6_scan_bwd"]
+                             + ckpt["rwkv"]["launches"]["rwkv6_scan_bwd"]
+                             + steps["train"][True]["launches"][
+                                 "rwkv6_scan_bwd"]
+                             + steps["train"][False]["launches"][
+                                 "rwkv6_scan_bwd"]),
                 "max_abs_err": max(wkv_bwd_err, wkv_state_bwd_err),
                 "ms": wkv_bwd_timing["ms"],
                 "plain_ms": wkv_bwd_timing["plain_ms"],

@@ -978,12 +978,18 @@ def _validate_transformer(spec: ExperimentSpec):
                          "fleet_server_pspecs through _compile_sl_stack to "
                          "lift this)")
     if arch.ssm_kind or arch.attn_period:
-        # the reference's lm_split_program builds "attn" groups of any arch
-        # (repro/fleet/hetero.py:225), an enc-dec one's decoder width
-        # included; a recurrent or hybrid stack trains through
-        # repro_torch.launch.train
-        _not_in_slice(f"a split-LM plan of the {arch.name} stack "
-                      f"({arch.family})", "item 17")
+        # the reference's lm_split_program builds "attn" groups whatever
+        # the arch (repro/fleet/hetero.py:225): for a recurrent stack, with
+        # no attention heads, its attention divides by zero heads
+        # (repro/models/attention.py:80, ZeroDivisionError) and its plan
+        # cannot run, so there is nothing to port; a hybrid stack is an MoE
+        # one, refused above. Such a stack trains through launch.train.
+        raise ValueError(
+            f"a split-LM plan of the {arch.name} stack ({arch.family}, "
+            f"{arch.n_heads} attention heads) is not a plan the reference "
+            f"runs: it builds attention groups of any arch and fails on "
+            f"this one (ZeroDivisionError, zero heads); train it with "
+            f"launch.train")
 
 
 def _validate(spec: ExperimentSpec):

@@ -4,7 +4,9 @@ CNNs: ``from_reference``. The split LM: ``lm_from_reference``. The whole
 transformer model of ``models.transformer`` (the trainer's and the
 server's): ``model_from_reference``; its decode state:
 ``decode_state_from_reference``; one layer's tree (an MoE FFN, a Mamba
-mixer, ...): ``module_from_reference``.
+mixer, ...): ``module_from_reference``. The way back, the port's model as
+the reference's ``model_init`` tree (what a checkpoint of it holds):
+``model_to_reference``.
 
 ``from_reference`` takes ``Plan.params0`` of a ``repro`` CNN plan as numpy
 (one nested dict per stage, e.g. ``jax.tree_util.tree_map(np.asarray,
@@ -66,7 +68,11 @@ def from_reference(stages_params, model_name: str) -> list[dict]:
 
 
 def _leaf(a) -> torch.Tensor:
-    """A reference leaf as a torch tensor of the same dtype (bf16 kept)."""
+    """A reference leaf as a torch tensor of the same dtype (bf16 kept); a
+    torch tensor (``checkpoint.restore_checkpoint``'s) as it is, where it
+    is."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == _BF16_NAME:
         return torch.from_numpy(np.array(a.view(np.int16),
@@ -109,6 +115,12 @@ def lm_from_reference(params_c0, params_s0, cfg) -> tuple[dict, dict]:
     return port
 
 
+def _rows(a):
+    """A stacked leaf's rows along its leading axis: numpy rows, or views
+    of a torch tensor (on its device)."""
+    return a.unbind(0) if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def _layer_leaves(path: str, row):
     """One layer's leaf -> (port path, tensor) pairs. The MoE's shared
     experts are stacked on a leading ``n_shared`` axis in the reference
@@ -119,7 +131,7 @@ def _layer_leaves(path: str, row):
         yield path, _leaf(row)
         return
     i = parts.index("shared") + 1
-    for j, expert in enumerate(np.asarray(row)):
+    for j, expert in enumerate(_rows(row)):
         yield ".".join(parts[:i] + [str(j)] + parts[i:]), _leaf(expert)
 
 
@@ -157,7 +169,9 @@ def model_from_reference(params, cfg, cut_layer=None):
     """The reference's ``model_init(cfg, key, cut_layer=cut_layer)`` tree,
     as numpy (``{"embed": {"table"}, "final_norm", "groups": [one tree per
     group, every leaf stacked on a leading layer axis], "head"}`` with the
-    head only when the embedding is not tied) -> the port's
+    head only when the embedding is not tied; or that tree of torch
+    tensors, as ``checkpoint.restore_checkpoint`` gives it, whose rows stay
+    where they are) -> the port's
     ``models.transformer.Model``, each leaf in its own dtype (bf16 kept;
     the MoE router's f32), the layers unstacked into
     ``groups.{g}.{layer}.<path>`` (a jamba super-block's sub-layers
@@ -172,7 +186,7 @@ def model_from_reference(params, cfg, cut_layer=None):
         if key == "groups":
             for gi, group in enumerate(tree):
                 for path, a in _flatten(group):
-                    for li, row in enumerate(np.asarray(a)):
+                    for li, row in enumerate(_rows(a)):
                         for port_path, leaf in _layer_leaves(path, row):
                             flat[f"groups.{gi}.{li}.{port_path}"] = leaf
         else:
@@ -192,3 +206,71 @@ def decode_state_from_reference(state) -> list[dict]:
     ``k``, ``v``, ``ck``, ``cv``; an ``enc`` group's empty dict). The
     layouts are the same, so nothing is reshuffled."""
     return [{key: _leaf(a) for key, a in group.items()} for group in state]
+
+
+def reference_path(name: str) -> tuple[tuple, tuple]:
+    """A parameter name of the port's ``Model`` -> (the reference's path
+    to its leaf, the indices on the leaf's leading stacked axes): ``()``
+    outside the groups, ``(layer,)`` in a group, ``(layer, j)`` for a
+    shared expert's. ``groups.1.3.moe.shared.0.gate.w`` ->
+    ``(("groups", "1", "moe", "shared", "gate", "w"), (3, 0))``; the
+    mapping ``model_from_reference`` inverts."""
+    parts = name.split(".")
+    if parts[0] != "groups":
+        return tuple(parts), ()
+    g, layer, rest = parts[1], int(parts[2]), parts[3:]
+    if "shared" not in rest:
+        return ("groups", g, *rest), (layer,)
+    i = rest.index("shared") + 1
+    return ("groups", g, *rest[:i], *rest[i + 1:]), (layer, int(rest[i]))
+
+
+def _stack_rows(rows: dict):
+    """{index tuple: tensor} -> the leaf stacked on the leading axes, as a
+    ``checkpoint.ckpt.Stacked`` of the rows (no stacked copy is made)."""
+    from .checkpoint.ckpt import Stacked
+    if () in rows:
+        return rows[()]
+    firsts = sorted({idx[0] for idx in rows})
+    return Stacked([_stack_rows({idx[1:]: t for idx, t in rows.items()
+                                 if idx[0] == i}) for i in firsts])
+
+
+def model_to_reference(model, cfg) -> dict:
+    """The port's ``models.transformer.Model`` of ``cfg`` -> the tree of
+    the reference's ``model_init(cfg, key, cut_layer=...)``: ``{"embed":
+    {"table"}, "final_norm", "groups": [one tree per group, every leaf
+    stacked on a leading layer axis], "head"}`` (the head when the
+    embedding is not tied, ``enc_norm`` for an enc-dec config), the shared
+    experts re-stacked on their own axis, each leaf of the parameter's own
+    dtype (bf16 kept) on the model's device: a detached tensor, or a
+    stacked one as a ``checkpoint.ckpt.Stacked`` of its rows, which
+    ``save_checkpoint`` writes row by row from the device (no second copy
+    of the parameters is made; ``.stack()`` makes one). A model on the meta
+    device gives the tree's shapes without drawing weights (the ``like`` of
+    ``checkpoint.restore_checkpoint``). ``cfg`` must be the model's config:
+    its group plan is checked."""
+    from .models.transformer import build_groups
+
+    def layers(specs):
+        out: dict = {}
+        for g in specs:
+            out[g.kind] = out.get(g.kind, 0) + g.count
+        return out
+    if layers(model.specs) != layers(build_groups(cfg)):
+        raise ValueError(f"the model's groups {model.specs} are not "
+                         f"{cfg.name}'s")
+    rows: dict = {}
+    for name, t in model.state_dict().items():
+        path, idx = reference_path(name)
+        rows.setdefault(path, {})[idx] = t.detach()
+    tree: dict = {}
+    for path, got in rows.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _stack_rows(got)
+    if "groups" in tree:
+        tree["groups"] = [tree["groups"][str(i)]
+                          for i in range(len(tree["groups"]))]
+    return tree

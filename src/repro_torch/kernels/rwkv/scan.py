@@ -121,9 +121,12 @@ def _check_state(a, name: str, shape, device):
 
 
 def _device(r, name):
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on CUDA (kernel) or CPU (plain "
-                         f"version), not on {r.device}")
+    """True for the kernel (a CUDA tensor), False for the plain version (a
+    CPU tensor, or a meta one, which carries shapes alone: the dry run's
+    DTensors hold meta shards)."""
+    if r.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"{name} runs on CUDA (kernel) or CPU and meta "
+                         f"(plain version), not on {r.device}")
     return r.device.type == "cuda"
 
 

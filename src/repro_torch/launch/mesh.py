@@ -13,6 +13,16 @@ card tensors never travel through gloo. ``single_device_fleet_mesh`` is the
 single-rank mesh with no group: every collective is the identity (the
 reference's "collectives become no-ops").
 
+``make_production_mesh`` is the reference's 16x16 ``('data', 'model')`` (or
+2x16x16 ``('pod', 'data', 'model')``) mesh with no device behind it: a
+``DeviceMesh`` over ``torch.distributed``'s ``"fake"`` backend, whose
+collectives do nothing, the counterpart of the reference's 512 forced host
+devices. It starts a default process group of 256 (512) ranks, this
+process rank 0, so it runs only in a process of its own (the dry run's),
+never beside a fleet mesh or inside a test runner's process; both
+meshes are ranks of one 512-rank group.
+``abstract_mesh`` is a mesh's shape alone, for specs.
+
 ``run_ranks`` is the counterpart of the reference's forced host devices
 (``make_host_mesh`` over ``--xla_force_host_platform_device_count``): it
 runs a callable on R local processes (``torch.multiprocessing``, spawn), a
@@ -171,6 +181,10 @@ def _rank_main(rank: int, world: int, store_path: str, out_dir: str,
             backend, store=store, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
+            # every rank's connections made before any rank runs ``fn``: a
+            # rank that fails at once and exits must not cut a slower
+            # rank's set-up short, which would then report its own error
+            dist.barrier()
             out = fn(*args)
         finally:
             dist.destroy_process_group()
@@ -231,3 +245,39 @@ def run_ranks(fn: Callable, nranks: int, store_dir: str, *, args=(),
                 p.kill()
                 p.join()
     return torch.load(os.path.join(run_dir, "result.pt"), weights_only=False)
+
+
+def abstract_mesh(shape: tuple, axes: tuple):
+    """A device-free mesh of ``shape`` over ``axes`` (the reference's
+    ``abstract_mesh``): sizes and names for the spec builders, no group."""
+    from ..parallel.sharding import AbstractMesh
+    return AbstractMesh(tuple(shape), tuple(axes))
+
+
+def fake_mesh(shape: tuple, axes: tuple, *, world: Optional[int] = None):
+    """A ``DeviceMesh`` of ``shape`` over ``axes`` on the ``"fake"`` backend
+    (``torch.testing._internal.distributed.fake_pg``): its collectives
+    return at once and move nothing. The mesh is ranks 0 .. prod(shape) - 1
+    of the default process group, which it starts with ``world`` ranks
+    (default prod(shape)), this process rank 0, unless one is up."""
+    import math
+    from torch.distributed.device_mesh import DeviceMesh
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world or n)
+    if dist.get_world_size() < n:
+        raise ValueError(f"a process group of {dist.get_world_size()} ranks "
+                         f"is up; a {shape} mesh needs {n}")
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 single pod (256 ranks) or 2x16x16 (512 ranks, 2 pods), on the
+    fake backend (``fake_mesh``) of a 512-rank group, so both meshes come
+    from one process's group."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return fake_mesh(shape, axes, world=512)

@@ -20,9 +20,15 @@ differs from the reference:
   the tokens;
 - each step's window is fenced with ``torch.cuda.synchronize()``;
 - energy is billed at the card's power limit (``cuda_hardware_profile``),
-  not at the reference's TPU v5e profile; a CPU run names its profile;
-- ``--ckpt`` is refused: checkpoints are not ported (ROADMAP queue 1 item
-  17).
+  not at the reference's TPU v5e profile; a CPU run names its profile.
+
+``--ckpt PATH`` (``train(ckpt=)``) saves the trained parameters after the
+last step as the reference does: the reference's ``model_init`` tree
+(``convert.model_to_reference``) with the meta ``{"arch", "steps",
+"loss"}``, in its msgpack format (``checkpoint.save_checkpoint``), so
+``repro.checkpoint.restore_checkpoint`` reads the file into its
+``model_init`` tree and ``convert.model_from_reference`` of the restored
+tree gives the port's model back.
 
 Memory (bf16 weights and gradients and f32 AdamW moments: 12 bytes a
 parameter; arithmetic from the configs, not a measurement):
@@ -64,8 +70,10 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import save_checkpoint
 from ..configs import ARCHS
 from ..configs.base import ArchConfig
+from ..convert import model_to_reference
 from ..core.energy import EnergyTracker, HardwareProfile
 from ..obs.timeline import fenced
 from ..data.synthetic import synthetic_tokens
@@ -95,13 +103,17 @@ def cuda_hardware_profile(device=None) -> HardwareProfile:
 
 
 def train_step(cfg: ArchConfig, model: Model, opt: AdamW, batch: dict, *,
-               cut_layer: int):
+               cut_layer: int, grads_out: list | None = None):
     """One step: the loss and its gradient, the global-norm clip at 1.0,
     then AdamW. Returns (loss, gnorm, {"ce", "aux"}) as detached 0-d
-    tensors on the model's device."""
+    tensors on the model's device. With ``grads_out`` (a list) a copy of
+    each parameter's gradient before the clip is appended to it, in
+    ``model.parameters()``'s order."""
     opt.zero_grad(set_to_none=True)
     loss, metrics = lm_loss(cfg, model, batch, cut_layer=cut_layer)
     loss.backward()
+    if grads_out is not None:
+        grads_out.extend(p.grad.clone() for p in model.parameters())
     gnorm = clip_by_global_norm([p.grad for p in model.parameters()], 1.0)
     opt.step()
     return (loss.detach(), gnorm,
@@ -130,12 +142,16 @@ def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
           seq: int = 128, lr: float = 3e-4, client_fraction: float = 0.15,
           device="cuda", generator: torch.Generator | None = None,
           log_every: int = 10,
-          hardware: HardwareProfile | None = None) -> list[float]:
+          hardware: HardwareProfile | None = None,
+          ckpt: str | None = None,
+          model_out: list | None = None) -> list[float]:
     """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` synthetic
     tokens and return the losses. The model is drawn from ``generator``
     (default: seed 0 on ``device``) on the generator's device and moved to
     ``device``. ``hardware`` is the energy profile; it defaults to the card
-    on CUDA and must be given on the CPU."""
+    on CUDA and must be given on the CPU. With ``ckpt`` the parameters are
+    saved there after the last step (the module docstring); with
+    ``model_out`` (a list) the trained model is appended to it."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train(device='cuda') needs a CUDA device; pass "
@@ -176,10 +192,19 @@ def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
           f" wall {tot.time_s:.1f}s energy~{tot.energy_j / 1e3:.2f}kJ "
           f"co2~{tot.co2_g:.3f}g (billed at {hardware.name}, "
           f"{hardware.power_w:g} W)")
+    if ckpt:
+        save_checkpoint(ckpt, model_to_reference(model, cfg),
+                        meta={"arch": cfg.name, "steps": steps,
+                              "loss": losses[-1]})
+        print(f"[train] checkpoint -> {ckpt}")
+    if model_out is not None:
+        model_out.append(model)
     return losses
 
 
-def main(argv=None):
+def main(argv=None, **overrides):
+    """The CLI; ``overrides`` go to ``train`` as they are (a caller's
+    ``device="cpu"`` and ``hardware=``, say)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--steps", type=int, default=50)
@@ -192,15 +217,13 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("checkpoints are not ported to repro_torch "
-                                  "yet (ROADMAP queue 1 item 17)")
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
-    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                 lr=args.lr, client_fraction=args.client_fraction,
-                 log_every=args.log_every)
+    kw = dict(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+              client_fraction=args.client_fraction,
+              log_every=args.log_every, ckpt=args.ckpt)
+    return train(cfg, **{**kw, **overrides})
 
 
 if __name__ == "__main__":

@@ -22,8 +22,16 @@ stacks each leaf on a leading layer axis and scans, the port keeps one
 layer module per layer in an ``nn.ModuleList`` and loops. Parameter names
 are the reference's pytree paths (``ln1.scale``, ``attn.wq.w``,
 ``xattn.wk.w``, ``mix.w_lora_a``, ``moe.w_gate``, ``sub0.mamba.A_log``,
-...) so ``repro_torch.convert`` maps one onto the other. The reference's
-``shard_act`` has no counterpart on one card.
+...) so ``repro_torch.convert`` maps one onto the other.
+
+``remat`` (``group_apply``, ``model_forward``, ``lm_loss``) recomputes each
+layer's body in the backward pass (``torch.utils.checkpoint``, not
+reentrant), the reference's ``jax.checkpoint`` of its scanned layer: only
+the residual stream between layers is kept. The reference's activation
+specs are kept at its five places (each layer's output, the embedding's,
+the decode step's embedding) through ``parallel.sharding.shard_act``,
+which redistributes a DTensor activation under a policy (the dry run's)
+and leaves a plain tensor as it is.
 """
 from __future__ import annotations
 
@@ -33,9 +41,11 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.attn.ops import attention
+from ..parallel.sharding import shard_act
 from . import modules as M
 from .attention import (chunked_causal_attention, decode_attention,
                         qkv_project, update_kv_cache)
@@ -319,25 +329,29 @@ def _ffn_block(cfg: ArchConfig, p, x: torch.Tensor, aux,
 
 def group_apply(cfg: ArchConfig, g: GroupSpec, layers, x: torch.Tensor, aux,
                 *, positions, window: Optional[int], enc_out=None,
-                attn_impl: str = "xla", moe_groups: int = 1):
+                attn_impl: str = "xla", moe_groups: int = 1,
+                remat: bool = False, act_spec=("dp", None, None)):
     """Full-sequence pass (train/prefill) over the group's layers.
     Returns (x, aux). RWKV layers start from the zero state: the time mix's
     new state is dropped, and the channel mix's ``x_prev`` is zero; so do
     a jamba block's Mamba sub-layers. An ``enc`` group attends both ways
     and rotates nothing (``positions`` unused); an ``xdec`` layer attends
     over ``enc_out`` (B, Senc, d) after its self-attention. ``moe_groups``
-    is the MoE FFNs' grouped dispatch (``moe_apply(n_groups=)``)."""
+    is the MoE FFNs' grouped dispatch (``moe_apply(n_groups=)``). With
+    ``remat`` each layer's body is recomputed in the backward pass; each
+    layer's output (a jamba block's sub-layers' each) goes through
+    ``shard_act(act_spec)``."""
     if g.kind not in LAYERS:
         raise ValueError(f"unknown layer group kind {g.kind!r}")
     if g.kind == "rwkv":
-        for layer in layers:
+        def body(layer, x, aux):
             mix, _ = rwkv6_apply(layer.mix, layer.ln1(x), head_size=cfg.hd)
             x = x + mix
             hf = layer.ln2(x)
             x = x + rwkv6_ffn_apply(layer.ffn, hf, torch.zeros_like(hf[:, 0]))
-        return x, aux
-    if g.kind == "jamba":
-        for block in layers:
+            return shard_act(x, act_spec), aux
+    elif g.kind == "jamba":
+        def body(block, x, aux):
             for sub in block.subs():
                 if sub.attn is not None:
                     x = _attn_block(cfg, sub, x, positions, window=window,
@@ -348,13 +362,23 @@ def group_apply(cfg: ArchConfig, g: GroupSpec, layers, x: torch.Tensor, aux,
                                         state_dim=cfg.ssm_state_dim,
                                         conv_width=cfg.ssm_conv_width)[0]
                 x, aux = _ffn_block(cfg, sub, x, aux, moe_groups)
-        return x, aux
-    for layer in layers:                             # attn, enc, xdec
-        x = _attn_block(cfg, layer, x, positions, window=window,
-                        causal=g.kind != "enc", attn_impl=attn_impl)
-        if g.kind == "xdec":
-            x = x + _x_cross(cfg, layer, x, enc_out)
-        x, aux = _ffn_block(cfg, layer, x, aux, moe_groups)
+                x = shard_act(x, act_spec)
+            return x, aux
+    else:                                            # attn, enc, xdec
+        def body(layer, x, aux):
+            x = _attn_block(cfg, layer, x, positions, window=window,
+                            causal=g.kind != "enc", attn_impl=attn_impl)
+            if g.kind == "xdec":
+                x = x + _x_cross(cfg, layer, x, enc_out)
+            x, aux = _ffn_block(cfg, layer, x, aux, moe_groups)
+            return shard_act(x, act_spec), aux
+    for layer in layers:
+        if remat:
+            # the model draws no random numbers: no RNG state to keep
+            x, aux = checkpoint(body, layer, x, aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = body(layer, x, aux)
     return x, aux
 
 
@@ -456,14 +480,17 @@ def _embed_inputs(cfg: ArchConfig, model: Model, batch: dict):
 
 def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
                   window="cfg", cut_layer: Optional[int] = None,
-                  moe_groups: int = 1):
+                  moe_groups: int = 1, remat: bool = False,
+                  seq_parallel_tiers: tuple = (), attn_impl: str = "xla"):
     """Full-sequence forward. Returns (logits (B, S, V_pad), aux: the MoE
     routers' auxiliary losses summed, f32); S counts the patch positions of
     a ``patch_embed`` config. The encoder groups run first, over the
     frames; ``enc_norm`` of the last one's output is what every ``xdec``
     group attends to. Attention takes the chunked plain path
-    (``attn_impl="xla"``), as the reference's ``model_forward`` does; RWKV
-    groups the WKV kernel."""
+    (``attn_impl="xla"``), as the reference's ``model_forward`` does
+    (``"ref"``, the O(S^2) oracle, is the dry run's); RWKV groups the WKV
+    kernel. A decoder group whose tier is in ``seq_parallel_tiers`` keeps
+    its activations split over ``tp`` on the sequence (``shard_act``)."""
     if window == "cfg":
         window = cfg.swa_window
     specs = build_groups(cfg, cut_layer=cut_layer)
@@ -471,19 +498,24 @@ def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
         raise ValueError(f"the model was built for groups {model.specs}, "
                          f"not {specs} (cut_layer={cut_layer})")
     x, positions, enc_x = _embed_inputs(cfg, model, batch)
+    x = shard_act(x, ("dp", None, None))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_enc = sum(g.kind == "enc" for g in specs)
     enc_out = None
     for i, (g, layers) in enumerate(zip(specs, model.groups)):
         if g.kind == "enc":
             enc_x, aux = group_apply(cfg, g, layers, enc_x, aux,
-                                     positions=None, window=None)
+                                     positions=None, window=None,
+                                     attn_impl=attn_impl, remat=remat)
             if i == n_enc - 1:
                 enc_out = model.enc_norm(enc_x)
         else:
+            act = (("dp", "tp", None) if g.tier in seq_parallel_tiers
+                   else ("dp", None, None))
             x, aux = group_apply(cfg, g, layers, x, aux, positions=positions,
                                  window=window, enc_out=enc_out,
-                                 moe_groups=moe_groups)
+                                 moe_groups=moe_groups, attn_impl=attn_impl,
+                                 remat=remat, act_spec=act)
     x = model.final_norm(x)
     logits = (model.embed.logits(x) if model.head is None
               else model.head(x))
@@ -491,13 +523,18 @@ def model_forward(cfg: ArchConfig, model: Model, batch: dict, *,
 
 
 def lm_loss(cfg: ArchConfig, model: Model, batch: dict, *, window="cfg",
-            cut_layer: Optional[int] = None, moe_groups: int = 1):
+            cut_layer: Optional[int] = None, moe_groups: int = 1,
+            remat: bool = False, seq_parallel_tiers: tuple = (),
+            attn_impl: str = "xla"):
     """Next-token cross entropy (+ ``router_aux_coef`` x the router aux):
     f32 log-softmax over the padded vocab, on the text positions only (a
     ``patch_embed`` config's first Np logits are skipped). Returns (loss,
     {"ce", "aux"})."""
     logits, aux = model_forward(cfg, model, batch, window=window,
-                                cut_layer=cut_layer, moe_groups=moe_groups)
+                                cut_layer=cut_layer, moe_groups=moe_groups,
+                                remat=remat,
+                                seq_parallel_tiers=seq_parallel_tiers,
+                                attn_impl=attn_impl)
     if cfg.frontend == "patch_embed":
         logits = logits[:, batch["patch_embeds"].shape[1]:]
     labels = batch["labels"].long()
@@ -695,7 +732,7 @@ def model_decode_step(cfg: ArchConfig, model: Model, state: list,
         raise ValueError(f"the model was built for groups {model.specs}, "
                          f"not {specs} (cut_layer={cut_layer})")
     pos = int(pos)
-    x = model.embed(token)
+    x = shard_act(model.embed(token), (None, None, "tp"))
     for g, layers, gs in zip(specs, model.groups, state):
         if g.kind != "enc":
             x = _group_decode(cfg, g, layers, gs, x, pos, window=window)

@@ -85,17 +85,20 @@ def time_fenced(fn: Callable[[], Any], repeats: int = 1) -> float:
 def count_host_syncs(fn: Callable[[], Any]) -> tuple[Any, int]:
     """``(out, n)``: ``fn()`` under ``torch.cuda.set_sync_debug_mode
     ("warn")``, ``n`` the synchronizing CUDA operations it ran (each one a
-    warning). On the card only."""
+    warning). Only the warnings raised while ``fn`` runs count: a process's
+    first switch of the mode can warn once itself. On the card only."""
     import warnings
     prev = torch.cuda.get_sync_debug_mode()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
+        start = len(caught)
         try:
             out = fn()
         finally:
+            ran = caught[start:]
             torch.cuda.set_sync_debug_mode(prev)
-    return out, sum("synchronizing" in str(w.message) for w in caught)
+    return out, sum("synchronizing" in str(w.message) for w in ran)
 
 
 class _NullSpan:

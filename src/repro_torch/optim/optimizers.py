@@ -10,6 +10,14 @@ numbers differ. This one repeats ``optimizers.py:79-98`` op for op, in f32:
 
 with one step counter per optimizer (the reference's ``OptState.step``).
 
+The learning rate is a float or a schedule (``constant_schedule``,
+``cosine_schedule``, ``warmup_cosine``, or any function of the f32 step
+count on the device that returns an f32 tensor there, the reference's
+``Schedule``): the schedules are the reference's ``optimizers.py:34-58``,
+evaluated on the device in f32 from the step count each optimizer already
+keeps there, in JAX's order of operations, so a scheduled step synchronizes
+with the card no more than a constant one does.
+
 The f32 scalars b1, b2 and lr are made on the device once (at an
 optimizer's first step on that device), and ``AdamW``'s f32 step count
 lives there, set each step by a fill (a kernel argument, not a copy), so a
@@ -34,11 +42,55 @@ keep their own count.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Callable, Optional, Union
 
 import torch
 
 from ..core.fedavg import stack_replicas
+
+
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def constant_schedule(v: float) -> Schedule:
+    """``v`` in f32, shaped as the step count."""
+    return lambda step: torch.full_like(step, v, dtype=torch.float32)
+
+
+def cosine_schedule(peak: float, total_steps: int, *,
+                    floor: float = 0.0) -> Schedule:
+    """``floor + (peak - floor) / 2 (1 + cos(pi frac))``, frac the step over
+    ``total_steps`` clipped to [0, 1]."""
+    def sched(step):
+        frac = torch.clamp(step / max(total_steps, 1), 0.0, 1.0)
+        return floor + 0.5 * (peak - floor) * (1 + torch.cos(math.pi * frac))
+    return sched
+
+
+def warmup_cosine(peak: float, warmup_steps: int, total_steps: int, *,
+                  floor: float = 0.0) -> Schedule:
+    """``peak * step / warmup_steps`` before ``warmup_steps``, then the cosine
+    from ``peak`` to ``floor`` over the remaining steps."""
+    def sched(step):
+        warm = peak * step / max(warmup_steps, 1)
+        frac = torch.clamp((step - warmup_steps)
+                           / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        cos = floor + 0.5 * (peak - floor) * (1 + torch.cos(math.pi * frac))
+        return torch.where(step < warmup_steps, warm, cos)
+    return sched
+
+
+def _scheduled_lr(lr, c: dict, step: torch.Tensor) -> torch.Tensor:
+    """The step's f32 lr on the device: the made-once scalar for a float
+    ``lr``, the schedule at ``step`` (the f32 step count) otherwise."""
+    return lr(step) if callable(lr) else c["lr"]
+
+
+def _scalars_of(lr, **values) -> dict:
+    """The device scalars an optimizer makes once: ``values``, and ``lr``
+    when it is a float."""
+    return values if callable(lr) else dict(values, lr=lr)
 
 
 def _adamw_leaf(p, g, mu, nu, b1c, b2c, *, b1, b2, eps, wd):
@@ -79,8 +131,8 @@ def _device_scalars(cache: dict, key, device, **values) -> dict:
 
 
 class AdamW(torch.optim.Optimizer):
-    def __init__(self, params, lr: float = 1e-3, *, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8,
+    def __init__(self, params, lr: Union[float, Schedule] = 1e-3, *,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.01):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
@@ -99,14 +151,15 @@ class AdamW(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            c = _device_scalars(self._scalars, i, params[0].device, b1=b1,
-                                b2=b2, lr=group["lr"], t=0.0)
+            c = _device_scalars(self._scalars, i, params[0].device,
+                                **_scalars_of(group["lr"], b1=b1, b2=b2,
+                                              t=0.0))
             # the step count, written on the device by a fill (a kernel
             # argument, not a copy from the host; exact in f32)
             tf = c["t"].fill_(float(group["t"]))
             b1c = 1 - c["b1"] ** tf
             b2c = 1 - c["b2"] ** tf
-            lr = c["lr"]
+            lr = _scheduled_lr(group["lr"], c, tf)
             for p in params:
                 st = self.state[p]
                 if not st:
@@ -136,8 +189,8 @@ class FunctionalAdamW:
     stacked state (step of shape (clients,)) every leaf's leading axis is
     the client axis and each row takes its own bias correction."""
 
-    def __init__(self, lr: float = 1e-3, *, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8,
+    def __init__(self, lr: Union[float, Schedule] = 1e-3, *,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.01):
         self.lr, self.b1, self.b2 = lr, b1, b2
         self.eps, self.weight_decay = eps, weight_decay
@@ -172,15 +225,17 @@ class FunctionalAdamW:
         b1, b2 = self.b1, self.b2
         eps, wd = self.eps, self.weight_decay
         t = state.step + 1
-        c = _device_scalars(self._scalars, 0, t.device, b1=b1, b2=b2,
-                            lr=self.lr)
+        c = _device_scalars(self._scalars, 0, t.device,
+                            **_scalars_of(self.lr, b1=b1, b2=b2))
         tf = t.float()
         b1c = 1 - c["b1"] ** tf
         b2c = 1 - c["b2"] ** tf
-        lr = c["lr"]
+        lr_t = _scheduled_lr(self.lr, c, tf)
         new_p, mu, nu = {}, {}, {}
         for k, p in params.items():
             shape = tuple(t.shape) + (1,) * (p.dim() - t.dim())
+            # a schedule of a stacked count gives each row its own lr
+            lr = lr_t.reshape(shape) if lr_t.dim() else lr_t
             mu[k], nu[k], delta = _adamw_leaf(
                 p, grads[k], state.mu[k], state.nu[k], b1c.reshape(shape),
                 b2c.reshape(shape), b1=b1, b2=b2, eps=eps, wd=wd)
@@ -201,20 +256,26 @@ class SGD(torch.optim.Optimizer):
     """Momentum SGD as the reference's ``sgd``: m = momentum*m + g, step
     ``-lr * (g + momentum*m if nesterov else m)``."""
 
-    def __init__(self, params, lr: float = 1e-2, *, momentum: float = 0.9,
-                 nesterov: bool = False):
+    def __init__(self, params, lr: Union[float, Schedule] = 1e-2, *,
+                 momentum: float = 0.9, nesterov: bool = False):
         super().__init__(params, dict(lr=lr, momentum=momentum,
                                       nesterov=nesterov))
+        self._scalars = {}
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("SGD.step takes no closure")
-        for group in self.param_groups:
-            mom = group["momentum"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
+        for i, group in enumerate(self.param_groups):
+            mom, lr = group["momentum"], group["lr"]
+            group["t"] = group.get("t", 0) + 1
+            params = [p for p in group["params"] if p.grad is not None]
+            if params and callable(lr):
+                # a schedule: the f32 step count filled on the device
+                c = _device_scalars(self._scalars, i, params[0].device,
+                                    t=0.0)
+                lr = lr(c["t"].fill_(float(group["t"])))
+            for p in params:
                 st = self.state[p]
                 if not st:
                     st["mu"] = torch.zeros_like(p, dtype=torch.float32)
@@ -222,7 +283,7 @@ class SGD(torch.optim.Optimizer):
                 m = mom * st["mu"] + g
                 d = g + mom * m if group["nesterov"] else m
                 st["mu"] = m
-                p.add_((-group["lr"] * d).to(p.dtype))
+                p.add_((-lr * d).to(p.dtype))
 
 
 @torch.no_grad()
@@ -242,11 +303,12 @@ def clip_by_global_norm(grads, max_norm: float):
     return gnorm
 
 
-def adamw(lr: float = 1e-3, **kw):
+def adamw(lr: Union[float, Schedule] = 1e-3, **kw):
     """Factory ``params -> AdamW`` (the reference's ``adamw(lr)`` builds an
-    (init, update) pair; here the optimizer binds to its params)."""
+    (init, update) pair; here the optimizer binds to its params). ``lr`` is
+    a float or a schedule."""
     return lambda params: AdamW(params, lr, **kw)
 
 
-def sgd(lr: float = 1e-2, **kw):
+def sgd(lr: Union[float, Schedule] = 1e-2, **kw):
     return lambda params: SGD(params, lr, **kw)

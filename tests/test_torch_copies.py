@@ -4,8 +4,9 @@ Energy, link and UAV models, partitioners, the deployment and tour planners,
 the host half of the runtime (its metrics in class counts against the
 reference's per-class loop), the record type, the spec layer, the
 scenario layer's mission rollout and spec dataclasses, the paper's
-FL/SL configurations (``core.paper_train``) and the ten architecture
-configs: the same inputs give equal outputs (exactly; these
+FL/SL configurations (``core.paper_train``), the ten architecture
+configs and ``data.pipeline.BatchIterator`` (the same batches for a seed):
+the same inputs give equal outputs (exactly; these
 are the same arithmetic).
 """
 import dataclasses
@@ -352,3 +353,21 @@ def test_obs_metrics_summaries_equal_the_references():
                 ref_m.MetricsConfig(taps=taps_sel), taps, losses=losses,
                 kind=kind, n=4, active=3)
             assert got == want
+
+
+def test_batch_iterator_is_the_references():
+    from repro.data.pipeline import BatchIterator as RefBatchIterator
+    from repro_torch.data.pipeline import BatchIterator
+    rng = np.random.RandomState(0)
+    arrays = (rng.standard_normal((23, 3)).astype(np.float32),
+              np.arange(23))
+    for drop_last in (True, False):
+        ref = RefBatchIterator(arrays, 5, seed=4, drop_last=drop_last)
+        port = BatchIterator(arrays, 5, seed=4, drop_last=drop_last)
+        assert port.steps_per_epoch() == ref.steps_per_epoch()
+        for _ in range(2):                           # two epochs
+            want, got = list(ref), list(port)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                for x, y in zip(a, b):
+                    np.testing.assert_array_equal(x, y)

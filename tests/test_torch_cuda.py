@@ -10,6 +10,7 @@ Elsewhere the ``cuda`` tests skip; the others run everywhere. Whether a card
 is present is decided inside the ``hopper`` fixture, never at import.
 """
 import copy
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -1032,6 +1033,129 @@ def test_taps_add_no_host_syncs_to_a_raw_round(hopper):
         assert len(out) == (3 if obs else 2)
     assert counts[0] == counts[1]
     assert launches == [2, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("functional", [False, True])
+def test_scheduled_adamw_makes_no_host_sync(hopper, functional):
+    """A step with a scheduled lr (``warmup_cosine``) evaluates the schedule
+    on the card from the step count there: no synchronizing CUDA
+    operation, as with a float lr; the counted step is the second (the
+    first makes the device scalars and moments)."""
+    from repro_torch.obs.timeline import count_host_syncs
+    from repro_torch.optim import AdamW, FunctionalAdamW, warmup_cosine
+    g = torch.Generator(device=hopper).manual_seed(0)
+    params = {k: torch.randn(s, device=hopper, generator=g)
+              for k, s in (("a", (64, 32)), ("b", (32,)))}
+    grads = {k: torch.randn_like(v) for k, v in params.items()}
+    sched = warmup_cosine(1e-2, 2, 8)
+    if functional:
+        opt = FunctionalAdamW(sched)
+        state = opt.init(params)
+        _, state = opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        _, n = count_host_syncs(lambda: opt.update(grads, state, params))
+    else:
+        leaves = [torch.nn.Parameter(v) for v in params.values()]
+        for p, gr in zip(leaves, grads.values()):
+            p.grad = gr
+        opt = AdamW(leaves, sched)
+        opt.step()
+        torch.cuda.synchronize()
+        _, n = count_host_syncs(opt.step)
+    assert n == 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(hopper, tmp_path):
+    """``launch.train.train(ckpt=)`` of the reduced rwkv6-7b on the card
+    (the WKV kernels: 2 forward and 2 backward launches a step), its file
+    restored onto the card into a fresh model: parameters and logits
+    bit-equal (``chip_smoke.py``'s ``[ckpt]`` at full width)."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.checkpoint.ckpt import (tree_flatten_with_paths,
+                                             tree_unflatten_like)
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.convert import model_from_reference, model_to_reference
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import (Model, build_groups,
+                                                default_cut_layer,
+                                                model_forward)
+    cfg = rwkv6_7b.reduced()
+    path = str(tmp_path / "rwkv.msgpack")
+    trained = []
+    rwkv6_scan.launches = rwkv6_scan_bwd.launches = 0
+    train(cfg, steps=2, batch=2, seq=64, device=hopper, ckpt=path,
+          model_out=trained, generator=torch.Generator(
+              device=hopper).manual_seed(0))
+    assert (rwkv6_scan.launches, rwkv6_scan_bwd.launches) == (
+        2 * cfg.n_layers, 2 * cfg.n_layers)
+    cut = default_cut_layer(cfg, 0.15)
+    with torch.device("meta"):
+        like = model_to_reference(Model(cfg, build_groups(cfg, cut_layer=cut)),
+                                  cfg)
+    tree = restore_checkpoint(path, like, shardings=tree_unflatten_like(
+        like, {k: hopper for k in tree_flatten_with_paths(like)}))
+    fresh = model_from_reference(tree, cfg, cut)
+    for key, t in trained[0].state_dict().items():
+        assert torch.equal(fresh.state_dict()[key], t), key
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=hopper)
+    with torch.no_grad():
+        a, _ = model_forward(cfg, trained[0], {"tokens": tokens},
+                             cut_layer=cut)
+        b, _ = model_forward(cfg, fresh, {"tokens": tokens}, cut_layer=cut)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 256])
+def test_built_train_step_is_train_step_on_card(hopper, head_dim):
+    """``launch.steps.build_train_step`` (remat) on a one-rank mesh against
+    ``launch.train.train_step`` (remat off) for the reduced rwkv6-7b on the
+    card: the WKV forward launches twice a layer under remat, the backward
+    once. At head size 64 (rwkv6-7b's) loss and gradients are bit-equal;
+    at 256 the backward kernel's column chunks meet by atomicAdd
+    (``csrc/rwkv6_scan_bwd.cu``), whose order differs run to run, so the
+    gradients agree within 1e-4 (the reference's tolerance) and the loss,
+    a forward, bit for bit."""
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import train_step
+    from repro_torch.models.transformer import model_init
+    from repro_torch.optim import AdamW, OptState
+    cfg = dataclasses.replace(rwkv6_7b.reduced(), head_dim=head_dim)
+    built = build_train_step(cfg, InputShape("mini", 64, 2, "train"),
+                             abstract_mesh((1, 1), ("data", "model")))
+    cut = built.meta["cut_layer"]
+    model = model_init(cfg, torch.Generator(device=hopper).manual_seed(0),
+                       cut_layer=cut)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), dtype=torch.int32,
+                           device=hopper)
+    batch = {"tokens": tokens, "labels": tokens}
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    state = OptState(step=torch.zeros((), dtype=torch.int32, device=hopper),
+                     mu={k: torch.zeros_like(v, dtype=torch.float32)
+                         for k, v in params.items()},
+                     nu={k: torch.zeros_like(v, dtype=torch.float32)
+                         for k, v in params.items()})
+    grads = {}
+    rwkv6_scan.launches = rwkv6_scan_bwd.launches = 0
+    _, _, metrics = built.fn(params, state, batch, grads_out=grads)
+    torch.cuda.synchronize()
+    assert (rwkv6_scan.launches, rwkv6_scan_bwd.launches) == (
+        2 * cfg.n_layers, cfg.n_layers)
+    want = []
+    loss, _, _ = train_step(cfg, model, AdamW(model.parameters(), 1e-4),
+                            batch, cut_layer=cut, grads_out=want)
+    assert torch.equal(metrics["loss"], loss)
+    for (key, _), g in zip(model.named_parameters(), want):
+        if head_dim == 64:
+            assert torch.equal(grads[key], g), key
+        else:
+            torch.testing.assert_close(grads[key], g, atol=1e-4, rtol=1e-4,
+                                       msg=key)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
 """The port stands alone: no file of ``src/repro_torch``, not
 ``chip_smoke.py`` and not ``tests/test_torch_cuda.py`` (which runs on the
-card's machine) imports ``jax`` or the reference package ``repro``;
-importing the port leaves jax out of ``sys.modules``; and ``chip_smoke.py``
-refuses to report a result where there is no CUDA device."""
+card's machine) imports ``jax``, the reference package ``repro`` or
+``msgpack`` (a dependency of the reference only: the port's checkpoints
+carry their own codec); importing the port leaves them out of
+``sys.modules``; and ``chip_smoke.py`` refuses to report a result where
+there is no CUDA device."""
 import ast
 import os
 import subprocess
@@ -13,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imported_roots(path: Path):
@@ -35,7 +37,12 @@ def test_no_port_file_imports_jax_or_the_reference():
         "src/repro_torch/launch/mesh.py", "src/repro_torch/data/pipeline.py",
         "src/repro_torch/core/fedavg.py",
         "src/repro_torch/launch/serve.py",
-        "src/repro_torch/models/moe.py"} <= {
+        "src/repro_torch/models/moe.py",
+        "src/repro_torch/checkpoint/ckpt.py",
+        "src/repro_torch/checkpoint/msgpack.py",
+        "src/repro_torch/parallel/sharding.py",
+        "src/repro_torch/launch/steps.py",
+        "src/repro_torch/launch/dryrun.py"} <= {
         str(f.relative_to(ROOT)) for f in files}
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
@@ -61,9 +68,12 @@ def test_importing_the_port_leaves_jax_out():
                "import repro_torch.obs.profiler, repro_torch.obs.gauges\n"
                "import repro_torch.launch.mesh, repro_torch.data.pipeline\n"
                "import repro_torch.launch.serve, repro_torch.models.moe\n"
+               "import repro_torch.checkpoint, repro_torch.parallel\n"
+               "import repro_torch.launch.steps, repro_torch.launch.dryrun\n"
                "import chip_smoke\n"
                "print(sorted(m for m in sys.modules\n"
-               "             if m.split('.')[0] in ('jax', 'repro')))")
+               "             if m.split('.')[0] in ('jax', 'repro', "
+               "'msgpack')))")
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 

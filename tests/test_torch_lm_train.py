@@ -39,6 +39,7 @@ from repro.optim import adamw as ref_adamw
 from repro.optim import apply_updates as ref_apply_updates
 from repro.optim import clip_by_global_norm as ref_clip
 import repro_torch.configs as configs
+from repro_torch.checkpoint import checkpoint_meta
 from repro_torch.convert import model_from_reference
 from repro_torch.core.energy import RTX_A5000
 from repro_torch.launch.train import main, train, train_step
@@ -364,12 +365,17 @@ def test_trainer_runs_on_the_cpu_and_learns(capsys):
     assert "[train] done: final loss" in out and "rtx_a5000" in out
 
 
-def test_trainer_refuses_what_it_does_not_run():
+def test_trainer_refuses_what_it_does_not_run(tmp_path):
     cfg = configs.smollm_135m.reduced()
     with pytest.raises(ValueError, match="hardware"):
         train(cfg, steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        main(["--arch", "smollm-135m", "--reduced", "--ckpt", "/nowhere"])
+    # --ckpt writes the reference's checkpoint (it was refused before)
+    ckpt = str(tmp_path / "smollm.msgpack")
+    losses = main(["--arch", "smollm-135m", "--reduced", "--steps", "1",
+                   "--batch", "2", "--seq", "8", "--ckpt", ckpt],
+                  device="cpu", hardware=RTX_A5000)
+    assert checkpoint_meta(ckpt) == {"arch": cfg.name, "steps": 1,
+                                     "loss": losses[-1]}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--arch", "smollm-135m", "--reduced", "--steps", "1"])

@@ -457,7 +457,26 @@ def test_empty_state_shapes():
     assert st["x_prev"].dtype == torch.bfloat16
 
 
+class _OnAnotherDevice(torch.Tensor):
+    """A tensor that reports a device other than CUDA, the CPU and meta
+    (no op runs on it)."""
+
+    @staticmethod
+    def __new__(cls, a):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, a.shape, dtype=torch.float32, device="hpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on another device")
+
+
 def test_scan_wrapper_refuses_other_devices():
-    ins = [torch.from_numpy(a).to("meta") for a in _scan_inputs((1, 1, 4, 16))]
+    ins = [_OnAnotherDevice(a) for a in _scan_inputs((1, 1, 4, 16))]
     with pytest.raises(ValueError, match="CUDA"):
         rwkv6_scan(*ins)
+    # a meta tensor takes the plain version, which carries shapes alone
+    meta = [torch.from_numpy(a).to("meta")
+            for a in _scan_inputs((1, 1, 4, 16))]
+    y = rwkv6_scan(*meta)
+    assert y.is_meta and tuple(y.shape) == (1, 1, 4, 16)

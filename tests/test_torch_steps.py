@@ -1,0 +1,421 @@
+"""The sharding policy, the step builders and the dry run, held against the
+reference (``repro.parallel.sharding``, ``repro.launch.steps``,
+``repro.launch.dryrun``).
+
+- ``param_pspecs`` equals the reference's leaf for leaf on every arch
+  (reduced) on an abstract 16x16 mesh, for the server tier, the client
+  tier and ``client_edp``; ``model_pspecs`` gives each of the port's
+  per-layer leaves the same spec without the stacked axes; the rules and
+  the divisibility guard of ``tests/test_launch.py`` hold at full size;
+- ``effective_window``, ``shape_supported``, ``batch_sds`` and
+  ``batch_pspecs``, ``state_pspecs``, every ``BuiltStep.meta`` and the
+  body probes' group kinds and counts equal the reference's;
+- the built train step is ``launch.train.train_step``'s loss and
+  gradients, remat leaves them unchanged, and ``shard_act`` is the
+  identity without a policy;
+- the dry run, in a process of its own (it starts the fake process group),
+  writes its records: a reduced config on a 2x4 fake mesh, its global
+  FLOPs equal to a plain meta-device trace's, the same with 3 heads over
+  the 4 model ranks (an uneven split DTensor refuses and the dry run
+  gathers), and whisper x long_500k skipped with the reference's reason.
+
+No test starts a process group in the pytest process.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as JP
+
+import repro.configs as ref_configs
+from repro.launch import steps as ref_steps
+from repro.launch.mesh import abstract_mesh as ref_abstract_mesh
+from repro.launch.mesh import make_host_mesh
+from repro.models.transformer import decode_state_init as ref_state_init
+from repro.models.transformer import model_init as ref_model_init
+from repro.parallel.sharding import param_pspecs as ref_param_pspecs
+import repro_torch.configs as configs
+from repro_torch.checkpoint.ckpt import tree_flatten_with_paths
+from repro_torch.convert import model_to_reference, reference_path
+from repro_torch.launch import dryrun, steps
+from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.launch.train import train_step
+from repro_torch.models.transformer import (Model, build_groups,
+                                            decode_state_init,
+                                            default_cut_layer, lm_loss,
+                                            model_init)
+from repro_torch.optim import AdamW, OptState
+from repro_torch.parallel.sharding import (P, ShardingPolicy, model_pspecs,
+                                           param_pspecs, set_policy,
+                                           shard_act)
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+NAMES = list(configs.ARCHS)
+MESH = abstract_mesh((16, 16), ("data", "model"))
+REF_MESH = ref_abstract_mesh((16, 16), ("data", "model"))
+
+
+def _ref_specs(tree) -> dict:
+    flat = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda s: isinstance(s, JP))[0]
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): tuple(spec) for path, spec in flat}
+
+
+def _port_specs(tree) -> dict:
+    return {k: tuple(v) for k, v in tree_flatten_with_paths(
+        tree, is_leaf=lambda s: isinstance(s, P)).items()}
+
+
+def _meta_model(cfg, cut):
+    with torch.device("meta"):
+        return Model(cfg, build_groups(cfg, cut_layer=cut))
+
+
+def _pair(name, full=False):
+    cfg, ref = configs.ARCHS[name], ref_configs.ARCHS[name]
+    return (cfg, ref) if full else (cfg.reduced(), ref.reduced())
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_param_pspecs_equal_the_reference(name):
+    cfg, ref = _pair(name)
+    cut = default_cut_layer(cfg, 0.25)
+    ref_tree = jax.eval_shape(lambda: ref_model_init(
+        ref, jax.random.PRNGKey(0), cut_layer=cut))
+    model = _meta_model(cfg, cut)
+    port_tree = model_to_reference(model, cfg)
+    for tier in ("server", "client", "client_edp"):
+        for tier_fn in (None, steps.tier_fn_for(cfg, cut, client_name=tier)):
+            want = _ref_specs(ref_param_pspecs(
+                ref_tree, REF_MESH, tier=tier,
+                tier_fn=None if tier_fn is None else
+                ref_steps.tier_fn_for(ref, cut, client_name=tier)))
+            got = _port_specs(param_pspecs(port_tree, MESH, tier=tier,
+                                           tier_fn=tier_fn))
+            assert got == want, (tier, tier_fn)
+            # the port's per-layer leaves: the same specs, stacked axes off
+            per_layer = model_pspecs(model, MESH, tier=tier, tier_fn=tier_fn)
+            for port_name, spec in per_layer.items():
+                path, idx = reference_path(port_name)
+                assert tuple(spec) == want["/".join(path)][len(idx):], \
+                    port_name
+
+
+def test_param_pspecs_rules_at_full_size():
+    """The cases of ``tests/test_launch.py``, on the port's own trees."""
+    cfg = configs.ARCHS["yi-9b"]
+    specs = param_pspecs(model_to_reference(_meta_model(cfg, None), cfg),
+                         MESH)
+    assert specs["embed"]["table"] == P("model", "data")
+    g0 = specs["groups"][0]
+    assert g0["attn"]["wq"]["w"] == P(None, "data", "model")
+    assert g0["attn"]["wo"]["w"] == P(None, "model", "data")
+    assert g0["ffn"]["gate"]["w"] == P(None, "data", "model")
+    assert g0["ffn"]["down"]["w"] == P(None, "model", "data")
+    assert g0["ln1"]["scale"] == P()
+    cut = default_cut_layer(cfg, 0.25)
+    specs = param_pspecs(model_to_reference(_meta_model(cfg, cut), cfg),
+                         MESH, tier_fn=steps.tier_fn_for(cfg, cut))
+    for spec in tree_flatten_with_paths(
+            specs["groups"][0], is_leaf=lambda s: isinstance(s, P)).values():
+        assert "model" not in [a for a in spec if a]
+    assert specs["groups"][1]["attn"]["wq"]["w"] == P(None, "data", "model")
+    cfg = configs.ARCHS["whisper-tiny"]       # vocab padded to 51872
+    specs = param_pspecs(model_to_reference(_meta_model(cfg, None), cfg),
+                         MESH)
+    assert specs["embed"]["table"] == P("model", "data")
+    cfg = configs.ARCHS["deepseek-moe-16b"]
+    specs = param_pspecs(model_to_reference(_meta_model(cfg, None), cfg),
+                         MESH)
+    assert specs["groups"][1]["moe"]["w_gate"] == P(None, "model", "data",
+                                                    None)
+    assert specs["groups"][1]["moe"]["w_down"] == P(None, "model", "data",
+                                                    None)
+
+
+def _ref_mesh_stub(shape, axes):
+    """What the reference's spec helpers read of a mesh: its axis names and
+    its devices array's shape."""
+    return types.SimpleNamespace(axis_names=axes, devices=np.empty(shape))
+
+
+def _sds_tuple(x):
+    return (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_shapes_windows_and_batch_and_state_specs_equal_the_reference(name):
+    cfg, ref = _pair(name, full=True)
+    for shape_name, shape in configs.INPUT_SHAPES.items():
+        ref_shape = ref_configs.INPUT_SHAPES[shape_name]
+        assert steps.effective_window(cfg, shape) == \
+            ref_steps.effective_window(ref, ref_shape)
+        assert steps.shape_supported(cfg, shape) == \
+            ref_steps.shape_supported(ref, ref_shape)
+        for labels in (False, True):
+            got = {k: _sds_tuple(v) for k, v in steps.batch_sds(
+                cfg, shape, with_labels=labels).items()}
+            want = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+                    ref_steps.batch_sds(ref, ref_shape,
+                                        with_labels=labels).items()}
+            assert got == want
+            for mesh_shape, axes in (((16, 16), ("data", "model")),
+                                     ((2, 16, 16), ("pod", "data", "model")),
+                                     ((3, 1), ("data", "model"))):
+                got = {k: tuple(v) for k, v in steps.batch_pspecs(
+                    cfg, shape, abstract_mesh(mesh_shape, axes),
+                    with_labels=labels).items()}
+                want = {k: tuple(v) for k, v in ref_steps.batch_pspecs(
+                    ref, ref_shape, _ref_mesh_stub(mesh_shape, axes),
+                    with_labels=labels).items()}
+                assert got == want
+    small, ref_small = _pair(name)
+    cut = default_cut_layer(small, 0.25)
+    for kv in ("param", "int8"):
+        state = decode_state_init(small, 32, 64, cut_layer=cut, kv_dtype=kv,
+                                  device="meta")
+        ref_state = jax.eval_shape(lambda: ref_state_init(
+            ref_small, 32, 64, cut_layer=cut, kv_dtype=kv))
+        for mesh_shape in ((16, 16), (2, 4), (1, 1)):
+            got = _port_specs(steps.state_pspecs(
+                state, abstract_mesh(mesh_shape, ("data", "model"))))
+            want = _ref_specs(ref_steps.state_pspecs(
+                ref_state, _ref_mesh_stub(mesh_shape, ("data", "model"))))
+            assert got == want
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_built_step_meta_and_body_probes_equal_the_reference(name):
+    cfg, ref = _pair(name)
+    mesh, ref_mesh = abstract_mesh((1, 1), ("data", "model")), \
+        make_host_mesh()
+    for shape_name in configs.INPUT_SHAPES:
+        shape = configs.INPUT_SHAPES[shape_name]
+        if not steps.shape_supported(cfg, shape)[0]:
+            with pytest.raises(ValueError, match="whisper"):
+                steps.build_step(cfg, shape_name, mesh)
+            continue
+        built = steps.build_step(cfg, shape_name, mesh)
+        want = ref_steps.build_step(ref, shape_name, ref_mesh)
+        assert built.meta == want.meta and built.name == want.name
+        probes = steps.build_body_probes(cfg, shape, mesh)
+        ref_probes = ref_steps.build_body_probes(
+            ref, ref_configs.INPUT_SHAPES[shape_name], ref_mesh)
+        assert [(p.group_index, p.kind, p.count) for p in probes] == \
+            [(p.group_index, p.kind, p.count) for p in ref_probes]
+    opts = steps.PerfOptions(seq_parallel_server=True, kv_dtype="int8")
+    ref_opts = ref_steps.PerfOptions(seq_parallel_server=True,
+                                     kv_dtype="int8")
+    assert opts.tiers == ref_opts.tiers == ("server",)
+    built = steps.build_step(cfg, "decode_32k", mesh, opts=opts)
+    want = ref_steps.build_step(ref, "decode_32k", ref_mesh, opts=ref_opts)
+    assert built.meta == want.meta and built.name == want.name
+    # no buffer donation in PyTorch: the dry run refuses the flag
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", name, "--shape", "decode_32k", "--donate"])
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "smollm-135m",
+                                  "deepseek-moe-16b"])
+def test_built_train_step_is_the_trainers(name):
+    """Loss and gradients of the built step (remat on) equal
+    ``train_step``'s (remat off) before its clip, bit for bit on the CPU;
+    the update is FunctionalAdamW's, no clip."""
+    cfg = configs.ARCHS[name].reduced()
+    shape = configs.InputShape("mini", 16, 2, "train")
+    built = steps.build_train_step(cfg, shape,
+                                   abstract_mesh((1, 1), ("data", "model")))
+    cut = built.meta["cut_layer"]
+    model = model_init(cfg, torch.Generator().manual_seed(0), cut_layer=cut)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens, "labels": tokens}
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    assert {k: (tuple(v.shape), v.dtype) for k, v in params.items()} == {
+        k: (tuple(v.shape), v.dtype) for k, v in built.args_sds[0].items()}
+    state = OptState(step=torch.zeros((), dtype=torch.int32),
+                     mu={k: torch.zeros_like(v, dtype=torch.float32)
+                         for k, v in params.items()},
+                     nu={k: torch.zeros_like(v, dtype=torch.float32)
+                         for k, v in params.items()})
+    grads = {}
+    new_params, new_state, metrics = built.fn(params, state, batch,
+                                              grads_out=grads)
+    want = []
+    loss, _, _ = train_step(cfg, model, AdamW(model.parameters(), 1e-4),
+                            batch, cut_layer=cut, grads_out=want)
+    assert torch.equal(metrics["loss"], loss)
+    for (key, _), g in zip(model.named_parameters(), want):
+        assert torch.equal(grads[key], g), key
+    assert int(new_state.step) == 1
+    assert not any(torch.equal(new_params[k], params[k]) for k in params)
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-1.5-large-398b",
+                                  "whisper-tiny"])
+def test_remat_leaves_loss_and_gradients(name):
+    cfg = configs.ARCHS[name].reduced()
+    cut = default_cut_layer(cfg, 0.25)
+    model = model_init(cfg, torch.Generator().manual_seed(0), cut_layer=cut)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.enc_dec:
+        batch["frames"] = 0.02 * torch.randn(2, cfg.enc_seq_len, cfg.d_model,
+                                             generator=g)
+    out = []
+    for remat in (False, True):
+        model.zero_grad(set_to_none=True)
+        loss, _ = lm_loss(cfg, model, batch, cut_layer=cut, remat=remat)
+        loss.backward()
+        out.append((loss.detach(), [p.grad.clone()
+                                    for p in model.parameters()]))
+    np.testing.assert_allclose(float(out[1][0]), float(out[0][0]), atol=1e-6)
+    for a, b in zip(out[0][1], out[1][1]):
+        np.testing.assert_allclose(b.float().numpy(), a.float().numpy(),
+                                   atol=1e-6)
+
+
+def test_shard_act_is_the_identity_on_plain_tensors():
+    x = torch.randn(2, 3, 4)
+    assert shard_act(x, ("dp", None, None)) is x
+    policy = ShardingPolicy(abstract_mesh((2, 16, 16),
+                                          ("pod", "data", "model")))
+    with set_policy(policy):
+        assert shard_act(x, ("dp", "tp", None)) is x
+    assert policy.resolve(("dp", "tp", "fsdp", None)) == \
+        P(("pod", "data"), "model", "data", None)
+    assert ShardingPolicy(MESH).resolve(("dp", None)) == P("data", None)
+
+
+DRYRUN = textwrap.dedent("""
+    import dataclasses, json, sys, tempfile
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import abstract_mesh, fake_mesh
+    cfg = dataclasses.replace(ARCHS["smollm-135m"].reduced(), vocab=512,
+                              d_model=256, d_ff=512)
+    shape = InputShape("mini", 64, 8, "train")
+    out = tempfile.mkdtemp()
+    rec = dryrun.run_one("smollm-135m", shape, cfg=cfg, outdir=out,
+                         mesh=fake_mesh((2, 4), ("data", "model")))
+    # the same step on plain meta tensors, no mesh
+    built = steps.build_train_step(
+        cfg, shape, abstract_mesh((1, 1), ("data", "model")),
+        attn_impl=dryrun.ATTN_IMPL)
+    with FlopCounterMode(display=False) as flops:
+        built.fn(*built.args_sds)
+    # 3 heads over the 4 model ranks: DTensor refuses the uneven split of
+    # the projections' outputs, which ReshardOnRefusal gathers
+    uneven = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1, head_dim=64)
+    pre = InputShape("mini", 64, 8, "prefill")
+    rec3 = dryrun.run_one("smollm-135m", pre, cfg=uneven, outdir=out,
+                          tag="uneven", mesh=fake_mesh((2, 4),
+                                                       ("data", "model")))
+    built = steps.build_prefill_step(
+        uneven, pre, abstract_mesh((1, 1), ("data", "model")),
+        attn_impl=dryrun.ATTN_IMPL)
+    with FlopCounterMode(display=False) as flops3:
+        built.fn(*built.args_sds)
+    skip = dryrun.run_one("whisper-tiny", "long_500k", outdir=out)
+    print(json.dumps({"rec": rec, "plain": flops.get_total_flops(),
+                      "rec3": rec3, "plain3": flops3.get_total_flops(),
+                      "skip": skip}))
+""")
+
+
+def test_dryrun_subprocess():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", DRYRUN], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    rec = got["rec"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert {"arch", "shape", "mesh", "tag", "status", "meta", "trace_s",
+            "flops_global", "flops_corrected", "collectives",
+            "argument_bytes_rank0", "output_bytes_rank0", "fits",
+            "bodies"} <= set(rec)
+    assert rec["mesh"] == "2x4" and rec["meta"]["kind"] == "train"
+    assert rec["flops_corrected"] == rec["flops_global"] > 0
+    assert abs(rec["flops_global"] - got["plain"]) <= 0.01 * got["plain"]
+    assert set(rec["collectives"]) == {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute", "total_bytes"}
+    assert rec["collectives"]["total_bytes"] > 0
+    assert [(b["kind"], b["count"]) for b in rec["bodies"]] == [
+        ("attn", 1), ("attn", 1)]
+    assert rec["fits"]["arguments_fit"]
+    assert {"resharded", "collectives_resharded", "rules_added"} <= set(rec)
+    rec3 = got["rec3"]
+    assert rec3["status"] == "ok", rec3.get("error")
+    assert rec3["flops_global"] == got["plain3"] > 0
+    # the uneven split's views were retried on their gathered inputs, and
+    # those gathers are counted apart from DTensor's own
+    assert any(r.get("gather_changed") for r in rec3["resharded"].values())
+    assert rec3["collectives_resharded"]["total_bytes"] > 0
+    skip = got["skip"]
+    ref_ok, ref_why = ref_steps.shape_supported(
+        ref_configs.ARCHS["whisper-tiny"],
+        ref_configs.INPUT_SHAPES["long_500k"])
+    assert not ref_ok
+    assert skip["status"] == "skipped" and skip["reason"] == ref_why
+
+
+NO_RULE = textwrap.dedent("""
+    import dataclasses, json, sys, tempfile
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    # a torch with no sharding rule for the group norm (as 2.11 has none)
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for table in ("op_to_rules", "op_strategy_funcs",
+                  "op_single_dim_strategy_funcs"):
+        getattr(prop, table, {}).pop(torch.ops.aten.native_group_norm.default,
+                                     None)
+    cfg = dataclasses.replace(ARCHS["rwkv6-7b"].reduced(), vocab=512)
+    shape = InputShape("mini", 32, 4, "decode")
+    mesh = fake_mesh((2, 2), ("data", "model"))
+    out = tempfile.mkdtemp()
+    # without the rule the dry run adds: the combination is an error
+    may_lack = dryrun._MAY_LACK_A_RULE
+    dryrun._MAY_LACK_A_RULE = ()
+    err = dryrun.run_one("rwkv6-7b", shape, cfg=cfg, outdir=out, mesh=mesh,
+                         tag="norule")
+    dryrun._MAY_LACK_A_RULE = may_lack
+    ok = dryrun.run_one("rwkv6-7b", shape, cfg=cfg, outdir=out, mesh=mesh)
+    print(json.dumps({"err": err, "ok": ok}))
+""")
+
+
+def test_dryrun_records_an_op_without_a_rule():
+    """An op DTensor has no rule for ends the combination ``error``; the
+    group norm, which some torch versions give none, runs on the
+    replicating rule the dry run adds, and the record names and counts
+    it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", NO_RULE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    err, ok = got["err"], got["ok"]
+    assert err["status"] == "error"
+    assert "native_group_norm" in err["error"], err["error"]
+    assert ok["status"] == "ok", ok.get("error")
+    assert "aten.native_group_norm.default" in ok["rules_added"]
+    assert ok["resharded"]["aten.native_group_norm.default"][
+        "rule_added"] > 0
