@@ -230,11 +230,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     SmolLM-135M's built prefill and decode steps bit-equal to
     ``model_forward`` and ``model_decode_step``;
 15. the dry run (``[dryrun]``): ``python -m repro_torch.launch.dryrun``
-    for smollm-135m x {train_4k, prefill_32k, decode_32k} and rwkv6-7b x
-    decode_32k on the 16x16 fake mesh, one process each, all started
-    together: each record's status, global FLOPs, rank 0's argument bytes,
-    collectives and trace seconds;
-16. one JSON line listing the kernels, then the card, then the result
+    for smollm-135m x {train_4k, prefill_32k, decode_32k}, rwkv6-7b x
+    decode_32k and deepseek-moe-16b x decode_32k on the 16x16 fake mesh,
+    one process each, all started together: each record's status, global
+    FLOPs, rank 0's argument bytes, collectives and trace seconds;
+16. the analysis passes (``[analyze]``): ``src/repro_torch`` through the
+    AST lint; the variant matrix of ``repro_torch.analyze.variants`` (22
+    entries: fl/sl x scan/vmap/shard_map, dropout, cohorts, the flash and
+    fused int8 kernels in split rounds, the metrics twins, the Monte-Carlo
+    seed-axis rounds) compiled on the card, its ``shard_map`` entries on a
+    one-rank NCCL group, each raw round run once under the runtime audit
+    with a line of its host syncs (the dispatch audit's and CUDA's
+    sync-debug count, which must agree), float64 tensors, collectives and
+    their group, and the kernel seams' calls and launches against the
+    engines' design; then ``fleet.hetero.arch_split_program`` on
+    SmolLM-135M whole (30 layers, f32) cut at 8, batch 8 x 1024 on the
+    flash kernel: one split step's smashed tensor and loss against the
+    same program on the plain attention, within the flash tolerance of
+    their largest magnitudes, and
+    the step timed with its flash launches (30). Any finding fails;
+17. one JSON line listing the kernels, then the card, then the result
     line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
@@ -356,13 +371,21 @@ ENCDEC_CPU_TOL = 1e-4
 # with a checkpoint, restored into a fresh model on the card; the [steps]
 # phase: the built train step at that batch (an InputShape of its own:
 # train_4k's 256 x 4096 does not fit one card), the built prefill at
-# batch 4 x 1024 and 8 built decode steps; the [dryrun] phase's four
-# combinations, one process each, all started together
+# batch 4 x 1024 and 8 built decode steps; the [dryrun] phase's five
+# combinations, one process each, all started together (deepseek-moe-16b's
+# decode runs its MoE dispatch, whose scatters are out of place, on
+# DTensors)
 CKPT_TRAIN = {"steps": 2, "batch": 4, "seq": 1024}
 STEPS_SEQ, STEPS_BATCH = 1024, 4
 STEPS_DECODE = 8
 DRYRUN = (("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
-          ("smollm-135m", "decode_32k"), ("rwkv6-7b", "decode_32k"))
+          ("smollm-135m", "decode_32k"), ("rwkv6-7b", "decode_32k"),
+          ("deepseek-moe-16b", "decode_32k"))
+# the [analyze] phase's transformer split through fleet.hetero's
+# stacked-block interface: SmolLM-135M's whole 30-layer stack in f32, cut
+# at 8, one split step at batch 8 x 1024 on the flash kernel against the
+# same program on the plain (chunked) attention
+ARCH_SPLIT = {"cut": 8, "batch": 8, "seq": 1024}
 # the fleet engines (client_axis="vmap") fold their 4 clients into each
 # kernel's batch. The split LM's vmap step holds all 4 clients'
 # activations at once; it runs at lm_spec's batch 8, its server loss over
@@ -4104,6 +4127,164 @@ def run_dryrun_path() -> dict:
     return {"recs": recs, "wall": wall}
 
 
+def analyze_lint() -> int:
+    """The port's source tree through the AST lint
+    (``analyze.lint_paths``): any finding fails. Returns the files
+    linted."""
+    from pathlib import Path
+
+    from repro_torch.analyze import lint_paths
+    here = Path(__file__).resolve().parent
+    report = lint_paths([here / "src" / "repro_torch"], repo_root=here)
+    print(f"[analyze] lint: {len(report.checked)} files of src/repro_torch, "
+          f"{len(report.findings)} finding(s)")
+    if not report.ok:
+        raise AssertionError("lint findings: " + "; ".join(
+            str(f) for f in report.findings))
+    return len(report.checked)
+
+
+def analyze_matrix(dev, mesh=None) -> dict:
+    """The variant matrix (``analyze.variants``: 22 entries) compiled on
+    ``dev`` and audited (``analyze.audit_all``), its ``shard_map`` entries
+    on ``mesh``: one line a raw or Monte-Carlo round with its host syncs
+    (the dispatch audit's, and on the card CUDA's sync-debug count), float64
+    tensors, collectives and their groups, and the kernel seams' calls and
+    launches. Any finding fails. Returns the entries' names and the
+    launches summed over the audited rounds."""
+    from repro_torch.analyze import audit_all
+    names = []
+
+    def entry(name, report):
+        names.append(name)
+        for line in report.checked:
+            print(f"[analyze] {line}")
+        for f in report.findings:
+            print(f"[analyze] finding: {f}")
+
+    t0 = time.perf_counter()
+    report = audit_all(device=dev, mesh=mesh, on_entry=entry)
+    print(f"[analyze] {len(names)} matrix entries audited on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s: {len(report.findings)} "
+          f"finding(s)")
+    if not report.ok or len(names) != 22:
+        raise AssertionError(f"the variant matrix ({len(names)} entries) has "
+                             f"findings: " + "; ".join(
+                                 str(f) for f in report.findings))
+    return {"names": names, "checked": report.checked}
+
+
+def arch_split_path(dev, cfg=None, *, cut=ARCH_SPLIT["cut"],
+                    batch=ARCH_SPLIT["batch"], seq=ARCH_SPLIT["seq"]) -> dict:
+    """``fleet.hetero.arch_split_program`` on ``cfg`` (SmolLM-135M whole)
+    in f32 cut at ``cut``, attention on the flash kernel, against the
+    same program on the plain chunked attention (``stack_split_program``
+    over the same blocks): one split step's smashed tensor and loss within
+    the flash tolerance (``FLASH_ATOL``) of each one's largest magnitude,
+    then the step (forward and backward) timed, with its flash
+    launches."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.fleet.hetero import (arch_split_program,
+                                          stack_split_program,
+                                          transformer_block_apply)
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.obs.timeline import fenced
+    cfg = dataclasses.replace(cfg or smollm_135m, dtype="float32")
+
+    def loss_fn(h, targets):
+        return ((h.mean(-1) - targets) ** 2).mean()
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    prog = arch_split_program(cfg, g, cut, loss_fn=loss_fn,
+                              attn_impl="pallas")
+    plain = stack_split_program(
+        torch.nn.ModuleList([*prog.client, *prog.server]), cut,
+        block_apply=transformer_block_apply(cfg, attn_impl="xla"),
+        loss_fn=loss_fn)
+    x = 0.5 * torch.randn(batch, seq, cfg.d_model, device=dev, generator=g)
+    batch_d = {"inputs": x,
+               "targets": torch.randn(batch, seq, device=dev, generator=g)}
+    with torch.no_grad():
+        out = {}
+        for name, p in (("flash", prog), ("plain", plain)):
+            sm = p.step.client_fwd(p.client, x)
+            loss, _ = p.step.loss_fn(p.client, p.server, batch_d)
+            out[name] = (sm, loss)
+    tol = FLASH_ATOL["float32"]
+    err_sm = float((out["flash"][0] - out["plain"][0]).abs().max())
+    err_loss = abs(float(out["flash"][1]) - float(out["plain"][1]))
+    scale = float(out["plain"][0].abs().max())
+    loss_scale = max(1.0, abs(float(out["plain"][1])))
+    print(f"[analyze] arch_split_program {cfg.name} ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, f32) cut {cut}, batch {batch} x {seq}: smashed "
+          f"{tuple(out['flash'][0].shape)} max_abs_err {err_sm:.3e} (max "
+          f"|smashed| {scale:.4g}: {err_sm / scale:.3e} of it), loss flash "
+          f"{float(out['flash'][1]):.8f} plain {float(out['plain'][1]):.8f} "
+          f"(abs err {err_loss:.3e}); tolerance {tol} of each one's largest "
+          f"magnitude (at least 1)")
+    # the flash kernel's tolerance on the residual stream's scale: its
+    # values reach ~15 after 8 layers, where one f32 rounding is ~1e-6
+    if not (err_sm <= tol * max(1.0, scale) and err_loss <= tol * loss_scale):
+        raise AssertionError("arch_split_program on the flash kernel "
+                             "differs from the plain attention")
+    del out
+
+    def step():
+        for p in (*prog.client.parameters(), *prog.server.parameters()):
+            p.grad = None
+        loss, _ = prog.step.loss_fn(prog.client, prog.server, batch_d)
+        loss.backward()
+        return loss
+
+    step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    before = flash_attention.launches
+    (loss, wall) = fenced(step)
+    launches = flash_attention.launches - before
+    print(f"[analyze] arch_split_program split step (forward + backward) "
+          f"{wall:.4f} s, flash launches {launches} (want {cfg.n_layers}: "
+          f"one a layer), loss {float(loss.detach()):.8f}")
+    if dev.type == "cuda" and launches != cfg.n_layers:
+        raise AssertionError(f"the split step launched flash {launches} "
+                             f"times, want {cfg.n_layers}")
+    return {"wall": wall, "launches": launches, "err": err_sm,
+            "loss_err": err_loss}
+
+
+def run_analyze_path() -> dict:
+    """The ``[analyze]`` phase: the lint (``analyze_lint``), the variant
+    matrix audited on the card with the flash and fused int8 kernels on,
+    its ``shard_map`` entries on a one-rank NCCL group
+    (``analyze_matrix``), and SmolLM-135M's stack split on the flash
+    kernel (``arch_split_path``). Returns the flash and int8 launches of
+    the phase, counted from 0."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.attn.flash import flash_attention
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.launch.mesh import data_mesh
+    dev = torch.device("cuda")
+    analyze_lint()
+    flash_attention.launches = 0
+    quant_dequant_int8.launches = 0
+    tmp = nccl_group()
+    try:
+        matrix = analyze_matrix(dev, data_mesh())
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    stamp("analyze matrix")
+    split = arch_split_path(dev)
+    launches = {"flash_attention": flash_attention.launches,
+                "quant_dequant_int8": quant_dequant_int8.launches}
+    print(f"[analyze] launches over the phase: {launches}")
+    if not (launches["flash_attention"] and launches["quant_dequant_int8"]):
+        raise AssertionError(f"[analyze] did not run both kernels: "
+                             f"{launches}")
+    return {"launches": launches, "matrix": matrix, "split": split}
+
+
 def demangle(names):
     """C++ names as ``c++filt`` prints them, or as they are without it."""
     tool = shutil.which("c++filt")
@@ -4325,6 +4506,8 @@ def main() -> int:
     stamp("steps path")
     dry = run_dryrun_path()
     stamp("dryrun path")
+    analyze = run_analyze_path()
+    stamp("analyze path")
     print(f"[paths] ckpt: rwkv6-7b {RWKV_LAYERS} layers "
           f"{ckpt['rwkv']['size']} bytes, save/restore "
           f"{ckpt['rwkv']['save_s']:.3f}/{ckpt['rwkv']['restore_s']:.3f} s, "
@@ -4432,6 +4615,7 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/quant_int8.cu",
                 "replaces": "src/repro/kernels/quant/int8.py:40",
                 "launches": (lm_launches["quant_dequant_int8"]
+                             + analyze["launches"]["quant_dequant_int8"]
                              + hetero["hetero"]["quant_dequant_int8"]
                              + scenario_launches + mc["mc-vmap"]
                              + obs["launches"] + obs["mc"]["launches"]
@@ -4446,6 +4630,7 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/flash_attn.cu",
                 "replaces": "src/repro/kernels/attn/flash.py:35",
                 "launches": (lm_launches["flash_attention"]
+                             + analyze["launches"]["flash_attention"]
                              + sm["lm"]["launches"]["flash_attention"]
                              + encdec["lm"]["launches"]["flash_attention"]),
                 "max_abs_err": max(flash_err["float32"],

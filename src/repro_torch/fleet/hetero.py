@@ -13,8 +13,13 @@ make_fleet_sl_round`` a bucket, each with its own server suffix: the
 bucket, not the client, is the unit of a program. A bucket's
 ``SplitProgram`` holds the stage modules as ``functional_call`` templates
 (``cnn_split_program``); the parameters live in the buckets' state dicts.
-The transformer half (``assign_cuts_transformer``, ``arch_split_program``,
-``stack_split_program``) is ROADMAP queue 1 item 17.
+The transformer half: ``assign_cuts_transformer`` (the analytic profile
+of ``core.adaptive_cut.profile_cuts_transformer``), and
+``stack_split_program`` over an ``nn.ModuleList`` stack cut by
+``core.split.split_stack``, each tier running its blocks in turn;
+``arch_split_program`` builds one from an ``ArchConfig``'s dense
+attention stack (``transformer_block_apply``). No spec path reaches them:
+both packages refuse adaptive transformer cuts in a spec.
 
 **The split language model**: a transformer ``ArchConfig`` stack cut at
 layer k (``transformer_block_apply``, ``lm_split_program``). The client
@@ -35,7 +40,8 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..core.adaptive_cut import profile_cuts_cnn, select_cut
+from ..core.adaptive_cut import (profile_cuts_cnn,
+                                 profile_cuts_transformer, select_cut)
 from ..core.energy import HardwareProfile
 from ..core.link import LinkConfig
 from ..core.split import (SplitStep, Stage, make_split_loss, split_stack,
@@ -97,8 +103,21 @@ def assign_cuts_cnn(stages: Sequence[Stage], sample_x: torch.Tensor, *,
         edges, links, max_link_s)
 
 
+def assign_cuts_transformer(cfg: ArchConfig, *, batch: int, seq: int,
+                            edges: Sequence[HardwareProfile],
+                            links: Optional[Sequence[LinkConfig]] = None,
+                            max_link_s: Optional[float] = None) -> list[int]:
+    """Per-client minimum-energy cut of a transformer ``ArchConfig``'s
+    stack at ``batch`` x ``seq`` tokens; ``edges`` (and ``links``) give
+    each client its profile."""
+    return _assign_cuts(
+        lambda edge, link: profile_cuts_transformer(
+            cfg, batch=batch, seq=seq, edge=edge, link=link),
+        edges, links, max_link_s)
+
+
 # ---------------------------------------------------------------------------
-# split programs: one cut of a CNN as a SplitStep, templates and inits
+# split programs: one cut of a model as a SplitStep, templates and inits
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +128,8 @@ class SplitProgram:
     templates' ``named_parameters()`` (every client of a bucket starts
     from the same prefix)."""
     step: SplitStep
-    client: nn.Module             # nn.Sequential(stages[:k])
-    server: nn.Module             # nn.Sequential(stages[k:])
+    client: nn.Module             # stages[:k] (or blocks[:k])
+    server: nn.Module             # stages[k:] (or blocks[k:])
     params_c0: dict
     params_s0: dict
     cut_index: int
@@ -135,6 +154,60 @@ def cnn_split_program(stages: Sequence[Stage], params: Sequence[dict],
                         server=nn.Sequential(*stages[k:]),
                         params_c0=tier_params(params[:k]),
                         params_s0=tier_params(params[k:]), cut_index=k)
+
+
+def _initial(module: nn.Module) -> dict:
+    """A module's parameters as a fresh state dict (its
+    ``named_parameters()`` keys), detached from the module."""
+    return {key: p.detach().clone() for key, p in module.named_parameters()}
+
+
+def stack_split_program(blocks: nn.ModuleList, k: int, *,
+                        block_apply: Callable, loss_fn: Callable,
+                        link_boundary: Optional[Callable] = None,
+                        taps: tuple = ()) -> SplitProgram:
+    """Split a block stack at layer ``k`` (``core.split.split_stack``).
+
+    ``block_apply(block, h) -> h`` applies ONE block module; ``loss_fn(h,
+    targets) -> scalar`` closes the server side on the last hidden state.
+    Each tier runs its blocks in turn, so ``step.client_fwd`` is the same
+    function on either tier (``client_fwd(prog.server, smashed)`` runs the
+    server's blocks); the initial parameters are the blocks' own."""
+    client, server = split_stack(blocks, k)
+
+    def run_blocks(stack: nn.ModuleList, h: torch.Tensor) -> torch.Tensor:
+        for block in stack:
+            h = block_apply(block, h)
+        return h
+
+    step = SplitStep(
+        client_fwd=run_blocks,
+        server_loss=lambda srv, sm, yy: (loss_fn(run_blocks(srv, sm), yy),
+                                         {}),
+        link_constraint=link_boundary, taps=taps)
+    return SplitProgram(step=step, client=client, server=server,
+                        params_c0=_initial(client), params_s0=_initial(server),
+                        cut_index=k)
+
+
+def arch_split_program(cfg: ArchConfig, generator: torch.Generator, k: int,
+                       *, loss_fn: Callable,
+                       link_boundary: Optional[Callable] = None,
+                       window="cfg", attn_impl: str = "xla") -> SplitProgram:
+    """Split a transformer ``ArchConfig`` at layer ``k`` through the
+    stacked-block interface: one dense attention stack drawn from
+    ``generator`` on its device (``models.transformer.group_init``), cut
+    at ``k``, each block run by ``transformer_block_apply`` (which refuses
+    MoE stacks, as the reference's does). The smashed tensor is the
+    (batch, seq, d_model) residual stream at the cut, the paper's
+    transformer SL boundary."""
+    if not 1 <= k <= cfg.n_layers - 1:
+        raise ValueError(f"cut {k} outside (0, {cfg.n_layers})")
+    block_apply = transformer_block_apply(cfg, window=window,
+                                          attn_impl=attn_impl)
+    blocks = group_init(generator, cfg, GroupSpec("attn", cfg.n_layers, 0))
+    return stack_split_program(blocks, k, block_apply=block_apply,
+                               loss_fn=loss_fn, link_boundary=link_boundary)
 
 
 # ---------------------------------------------------------------------------

@@ -81,7 +81,6 @@ import json
 import os
 import shutil
 import subprocess
-import time
 import traceback
 from typing import Optional
 
@@ -91,6 +90,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..checkpoint.ckpt import tree_flatten_with_paths, tree_unflatten_like
 from ..configs import ARCHS, INPUT_SHAPES, SplitConfig
 from ..configs.base import InputShape
+from ..obs.timeline import fenced
 from ..parallel.sharding import P, mesh_axis_sizes, to_placements
 from .mesh import make_production_mesh
 from .steps import (PerfOptions, build_body_probes, build_decode_step,
@@ -338,12 +338,16 @@ def _trace(fn, args: tuple) -> dict:
 
     counter = CollectiveCounter()
     reshard = ReshardOnRefusal(counter)
-    t0 = time.perf_counter()
-    with implicit_replication(), counter, reshard, \
-            FlopCounterMode(display=False) as flops:
-        out = fn(*args)
-    return {"out": out, "trace_s": time.perf_counter() - t0,
-            "flops_global": float(flops.get_total_flops()),
+
+    def traced():
+        with implicit_replication(), counter, reshard, \
+                FlopCounterMode(display=False) as flops:
+            return fn(*args), flops.get_total_flops()
+
+    # fenced on the outputs, whose shards are meta tensors: nothing waits
+    (out, total_flops), trace_s = fenced(traced)
+    return {"out": out, "trace_s": trace_s,
+            "flops_global": float(total_flops),
             "collectives": counter.record(),
             "collectives_resharded": counter.record_added(),
             "resharded": reshard.retries}

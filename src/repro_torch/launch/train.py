@@ -171,7 +171,9 @@ def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
     tracker = EnergyTracker(hardware)
     seed = generator.initial_seed()
     losses = []
-    t0 = time.perf_counter()
+    # the log line's running time since the first step: a progress
+    # stamp; each step's own window is fenced below
+    t0 = time.perf_counter()  # repro: ignore[raw-timer] -- progress stamp for the log line, not a measurement
     for step in range(steps):
         # the step window: the batch is on the device (fenced) before it
         # opens, and it closes on the step's fenced outputs
@@ -184,9 +186,9 @@ def train(cfg: ArchConfig, *, steps: int = 50, batch: int = 8,
         if step % log_every == 0 or step == steps - 1:
             aux = (f" aux {float(metrics['aux']):.4f}" if cfg.n_experts
                    else "")
+            since = time.perf_counter() - t0  # repro: ignore[raw-timer] -- progress stamp for the log line, not a measurement
             print(f"[train] step {step:4d} loss {losses[-1]:.4f}{aux} gnorm "
-                  f"{float(gnorm):.3f} ({time.perf_counter() - t0:.1f}s; "
-                  f"step {dt:.4f}s)")
+                  f"{float(gnorm):.3f} ({since:.1f}s; step {dt:.4f}s)")
     tot = tracker.total()
     print(f"[train] done: final loss {losses[-1]:.4f} (first {losses[0]:.4f})"
           f" wall {tot.time_s:.1f}s energy~{tot.energy_j / 1e3:.2f}kJ "

@@ -9,7 +9,7 @@ ceil(T k capacity_factor / E)); a pick past its expert's C slots is
 dropped. The table gathers the tokens into (E, C, d) (empty and dropped
 slots point at a zero padding row T), three batched expert matmuls run the
 SwiGLU of every expert at once, and the gate-weighted outputs are
-scatter-added back in f32 (``index_add_``; on a CUDA tensor it
+scatter-added back in f32 (``index_add``; on a CUDA tensor it
 accumulates with atomics, so that sum is not bit-reproducible run to run)
 and cast to x's dtype. The router runs in f32 on ``x.float()`` and
 carries the Switch load-balance loss on the top-1 proxy. Nothing here
@@ -96,7 +96,9 @@ def dispatch_table(top_p: torch.Tensor, top_i: torch.Tensor, n_experts: int,
     token-major (``top_i.reshape(-1)``). Returns ``table`` (E, C) int64 of
     source token ids, T where the slot is empty, and ``gate`` (E, C) f32,
     0 there. Picks at slot >= C are dropped: they write into a column C
-    that is cut off."""
+    that is cut off. Both are scattered out of place (``torch.index_put``
+    over a fresh tensor), so a DTensor trace can retry the scatter on
+    gathered inputs, as it can any op that writes no input."""
     t, k = top_i.shape
     flat_e = top_i.reshape(-1)                               # (T k,)
     onehot = F.one_hot(flat_e, n_experts)
@@ -104,14 +106,14 @@ def dispatch_table(top_p: torch.Tensor, top_i: torch.Tensor, n_experts: int,
     slot = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
     keep = slot < capacity
     token_src = torch.arange(t, device=top_i.device).repeat_interleave(k)
-    safe_e = torch.where(keep, flat_e, 0)
-    safe_s = torch.where(keep, slot, capacity)
-    table = torch.full((n_experts, capacity + 1), t, dtype=torch.int64,
-                       device=top_i.device)
-    table[safe_e, safe_s] = torch.where(keep, token_src, t)
-    gate = torch.zeros((n_experts, capacity + 1), dtype=torch.float32,
-                       device=top_i.device)
-    gate[safe_e, safe_s] = torch.where(keep, top_p.reshape(-1).float(), 0.0)
+    at = (torch.where(keep, flat_e, 0), torch.where(keep, slot, capacity))
+    table = torch.index_put(
+        torch.full((n_experts, capacity + 1), t, dtype=torch.int64,
+                   device=top_i.device), at, torch.where(keep, token_src, t))
+    gate = torch.index_put(
+        torch.zeros((n_experts, capacity + 1), dtype=torch.float32,
+                    device=top_i.device), at,
+        torch.where(keep, top_p.reshape(-1).float(), 0.0))
     return table[:, :capacity], gate[:, :capacity]
 
 
@@ -127,11 +129,12 @@ def _experts(p: MoE, x_e: torch.Tensor) -> torch.Tensor:
 def _combine(y_e: torch.Tensor, table: torch.Tensor, gate: torch.Tensor,
              t: int) -> torch.Tensor:
     """Scatter-add the gate-weighted expert outputs (E, C, d) back to their
-    T tokens, in f32; row T (empty and dropped slots) is thrown away."""
+    T tokens, in f32; row T (empty and dropped slots) is thrown away. Out
+    of place, as ``dispatch_table``'s scatters are."""
     d = y_e.shape[-1]
-    y = torch.zeros((t + 1, d), dtype=torch.float32, device=y_e.device)
-    y.index_add_(0, table.reshape(-1),
-                 (y_e * gate[..., None]).reshape(-1, d).float())
+    y = torch.index_add(
+        torch.zeros((t + 1, d), dtype=torch.float32, device=y_e.device), 0,
+        table.reshape(-1), (y_e * gate[..., None]).reshape(-1, d).float())
     return y[:t]
 
 

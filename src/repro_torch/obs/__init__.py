@@ -167,7 +167,7 @@ class Obs:
             return
         self.sink.emit({
             "ev": ev,
-            "t": round(time.perf_counter() - self.timeline.t0, 6),
+            "t": round(self.timeline.elapsed(), 6),
             **fields})
 
     def record(self, round_record) -> None:

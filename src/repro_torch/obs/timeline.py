@@ -206,6 +206,11 @@ class Timeline:
         self._open = 0                # count of open spans (event depth)
         self.t0 = time.perf_counter()
 
+    def elapsed(self) -> float:
+        """Seconds on the run clock since the timeline started: a free
+        event's time stamp (no window, so no fence)."""
+        return time.perf_counter() - self.t0
+
     def span(self, name: str, **fields) -> Any:
         """``with tl.span("round/execute"): ...`` — disabled timelines
         return the shared null span (branch-only cost)."""

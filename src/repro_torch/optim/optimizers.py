@@ -19,11 +19,12 @@ keeps there, in JAX's order of operations, so a scheduled step synchronizes
 with the card no more than a constant one does.
 
 The f32 scalars b1, b2 and lr are made on the device once (at an
-optimizer's first step on that device), and ``AdamW``'s f32 step count
-lives there, set each step by a fill (a kernel argument, not a copy), so a
-step copies nothing from the host and never synchronizes with the card.
-The values and the operations are the ones a ``torch.tensor(...,
-device=)`` a step gave.
+optimizer's first step on that device) by a fill, and ``AdamW``'s f32 step
+count lives there, set each step by a fill (the value a kernel argument,
+not a copy), so no step, the first included, copies from the host or
+synchronizes with the card: ``fl/scan`` makes a fresh optimizer for every
+client every round. The values and the operations are the ones a
+``torch.tensor(..., device=)`` a step gave (the f32 nearest each value).
 
 Each step can hand out its applied update, ``(-lr * delta)`` in the
 parameter's dtype (the reference's ``updates``, the metrics bus's
@@ -122,10 +123,13 @@ def _adamw_leaf_(p, g, mu, nu, b1c, b2c, *, b1, b2, eps, wd):
 
 def _device_scalars(cache: dict, key, device, **values) -> dict:
     """``values`` as f32 0-d tensors on ``device``, made once for ``key``
-    and those values and kept in ``cache`` (a changed lr makes new ones)."""
+    and those values and kept in ``cache`` (a changed lr makes new ones).
+    Each is filled on the device: ``torch.tensor(v, device=)`` would copy
+    it from the host, a copy that waits for the card."""
     key = (key, str(device)) + tuple(sorted(values.items()))
     if key not in cache:
-        cache[key] = {k: torch.tensor(v, dtype=torch.float32, device=device)
+        cache[key] = {k: torch.full((), v, dtype=torch.float32,
+                                    device=device)
                       for k, v in values.items()}
     return cache[key]
 

@@ -257,26 +257,51 @@ def _loop(sweep: _Sweep, rounds: int):
     return rows, accs, state
 
 
+def _vmap_round_inputs(sweep: _Sweep, r: int):
+    """Round ``r`` of a seed-axis sweep: each seed's host draws, and the
+    round's (seeds, clients, ...) batch and (seeds, clients) mask (None for
+    an unmasked engine) on the plan's device."""
+    plan = sweep.plan
+    num_seeds = len(sweep.seeds)
+    host = [sweep.host_round(i, r) for i in range(num_seeds)]
+    if sweep.pop is None:
+        batch = _tree_map(
+            lambda v: v.expand((num_seeds,) + tuple(v.shape)),
+            plan.gather_batches(sweep.indices[r]))
+    else:
+        batch = plan.gather_batches(np.stack([h[3] for h in host]))
+    return host, batch, sweep.mask_tensor([h[1] for h in host])
+
+
+def _vmap_init(plan, num_seeds: int):
+    from ..fleet.engine import stack_seeds
+    return stack_seeds(plan._engine.init_state(plan.params0), num_seeds)
+
+
+def build_vmap_rollout(plan, num_seeds: int, *, seed: int = 0):
+    """The round ``run_monte_carlo(plan, num_seeds, mode="vmap")`` runs,
+    with its first round's arguments: ``(fn, (state, batch, mask))``, ``fn``
+    the engine's seed-axis round (``run_seeds``), ``state`` the
+    seed-stacked initial engine state, ``batch`` and ``mask`` round 0's
+    from the sweep's own draws. The sweep runs this same builder."""
+    _check_vmap(plan)
+    _, batch, mask = _vmap_round_inputs(_Sweep(plan, num_seeds, 1, seed,
+                                               None), 0)
+    return plan._engine.run_seeds, (_vmap_init(plan, num_seeds), batch, mask)
+
+
 def _vmap(sweep: _Sweep, rounds: int):
     """All seeds in one program a local step: the engine's seed axis.
     Returns the per-seed rows, the accuracies and the engine state."""
     from ..api.plan import pull_round
-    from ..fleet.engine import seed_row, stack_seeds
+    from ..fleet.engine import seed_row
     plan = sweep.plan
-    engine = plan._engine
     num_seeds = len(sweep.seeds)
-    state = stack_seeds(engine.init_state(plan.params0), num_seeds)
+    state = _vmap_init(plan, num_seeds)
     outs = [[] for _ in range(num_seeds)]
     for r in range(rounds):
-        host = [sweep.host_round(i, r) for i in range(num_seeds)]
-        if sweep.pop is None:
-            batch = _tree_map(
-                lambda v: v.expand((num_seeds,) + tuple(v.shape)),
-                plan.gather_batches(sweep.indices[r]))
-        else:
-            batch = plan.gather_batches(np.stack([h[3] for h in host]))
-        state, losses, *taps = engine.run_seeds(
-            state, batch, sweep.mask_tensor([h[1] for h in host]))
+        host, batch, mask = _vmap_round_inputs(sweep, r)
+        state, losses, *taps = plan._engine.run_seeds(state, batch, mask)
         losses, taps = pull_round(losses, taps[0] if taps else None)
         for i, (cohort, mask, ratio, _) in enumerate(host):
             outs[i].append(sweep.outputs(
@@ -291,6 +316,17 @@ def _tree_map(fn, batch):
     if isinstance(batch, dict):
         return {k: fn(v) for k, v in batch.items()}
     return type(batch)(fn(v) for v in batch)
+
+
+def _check_vmap(plan) -> None:
+    """Raise unless ``plan`` has one engine round with a seed axis."""
+    _sweep_context(plan)
+    if not hasattr(plan._engine, "run_seeds"):
+        raise NotImplementedError(
+            f"run_monte_carlo(mode='vmap') on {plan.engine_label}: the seed "
+            f"axis runs on the fleet engines (fl|sl/vmap, fl|sl/shard_map); "
+            f"the scan engines' is not ported yet (ROADMAP queue 1 item "
+            f"26); use mode='loop'")
 
 
 def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
@@ -309,12 +345,8 @@ def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
     if rounds < 1:
         raise ValueError("need at least one round")
     _sweep_context(plan)
-    if mode == "vmap" and not hasattr(plan._engine, "run_seeds"):
-        raise NotImplementedError(
-            f"run_monte_carlo(mode='vmap') on {plan.engine_label}: the seed "
-            f"axis runs on the fleet engines (fl|sl/vmap, fl|sl/shard_map); "
-            f"the scan engines' is not ported yet (ROADMAP queue 1 item "
-            f"26); use mode='loop'")
+    if mode == "vmap":
+        _check_vmap(plan)
     run = _vmap if mode == "vmap" else _loop
     obs = plan.obs if obs is None else Obs.ensure(obs)
     scn = plan.spec.scenario or ScenarioSpec()

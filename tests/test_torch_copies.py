@@ -5,7 +5,8 @@ the host half of the runtime (its metrics in class counts against the
 reference's per-class loop), the record type, the spec layer, the
 scenario layer's mission rollout and spec dataclasses, the paper's
 FL/SL configurations (``core.paper_train``), the ten architecture
-configs and ``data.pipeline.BatchIterator`` (the same batches for a seed):
+configs, ``data.pipeline.BatchIterator`` (the same batches for a seed) and
+the analysis passes' ``Finding``/``Report`` (the same code):
 the same inputs give equal outputs (exactly; these
 are the same arithmetic).
 """
@@ -371,3 +372,19 @@ def test_batch_iterator_is_the_references():
             for a, b in zip(got, want):
                 for x, y in zip(a, b):
                     np.testing.assert_array_equal(x, y)
+
+
+def test_analyze_findings_are_the_references_code():
+    import inspect
+    import repro.analyze.findings as ref_findings
+    import repro_torch.analyze.findings as findings
+    for name in ("Finding", "Report"):
+        assert (inspect.getsource(getattr(findings, name))
+                == inspect.getsource(getattr(ref_findings, name))), name
+    f = findings.Finding("raw-timer", "a.py:3", "m")
+    ref = ref_findings.Finding("raw-timer", "a.py:3", "m")
+    assert (f.to_dict(), str(f)) == (ref.to_dict(), str(ref))
+    report = findings.Report(findings=[f], checked=["a.py"])
+    assert report.to_dict() == ref_findings.Report(
+        findings=[ref], checked=["a.py"]).to_dict()
+    assert not report.ok

@@ -1180,3 +1180,131 @@ def test_nan_localized_on_card_as_on_cpu(hopper):
                       rec.metrics["health/first_client"],
                       rec.metrics["health/nonfinite"]))
     assert found[0] == found[1] and found[0][:2] == (1, 2)
+
+
+class _SyncInBackward(torch.autograd.Function):
+    """A backward that reads its gradient on the host (a seeded sync)."""
+
+    @staticmethod
+    def forward(x):
+        return x * 2.0
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * float(g.sum())
+
+
+@pytest.mark.cuda
+def test_round_audit_counts_agree_with_cudas_sync_debug_mode(hopper):
+    """A host sync in a forward and one in a backward (which the autograd
+    engine runs on its device thread) are counted by the dispatch audit
+    and by CUDA's sync-debug mode alike; a sync-free call counts 0 by
+    both."""
+    from repro_torch.analyze import audit_call
+    t = torch.arange(8.0, device=hopper)
+    x = torch.ones(3, device=hopper, requires_grad=True)
+    for fn in (lambda: t.sum().item(),
+               lambda: _SyncInBackward.apply(x).sum().backward()):
+        _, rep = audit_call(fn, where="sync", device=hopper)
+        assert [f.rule for f in rep.findings] == ["audit-host-sync"]
+        assert rep.cuda_syncs == len(rep.host_syncs) == 1
+    _, rep = audit_call(lambda: (t * 2).sum(), where="clean", device=hopper)
+    assert rep.findings == [] and rep.cuda_syncs == 0
+    # a blocking copy either way is seen by both; a fill of a host number
+    # is a kernel argument, no copy
+    host = torch.ones(4)
+    for fn in (lambda: host.to(hopper), lambda: t.cpu()):
+        _, rep = audit_call(fn, where="copy", device=hopper)
+        assert rep.cuda_syncs == len(rep.host_syncs) == 1, rep.summary()
+    _, rep = audit_call(lambda: torch.full((), 0.9, device=hopper),
+                        where="fill", device=hopper)
+    assert rep.findings == [] and rep.cuda_syncs == 0
+    # a tensor made from host data on the card copies below the Python
+    # modes: the audit reads it off its lift_fresh
+    _, rep = audit_call(lambda: torch.tensor(0.9, device=hopper),
+                        where="tensor", device=hopper)
+    assert [f.rule for f in rep.findings] == ["audit-host-sync"]
+    assert rep.cuda_syncs == len(rep.host_syncs) == 1
+    # a stream synchronization dispatches no op: CUDA's count alone sees
+    # it, and the two counts' disagreement is the finding
+    _, rep = audit_call(lambda: torch.cuda.current_stream().synchronize(),
+                        where="stream", device=hopper)
+    assert [f.rule for f in rep.findings] == ["audit-sync-count"]
+    assert rep.cuda_syncs == 1 and rep.host_syncs == []
+
+
+@pytest.mark.cuda
+def test_variant_matrix_audits_clean_on_card(hopper):
+    """Every entry of the variant matrix, compiled on the card: no host
+    sync by either count, no float64 tensor, and each kernel seam's
+    Function launches its kernel once a call, as the engines' design
+    says."""
+    from repro_torch.analyze import (audit_mc_round, audit_round,
+                                     compiled_variants)
+    entries = 0
+    for name, plan, with_mc in compiled_variants(device=hopper):
+        reps = [audit_round(plan)] + ([audit_mc_round(plan)] if with_mc
+                                      else [])
+        for rep in reps:
+            assert rep.findings == [], (name, [str(f) for f in rep.findings])
+            assert rep.host_syncs == [] and rep.cuda_syncs == 0, name
+            assert rep.f64 == [], name
+        if "lm_pallas" in name:
+            assert reps[0].launches["flash_attention"] == \
+                reps[0].calls["_FlashAttention"] > 0
+        if "link_fused" in name:
+            assert reps[0].launches["quant_dequant_int8"] == \
+                reps[0].calls["_StraightThroughInt8"] == 1
+        entries += 1
+    assert entries == 22
+
+
+@pytest.mark.cuda
+def test_arch_split_program_flash_equals_plain_on_card(hopper):
+    """``arch_split_program`` on a reduced SmolLM in f32 with the flash
+    kernel against the same blocks on the plain chunked attention: the
+    smashed tensor and the loss within the flash tolerance (2e-5 absolute
+    and relative), every gradient within the flash gradient's (2e-4)."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.fleet.hetero import (arch_split_program,
+                                          stack_split_program,
+                                          transformer_block_apply)
+    cfg = dataclasses.replace(smollm_135m.reduced(), dtype="float32")
+
+    def loss_fn(h, targets):
+        return ((h.mean(-1) - targets) ** 2).mean()
+
+    g = torch.Generator(device=hopper).manual_seed(0)
+    prog = arch_split_program(cfg, g, 1, loss_fn=loss_fn,
+                              attn_impl="pallas")
+    plain = stack_split_program(
+        torch.nn.ModuleList([*prog.client, *prog.server]), 1,
+        block_apply=transformer_block_apply(cfg, attn_impl="xla"),
+        loss_fn=loss_fn)
+    x = 0.5 * torch.randn(2, 256, cfg.d_model, device=hopper, generator=g)
+    batch = {"inputs": x,
+             "targets": torch.randn(2, 256, device=hopper, generator=g)}
+    out = []
+    before = flash_attention.launches
+    for p in (prog, plain):
+        for param in (*p.client.parameters(), *p.server.parameters()):
+            param.grad = None
+        loss, _ = p.step.loss_fn(p.client, p.server, batch)
+        loss.backward()
+        out.append((p.step.client_fwd(p.client, x).detach(), loss.detach(),
+                    [param.grad.clone() for param in
+                     (*p.client.parameters(), *p.server.parameters())]))
+    # the flash program's loss (a launch a layer) and its client forward (a
+    # launch a client layer)
+    assert flash_attention.launches - before == cfg.n_layers + 1
+    tol = dict(atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(out[0][0], out[1][0], **tol)
+    torch.testing.assert_close(out[0][1], out[1][1], **tol)
+    # the gradients at the flash gradient's tolerance (its closed-form
+    # backward against autograd of the chunked path)
+    for a, b in zip(out[0][2], out[1][2]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)

@@ -17,6 +17,14 @@ against the reference.
   at its own cut. The mission's deadline gives the cuts an explicit one
   does (``tests/test_api.py:259-284``); plan states are independent; the
   refusals carry the reference's messages.
+- The transformer half (ROADMAP item 17.6): ``stack_split_program`` and
+  ``arch_split_program`` on the reference's parameters (carried across by
+  ``convert.module_from_reference``), at the reference's own cases
+  (``tests/test_fleet.py:368``, ``tests/test_api.py:297``): the smashed
+  tensor, the served tensor against one pass over the whole stack, the
+  loss and every gradient within 1e-4 in f32, and one fleet round's losses
+  within ``FLEET_EQUIV_ATOL``; the MoE refusal; ``assign_cuts_transformer``
+  equal to the reference's exactly for a Jetson and an MCU profile.
 - The campaign: ``campaign_spec`` equals the reference's field by field,
   ``campaign_totals`` and ``mission_obs_events`` equal the reference's on
   the same records, and the reference's adaptive campaign
@@ -455,3 +463,255 @@ def test_adaptive_campaign_runs():
     totals = campaign_totals(records, plan.tour)
     assert totals["uav_energy_j"] == pytest.approx(
         records[0].uav_energy_j + plan.tour.e_return)
+
+
+# ---------------------------------------------------------------------------
+# the transformer half: stack and arch split programs, transformer cuts
+# ---------------------------------------------------------------------------
+
+TOL = 1e-4
+
+
+class _Dense(torch.nn.Module):
+    """The reference test's stacked block ``tanh(h @ w + b)``, one layer."""
+
+    def __init__(self, w: np.ndarray, b: np.ndarray):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.from_numpy(np.array(w)))
+        self.b = torch.nn.Parameter(torch.from_numpy(np.array(b)))
+
+
+def _mse(h, targets):
+    return ((h.mean(-1) - targets) ** 2).mean()
+
+
+def _ref_mse(h, targets):
+    return jnp.mean((h.mean(-1) - targets) ** 2)
+
+
+def _grads_close(module, want_rows, rows_of):
+    """Every parameter gradient of a port block stack against the
+    reference's stacked gradient tree (row ``i`` for block ``i``)."""
+    for i, block in enumerate(module):
+        want = rows_of(jax.tree_util.tree_map(lambda v: np.asarray(v[i]),
+                                              want_rows))
+        got = dict(block.named_parameters())
+        assert set(got) == set(want)
+        for name, p in got.items():
+            np.testing.assert_allclose(p.grad.numpy(), want[name],
+                                       atol=TOL, rtol=TOL, err_msg=name)
+
+
+def _port_step_grads(prog, batch):
+    for p in list(prog.client.parameters()) + list(prog.server.parameters()):
+        p.grad = None
+    loss, _ = prog.step.loss_fn(prog.client, prog.server, batch)
+    loss.backward()
+    return loss
+
+
+def _ref_step_grads(prog, batch):
+    def total(pc, ps):
+        return prog.step.server_loss(ps, prog.step.client_fwd(
+            pc, batch["inputs"]), batch["targets"])[0]
+    return jax.jit(jax.value_and_grad(total, argnums=(0, 1)))(
+        prog.params_c0, prog.params_s0)
+
+
+def _fleet_round_losses(prog, ref_prog, bx, by, lr):
+    """One fleet round of the port's and the reference's program from
+    their own initial parameters (equal by construction)."""
+    from repro.fleet.engine import make_fleet_sl_round as ref_round
+    from repro.optim import init_stacked
+    from repro_torch.core.split import make_split_loss
+    from repro_torch.fleet.engine import fleet_state, make_fleet_sl_round
+    n, steps = bx.shape[:2]
+    opt_c, opt_s = FunctionalAdamW(lr), FunctionalAdamW(lr)
+    run = make_fleet_sl_round(
+        make_split_loss(prog.step, prog.client, prog.server), opt_c, opt_s,
+        local_rounds=steps)
+    *_, losses = run(*fleet_state(prog.params_c0, prog.params_s0, opt_c,
+                                  opt_s, n),
+                     {"inputs": torch.from_numpy(bx),
+                      "targets": torch.from_numpy(by)})
+    ropt_c, ropt_s = ref_adamw(lr), ref_adamw(lr)
+    engine = jax.jit(ref_round(ref_prog.step, ropt_c, ropt_s,
+                               local_rounds=steps))
+    stack = jax.tree_util.tree_map(
+        lambda v: jnp.broadcast_to(v[None], (n,) + v.shape),
+        ref_prog.params_c0)
+    *_, want = engine(stack, ref_prog.params_s0,
+                      init_stacked(ropt_c, ref_prog.params_c0, n),
+                      ropt_s.init(ref_prog.params_s0),
+                      {"inputs": jnp.asarray(bx), "targets": jnp.asarray(by)})
+    np.testing.assert_allclose(losses.numpy(), np.asarray(want),
+                               atol=FLEET_EQUIV_ATOL, rtol=0)
+    assert losses.shape == (steps, n)
+
+
+def test_stack_split_program_matches_reference():
+    """The reference's case (``tests/test_fleet.py:368``): L 6 blocks of
+    ``tanh(h @ w + b)`` cut at 2, from the reference's parameters."""
+    from repro.fleet.hetero import stack_split_program as ref_program
+    from repro_torch.fleet.hetero import stack_split_program
+    L, D, Bz = 6, 8, 4
+    key = jax.random.PRNGKey(0)
+    stacked = {"w": 0.3 * jax.random.normal(key, (L, D, D)),
+               "b": 0.1 * jax.random.normal(jax.random.fold_in(key, 4),
+                                            (L, D))}
+    ref = ref_program(stacked, 2, block_apply=lambda blk, h: jnp.tanh(
+        h @ blk["w"] + blk["b"]), loss_fn=_ref_mse)
+    blocks = torch.nn.ModuleList(
+        _Dense(np.asarray(stacked["w"][i]), np.asarray(stacked["b"][i]))
+        for i in range(L))
+    prog = stack_split_program(blocks, 2, block_apply=lambda blk, h: torch.tanh(
+        h @ blk.w + blk.b), loss_fn=_mse)
+    assert prog.cut_index == 2 and len(prog.client) == 2
+    assert set(prog.params_c0) == {"0.w", "0.b", "1.w", "1.b"}
+    x = np.array(jax.random.normal(jax.random.fold_in(key, 1), (Bz, D)))
+    y = np.array(jax.random.normal(jax.random.fold_in(key, 2), (Bz,)))
+    smashed = prog.step.client_fwd(prog.client, torch.from_numpy(x))
+    want_sm = ref.step.client_fwd(ref.params_c0, jnp.asarray(x))
+    np.testing.assert_allclose(smashed.detach().numpy(), want_sm, atol=TOL,
+                               rtol=TOL)
+    # the same function serves either tier: the server's blocks on the
+    # smashed tensor are the whole stack's pass
+    full = torch.from_numpy(x)
+    for block in blocks:
+        full = torch.tanh(full @ block.w + block.b)
+    served = prog.step.client_fwd(prog.server, smashed)
+    torch.testing.assert_close(served, full, atol=1e-6, rtol=1e-5)
+    batch = {"inputs": torch.from_numpy(x), "targets": torch.from_numpy(y)}
+    loss = _port_step_grads(prog, batch)
+    want_loss, (g_c, g_s) = _ref_step_grads(
+        ref, {"inputs": jnp.asarray(x), "targets": jnp.asarray(y)})
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               atol=TOL, rtol=TOL)
+    _grads_close(prog.client, g_c, dict)
+    _grads_close(prog.server, g_s, dict)
+    rng = np.random.RandomState(3)
+    _fleet_round_losses(prog, ref, rng.randn(C, S, Bz, D).astype(np.float32),
+                        rng.randn(C, S, Bz).astype(np.float32), 1e-2)
+
+
+def _tiny_arch(mod):
+    return mod.base.ArchConfig(name="tiny-attn", family="dense", n_layers=4,
+                               d_model=16, n_heads=2, n_kv_heads=2, d_ff=32,
+                               vocab=64, dtype="float32")
+
+
+def _attn_rows(cfg):
+    """A reference attention layer's tree (no layer axis) -> the port's
+    ``AttnLayer`` state dict, through ``convert.module_from_reference``."""
+    from repro_torch.convert import module_from_reference
+    from repro_torch.models.transformer import AttnLayer
+
+    def rows_of(tree):
+        with torch.device("meta"):
+            layer = AttnLayer(cfg)
+        return {k: v.numpy() for k, v in
+                module_from_reference(tree, layer).state_dict().items()}
+    return rows_of
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_arch_case():
+    """The reference's case (``tests/test_api.py:297``) as numpy: its
+    4-layer dense attention stack cut at 2 (``arch_split_program``), an
+    input and targets, the smashed tensor, one ``group_apply`` pass over
+    the whole stack, the loss and both tiers' gradients."""
+    from repro.fleet.hetero import arch_split_program as ref_program
+    from repro.models.transformer import GroupSpec as RefGroupSpec
+    from repro.models.transformer import group_apply as ref_group_apply
+    cfg = _tiny_arch(ref_configs)
+    key = jax.random.PRNGKey(0)
+    ref = ref_program(cfg, key, 2, loss_fn=_ref_mse)
+    Bz, Sq = 2, 8
+    x = 0.5 * jax.random.normal(jax.random.fold_in(key, 1),
+                                (Bz, Sq, cfg.d_model))
+    y = jax.random.normal(jax.random.fold_in(key, 3), (Bz, Sq))
+    whole = jax.tree_util.tree_map(lambda a, b: jnp.concatenate([a, b]),
+                                   ref.params_c0, ref.params_s0)
+    full, _ = ref_group_apply(
+        cfg, RefGroupSpec("attn", cfg.n_layers, 0), whole, x,
+        jnp.zeros((), jnp.float32),
+        positions=jnp.broadcast_to(jnp.arange(Sq, dtype=jnp.int32),
+                                   (Bz, Sq)), window=cfg.swa_window)
+    loss, grads = _ref_step_grads(ref, {"inputs": x, "targets": y})
+    to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
+    return (to_np((ref.params_c0, ref.params_s0)), np.asarray(x),
+            np.asarray(y), np.asarray(ref.step.client_fwd(ref.params_c0, x)),
+            np.asarray(full), float(loss), to_np(grads))
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
+def test_arch_split_program_matches_reference(attn_impl):
+    """``arch_split_program``'s blocks loaded with the reference's
+    parameters (``_ref_arch_case``); the port's attention on its chunked
+    plain path and on the flash kernel's plain version against the
+    reference's ``xla`` path: smashed, served, loss and gradients."""
+    from repro_torch.fleet.hetero import arch_split_program
+    cfg = _tiny_arch(configs)
+    params, x, y, want_sm, want_full, want_loss, (g_c, g_s) = \
+        _ref_arch_case()
+    prog = arch_split_program(cfg, torch.Generator().manual_seed(0), 2,
+                              loss_fn=_mse, attn_impl=attn_impl)
+    rows_of = _attn_rows(cfg)
+    for tier, tree in zip((prog.client, prog.server), params):
+        for i, block in enumerate(tier):
+            block.load_state_dict({k: torch.from_numpy(v) for k, v in rows_of(
+                jax.tree_util.tree_map(lambda a: a[i], tree)).items()})
+    smashed = prog.step.client_fwd(prog.client, torch.from_numpy(x))
+    assert smashed.shape == x.shape
+    np.testing.assert_allclose(smashed.detach().numpy(), want_sm, atol=TOL,
+                               rtol=TOL)
+    served = prog.step.client_fwd(prog.server, smashed)
+    np.testing.assert_allclose(served.detach().numpy(), want_full,
+                               atol=TOL, rtol=TOL)
+    loss = _port_step_grads(prog, {"inputs": torch.from_numpy(x),
+                                   "targets": torch.from_numpy(y)})
+    np.testing.assert_allclose(float(loss.detach()), want_loss, atol=TOL,
+                               rtol=TOL)
+    _grads_close(prog.client, g_c, rows_of)
+    _grads_close(prog.server, g_s, rows_of)
+
+
+def test_arch_split_program_refuses_moe_and_outside_cuts():
+    from repro.fleet.hetero import arch_split_program as ref_program
+    from repro_torch.fleet.hetero import arch_split_program
+    moe = dataclasses.replace(_tiny_arch(configs), n_experts=4, top_k=2)
+    ref_moe = dataclasses.replace(_tiny_arch(ref_configs), n_experts=4,
+                                  top_k=2)
+    with pytest.raises(ValueError) as want:
+        ref_program(ref_moe, jax.random.PRNGKey(0), 2, loss_fn=_ref_mse)
+    with pytest.raises(ValueError) as got:
+        arch_split_program(moe, torch.Generator(), 2, loss_fn=_mse)
+    assert str(got.value) == str(want.value)
+    for k in (0, 4):
+        with pytest.raises(ValueError, match="outside"):
+            arch_split_program(_tiny_arch(configs), torch.Generator(), k,
+                               loss_fn=_mse)
+
+
+@pytest.mark.parametrize("name,batch,seq", [("smollm-135m", 8, 1024),
+                                            ("rwkv6-7b", 4, 1024),
+                                            ("deepseek-moe-16b", 2, 64)])
+def test_assign_cuts_transformer_equals_the_references(name, batch, seq):
+    """Per-client cuts for a Jetson and the MCU profile of
+    ``tests/test_analyze.py:321``, on the default link, a starved int8 one
+    and under a link deadline: equal lists."""
+    from repro.fleet.hetero import assign_cuts_transformer as ref_assign
+    from repro_torch.fleet.hetero import assign_cuts_transformer
+    edges, ref_edges = [JETSON_AGX_ORIN, MCU] * 2, [REF_JETSON, REF_MCU] * 2
+    for link in (None, dict(rate_bps=1e6, compress="int8")):
+        for max_link_s in (None, 0.5):
+            kw = dict(batch=batch, seq=seq, max_link_s=max_link_s)
+            got = assign_cuts_transformer(
+                configs.ARCHS[name], edges=edges,
+                links=None if link is None else [LinkConfig(**link)] * 4, **kw)
+            want = ref_assign(
+                ref_configs.ARCHS[name], edges=ref_edges,
+                links=None if link is None else [RefLinkConfig(**link)] * 4,
+                **kw)
+            assert got == list(want)
+            assert len(got) == 4 and got[0] == got[2] and got[1] == got[3]

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and not ``tests/test_torch_cuda.py`` (which runs on the
-card's machine) imports ``jax``, the reference package ``repro`` or
+``chip_smoke.py``, not ``tools/repro_torch_lint.py`` and not
+``tests/test_torch_cuda.py`` (which runs on the card's machine) imports
+``jax``, the reference package ``repro`` or
 ``msgpack`` (a dependency of the reference only: the port's checkpoints
 carry their own codec); importing the port leaves them out of
 ``sys.modules``; and ``chip_smoke.py`` refuses to report a result where
@@ -29,8 +30,9 @@ def _imported_roots(path: Path):
 
 
 def test_no_port_file_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tests" / "test_torch_cuda.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "repro_torch_lint.py",
+        ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 20
     assert {f"src/repro_torch/obs/{m}.py" for m in (
         "__init__", "sink", "timeline", "gauges", "profiler", "metrics")} | {
@@ -42,7 +44,10 @@ def test_no_port_file_imports_jax_or_the_reference():
         "src/repro_torch/checkpoint/msgpack.py",
         "src/repro_torch/parallel/sharding.py",
         "src/repro_torch/launch/steps.py",
-        "src/repro_torch/launch/dryrun.py"} <= {
+        "src/repro_torch/launch/dryrun.py",
+        "src/repro_torch/analyze/audit.py",
+        "src/repro_torch/analyze/ast_lint.py",
+        "tools/repro_torch_lint.py"} <= {
         str(f.relative_to(ROOT)) for f in files}
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
@@ -70,6 +75,7 @@ def test_importing_the_port_leaves_jax_out():
                "import repro_torch.launch.serve, repro_torch.models.moe\n"
                "import repro_torch.checkpoint, repro_torch.parallel\n"
                "import repro_torch.launch.steps, repro_torch.launch.dryrun\n"
+               "import repro_torch.analyze\n"
                "import chip_smoke\n"
                "print(sorted(m for m in sys.modules\n"
                "             if m.split('.')[0] in ('jax', 'repro', "

@@ -248,6 +248,53 @@ def test_dispatch_table_slots_drops_and_padding():
     assert capacity_of(4096, 6, 64, 1.25) == 480
 
 
+def _dispatch_table_in_place(top_p, top_i, n_experts, capacity):
+    """``dispatch_table`` as it was written before its scatters went out of
+    place: the same indices and values written into the tensors."""
+    t, k = top_i.shape
+    flat_e = top_i.reshape(-1)
+    pos_in_e = torch.cumsum(torch.nn.functional.one_hot(flat_e, n_experts),
+                            dim=0) - 1
+    slot = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
+    keep = slot < capacity
+    token_src = torch.arange(t).repeat_interleave(k)
+    safe_e = torch.where(keep, flat_e, 0)
+    safe_s = torch.where(keep, slot, capacity)
+    table = torch.full((n_experts, capacity + 1), t, dtype=torch.int64)
+    table[safe_e, safe_s] = torch.where(keep, token_src, t)
+    gate = torch.zeros((n_experts, capacity + 1), dtype=torch.float32)
+    gate[safe_e, safe_s] = torch.where(keep, top_p.reshape(-1).float(), 0.0)
+    return table[:, :capacity], gate[:, :capacity]
+
+
+@pytest.mark.parametrize("t,e,k,factor", [(64, 4, 1, 0.5), (64, 4, 2, 0.5),
+                                          (64, 8, 6, 0.5), (37, 8, 2, 1.25),
+                                          (200, 16, 4, 0.25)])
+def test_dispatch_table_and_combine_equal_the_in_place_writes(t, e, k,
+                                                              factor):
+    """The out-of-place scatters give the in-place writes' bits, on random
+    routings where picks drop (skewed logits crowd a few experts), and the
+    out-of-place ``index_add`` combine equals ``index_add_``."""
+    from repro_torch.models.moe import _combine
+    rng = np.random.default_rng(t * 100 + e * 10 + k)
+    logits = torch.from_numpy(rng.standard_normal((t, e)).astype(np.float32)
+                              * 3.0 + np.linspace(2.0, 0.0, e,
+                                                  dtype=np.float32))
+    top_p, top_i = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    cap = capacity_of(t, k, e, factor)
+    table, gate = dispatch_table(top_p, top_i, e, cap)
+    want_table, want_gate = _dispatch_table_in_place(top_p, top_i, e, cap)
+    assert int((want_gate > 0).sum()) < t * k      # some picks dropped
+    assert torch.equal(table, want_table)
+    assert torch.equal(gate, want_gate)
+    y_e = torch.from_numpy(rng.standard_normal((e, cap, 8)).astype(
+        np.float32))
+    want = torch.zeros((t + 1, 8))
+    want.index_add_(0, table.reshape(-1),
+                    (y_e * gate[..., None]).reshape(-1, 8))
+    assert torch.equal(_combine(y_e, table, gate, t), want[:t])
+
+
 def test_moe_init_draws_experts_in_their_dtype():
     module = MoE(64, 4, 32, 2, n_shared=1, dtype=torch.bfloat16)
     module.reset_parameters(torch.Generator().manual_seed(0))

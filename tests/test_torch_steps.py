@@ -17,7 +17,10 @@ reference (``repro.parallel.sharding``, ``repro.launch.steps``,
   writes its records: a reduced config on a 2x4 fake mesh, its global
   FLOPs equal to a plain meta-device trace's, the same with 3 heads over
   the 4 model ranks (an uneven split DTensor refuses and the dry run
-  gathers), and whisper x long_500k skipped with the reference's reason.
+  gathers), a reduced deepseek-moe-16b prefill (the MoE routing table and
+  combine, scattered out of place) ``ok`` with its FLOPs equal to the
+  plain trace's, and whisper x long_500k skipped with the reference's
+  reason.
 
 No test starts a process group in the pytest process.
 """
@@ -329,9 +332,20 @@ DRYRUN = textwrap.dedent("""
     with FlopCounterMode(display=False) as flops3:
         built.fn(*built.args_sds)
     skip = dryrun.run_one("whisper-tiny", "long_500k", outdir=out)
+    # a MoE stack: its routing table and combine are scattered out of
+    # place, which DTensor takes
+    moe = ARCHS["deepseek-moe-16b"].reduced()
+    rec_moe = dryrun.run_one("deepseek-moe-16b", pre, cfg=moe, outdir=out,
+                             mesh=fake_mesh((2, 4), ("data", "model")))
+    built = steps.build_prefill_step(
+        moe, pre, abstract_mesh((1, 1), ("data", "model")),
+        attn_impl=dryrun.ATTN_IMPL)
+    with FlopCounterMode(display=False) as flops_moe:
+        built.fn(*built.args_sds)
     print(json.dumps({"rec": rec, "plain": flops.get_total_flops(),
                       "rec3": rec3, "plain3": flops3.get_total_flops(),
-                      "skip": skip}))
+                      "skip": skip, "moe": rec_moe,
+                      "plain_moe": flops_moe.get_total_flops()}))
 """)
 
 
@@ -371,6 +385,9 @@ def test_dryrun_subprocess():
         ref_configs.INPUT_SHAPES["long_500k"])
     assert not ref_ok
     assert skip["status"] == "skipped" and skip["reason"] == ref_why
+    moe = got["moe"]
+    assert moe["status"] == "ok", moe.get("error")
+    assert moe["flops_global"] == got["plain_moe"] > 0
 
 
 NO_RULE = textwrap.dedent("""

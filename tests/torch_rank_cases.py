@@ -1,6 +1,6 @@
-"""What each rank of a spawned gloo group runs for ``test_torch_shard_map.py``
-and ``test_torch_fedavg_pmean.py`` (through ``repro_torch.launch.mesh.
-run_ranks``).
+"""What each rank of a spawned gloo group runs for ``test_torch_shard_map.py``,
+``test_torch_fedavg_pmean.py`` and ``test_torch_analyze.py`` (through
+``repro_torch.launch.mesh.run_ranks``).
 
 Not a test module: the ranks unpickle their function from here, so it
 imports the port, numpy and torch and nothing of jax or of the reference
@@ -330,3 +330,26 @@ def failing_rank(bad_rank: int):
     if dist.get_rank() == bad_rank:
         raise KeyError(f"rank {bad_rank} refuses")
     return dist.get_rank()
+
+
+def analyze_shard_map() -> dict:
+    """The runtime audit of the variant matrix's ``shard_map`` entries on
+    this group (each rank audits its own raw round), and of one
+    ``all_reduce`` on a second group over the same ranks (a collective off
+    the plan's group: a finding) beside its clean twin on the plan's."""
+    from repro_torch.analyze import audit_all, audit_call
+    from repro_torch.launch.mesh import make_fleet_mesh
+    report = audit_all(match="shard_map", mc=False, device="cpu")
+    mesh = make_fleet_mesh(2, device="cpu")
+    other = dist.new_group(ranks=list(range(dist.get_world_size())))
+    t = torch.ones(3)
+    _, foreign = audit_call(lambda: dist.all_reduce(t, group=other),
+                            where="foreign", group=mesh.group)
+    _, own = audit_call(lambda: dist.all_reduce(t, group=mesh.group),
+                        where="own", group=mesh.group)
+    return {"ranks": _all_ranks({
+        "report": report.to_dict(),
+        "foreign": [(f.rule, f.message) for f in foreign.findings],
+        "own": [(f.rule, f.message) for f in own.findings],
+        "own_collectives": own.collectives}),
+        "jax": "jax" in sys.modules}
