@@ -2887,6 +2887,146 @@ def run_shard_map_path(api) -> dict:
     return out
 
 
+SERVER_MESH_SIZES = ((2, 1), (2, 2), (4, 1))
+
+
+def explicit_server_placements(params_s: dict) -> dict:
+    """Shard placements on both server axes wherever the reference's rule
+    would shard with axes of size > 1: a matrix-like leaf's reference dims
+    -2 over ``fsdp`` and -1 over ``tp``, a vector's channel over ``tp``
+    (``launch.steps.reference_dims`` maps them to the port's layout)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.steps import reference_dims
+    out = {}
+    for k, v in params_s.items():
+        dims = reference_dims(v.dim())
+        if v.dim() >= 2:
+            out[k] = (Shard(dims[-2]), Shard(dims[-1]))
+        elif v.dim() == 1:
+            out[k] = (Replicate(), Shard(0))
+        else:
+            out[k] = (Replicate(), Replicate())
+    return out
+
+
+def server_state_bytes(params_s: dict, fsdp: int, tp: int) -> int:
+    """One rank's bytes of the server params and both AdamW moments (f32)
+    and the step counter, under ``fleet_server_pspecs`` at ``(fsdp, tp)``:
+    arithmetic from the placements."""
+    from repro_torch.launch.steps import fleet_server_pspecs
+    specs = fleet_server_pspecs(params_s, {"fsdp": fsdp, "tp": tp})
+    total = 0
+    for k, v in params_s.items():
+        n = v.numel()
+        for ax in specs[k]:
+            n //= {"fsdp": fsdp, "tp": tp}.get(ax, 1)
+        total += 3 * n * 4
+    return total + 4
+
+
+def run_server_mesh_path(api) -> dict:
+    """The ``[server-mesh]`` phase: MobileNetV2 ``sl/vmap`` as ``[sl-vmap]``
+    runs it (``main_spec``, dropout ``FLEET_DROPOUT``, 2 rounds), then the
+    same plan with its round built by ``make_fleet_sl_round(
+    server_placements=)`` over a ``(1, 1, 1)`` ``DeviceMesh`` on a one-rank
+    NCCL group, Shard placements on the size-1 ``(fsdp, tp)`` axes: the
+    server params and moments DTensors, gathered every local step. Both
+    runs under cuDNN's deterministic algorithms; records and final state
+    bit-equal, the int8 launches of the sharded run counted; the two runs
+    again in turns, timed. Prints each rank's server-state bytes at
+    ``SERVER_MESH_SIZES`` (arithmetic)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.fleet.engine import (gather_server_state,
+                                          make_fleet_sl_round)
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.launch.mesh import fleet_mesh_of
+    tmp = nccl_group()
+    try:
+        mesh = fleet_mesh_of(init_device_mesh(
+            "cuda", (1, 1, 1), mesh_dim_names=("data", "fsdp", "tp")))
+        plan = api.compile_experiment(main_spec(
+            api, "sl", 2, client_axis="vmap", dropout_rate=FLEET_DROPOUT))
+        eng = plan._engine
+        params_s = eng.params0_tiers(plan.params0)[1]
+        placements = explicit_server_placements(params_s)
+        layouts = {"plain": (eng.round_fn, eng.mesh, None),
+                   "server-mesh": (make_fleet_sl_round(
+                       eng.loss, eng.opt_c, eng.opt_s,
+                       local_rounds=plan.spec.local_steps,
+                       server_reduce=plan.spec.engine.server_reduce,
+                       client_dropout=eng.masked,
+                       client_tier=eng.client_tier, client_axis="vmap",
+                       mesh=mesh, server_placements=placements), mesh,
+                       placements)}
+        runs, walls = {}, {"plain": [], "server-mesh": []}
+        torch.backends.cudnn.deterministic = True
+        try:
+            # in turns: the first run of each is the one compared
+            for label in ("plain", "server-mesh", "server-mesh", "plain"):
+                eng.round_fn, eng.mesh, eng.server_placements = \
+                    layouts[label]
+                quant_dequant_int8.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = plan.run()
+                torch.cuda.synchronize()
+                walls[label].append(time.perf_counter() - t0)
+                if label not in runs:
+                    runs[label] = out
+                    if label == "server-mesh":
+                        launches = quant_dequant_int8.launches
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (st_p, recs_p), (st_s, recs_s) = runs["plain"], runs["server-mesh"]
+        dtensors = all(hasattr(v, "placements") for v in
+                       list(st_s.engine_state[1].values())
+                       + list(st_s.engine_state[3].mu.values()))
+        equal_recs = recs_p == recs_s
+        plain_state = st_p.engine_state
+        gathered = (st_s.engine_state[0], gather_server_state(
+            st_s.engine_state[1]), st_s.engine_state[2],
+            gather_server_state(st_s.engine_state[3]))
+        equal_state = same_tensors(plain_state, gathered)
+        want = plan.num_rounds * plan.spec.local_steps
+        card = card_line()
+        n_sharded = sum(any(p.is_shard() for p in pl)
+                        for pl in placements.values())
+        print(f"[server-mesh] mesh {mesh.shape} on {mesh.device} (backend "
+              f"{dist.get_backend(mesh.group)}), Shard placements on the "
+              f"size-1 (fsdp, tp) axes for {n_sharded} of {len(placements)} "
+              f"server leaves; server params and moments DTensors at rest: "
+              f"{dtensors}")
+        print(f"[server-mesh] MobileNetV2 sl/vmap dropout {FLEET_DROPOUT}, "
+              f"{plan.num_rounds} rounds, cuDNN deterministic: records "
+              f"bit-equal {equal_recs}, final state bit-equal {equal_state}"
+              f"; losses {[r.loss for r in recs_s]}; int8 launches of the "
+              f"sharded run {launches} (want {want}); run wall s (2 "
+              f"rounds, evaluation included) in turns plain/server-mesh/"
+              f"server-mesh/plain: plain {walls['plain']}, server-mesh "
+              f"{walls['server-mesh']} ({card})")
+        sizes = {f"{f}x{t}": server_state_bytes(params_s, f, t)
+                 for f, t in ((1, 1),) + SERVER_MESH_SIZES}
+        print(f"[server-mesh] server state bytes a rank (params + AdamW mu, "
+              f"nu in f32 + step) by (fsdp x tp), arithmetic from "
+              f"fleet_server_pspecs, not measured: {sizes}")
+        print("[server-mesh] the multi-rank path (data x fsdp x tp over "
+              "several ranks) is checked on the CPU only (4 gloo ranks, "
+              "tests/test_torch_server_mesh.py) until a run on several "
+              "cards exists")
+        if not (dtensors and equal_recs and equal_state
+                and launches == want):
+            raise AssertionError("[server-mesh] checks failed")
+        del plan, eng, runs, st_p, st_s, plain_state, gathered
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "bytes": sizes, "walls": walls}
+
+
 def run_rwkv_path() -> int:
     """rwkv6-7b at full width, cut to ``RWKV_LAYERS`` layers, through the
     port's trainer: 3 steps of 4 x 1024 tokens with the WKV forward and
@@ -4486,6 +4626,8 @@ def main() -> int:
     stamp("obs path")
     sm = run_shard_map_path(api)
     stamp("shard_map path")
+    srv = run_server_mesh_path(api)
+    stamp("server-mesh path")
 
     rwkv_launches = run_rwkv_path()
     stamp("RWKV path")
@@ -4590,13 +4732,18 @@ def main() -> int:
           f"{sm['sl']['calls']}, host syncs {sm['sl']['syncs']}; fl "
           f"{sm['fl']['calls']}; SmolLM-135M {sm['lm']['launches']}, peak "
           f"{sm['lm']['peak'] / 2 ** 30:.2f} GiB")
+    print(f"[paths] server-mesh on a (1, 1, 1) DeviceMesh: sl/vmap "
+          f"MobileNetV2 {srv['launches']} int8 launches, bit-equal to the "
+          f"plain run; server state bytes a rank by (fsdp x tp), "
+          f"arithmetic: {srv['bytes']}")
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), the int8 kernel's
     # with the [hetero], [scenario] and [mc] vmap runs added (each count
     # read over its own run, and the [obs] phase's sl/vmap and Monte-Carlo
-    # runs with taps, and the [shard_map] phase's MobileNetV2 sl/shard_map
-    # and SmolLM sl/shard_map runs; the flash kernel's with the latter's),
+    # runs with taps, the [shard_map] phase's MobileNetV2 sl/shard_map
+    # and SmolLM sl/shard_map runs and the [server-mesh] phase's sharded
+    # sl/vmap run; the flash kernel's with the SmolLM sl/shard_map run's),
     # both with the [encdec] pixtral split LM's run added; over the RWKV
     # path's 3 steps, the [serve] phase's rwkv6-7b generation
     # (rwkv6_scan), the [ckpt] phase's 2 training steps and the [steps]
@@ -4619,7 +4766,7 @@ def main() -> int:
                              + hetero["hetero"]["quant_dequant_int8"]
                              + scenario_launches + mc["mc-vmap"]
                              + obs["launches"] + obs["mc"]["launches"]
-                             + sm["sl"]["launches"]
+                             + sm["sl"]["launches"] + srv["launches"]
                              + sm["lm"]["launches"]["quant_dequant_int8"]
                              + encdec["lm"]["launches"]["quant_dequant_int8"]),
                 "max_abs_err": max_err,

@@ -27,8 +27,15 @@ takes per-client adaptive cuts (``CutPolicy(mode="adaptive")``: each
 client's minimum-energy cut for its own edge profile and link under the
 link deadline, ``fleet.hetero.assign_cuts_cnn``); with more than one
 distinct cut the clients train in cut buckets, one fleet round and one
-server suffix a bucket (``fleet.hetero.HeteroFleet``), each client billed
-at its own cut. A ``ScenarioSpec`` (``ExperimentSpec.scenario``,
+server suffix a bucket (``fleet.hetero.HeteroFleet``, on ``vmap`` or
+``shard_map``), each client billed at its own cut. The SL fleet engines
+take the reference's server sub-mesh (``EngineSpec.server_mesh=(fsdp,
+tp)``): the ``('data', 'fsdp', 'tp')`` fleet mesh of
+``launch.mesh.make_fleet_mesh``, the server suffix's params and AdamW
+moments DTensors on its ``(fsdp, tp)`` sub-mesh
+(``launch.steps.fleet_server_pspecs``), the clients over ``data``; a
+``vmap`` plan over a mesh of more than one rank runs the rank-local
+program of ``shard_map``. A ``ScenarioSpec`` (``ExperimentSpec.scenario``,
 ``repro_torch.sim``) runs on every engine: the mission rolls out in time
 (``sim.mission.rollout_mission``: several UAVs, hover or relay serving),
 each client's link constants are hoisted at its nominal channel rate, the
@@ -77,15 +84,17 @@ from ..core.trajectory import TourPlan, plan_tour
 from ..data.partition import (partition_dirichlet, partition_iid,
                               partition_non_iid, population_partition_count)
 from ..data.synthetic import SyntheticPestImages, synthetic_tokens
-from ..fleet.engine import (fleet_state, make_fleet_fl_round,
-                            make_fleet_sl_round, validate_fleet_mesh)
+from ..fleet.engine import (fleet_state, gather_server_state,
+                            make_fleet_fl_round, make_fleet_sl_round,
+                            validate_fleet_mesh)
 from ..fleet.hetero import (HeteroFleet, assign_cuts_cnn, cnn_split_program,
                             lm_split_program, lm_split_step)
 from ..fleet.link import FleetLink
 from ..kernels.dispatch import (ATTN_IMPLS, LINK_KERNELS, resolve_attn_impl,
                                 resolve_link_kernel)
-from ..launch.mesh import (fleet_data_size, make_fleet_mesh,
-                           single_device_fleet_mesh)
+from ..launch.mesh import (fleet_layout, make_fleet_mesh,
+                           server_mesh_sizes, single_device_fleet_mesh)
+from ..launch.steps import fleet_server_pspecs, server_placements
 from ..models.cnn import CNN_BUILDERS, cross_entropy_loss
 from ..obs import NULL_OBS, Obs, ObsConfig
 from ..obs.metrics import (NonfiniteError, engine_tap_names,
@@ -733,12 +742,19 @@ class _SLFleetEngine:
     slot, since a slot holds another population client every round: the
     fleet trains ONE client model shared by the cohort (the EPSL shared
     client tier, ``client_tier="shared"``), updated on the cohort-mean
-    gradient, and evaluates with it as it is."""
+    gradient, and evaluates with it as it is.
+
+    ``server_pspecs_fn`` (``launch.steps.fleet_server_pspecs``, given for
+    a mesh whose ``(fsdp, tp)`` sub-mesh has more than one rank): the
+    server params and optimizer state are DTensors on that sub-mesh
+    (``server_placements``), gathered for evaluation; a Monte-Carlo seed
+    axis over them is refused."""
 
     def __init__(self, spec, step: SplitStep, client: nn.Module,
                  server: nn.Module, *, params0_tiers, logits, taps=(),
-                 mesh=None):
+                 mesh=None, server_pspecs_fn=None):
         self.spec = spec
+        self.mesh = mesh
         self.masked = _needs_mask(spec)
         pop = spec.clients.population
         self.client_tier = ("shared" if pop is not None
@@ -748,20 +764,34 @@ class _SLFleetEngine:
         self.opt_c, self.opt_s = (FunctionalAdamW(spec.lr),
                                   FunctionalAdamW(spec.lr))
         self.logits = tier_call(logits, client, server)
-        self.round_fn, self.seeds_round_fn = (make_fleet_sl_round(
-            make_split_loss(step, client, server), self.opt_c, self.opt_s,
-            local_rounds=spec.local_steps,
-            server_reduce=spec.engine.server_reduce,
-            client_dropout=self.masked, client_tier=self.client_tier,
-            seed_axis=seed_axis, taps=taps,
-            client_axis=spec.engine.client_axis, mesh=mesh)
-            for seed_axis in (False, True))
+        self.loss = make_split_loss(step, client, server)
+        # the server sub-mesh's placements, from the server tier's shapes
+        self.server_placements = None
+        if server_pspecs_fn is not None:
+            self.server_placements = server_placements(
+                server_pspecs_fn(server.state_dict(), mesh))
+
+        def build(seed_axis):
+            return make_fleet_sl_round(
+                self.loss, self.opt_c, self.opt_s,
+                local_rounds=spec.local_steps,
+                server_reduce=spec.engine.server_reduce,
+                client_dropout=self.masked, client_tier=self.client_tier,
+                seed_axis=seed_axis, taps=taps,
+                client_axis=spec.engine.client_axis, mesh=mesh,
+                server_placements=None if seed_axis
+                else self.server_placements)
+
+        self.round_fn = build(False)
+        self.seeds_round_fn = (build(True) if self.server_placements is None
+                               else None)
 
     def init_state(self, params0):
         params_c, params_s = self.params0_tiers(params0)
         return fleet_state(params_c, params_s, self.opt_c, self.opt_s,
                            self.spec.clients.num_clients,
-                           client_tier=self.client_tier)
+                           client_tier=self.client_tier, mesh=self.mesh,
+                           server_placements=self.server_placements)
 
     def run(self, st, batches, mask):
         out = self.round_fn(*st, batches, *_mask_arg(mask))
@@ -770,18 +800,24 @@ class _SLFleetEngine:
     def run_seeds(self, st, batches, mask):
         """``run`` with a leading seed axis on every tensor (a
         Monte-Carlo sweep's seeds in one program a local step)."""
+        if self.seeds_round_fn is None:
+            raise NotImplementedError(
+                "run_monte_carlo(mode='vmap') over a sharded server suffix "
+                "is not ported to repro_torch yet (ROADMAP queue 1 item "
+                "16b); use mode='loop'")
         out = self.seeds_round_fn(*st, batches, *_mask_arg(mask))
         return (out[:4], *out[4:])
 
     def predict(self, st, x):
-        params_c, params_s = st[0], st[1]
+        params_c, params_s = st[0], gather_server_state(st[1])
         prefix = (params_c if self.client_tier == "shared"
                   else _eval_prefix(params_c, self.masked))
         return self.logits(prefix, params_s, x).argmax(dim=-1)
 
 
 class _HeteroSLEngine:
-    """``sl/vmap`` with per-client cuts (``fleet.hetero.HeteroFleet``): one
+    """``sl/vmap`` or ``sl/shard_map`` with per-client cuts
+    (``fleet.hetero.HeteroFleet`` over ``mesh``): one
     ``make_fleet_sl_round`` and one server suffix a cut bucket, the buckets
     run one after another. State: a list of per-bucket ``(params_c,
     params_s, oc, os_)``, fresh on every ``init_state``. Evaluation is the
@@ -790,7 +826,7 @@ class _HeteroSLEngine:
     the fleet size; the argmax of that sum is the prediction."""
 
     def __init__(self, spec, stages, params0, cut_of_client, link, device,
-                 taps=()):
+                 taps=(), mesh=None, server_pspecs_fn=None):
         self.device = device
         self.masked = _needs_mask(spec)
         self.num_clients = spec.clients.num_clients
@@ -801,7 +837,9 @@ class _HeteroSLEngine:
                                         taps=split_step_tap_names(taps)),
             cut_of_client, FunctionalAdamW(spec.lr), FunctionalAdamW(spec.lr),
             local_rounds=spec.local_steps, client_dropout=self.masked,
-            server_reduce=spec.engine.server_reduce, taps=taps)
+            server_reduce=spec.engine.server_reduce,
+            client_axis=spec.engine.client_axis, mesh=mesh,
+            server_pspecs_fn=server_pspecs_fn, taps=taps)
         self.logits = [
             tier_call(_cnn_logits, prog.client, prog.server)
             for prog in (self.fleet.programs[b.cut_index]
@@ -819,8 +857,9 @@ class _HeteroSLEngine:
         votes = None
         for bucket, (params_c, params_s, _, _), logits in zip(
                 self.fleet.buckets, st, self.logits):
-            out = (logits(_eval_prefix(params_c, self.masked), params_s,
-                          x).float() * len(bucket.client_ids))
+            out = (logits(_eval_prefix(params_c, self.masked),
+                          gather_server_state(params_s), x).float()
+                   * len(bucket.client_ids))
             votes = out if votes is None else votes + out
         return (votes / self.num_clients).argmax(dim=-1)
 
@@ -942,11 +981,6 @@ def _profile_consts(spec: ExperimentSpec, client_flops):
     profs = spec.clients.edge_profiles
     return (np.asarray([client_step_time_s(client_flops, p) for p in profs]),
             np.asarray([p.power_w for p in profs]))
-
-
-def _not_in_slice(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 {item})")
 
 
 def _validate_transformer(spec: ExperimentSpec):
@@ -1095,20 +1129,6 @@ def _validate(spec: ExperimentSpec):
         if f < 1 or t < 1:
             raise ValueError(f"server_mesh sizes must be >= 1, got "
                              f"{eng.server_mesh}")
-    # ---- outside the ported slices: refused, never run some other way ----
-    if spec.cut_policy.mode == "adaptive":
-        if eng.client_axis == "shard_map":
-            _not_in_slice("HeteroFleet(client_axis='shard_map') (adaptive "
-                          "per-client cuts on the explicit-collective "
-                          "engines)", "item 16b")
-        if eng.server_mesh is not None:
-            _not_in_slice("EngineSpec.server_mesh on the adaptive-cut "
-                          "buckets (the reference's _server_only_mesh)",
-                          "item 16b")
-    if eng.server_mesh is not None and tuple(eng.server_mesh) != (1, 1):
-        _not_in_slice(f"EngineSpec.server_mesh={tuple(eng.server_mesh)} "
-                      f"(the server suffix over fsdp x tp: DeviceMesh / "
-                      f"DTensor placements, fleet_server_pspecs)", "item 16b")
 
 
 def _resolve_device(device) -> torch.device:
@@ -1122,46 +1142,80 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _refuse_idle_rank(n: int, fsdp: int, tp: int) -> None:
+    """On a rank past the fleet mesh ``make_fleet_mesh`` built over the
+    default process group (it holds no clients): the refusal."""
+    if not dist.is_initialized():
+        return
+    world = dist.get_world_size()
+    layout = fleet_layout(n, world, fsdp=fsdp, tp=tp)
+    if layout is not None:
+        data = layout[0]
+        raise ValueError(
+            f"rank {dist.get_rank()} holds none of the {n} clients "
+            f"(data={data}, fsdp={fsdp}, tp={tp}: {data * fsdp * tp} of "
+            f"{world} ranks)")
+
+
 def _resolve_mesh(spec: ExperimentSpec, mesh, device: torch.device):
-    """The fleet mesh of a fleet-axis engine (the reference's rules):
-    ``shard_map`` always gets a concrete mesh (``make_fleet_mesh`` over the
-    default process group, else the single-rank mesh); an explicit mesh
-    must divide the fleet and serve the plan's device. A ``vmap`` plan
-    runs on one device: it takes no mesh of more than one rank (a
-    GSPMD-style placement is item 16b)."""
+    """The fleet mesh of a fleet-axis engine (the reference's
+    ``_resolve_mesh``): a ``server_mesh`` grows the ``('data', 'fsdp',
+    'tp')`` layout (``make_fleet_mesh`` over the default process group),
+    refused when it needs more ranks than exist; an explicit mesh must
+    have the spec's ``(fsdp, tp)``; ``shard_map`` always gets a concrete
+    mesh (else the single-rank mesh); a mesh must divide the fleet and
+    serve the plan's device.
+
+    The reference refuses ``shard_map`` with fsdp * tp > 1 on its CPU
+    backend, for an abort of its XLA:CPU partitioner; the port has no such
+    abort and runs that layout on the CPU and the card alike."""
     eng = spec.engine
     if not eng.is_fleet:
         return mesh
     n = spec.clients.num_clients
+    # every rank takes part in make_fleet_mesh (the DeviceMesh makes groups)
+    if mesh is None and eng.server_mesh is not None:
+        f, t = eng.server_mesh
+        mesh = make_fleet_mesh(n, fsdp=f, tp=t, device=device)
+        if mesh is None:
+            _refuse_idle_rank(n, f, t)
+            if f * t > 1:
+                world = dist.get_world_size() if dist.is_initialized() else 1
+                raise ValueError(
+                    f"server_mesh={eng.server_mesh} needs at least {f * t} "
+                    f"devices ({world} available)")
+    elif mesh is not None and eng.server_mesh is not None:
+        # an explicit mesh must deliver the server sub-mesh the spec asked
+        # for, never silently fall back to a replicated server suffix
+        if server_mesh_sizes(mesh) != tuple(eng.server_mesh):
+            raise ValueError(
+                f"server_mesh={eng.server_mesh} but the supplied mesh has "
+                f"(fsdp, tp)={server_mesh_sizes(mesh)}; build it with "
+                f"launch.mesh.make_fleet_mesh(num_clients, fsdp=, tp=) or "
+                f"drop one of the two")
     if mesh is None and eng.client_axis == "shard_map":
-        # every rank takes part in make_fleet_mesh (it may make a group)
         mesh = make_fleet_mesh(n, device=device)
         if mesh is None:
-            if (dist.is_initialized()
-                    and fleet_data_size(n, dist.get_world_size()) > 1):
-                raise ValueError(
-                    f"rank {dist.get_rank()} holds none of the {n} clients "
-                    f"(data={fleet_data_size(n, dist.get_world_size())} of "
-                    f"{dist.get_world_size()} ranks)")
+            _refuse_idle_rank(n, 1, 1)
             mesh = single_device_fleet_mesh(device)
     if mesh is None:
         return None
     validate_fleet_mesh(mesh, n)
+    if mesh.size > 1 and mesh.group is None:
+        raise ValueError(f"a fleet mesh of data={mesh.size} ranks needs "
+                         f"their process group (launch.mesh."
+                         f"make_fleet_mesh or data_mesh)")
     if mesh.device.type != device.type:
         raise ValueError(f"the fleet mesh's ranks work on {mesh.device}, "
                          f"the plan on {device}: the collectives of a "
                          f"{device.type} fleet stay on its device")
-    if eng.client_axis == "vmap" and mesh.size > 1:
-        _not_in_slice("a vmap plan over a mesh of more than one rank "
-                      "(client placement by DeviceMesh / DTensor)",
-                      "item 16b")
     return mesh
 
 
 def _rank_obs(obs: Obs, mesh) -> Obs:
     """Rank 0 of a data group writes the run's telemetry; any other rank
     computes the same metrics with no sink."""
-    if obs and mesh is not None and mesh.rank != 0:
+    if obs and mesh is not None and not mesh.writes:
         return Obs(ObsConfig(enabled=False, metrics=obs.config.metrics))
     return obs
 
@@ -1174,13 +1228,17 @@ def compile_experiment(spec: ExperimentSpec, *, mesh=None, data=None,
     split LM) token and next-token arrays (required for
     ``DataSpec(kind='arrays')``).
 
-    ``mesh`` (a ``launch.mesh.FleetMesh``) spreads a ``shard_map`` plan's
-    clients over its data group: every rank compiles and runs the same
-    plan (the same seed draws the same batches and masks), trains its own
-    clients, and holds the whole state; rank 0 writes the telemetry. By
+    ``mesh`` (a ``launch.mesh.FleetMesh``) spreads a fleet plan's clients
+    over its data group: every rank compiles and runs the same plan (the
+    same seed draws the same batches and masks), trains its own clients,
+    and holds the whole client state; rank 0 writes the telemetry. By
     default a ``shard_map`` plan takes ``make_fleet_mesh`` over the
     initialised default process group, or the single-rank mesh, whose
-    collectives are the identity.
+    collectives are the identity; a ``server_mesh=(fsdp, tp)`` spec takes
+    ``make_fleet_mesh(num_clients, fsdp=, tp=)``. With fsdp * tp > 1 the
+    SL server suffix's params and AdamW moments are DTensors on the
+    mesh's ``(fsdp, tp)`` sub-mesh (``launch.steps.fleet_server_pspecs``),
+    the clients sharded over ``data``.
 
     ``obs`` opts into telemetry: a ``repro_torch.obs.ObsConfig`` (or a live
     ``Obs`` to share one run dir across plans). The lowering emits
@@ -1357,15 +1415,20 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs,
                 for k in sorted(set(cut_of_client)):
                     flops[k] = count_sl_step_flops(stages[:k], stages[k:],
                                                    sample_x, sample_y)
+            # the server sub-mesh's specs: the reference shards the server
+            # suffix only over a sub-mesh of more than one rank
+            fsdp, tp = server_mesh_sizes(mesh)
+            pspecs_fn = fleet_server_pspecs if fsdp * tp > 1 else None
             with obs.span("compile/lower"):
                 if len(flops) > 1:
                     engine = _HeteroSLEngine(spec, stages, params0,
                                              cut_of_client, link, device,
-                                             taps=graph_taps)
+                                             taps=graph_taps, mesh=mesh,
+                                             server_pspecs_fn=pspecs_fn)
                 else:
                     engine = _sl_cnn_engine(spec, stages, params0,
                                             cut_of_client[0], link, device,
-                                            graph_taps, mesh)
+                                            graph_taps, mesh, pspecs_fn)
 
     if spec.engine.kind == "fl":
         cut_of_client: list[int] = []
@@ -1419,7 +1482,7 @@ def _sample_batch(spec: ExperimentSpec, x_train, y_train, device):
 
 
 def _sl_cnn_engine(spec, stages, params0, k: int, link, device, taps,
-                   mesh=None):
+                   mesh=None, server_pspecs_fn=None):
     """The single-cut split CNN's engine: ``sl/vmap``, ``sl/shard_map`` or
     ``sl/scan``."""
     prog = cnn_split_program(stages, params0, k, loss_fn=cross_entropy_loss,
@@ -1430,7 +1493,7 @@ def _sl_cnn_engine(spec, stages, params0, k: int, link, device, taps,
             spec, prog.step, prog.client, prog.server, logits=_cnn_logits,
             params0_tiers=lambda p: (tier_params(p[:k], device),
                                      tier_params(p[k:], device)),
-            taps=taps, mesh=mesh)
+            taps=taps, mesh=mesh, server_pspecs_fn=server_pspecs_fn)
     return _SLScanEngine(
         spec, prog.step,
         load_client=lambda p: _load(stages[:k], p[:k]),

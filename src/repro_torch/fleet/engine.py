@@ -76,6 +76,25 @@ The update-norm channels are the norms of the optimizer's own update
 tensors; a masked client's row is the update its own gradient would take
 (the reference's raw per-slot computation).
 
+A ``vmap`` round given a mesh (``compile_experiment`` gives one to a
+``vmap`` plan over more than one rank, the reference's GSPMD placement of
+the client axis over ``data``) runs the same rank-local program as
+``shard_map``: the reference's contract is shard_map == vmap.
+
+The server sub-mesh (``server_placements``, the reference's
+``server_pspecs``): the SL server suffix's params and both AdamW moments
+live at rest as DTensors on the mesh's ``(fsdp, tp)`` sub-mesh
+(``shard_server_state``; placements from ``launch.steps.
+fleet_server_pspecs``), the step counter replicated. The round's compute
+stays on plain tensors (``torch.func.vmap`` and the hand-written kernels
+take no DTensor): each local step gathers the server params
+(``full_tensor``), runs the body above, reduces the server gradient over
+``data``, takes the rank's own slice of it and updates its shards. AdamW
+is elementwise, so a shard's update is the slice of the unsharded one;
+every whole-tree reduction (the nonfinite guard, the norm taps) sees the
+whole gradient, before the slice. The compute is replicated over
+``fsdp * tp``; the state's memory a rank is the reference's.
+
 ``FLEET_EQUIV_ATOL`` is the reference's loosened bound for vmapped rounds
 against sequential ones (batched convolutions reassociate f32 sums); the
 port's fleet rounds are held to it against the reference's.
@@ -133,6 +152,106 @@ def _resolve_shard_map_mesh(mesh):
         raise ValueError(f"fleet shard_map mesh needs a '{DATA_AXIS}' "
                          f"axis, got {type(mesh).__name__}")
     return mesh
+
+
+class ServerShards:
+    """The server suffix on ``mesh``'s ``(fsdp, tp)`` sub-mesh:
+    ``placements`` a dict of DTensor placements (one a sub-mesh dim) by
+    parameter name. ``shard`` takes this rank's slices of whole tensors,
+    ``wrap`` makes DTensors of them and ``gather`` the whole tensors back;
+    an ``OptState``'s step counter is replicated. Every axis runs the same
+    code, of size 1 or not."""
+
+    def __init__(self, mesh, placements: dict):
+        sub = None if mesh is None else mesh.server_mesh
+        if sub is None:
+            raise ValueError("server placements need a fleet mesh with a "
+                             "(data, fsdp, tp) DeviceMesh (launch.mesh."
+                             "make_fleet_mesh or fleet_mesh_of)")
+        self.sub, self.placements = sub, dict(placements)
+        self.coord = tuple(sub.get_coordinate())
+        self.sizes = tuple(sub.shape)
+
+    def _slice(self, t: torch.Tensor, k: str) -> torch.Tensor:
+        for mdim, p in enumerate(self.placements[k]):
+            if p.is_shard():
+                n, d = self.sizes[mdim], p.dim
+                if t.shape[d] % n:
+                    raise ValueError(f"{k}: dim {d} of {tuple(t.shape)} does "
+                                     f"not divide over {n} ranks")
+                w = t.shape[d] // n
+                t = t.narrow(d, self.coord[mdim] * w, w)
+        return t
+
+    def shard(self, tree: dict) -> dict:
+        """This rank's slice of each whole tensor of ``tree``."""
+        return {k: self._slice(v, k) for k, v in tree.items()}
+
+    def _dtensor(self, local: torch.Tensor, placements):
+        from torch.distributed.tensor import DTensor
+        shape = list(local.shape)
+        for mdim, p in enumerate(placements):
+            if p.is_shard():
+                shape[p.dim] *= self.sizes[mdim]
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local, self.sub, placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=stride)
+
+    def wrap(self, local: dict) -> dict:
+        """DTensors of this rank's slices."""
+        return {k: self._dtensor(v, self.placements[k])
+                for k, v in local.items()}
+
+    def gather(self, local: dict) -> dict:
+        """The whole tensors of this rank's slices (one all-gather over the
+        sub-mesh a sharded dim)."""
+        return {k: v.full_tensor() for k, v in self.wrap(local).items()}
+
+    def wrap_state(self, st: OptState) -> OptState:
+        from torch.distributed.tensor import Replicate
+        return OptState(step=self._dtensor(st.step, (Replicate(),) * 2),
+                        mu=self.wrap(st.mu), nu=self.wrap(st.nu))
+
+
+def _to_local(tree):
+    """The local tensors of a dict or ``OptState`` of DTensors."""
+    if isinstance(tree, OptState):
+        return OptState(*(_to_local(getattr(tree, f))
+                          for f in ("step", "mu", "nu")))
+    if isinstance(tree, dict):
+        return {k: _to_local(v) for k, v in tree.items()}
+    return tree.to_local()
+
+
+def shard_server_state(tree, mesh, placements: Optional[dict]):
+    """Place the server suffix (a params dict, or its ``OptState``: the
+    step counter replicated, ``mu`` and ``nu`` by ``placements``) onto
+    ``mesh``'s ``(fsdp, tp)`` sub-mesh as DTensors (the reference's
+    ``shard_server_state``). Every rank holds the whole tensors (the same
+    seed made them) and keeps its own slices: no collective. The tree as
+    it is without ``placements``."""
+    if placements is None:
+        return tree
+    shards = ServerShards(mesh, placements)
+    if isinstance(tree, OptState):
+        return shards.wrap_state(OptState(step=tree.step,
+                                          mu=shards.shard(tree.mu),
+                                          nu=shards.shard(tree.nu)))
+    return shards.wrap(shards.shard(tree))
+
+
+def gather_server_state(tree):
+    """The whole tensors of a server state placed by
+    ``shard_server_state`` (a dict or ``OptState``; plain leaves as they
+    are)."""
+    if isinstance(tree, OptState):
+        return OptState(*(gather_server_state(getattr(tree, f))
+                          for f in ("step", "mu", "nu")))
+    if isinstance(tree, dict):
+        return {k: gather_server_state(v) for k, v in tree.items()}
+    full = getattr(tree, "full_tensor", None)
+    return tree if full is None else full()
 
 
 def _local_state(st: OptState, mesh, lead: int) -> OptState:
@@ -345,12 +464,11 @@ def make_fleet_fl_round(loss_fn: Callable, opt, *,
     round closes with ``fedavg_pmean`` (``fedavg_pmean_masked`` under a
     mask, the incoming global params its fallback), and the losses and
     taps of every rank are gathered; the arguments and results are the
-    ``vmap`` round's, whole on every rank."""
+    ``vmap`` round's, whole on every rank. A ``vmap`` round given a
+    ``mesh`` runs the same rank-local program."""
     _check_client_axis(client_axis)
     if client_axis == "shard_map":
         mesh = _resolve_shard_map_mesh(mesh)
-    else:
-        mesh = None
     per_client = vmap(loss_fn)
     mean, mean_masked = fedavg_mean, fedavg_mean_masked
     if seed_axis:
@@ -437,7 +555,8 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                         client_dropout: bool = False,
                         client_tier: str = "stacked",
                         seed_axis: bool = False, taps: tuple = (),
-                        client_axis: str = "vmap", mesh=None):
+                        client_axis: str = "vmap", mesh=None,
+                        server_placements: Optional[dict] = None):
     """One global round of parallel split learning over the fleet.
 
     ``loss(params_c, params_s, batch) -> loss`` is the split step's loss,
@@ -477,7 +596,15 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
     is all-reduced once, the closing FedAvg is ``fedavg_pmean_stack``
     (``_masked``), and every rank's rows of the stacked client state, the
     losses and the per-slot taps are gathered at the end. The arguments
-    and results are the ``vmap`` round's, whole on every rank.
+    and results are the ``vmap`` round's, whole on every rank. A ``vmap``
+    round given a ``mesh`` runs the same rank-local program.
+
+    ``server_placements`` (``launch.steps.server_placements`` of
+    ``fleet_server_pspecs``; needs a ``mesh`` with a ``DeviceMesh``):
+    ``params_s`` and ``os_`` come in and go out as DTensors on the mesh's
+    ``(fsdp, tp)`` sub-mesh (``shard_server_state``); each local step
+    gathers the params, and the rank updates its own slices on its slice
+    of the whole reduced gradient (the module docstring).
     """
     if server_reduce not in ("mean", "sum"):
         raise ValueError(server_reduce)
@@ -485,9 +612,16 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
         raise ValueError(f"client_tier must be 'stacked' or 'shared', "
                          f"got {client_tier!r}")
     _check_client_axis(client_axis)
-    mesh = _resolve_shard_map_mesh(mesh) if client_axis == "shard_map" \
-        else None
+    if client_axis == "shard_map":
+        mesh = _resolve_shard_map_mesh(mesh)
     group = None if mesh is None else mesh.group
+    server = None
+    if server_placements is not None:
+        if seed_axis:
+            raise NotImplementedError(
+                "the seed axis over a sharded server suffix is not ported "
+                "to repro_torch yet (ROADMAP queue 1 item 16b)")
+        server = ServerShards(mesh, server_placements)
     shared = client_tier == "shared"
     per_client = vmap(loss, in_dims=(None if shared else 0, None, 0))
     fedavg, fedavg_masked = fedavg_stack, fedavg_stack_masked
@@ -556,14 +690,18 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
             if not shared:
                 params_c = shard_batch(params_c, mesh, dim=lead)
                 oc = _local_state(oc, mesh, lead)
+        if server is not None:
+            # the rank's own slices; gathered whole for each step's compute
+            params_s, os_ = _to_local(params_s), _to_local(os_)
         losses, tap_rows = [], []
         up_c = up_s = raw_c = None
         for r in range(local_rounds):
             batch = {k: v.select(lead + 1, r) for k, v in batches.items()}
             # masked clients' losses weigh 0: their rows' gradients are 0
             # (and dropped below), and they add nothing to the server's
+            ps_full = params_s if server is None else server.gather(params_s)
             loss_r, aux, (g_c, g_s), rows = _losses_and_grads(
-                per_client, (params_c, params_s), batch, mask,
+                per_client, (params_c, ps_full), batch, mask,
                 rows=rows_of[mask is not None], lead=lead)
             if taps:
                 up_c, up_s = {}, {}
@@ -584,7 +722,13 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                 if mask is not None:
                     pc_new = _keep_masked_rows(mask, pc_new, params_c)
                     oc_new = _keep_masked_state(mask, oc_new, oc)
+            if server is not None:
+                # AdamW is elementwise: the update of the rank's slices is
+                # the slice of the whole update
+                g_s = server.shard(g_s)
             ps_new, os_new = opt_s.update(g_s, os_, params_s, updates=up_s)
+            if server is not None and "update_norm_server" in taps:
+                up_s = server.gather(up_s)
             if taps:
                 tap_rows.append(round_taps(loss_r, aux, g_c, rows, up_c,
                                            up_s))
@@ -610,6 +754,8 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
                                 params_c, mask, group, lead=lead))
             params_c, oc, losses, tap_stack = _gather_round(
                 mesh, shared, lead, params_c, oc, losses, tap_stack)
+        if server is not None:
+            params_s, os_ = server.wrap(params_s), server.wrap_state(os_)
         out = (params_c, params_s, oc, os_, losses)
         return out + (tap_stack,) if taps else out
 
@@ -655,12 +801,16 @@ def _gather_round(mesh, shared: bool, lead: int, params_c, oc, losses,
 
 
 def fleet_state(params_c: dict, params_s: dict, opt_c, opt_s, n: int,
-                client_tier: str = "stacked") -> tuple:
+                client_tier: str = "stacked", *, mesh=None,
+                server_placements: Optional[dict] = None) -> tuple:
     """Initial engine state ``(params_c, params_s, oc, os_)``: the client
     params and optimizer state stacked ``n`` times ("stacked") or single
-    ("shared"), as the reference's ``init_state`` builds them."""
+    ("shared"), as the reference's ``init_state`` builds them; with
+    ``server_placements`` the server params and optimizer state placed on
+    ``mesh``'s ``(fsdp, tp)`` sub-mesh (``shard_server_state``)."""
+    os_ = shard_server_state(opt_s.init(params_s), mesh, server_placements)
+    params_s = shard_server_state(dict(params_s), mesh, server_placements)
     if client_tier == "shared":
-        return (dict(params_c), dict(params_s), opt_c.init(params_c),
-                opt_s.init(params_s))
-    return (stack_replicas(params_c, n), dict(params_s),
-            opt_c.init_stacked(params_c, n), opt_s.init(params_s))
+        return dict(params_c), params_s, opt_c.init(params_c), os_
+    return (stack_replicas(params_c, n), params_s,
+            opt_c.init_stacked(params_c, n), os_)

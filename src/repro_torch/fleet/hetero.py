@@ -47,7 +47,8 @@ from ..core.link import LinkConfig
 from ..core.split import (SplitStep, Stage, make_split_loss, split_stack,
                           tier_params, to_port_layout)
 from ..models.transformer import AttnLayer, GroupSpec, group_apply, group_init
-from .engine import fleet_state, make_fleet_sl_round
+from ..launch.mesh import server_only_mesh
+from .engine import fleet_state, make_fleet_sl_round, validate_fleet_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +224,14 @@ class HeteroFleet:
     of its clients. ``run_round(batches)`` takes each bucket's rows of the
     global (clients, local_steps, ...) batch dict on the device, runs the
     buckets one after another, and puts their losses back into
-    (local_steps, clients). The client axis is ``torch.func.vmap``'s:
-    ``client_axis="shard_map"`` (ROADMAP queue 1 item 16b) is refused.
+    (local_steps, clients). ``client_axis`` (``"vmap"`` or
+    ``"shard_map"``) and ``mesh`` pass through to each bucket's round: a
+    bucket whose size divides the mesh's ``data`` axis shards its clients
+    over it, any other takes ``launch.mesh.server_only_mesh`` (its clients
+    on every data rank, the same ``fsdp`` x ``tp`` server sub-mesh).
+    ``server_pspecs_fn(params_s, mesh)`` (``launch.steps.
+    fleet_server_pspecs``) gives a bucket's server suffix its specs on
+    that sub-mesh; its params and AdamW moments are then DTensors.
     ``taps`` (engine metrics-bus channels; ``build_program`` gives steps
     with the matching ``SplitStep.taps``) makes each round also return
     the tap stacks, put back into global (local_steps, clients) tensors:
@@ -234,14 +241,12 @@ class HeteroFleet:
                  cut_indices: Sequence[int], opt_c, opt_s, *,
                  local_rounds: int, client_dropout: bool = False,
                  server_reduce: str = "mean", client_axis: str = "vmap",
+                 mesh=None, server_pspecs_fn: Optional[Callable] = None,
                  taps: tuple = ()):
-        if client_axis == "shard_map":
-            raise NotImplementedError(
-                "HeteroFleet(client_axis='shard_map') is not ported to "
-                "repro_torch yet (ROADMAP queue 1 item 16b)")
-        if client_axis != "vmap":
-            raise ValueError(f"client_axis must be 'vmap', got "
-                             f"{client_axis!r}")
+        if client_axis not in ("vmap", "shard_map"):
+            raise ValueError(f"client_axis must be 'vmap' or 'shard_map', "
+                             f"got {client_axis!r}")
+        from ..launch.steps import server_placements
         self.taps = tuple(taps)
         self.buckets = bucket_by_cut(cut_indices)
         self.local_rounds = local_rounds
@@ -250,16 +255,29 @@ class HeteroFleet:
         self.opt_c, self.opt_s = opt_c, opt_s
         self.programs: dict[int, SplitProgram] = {}
         self._rounds = []
+        # each bucket's (mesh, server placements)
+        self._layouts = []
         for bucket in self.buckets:
             prog = build_program(bucket.cut_index)
             if prog.cut_index != bucket.cut_index:
                 raise ValueError("build_program returned a different cut")
             self.programs[bucket.cut_index] = prog
+            b_mesh = mesh
+            try:
+                validate_fleet_mesh(b_mesh, len(bucket.client_ids))
+            except ValueError:
+                b_mesh = server_only_mesh(mesh)
+            placements = (server_placements(server_pspecs_fn(
+                prog.params_s0, b_mesh))
+                if server_pspecs_fn is not None and b_mesh is not None
+                else None)
+            self._layouts.append((b_mesh, placements))
             self._rounds.append(make_fleet_sl_round(
                 make_split_loss(prog.step, prog.client, prog.server),
                 opt_c, opt_s, local_rounds=local_rounds,
                 server_reduce=server_reduce, client_dropout=client_dropout,
-                taps=self.taps))
+                client_axis=client_axis, mesh=b_mesh,
+                server_placements=placements, taps=self.taps))
         # the fleet's own live state (the run_round / bucket_state surface),
         # made on first use: callers that thread state through
         # init_states() / run_round_on never pay for it
@@ -272,14 +290,16 @@ class HeteroFleet:
         program's initial parameters, or from ``tiers(k) -> (params_c,
         params_s)``."""
         states = []
-        for bucket in self.buckets:
+        for bucket, (b_mesh, placements) in zip(self.buckets,
+                                                self._layouts):
             k = bucket.cut_index
             params_c, params_s = (
                 tiers(k) if tiers is not None
                 else (self.programs[k].params_c0, self.programs[k].params_s0))
             states.append(fleet_state(
                 params_c, {key: v.clone() for key, v in params_s.items()},
-                self.opt_c, self.opt_s, len(bucket.client_ids)))
+                self.opt_c, self.opt_s, len(bucket.client_ids),
+                mesh=b_mesh, server_placements=placements))
         return states
 
     def reset(self) -> None:

@@ -1,11 +1,17 @@
 """Fleet meshes over ``torch.distributed`` (counterpart of ``repro.launch.mesh``).
 
 The reference's fleet mesh is a ``('data', 'fsdp', 'tp')`` device mesh; its
-shard_map engines put the stacked client axis on ``data``. Here the ``data``
-axis is a process group: each rank holds ``num_clients / size`` clients'
-rows, and the engines' collectives (FedAvg, the EPSL server gradient) are
-``all_reduce`` / ``all_gather`` calls over that group. ``fsdp`` and ``tp``
-are 1: a server sub-mesh is not ported (ROADMAP queue 1 item 16b).
+fleet engines put the stacked client axis on ``data`` and the SL server
+suffix on the ``fsdp`` x ``tp`` sub-mesh. Here ``make_fleet_mesh`` builds
+the same layout as a ``torch.distributed`` ``DeviceMesh`` of shape
+``(data, fsdp, tp)``, ``data`` outermost (rank ``d*fsdp*tp + f*tp + t``),
+and ``FleetMesh`` carries the rank's own ``data`` group: each rank holds
+``num_clients / data`` clients' rows, and the engines' collectives
+(FedAvg, the EPSL server gradient) are ``all_reduce`` / ``all_gather``
+calls over that group. The ranks of one ``(fsdp, tp)`` sub-mesh hold the
+same clients; the server state lives on that sub-mesh as DTensors
+(``fleet.engine.shard_server_state``). ``server_mesh_sizes`` reads a
+mesh's ``(fsdp, tp)``.
 
 The backend follows the device: NCCL for a CUDA device, gloo for the CPU,
 and a mesh whose group's backend does not serve its device is refused, so
@@ -50,15 +56,45 @@ BACKEND_OF_DEVICE = {"cuda": "nccl", "cpu": "gloo"}
 class FleetMesh:
     """The data group of a fleet: ``group`` (None on the single-rank mesh),
     this process's ``rank`` in it, its ``size`` and the ``device`` the
-    rank's tensors live on. The server axes ``fsdp`` and ``tp`` are 1."""
+    rank's tensors live on; the server axes' sizes ``fsdp`` and ``tp``,
+    and the ``(data, fsdp, tp)`` ``device_mesh`` they come from (None on a
+    data group alone, ``data_mesh``, where both are 1)."""
     group: Any
     rank: int
     size: int
     device: torch.device
+    fsdp: int = 1
+    tp: int = 1
+    device_mesh: Any = None
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.size, "fsdp": 1, "tp": 1}
+        return {DATA_AXIS: self.size, "fsdp": self.fsdp, "tp": self.tp}
+
+    @property
+    def server_mesh(self):
+        """This rank's ``(fsdp, tp)`` sub-mesh (None without a
+        ``device_mesh``)."""
+        if self.device_mesh is None:
+            return None
+        return self.device_mesh["fsdp", "tp"]
+
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes the run's telemetry: data rank 0 at the
+        first place of its server sub-mesh."""
+        if self.rank != 0:
+            return False
+        sub = self.server_mesh
+        return sub is None or tuple(sub.get_coordinate()) == (0, 0)
+
+
+def server_mesh_sizes(mesh) -> tuple[int, int]:
+    """(fsdp, tp) sizes of a fleet mesh's server sub-mesh (1, 1 without
+    one)."""
+    if mesh is None:
+        return 1, 1
+    return mesh.fsdp, mesh.tp
 
 
 def _check_backend(group, device: torch.device) -> None:
@@ -105,28 +141,63 @@ def fleet_data_size(num_clients: int, world: int,
     return data
 
 
+def fleet_layout(num_clients: int, world: int, *,
+                 max_data: Optional[int] = None, fsdp: int = 1,
+                 tp: int = 1) -> Optional[tuple]:
+    """The reference's ``make_fleet_mesh`` rule on ``world`` ranks: ``data``
+    the largest divisor of ``num_clients`` within ``world // (fsdp * tp)``
+    (and ``max_data``); ``(data, fsdp, tp)``, or None when the layout
+    needs more ranks than exist or collapses to one rank."""
+    if fsdp * tp > world:
+        return None
+    data = fleet_data_size(num_clients, world // (fsdp * tp), max_data)
+    if data * fsdp * tp <= 1:
+        return None
+    return data, fsdp, tp
+
+
+def fleet_mesh_of(device_mesh, *, device=None) -> Optional[FleetMesh]:
+    """The ``FleetMesh`` of this rank on a ``(data, fsdp, tp)``
+    ``DeviceMesh``: its ``data`` group and coordinate, the server axes'
+    sizes; None on a rank outside the mesh. ``device`` defaults to the
+    data group's (``_group_device``); a device the group's backend does
+    not serve is refused."""
+    coord = device_mesh.get_coordinate()
+    if coord is None:
+        return None
+    sizes = dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
+    group = device_mesh.get_group(DATA_AXIS)
+    device = _group_device(group) if device is None else torch.device(device)
+    _check_backend(group, device)
+    return FleetMesh(group=group, rank=coord[0], size=sizes[DATA_AXIS],
+                     device=device, fsdp=sizes["fsdp"], tp=sizes["tp"],
+                     device_mesh=device_mesh)
+
+
 def make_fleet_mesh(num_clients: int, *, max_data: Optional[int] = None,
+                    fsdp: int = 1, tp: int = 1,
                     device=None) -> Optional[FleetMesh]:
-    """The fleet mesh of ``num_clients`` over the default process group:
-    ``data`` the largest divisor of ``num_clients`` that fits the world
-    (and ``max_data``), over the first ``data`` ranks (a new group when it
-    is not the whole world; every rank must call this). Returns None when
-    no process group is initialised, when the layout collapses to one rank
-    (the reference's single-device case: callers fall back to
-    ``single_device_fleet_mesh``), and on a rank past ``data``, which holds
-    no clients."""
+    """The ``('data', 'fsdp', 'tp')`` fleet mesh of ``num_clients`` over
+    the default process group (the reference's rule, ``fleet_layout``): a
+    ``DeviceMesh`` over the first ``data * fsdp * tp`` ranks, ``data``
+    outermost (every rank must call this: the mesh makes its groups).
+    Returns None when no process group is initialised, when the layout
+    needs more ranks than exist or collapses to one rank (the reference's
+    single-device case: callers fall back to ``single_device_fleet_mesh``),
+    and on a rank past the mesh, which holds no clients."""
     if not dist.is_initialized():
         return None
-    world = dist.get_world_size()
-    data = fleet_data_size(num_clients, world, max_data)
-    if data <= 1:
+    layout = fleet_layout(num_clients, dist.get_world_size(),
+                          max_data=max_data, fsdp=fsdp, tp=tp)
+    if layout is None:
         return None
-    group = None
-    if data < world:
-        group = dist.new_group(ranks=list(range(data)))
-        if dist.get_rank() >= data:
-            return None
-    return data_mesh(group, device=device)
+    from torch.distributed.device_mesh import DeviceMesh
+    device = (_group_device(dist.group.WORLD) if device is None
+              else torch.device(device))
+    n = layout[0] * layout[1] * layout[2]
+    device_mesh = DeviceMesh(device.type, torch.arange(n).reshape(layout),
+                             mesh_dim_names=(DATA_AXIS, "fsdp", "tp"))
+    return fleet_mesh_of(device_mesh, device=device)
 
 
 def single_device_fleet_mesh(device="cpu") -> FleetMesh:
@@ -134,6 +205,16 @@ def single_device_fleet_mesh(device="cpu") -> FleetMesh:
     identity, so the explicit-collective engines run on one device with
     the same code path as a real fleet."""
     return FleetMesh(group=None, rank=0, size=1, device=torch.device(device))
+
+
+def server_only_mesh(mesh: Optional[FleetMesh]) -> Optional[FleetMesh]:
+    """The fleet mesh with its ``data`` axis collapsed to 1 (the
+    reference's ``_server_only_mesh``): no data group, so every data rank
+    runs all the clients, and the same ``fsdp`` x ``tp`` server sub-mesh.
+    For a bucket whose size does not divide ``data``."""
+    if mesh is None or mesh.size == 1:
+        return mesh
+    return dataclasses.replace(mesh, group=None, rank=0, size=1)
 
 
 def all_gather_rows(mesh: Optional[FleetMesh], items) -> list:

@@ -24,8 +24,9 @@ optimizer state is ``optim.OptState`` (the reference's, with dicts keyed
 as the params), updated by ``optim.FunctionalAdamW``. ``attn_impl``
 (``"xla"``, the chunked plain path, by default) is the port's own option:
 the dry run traces the O(S^2) oracle (``"ref"``) instead (its docstring
-says why). ``fleet_server_pspecs`` (the fleet engines' server sub-mesh) is
-not ported (ROADMAP queue 1 item 16b). The reference's
+says why). ``fleet_server_pspecs`` gives the fleet engines' server suffix
+its specs on the ``fsdp`` x ``tp`` sub-mesh (``server_placements`` turns
+them into DTensor placements). The reference's
 ``PerfOptions.donate`` and ``BuiltStep.donate_argnums`` have no
 counterpart: a PyTorch step donates no buffer (the decode step writes its
 state in place, the train step returns new tensors).
@@ -50,7 +51,8 @@ from ..models.transformer import (Model, _group_decode, build_groups,
                                   vocab_padded)
 from ..optim import FunctionalAdamW, OptState
 from ..parallel.sharding import (TP_AXIS, P, ShardingPolicy, axis_names,
-                                 mesh_axis_sizes, model_pspecs, set_policy)
+                                 mesh_axis_sizes, model_pspecs, set_policy,
+                                 to_placements)
 
 # long-context variant for full-attention archs: block-sparse sliding window
 LONG_CONTEXT_WINDOW = 8192
@@ -395,6 +397,54 @@ def build_step(cfg: ArchConfig, shape_name: str, mesh, *,
         return build_prefill_step(cfg, shape, mesh, split=split, opts=opts,
                                   attn_impl=attn_impl)
     return build_decode_step(cfg, shape, mesh, split=split, opts=opts)
+
+
+# the port's dim of each of the reference's dims: a conv kernel is HWIO
+# there and OIHW here (``convert._to_port``); every other leaf keeps its
+# layout (a linear ``w`` is (in, out) in both)
+_HWIO_TO_OIHW = (2, 3, 1, 0)
+
+
+def reference_dims(ndim: int) -> tuple:
+    """The port's dim of each of the reference's dims of an ``ndim`` leaf
+    of a CNN tier."""
+    return _HWIO_TO_OIHW if ndim == 4 else tuple(range(ndim))
+
+
+def fleet_server_pspecs(server_params: dict, mesh) -> dict:
+    """Server-tier specs for the fleet engines on the ``('data', 'fsdp',
+    'tp')`` fleet mesh (``launch.mesh.make_fleet_mesh``; any mesh whose
+    axis sizes ``mesh_axis_sizes`` reads), the reference's rule on the
+    reference's dims: matrix-like leaves shard their last two dims
+    ``(fsdp, tp)``, vectors their output channel over ``tp``, every dim
+    guarded by divisibility against its axis size. Computed on the
+    reference's layout (``reference_dims``) and returned in the port's:
+    a port leaf's shard holds the elements of the reference's shard."""
+    sizes = mesh_axis_sizes(mesh)
+    f, t = sizes.get("fsdp", 1), sizes.get("tp", 1)
+
+    def spec(leaf) -> P:
+        shape = tuple(leaf.shape)
+        if not shape:
+            return P()
+        dims = reference_dims(len(shape))
+        ref_shape = [shape[d] for d in dims]
+        axes = [None] * len(shape)
+        if t > 1 and ref_shape[-1] % t == 0:
+            axes[dims[-1]] = "tp"
+        if len(shape) >= 2 and f > 1 and ref_shape[-2] % f == 0:
+            axes[dims[-2]] = "fsdp"
+        return P(*axes)
+
+    return {k: spec(v) for k, v in server_params.items()}
+
+
+def server_placements(pspecs: dict) -> dict:
+    """Each spec of ``fleet_server_pspecs`` as the DTensor placements of its
+    leaf on the ``(fsdp, tp)`` sub-mesh, one a mesh dim."""
+    from ..parallel.sharding import AbstractMesh
+    sub = AbstractMesh((1, 1), ("fsdp", "tp"))
+    return {k: tuple(to_placements(s, sub)) for k, s in pspecs.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,10 @@ def tensor_bytes(tree) -> int:
     parameters, buffers and optimizer state of the sequential engines'
     modules and optimizers. Other leaves (ints, configs) count 0."""
     if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
+        # a DTensor (a sharded server suffix): this rank's own bytes
+        local = getattr(tree, "to_local", None)
+        t = tree if local is None else local()
+        return t.numel() * t.element_size()
     if isinstance(tree, np.ndarray):
         return int(tree.nbytes)
     if isinstance(tree, dict):

@@ -197,11 +197,23 @@ def test_fleet_live_state_and_fresh_states():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(client_axis="shard_map"), NotImplementedError, "queue 1 item 16"),
+    # HeteroFleet on shard_map runs (on the single-rank mesh here: every
+    # collective the identity, so it is the vmap fleet bit for bit)
+    (dict(client_axis="shard_map"), None, None),
     (dict(server_reduce="median"), ValueError, "median"),
     (dict(client_axis="scan"), ValueError, "must be 'vmap'"),
 ])
 def test_fleet_refusals(kw, exc, match):
+    if exc is None:
+        fleet, twin = _port_fleet("xla", **kw), _port_fleet("xla")
+        for r in range(len(MASKS)):
+            got, want = fleet.run_round(_batches(r)), twin.run_round(
+                _batches(r))
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
+        for x, y in zip(_leaves(fleet.bucket_state(0)),
+                        _leaves(twin.bucket_state(0))):
+            assert torch.equal(x, y)
+        return
     with pytest.raises(exc, match=match):
         _port_fleet("xla", **kw)
 
@@ -392,9 +404,20 @@ def test_adaptive_refusals_carry_the_references_messages(case):
 
 
 def test_shard_map_with_adaptive_cuts_stays_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        T.compile_experiment(_hetero_spec(T, client_axis="shard_map"),
-                             data=_data(), device="cpu")
+    """Adaptive cuts on ``sl/shard_map`` are no longer refused: with no
+    process group the plan runs its buckets on the single-rank mesh, every
+    collective the identity, and its records equal the ``sl/vmap`` plan's
+    bit for bit but the engine label (4 gloo ranks:
+    ``test_torch_server_mesh.py``)."""
+    recs = {}
+    for axis in ("shard_map", "vmap"):
+        plan = T.compile_experiment(_hetero_spec(T, client_axis=axis),
+                                    data=_data(), device="cpu")
+        assert plan.cut_of_client == [2, 1, 2, 1]
+        recs[axis] = plan.run()[1]
+    assert all(r.engine == "sl/shard_map" for r in recs["shard_map"])
+    for a, b in zip(recs["shard_map"], recs["vmap"]):
+        assert dataclasses.replace(a, engine=b.engine) == b
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ to the test. Inputs arrive as numpy, results leave as numpy.
 """
 import contextlib
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -353,3 +354,102 @@ def analyze_shard_map() -> dict:
         "own": [(f.rule, f.message) for f in own.findings],
         "own_collectives": own.collectives}),
         "jax": "jax" in sys.modules}
+
+
+# ---------------------------------------------------------------------------
+# the server sub-mesh (EngineSpec.server_mesh), vmap over ranks, HeteroFleet
+# on shard_map
+# ---------------------------------------------------------------------------
+
+MCU_FIELDS = dict(fp32_tflops=0.02, mem_bw_gbs=2.0, tensor_tflops=0.04,
+                  cpu_passmark=400.0, power_w=2.0)
+
+
+def server_mesh_spec(case: dict):
+    """The port's spec of a server-mesh case: tinycnn at 16 px, 8 clients,
+    an int8 link on the fused path, 2 rounds of 2 local steps at batch 4;
+    ``edges`` a string of ``j`` (Jetson AGX Orin) and ``m`` (an MCU-class
+    profile) cycled over the clients, adaptive cuts at 1 Mb/s."""
+    import repro_torch.api as T
+    from repro_torch.core.energy import JETSON_AGX_ORIN, HardwareProfile
+    mcu = HardwareProfile("mcu-class", **MCU_FIELDS)
+    edges = tuple(JETSON_AGX_ORIN if e == "j" else mcu
+                  for e in case.get("edges", "j"))
+    adaptive = len(set(case.get("edges", "j"))) > 1
+    return T.ExperimentSpec(
+        model=T.ModelSpec(name="tinycnn", num_classes=4),
+        data=T.DataSpec(kind="arrays", image_size=16, classes_per_client=2),
+        clients=T.ClientSpec(num_clients=8, edge_profiles=edges),
+        cut_policy=(T.CutPolicy(mode="adaptive") if adaptive
+                    else T.CutPolicy(fraction=0.4)),
+        link_policy=T.LinkPolicy(compress="int8",
+                                 **({"rate_bps": 1e6} if adaptive else {})),
+        engine=T.EngineSpec(kind="sl", client_axis=case["axis"],
+                            link_kernel="fused",
+                            server_mesh=case.get("server_mesh")),
+        global_rounds=2, local_steps=2, batch_size=4)
+
+
+def _placement(p) -> tuple:
+    return ("S", p.dim) if p.is_shard() else ("R",)
+
+
+def _server_locals(params_s: dict, os_) -> Optional[dict]:
+    """Each server leaf's placements, this rank's sub-mesh coordinate and
+    its local slice, of the params and both moments (None when the server
+    state is not a DTensor); the step counter's placements."""
+    leaf = next(iter(params_s.values()))
+    if not hasattr(leaf, "placements"):
+        return None
+
+    def side(tree):
+        return {k: {"placements": [_placement(p) for p in v.placements],
+                    "coord": tuple(v.device_mesh.get_coordinate()),
+                    "sizes": tuple(v.device_mesh.shape),
+                    "local": _np(v.to_local())} for k, v in tree.items()}
+    return {"params": side(params_s), "mu": side(os_.mu),
+            "nu": side(os_.nu),
+            "step": [_placement(p) for p in os_.step.placements]}
+
+
+def server_mesh_plan(case: dict, inputs: dict) -> dict:
+    """A server-mesh case's plan on this rank (``vmap_over_ranks``: a
+    ``vmap`` plan given ``make_fleet_mesh`` over every rank): its records,
+    its final state with the server state gathered, each bucket's server
+    leaves as this rank holds them, the mesh, and the int8 calls."""
+    import repro_torch.api as T
+    from repro_torch.fleet.engine import gather_server_state
+    from repro_torch.launch.mesh import make_fleet_mesh
+    mesh = (make_fleet_mesh(8, device="cpu")
+            if case.get("vmap_over_ranks") else None)
+    plan = T.compile_experiment(server_mesh_spec(case), data=inputs["data"],
+                                device="cpu", mesh=mesh)
+    plan.params0 = _t(inputs["params0"])
+    with _counting_int8() as calls:
+        state, recs = plan.run()
+    es = state.engine_state
+    buckets = es if isinstance(es, list) else [es]
+    return {"records": recs, "cuts": list(plan.cut_of_client),
+            "flops": {k: tuple(float(f) for f in v[:2])
+                      for k, v in plan.flops.items()},
+            "state": [_np((pc, gather_server_state(ps), oc,
+                           gather_server_state(os_)))
+                      for pc, ps, oc, os_ in buckets],
+            "locals": [_server_locals(ps, os_)
+                       for _, ps, _, os_ in buckets],
+            "mesh": None if plan.mesh is None else plan.mesh.shape,
+            "calls": list(calls)}
+
+
+def server_mesh_cases(cases: dict, inputs: dict) -> dict:
+    """Every server-mesh case on this world: rank 0's records and state;
+    every rank's mesh, server leaves and int8 calls."""
+    out = {}
+    for name, case in cases.items():
+        got = server_mesh_plan(case, inputs)
+        ranks = _all_ranks({k: got.pop(k) for k in ("locals", "mesh",
+                                                     "calls")})
+        got["ranks"] = ranks
+        out[name] = got
+    out["jax"] = _all_ranks("jax" in sys.modules)
+    return out
