@@ -118,7 +118,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    fenced wall time, their ratio and the peak memory, the int8 launches of each (one a local step for all
    16 seed-client rows in ``vmap`` mode), and the kernel through the
    nested ``vmap`` rule at (200,704, 32), bit-equal and one launch, timed
-   L2 cold; then run telemetry and the metrics bus (``[obs]``, under
+   L2 cold; then the sweep on the scan engines (``[mc-scan]``), 4 seeds x
+   2 rounds in both modes gated as ``[mc]`` is: (a) the MobileNetV2
+   ``sl/scan`` spec of 5 under the channel alone (``a2g``, two UAVs
+   relaying, seed 1), whose seeds share one round in ``vmap`` mode (the
+   int8 kernel once a client step for all seeds: 24 launches against the
+   loop's 72; the seeds' losses bit-equal, their bills their own), and
+   (b) the ``fl/scan`` spec of 6 with a cohort of 4 out of 1,000,000,
+   each seed its own, on the seed axis (the seeds' losses differ), each
+   part's wall times, their ratio and peaks beside the card's name and
+   power limit; then run telemetry and the metrics bus (``[obs]``, under
    cuDNN's deterministic algorithms): the ``sl/vmap`` spec with dropout
    0.25, 2 rounds with a run directory under ``results/runs/``, the full
    tap set and round 1 profiled, against the same 2 rounds without
@@ -2104,27 +2113,16 @@ def run_scenario_path(api):
     return plan, launches
 
 
-def run_mc_path(plan) -> dict:
+def mc_modes(plan, label: str, want: dict) -> tuple:
     """``run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS)`` in both modes
-    on the [scenario] plan, timed with cuDNN's default algorithms: each
-    mode's fenced wall time (after its warm-up round), the phase's
-    seconds, the peak memory and the int8 launches (``vmap``: one a local
-    step for all seeds and clients, its warm-up round's included); per
-    seed the masks, active clients, bytes and bills equal, the first
-    round's losses within ``FLEET_EQUIV_ATOL``. cuDNN's default
-    algorithms are not reproducible run to run, and at this width the
-    loop against itself (run once more and printed) drifts past
-    ``FLEET_EQUIV_ATOL`` by the second round (PERF.md, ROADMAP fault H):
-    so both modes run again with cuDNN's deterministic algorithms,
-    bitwise reproducible run to run, and there every round's losses must
-    agree within ``FLEET_EQUIV_ATOL``."""
+    with cuDNN's default algorithms, each printed with its fenced wall time
+    (after its warm-up round), the seconds with that round, the peak memory
+    and the int8 launches, which must equal ``want[mode]``; then both modes
+    again with cuDNN's deterministic algorithms. Returns ``({mode:
+    (result, launches, peak, phase_s)}, {mode: deterministic result})``."""
     import numpy as np
-    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
     from repro_torch.kernels.quant.int8 import quant_dequant_int8
     from repro_torch.sim import run_monte_carlo
-    steps = plan.spec.local_steps
-    want = {"vmap": (1 + MC_ROUNDS) * steps,
-            "loop": (1 + MC_SEEDS * MC_ROUNDS) * steps}
     out, det = {}, {}
     for mode in ("vmap", "loop"):
         torch.cuda.empty_cache()
@@ -2136,8 +2134,8 @@ def run_mc_path(plan) -> dict:
         launches = quant_dequant_int8.launches
         peak = torch.cuda.max_memory_allocated()
         s = mc.stacks
-        print(f"[mc] {mode}: {MC_SEEDS} seeds x {MC_ROUNDS} rounds, wall_s="
-              f"{mc.wall_s:.4f} (fenced, after one warm-up round; "
+        print(f"[{label}] {mode}: {MC_SEEDS} seeds x {MC_ROUNDS} rounds, "
+              f"wall_s={mc.wall_s:.4f} (fenced, after one warm-up round; "
               f"{phase_s:.2f} s with it), peak "
               f"{peak / 2 ** 30:.2f} GiB, quant_dequant_int8 launches "
               f"{launches} (want {want[mode]}); loss "
@@ -2146,11 +2144,9 @@ def run_mc_path(plan) -> dict:
               f"{s['link_time_s'].tolist()}, final accuracy "
               f"{s['final_accuracy'].tolist()}")
         if not np.isfinite(s["loss"]).all() or launches != want[mode]:
-            raise AssertionError(f"[mc] {mode}: non-finite losses or "
+            raise AssertionError(f"[{label}] {mode}: non-finite losses or "
                                  f"{launches} int8 launches")
         out[mode] = (mc, launches, peak, phase_s)
-    # the loop once more, same code and inputs: its drift against itself
-    again = run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS, mode="loop")
     torch.backends.cudnn.deterministic = True
     try:
         for mode in ("vmap", "loop"):
@@ -2158,8 +2154,17 @@ def run_mc_path(plan) -> dict:
                                         mode=mode)
     finally:
         torch.backends.cudnn.deterministic = False
+    return out, det
+
+
+def mc_agreement(out: dict, det: dict) -> tuple:
+    """The two modes seed by seed: ``(exact, equal, diff, diff_det)``, the
+    stacks held exactly (all but the losses and accuracies), whether they
+    are equal in both runs of each mode and across the two algorithms, and
+    the losses' max_abs_diff by round with cuDNN's default and its
+    deterministic algorithms."""
+    import numpy as np
     v, l = out["vmap"][0], out["loop"][0]
-    self_drift = np.abs(again.stacks["loss"] - l.stacks["loss"]).max(axis=0)
     exact = [k for k in v.stacks if k not in ("loss", "final_accuracy")]
     pairs = ((v, l), (det["vmap"], det["loop"]), (v, det["vmap"]))
     equal = all(np.array_equal(a.stacks[k], b.stacks[k]) for k in exact
@@ -2167,6 +2172,34 @@ def run_mc_path(plan) -> dict:
     diff = np.abs(v.stacks["loss"] - l.stacks["loss"]).max(axis=0)
     diff_det = np.abs(det["vmap"].stacks["loss"]
                       - det["loop"].stacks["loss"]).max(axis=0)
+    return exact, equal, diff, diff_det
+
+
+def run_mc_path(plan) -> dict:
+    """``run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS)`` in both modes
+    on the [scenario] plan (``mc_modes``), timed with cuDNN's default
+    algorithms: each mode's fenced wall time, the phase's seconds, the peak
+    memory and the int8 launches (``vmap``: one a local step for all seeds
+    and clients, its warm-up round's included); per seed the masks, active
+    clients, bytes and bills equal, the first round's losses within
+    ``FLEET_EQUIV_ATOL``. cuDNN's default algorithms are not reproducible
+    run to run, and at this width the loop against itself (run once more
+    and printed) drifts past ``FLEET_EQUIV_ATOL`` by the second round
+    (PERF.md, ROADMAP fault H): so both modes run again with cuDNN's
+    deterministic algorithms, bitwise reproducible run to run, and there
+    every round's losses must agree within ``FLEET_EQUIV_ATOL``."""
+    import numpy as np
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    from repro_torch.sim import run_monte_carlo
+    steps = plan.spec.local_steps
+    out, det = mc_modes(plan, "mc", {
+        "vmap": (1 + MC_ROUNDS) * steps,
+        "loop": (1 + MC_SEEDS * MC_ROUNDS) * steps})
+    # the loop once more, same code and inputs: its drift against itself
+    again = run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS, mode="loop")
+    v, l = out["vmap"][0], out["loop"][0]
+    self_drift = np.abs(again.stacks["loss"] - l.stacks["loss"]).max(axis=0)
+    exact, equal, diff, diff_det = mc_agreement(out, det)
     print(f"[mc] vmap == loop seed by seed: {exact} equal {equal}; loss "
           f"max_abs_diff by round, default algorithms "
           f"{[f'{x:.3e}' for x in diff]} (round 0 gated at "
@@ -2182,6 +2215,84 @@ def run_mc_path(plan) -> dict:
     return {"mc-vmap": out["vmap"][1], "wall": (v.wall_s, l.wall_s),
             "peak": (out["vmap"][2], out["loop"][2]),
             "phase_s": (out["vmap"][3], out["loop"][3])}
+
+
+def channel_scenario(sim):
+    """``stoch_scenario`` without its availability trace, which the scan
+    engines refuse: the ``a2g`` channel, two UAVs relaying, seed 1."""
+    return sim.ScenarioSpec(channel=sim.ChannelParams(kind="a2g"),
+                            num_uavs=2, serve_mode="relay", seed=1)
+
+
+def run_mc_scan_path(api) -> dict:
+    """``run_monte_carlo`` on the scan engines ([mc-scan]), ``MC_SEEDS``
+    seeds x ``MC_ROUNDS`` rounds in both modes (``mc_modes``), gated as
+    ``run_mc_path`` is. (a) MobileNetV2 on ``sl/scan`` (``main_spec``:
+    Algorithm 3, the int8 link on the fused kernel, the UAV mission) under
+    ``channel_scenario``: nothing drawn a seed reaches the engine, so the
+    ``vmap`` mode runs the plan's own round once a round for all seeds, and
+    the int8 kernel launches once a client step, warm-up round included;
+    the seeds' losses and accuracies are bit-equal, their bills each
+    seed's channel's. (b) ``main_spec`` on ``fl/scan`` with a cohort of 4
+    out of ``COHORT_POPULATION``, each seed its own: the seed axis
+    (``core.split.make_fl_seeds_round``), one program a client step for
+    all seeds; no kernel (FL has no link), and the seeds' losses differ.
+    Each part's wall times, their ratio and the peaks are printed beside
+    the card's name and power limit."""
+    import numpy as np
+    from repro_torch import sim
+    from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+    card = card_line()
+    res = {}
+    for part, kind in (("a", "sl"), ("b", "fl")):
+        label = f"mc-scan {part}"
+        t0 = time.perf_counter()
+        if kind == "sl":
+            plan = api.compile_experiment(dataclasses.replace(
+                main_spec(api, "sl", MC_ROUNDS),
+                scenario=channel_scenario(sim)))
+        else:
+            plan = api.compile_experiment(main_spec(
+                api, "fl", MC_ROUNDS, population=COHORT_POPULATION))
+        spec = plan.spec
+        per_round = (spec.clients.num_clients * spec.local_steps
+                     if kind == "sl" else 0)
+        print(f"[{label}] compiled in {time.perf_counter() - t0:.2f} s: "
+              f"{plan.engine_label}, population {spec.clients.population}")
+        out, det = mc_modes(plan, label, {
+            "vmap": (1 + MC_ROUNDS) * per_round,
+            "loop": (1 + MC_SEEDS * MC_ROUNDS) * per_round})
+        exact, equal, diff, diff_det = mc_agreement(out, det)
+        v, l = out["vmap"][0], out["loop"][0]
+        loss = v.stacks["loss"]
+        if kind == "sl":
+            # one trajectory: every seed's row is seed 0's, in both runs
+            seeds_ok = all((r.stacks[k] == r.stacks[k][:1]).all()
+                           for r in (v, det["vmap"])
+                           for k in ("loss", "final_accuracy"))
+            what = "seed rows bit-equal"
+        else:
+            seeds_ok = len(np.unique(loss[:, -1])) > 1
+            what = "seeds' losses differ"
+        ratio = l.wall_s / v.wall_s
+        print(f"[{label}] vmap == loop seed by seed: {exact} equal {equal}; "
+              f"loss max_abs_diff by round, default algorithms "
+              f"{[f'{x:.3e}' for x in diff]} (round 0 gated at "
+              f"{FLEET_EQUIV_ATOL}), deterministic algorithms "
+              f"{[f'{x:.3e}' for x in diff_det]} (gated at "
+              f"{FLEET_EQUIV_ATOL}); {what} {seeds_ok}; wall vmap/loop "
+              f"{v.wall_s:.4f}/{l.wall_s:.4f} s, loop/vmap {ratio:.3f}, "
+              f"peak vmap/loop {out['vmap'][2] / 2 ** 30:.2f}/"
+              f"{out['loop'][2] / 2 ** 30:.2f} GiB; {card}")
+        if not (equal and diff[0] <= FLEET_EQUIV_ATOL
+                and diff_det.max() <= FLEET_EQUIV_ATOL and seeds_ok):
+            raise AssertionError(f"[{label}] the two modes disagree")
+        res[part] = {"launches": out["vmap"][1], "ratio": ratio,
+                     "wall": (v.wall_s, l.wall_s),
+                     "peak": (out["vmap"][2], out["loop"][2])}
+        del plan, out, det, v, l
+        torch.cuda.empty_cache()
+    return res
 
 
 OBS_RUN_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4622,6 +4733,8 @@ def main() -> int:
     mc = run_mc_path(scenario_plan)
     del scenario_plan
     stamp("Monte-Carlo path")
+    mc_scan = run_mc_scan_path(api)
+    stamp("Monte-Carlo scan-engine path")
     obs = run_obs_path(api)
     stamp("obs path")
     sm = run_shard_map_path(api)
@@ -4715,6 +4828,14 @@ def main() -> int:
           f"{mc['wall'][1] / mc['wall'][0]:.3f}), peak vmap/loop "
           f"{mc['peak'][0] / 2 ** 30:.2f}/{mc['peak'][1] / 2 ** 30:.2f} GiB, "
           f"phase s vmap/loop {mc['phase_s'][0]:.2f}/{mc['phase_s'][1]:.2f}")
+    print(f"[paths] Monte-Carlo on the scan engines, {MC_SEEDS} seeds x "
+          f"{MC_ROUNDS} rounds: " + "; ".join(
+              f"{name} vmap {r['launches']} int8 launches, wall vmap/loop "
+              f"{r['wall'][0]:.4f}/{r['wall'][1]:.4f} s (loop/vmap "
+              f"{r['ratio']:.3f}), peak vmap/loop "
+              f"{r['peak'][0] / 2 ** 30:.2f}/{r['peak'][1] / 2 ** 30:.2f} GiB"
+              for name, r in (("sl/scan", mc_scan["a"]),
+                              ("fl/scan cohort", mc_scan["b"]))))
 
     print(f"[paths] obs: sl/vmap MobileNetV2 with telemetry and taps "
           f"{obs['launches']} int8 launches, round walls with/without "
@@ -4739,11 +4860,12 @@ def main() -> int:
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), the int8 kernel's
-    # with the [hetero], [scenario] and [mc] vmap runs added (each count
-    # read over its own run, and the [obs] phase's sl/vmap and Monte-Carlo
-    # runs with taps, the [shard_map] phase's MobileNetV2 sl/shard_map
-    # and SmolLM sl/shard_map runs and the [server-mesh] phase's sharded
-    # sl/vmap run; the flash kernel's with the SmolLM sl/shard_map run's),
+    # with the [hetero], [scenario], [mc] and [mc-scan] vmap runs added
+    # (each count read over its own run, and the [obs] phase's sl/vmap and
+    # Monte-Carlo runs with taps, the [shard_map] phase's MobileNetV2
+    # sl/shard_map and SmolLM sl/shard_map runs and the [server-mesh]
+    # phase's sharded sl/vmap run; the flash kernel's with the SmolLM
+    # sl/shard_map run's),
     # both with the [encdec] pixtral split LM's run added; over the RWKV
     # path's 3 steps, the [serve] phase's rwkv6-7b generation
     # (rwkv6_scan), the [ckpt] phase's 2 training steps and the [steps]
@@ -4765,6 +4887,7 @@ def main() -> int:
                              + analyze["launches"]["quant_dequant_int8"]
                              + hetero["hetero"]["quant_dequant_int8"]
                              + scenario_launches + mc["mc-vmap"]
+                             + mc_scan["a"]["launches"]
                              + obs["launches"] + obs["mc"]["launches"]
                              + sm["sl"]["launches"] + srv["launches"]
                              + sm["lm"]["launches"]["quant_dequant_int8"]

@@ -33,13 +33,14 @@ plan's device for a masked engine. It checks:
     each custom ``autograd.Function`` of a kernel seam (``_StraightThroughInt8``,
     ``_FlashAttention``, ``_WKV``) runs as often as the engine's design
     says (``expected_calls``): once a local step for all clients on the
-    fleet engines and for all seeds on the Monte-Carlo seed axis, once a
-    client step on the scan engines; on the card each call launches its
-    kernel once (``expected_launches``, from the wrappers' ``launches``
-    counters).
+    fleet engines and for all seeds on their Monte-Carlo seed axis, once a
+    client step on the scan engines, whose Monte-Carlo seeds share one
+    round (``fl/scan``'s seed axis calls no kernel); on the card each call
+    launches its kernel once (``expected_launches``, from the wrappers'
+    ``launches`` counters).
 
-``audit_plan`` audits a plan's raw round, ``audit_mc`` the seed-axis round
-of ``run_monte_carlo(mode="vmap")`` (built by the sweep's own
+``audit_plan`` audits a plan's raw round, ``audit_mc`` the round of
+``run_monte_carlo(mode="vmap")`` (built by the sweep's own
 ``sim.monte_carlo.build_vmap_rollout``), ``audit_keys`` the environment
 stream registry (``sim/streams._REGISTRY``). Hetero-bucketed plans run one
 program a bucket on the host and are refused, as ``run_monte_carlo``
@@ -317,16 +318,18 @@ def example_round_args(plan) -> tuple:
     return state.engine_state, batches, mask
 
 
-def expected_calls(plan, *, seed_axis: bool = False) -> dict:
+def expected_calls(plan) -> dict:
     """Each kernel seam's Function runs in one round by the engine's
     design: the int8 link on an SL plan with an int8 link, flash on a
     split-LM plan whose attention resolves to the kernel (one a layer),
-    once a local step for all clients on the fleet engines (and all seeds
-    on the ``seed_axis``), once a client step on the scan engines; the
-    WKV on no plan."""
+    once a local step for all clients on the fleet engines, once a client
+    step on the scan engines; the WKV on no plan. A Monte-Carlo round
+    calls each as often: the fleet engines' seed axis folds the seeds into
+    the same call, and the scan engines' seeds share one round (or, on
+    ``fl/scan``, call no kernel)."""
     from ..kernels.dispatch import resolve_attn_impl
     spec = plan.spec
-    per_step = (1 if seed_axis or spec.engine.client_axis != "scan"
+    per_step = (1 if spec.engine.client_axis != "scan"
                 else spec.clients.num_clients)
     steps = spec.local_steps * per_step
     int8 = (steps if spec.engine.kind == "sl"
@@ -387,16 +390,17 @@ def audit_plan(plan) -> Report:
 
 
 def audit_mc_round(plan, *, num_seeds: int = 2) -> RoundReport:
-    """The audit of the Monte-Carlo seed-axis round, exactly as
+    """The audit of the Monte-Carlo round, exactly as
     ``run_monte_carlo(mode="vmap")`` builds and runs it
-    (``sim.monte_carlo.build_vmap_rollout``): one launch a local step for
-    all seeds and clients."""
+    (``sim.monte_carlo.build_vmap_rollout``): on the fleet engines one
+    launch a local step for all seeds and clients, on the scan engines the
+    seeds' shared round (``fl/scan``'s seed axis under a population)."""
     from ..sim.monte_carlo import build_vmap_rollout
     _refuse_hetero(plan)
     fn, args = build_vmap_rollout(plan, num_seeds)
     _warm(plan, fn, args)
     fn, args = build_vmap_rollout(plan, num_seeds)
-    calls = expected_calls(plan, seed_axis=True)
+    calls = expected_calls(plan)
     _, rep = audit_call(lambda: fn(*args),
                         where=f"mc_vmap[{plan.spec.describe()}]",
                         group=_group(plan), expected_calls=calls,

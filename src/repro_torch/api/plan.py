@@ -76,9 +76,10 @@ from torch.func import functional_call
 
 from ..core.energy import RTX_A5000
 from ..core.split import (SplitStep, cut_index_for_fraction,
-                          init_stages, make_fl_round, make_multi_client_round,
-                          make_split_loss, stack_cut_index,
-                          tier_call, tier_params, to_port_layout)
+                          init_stages, make_fl_round, make_fl_seeds_round,
+                          make_multi_client_round, make_split_loss,
+                          stack_cut_index, tier_call, tier_params,
+                          to_port_layout)
 from ..core.link import LinkConfig
 from ..core.trajectory import TourPlan, plan_tour
 from ..data.partition import (partition_dirichlet, partition_iid,
@@ -86,7 +87,7 @@ from ..data.partition import (partition_dirichlet, partition_iid,
 from ..data.synthetic import SyntheticPestImages, synthetic_tokens
 from ..fleet.engine import (fleet_state, gather_server_state,
                             make_fleet_fl_round, make_fleet_sl_round,
-                            validate_fleet_mesh)
+                            stack_seeds, validate_fleet_mesh)
 from ..fleet.hetero import (HeteroFleet, assign_cuts_cnn, cnn_split_program,
                             lm_split_program, lm_split_step)
 from ..fleet.link import FleetLink
@@ -599,6 +600,9 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 #          the device). With metrics taps every engine returns the tap dict
 #          third. The sequential engines update their modules in place and
 #          take no mask (dropout is a fleet policy, refused at validation).
+#          An engine with a Monte-Carlo seed axis also has
+#          init_seeds(params0, num_seeds) / run_seeds(state, batches, mask),
+#          every tensor on a leading seed axis.
 # ---------------------------------------------------------------------------
 
 def _load(stages, params):
@@ -620,15 +624,27 @@ def _load_module(module: nn.Module, state_dict: dict,
 
 class _FLEngine:
     """``fl/scan``: the global model; each client trains a copy from it
-    with a fresh AdamW, FedAvg at the end of the round."""
+    with a fresh AdamW, FedAvg at the end of the round. Its Monte-Carlo
+    seed axis (for seeds that draw their own cohorts) is the same round in
+    functional form over seed-stacked params (``make_fl_seeds_round``);
+    ``predict`` takes a seed's row of those params too."""
 
-    def __init__(self, spec, stages, taps=()):
+    def __init__(self, spec, stages, device, taps=()):
         self.stages = stages
+        self.device = device
         self.taps = taps
+        self.model = nn.Sequential(*stages)
         self.round_fn = make_fl_round(
             lambda model, bx, by: cross_entropy_loss(
                 model(to_port_layout(bx)), by),
             adamw(spec.lr), taps=taps)
+        self.seeds_round_fn = make_fl_seeds_round(
+            lambda params, bx, by: cross_entropy_loss(
+                self.forward(params, bx), by),
+            FunctionalAdamW(spec.lr), taps=taps)
+
+    def forward(self, params, x):
+        return functional_call(self.model, params, (to_port_layout(x),))
 
     def init_state(self, params0):
         return _load(self.stages, params0)
@@ -638,8 +654,17 @@ class _FLEngine:
         out = self.round_fn(model, batches)
         return (model, *out) if self.taps else (model, out)
 
-    def predict(self, model, x):
-        return model(to_port_layout(x)).argmax(dim=-1)
+    def init_seeds(self, params0, num_seeds: int):
+        return stack_seeds(tier_params(params0, self.device), num_seeds)
+
+    def run_seeds(self, params, batches, mask):
+        assert mask is None, "dropout needs a fleet engine (validated)"
+        return self.seeds_round_fn(params, batches)
+
+    def predict(self, state, x):
+        if isinstance(state, dict):
+            return self.forward(state, x).argmax(dim=-1)
+        return state(to_port_layout(x)).argmax(dim=-1)
 
 
 @dataclasses.dataclass
@@ -716,6 +741,9 @@ class _FLFleetEngine:
 
     def run(self, params, batches, mask):
         return self.round_fn(params, batches, *_mask_arg(mask))
+
+    def init_seeds(self, params0, num_seeds: int):
+        return stack_seeds(self.init_state(params0), num_seeds)
 
     def run_seeds(self, params, batches, mask):
         """``run`` with a leading seed axis on every tensor (a
@@ -796,6 +824,9 @@ class _SLFleetEngine:
     def run(self, st, batches, mask):
         out = self.round_fn(*st, batches, *_mask_arg(mask))
         return (out[:4], *out[4:])
+
+    def init_seeds(self, params0, num_seeds: int):
+        return stack_seeds(self.init_state(params0), num_seeds)
 
     def run_seeds(self, st, batches, mask):
         """``run`` with a leading seed axis on every tensor (a
@@ -1442,7 +1473,7 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs,
             engine = (_FLFleetEngine(spec, stages, device, taps=graph_taps,
                                      mesh=mesh)
                       if spec.engine.is_fleet
-                      else _FLEngine(spec, stages, taps=graph_taps))
+                      else _FLEngine(spec, stages, device, taps=graph_taps))
     else:
         # each client at its own cut's counts and smashed tensor
         with obs.span("compile/flops"):

@@ -16,7 +16,9 @@ The round builders are plain Python loops where the reference has
 one shared server updated per client visit, FedAvg of the client prefixes
 at the end) and the FL baseline (each client from the global model with a
 fresh optimizer, FedAvg at the end). Losses stay on the device until the
-round ends, so a round syncs with the host once.
+round ends, so a round syncs with the host once. ``make_fl_seeds_round``
+is the FL round over a leading seed axis, in functional form, for the
+Monte-Carlo sweeps whose seeds train apart.
 
 The fleet engines (``fleet.engine``) take the functional forms instead:
 ``tier_call`` makes a function of both tiers' parameter dicts out of the
@@ -39,7 +41,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
-from torch.func import functional_call
+from torch.func import functional_call, vmap
 
 from ..obs.metrics import smashed_tap_values, stack_taps, step_taps
 from .fedavg import fedavg_mean, fedavg_modules_
@@ -264,6 +266,59 @@ def make_fl_round(loss_fn: Callable, make_opt: Callable, *,
         if taps:
             return torch.stack(losses), stack_taps(tap_rows)
         return torch.stack(losses)
+
+    return global_round
+
+
+def make_fl_seeds_round(seed_loss: Callable, opt, *, taps: tuple = ()):
+    """``make_fl_round`` over a leading seed axis, in functional form: the
+    round of a Monte-Carlo sweep whose seeds train apart (``fl/scan`` under
+    a population, each seed its own cohort). ``f(global_params, batches)
+    -> (new_global_params, losses)``.
+
+    ``seed_loss(params, bx, by) -> loss`` is one seed's loss, ``params`` a
+    dict keyed as the model's parameters; ``opt`` a ``FunctionalAdamW``.
+    Every leaf of ``global_params`` carries a leading seed axis, and
+    ``batches`` is ``(bx, by)`` with leading (seeds, clients, local_steps)
+    axes. The clients run one after another as in ``make_fl_round``, each
+    from its seed's global params with a fresh optimizer state
+    (``opt.init``). A local step is one ``vmap`` over seeds of the forward
+    and one backward of the seeds' summed losses, which gives each seed the
+    gradient of its own loss in its own rows. Each seed's round ends with
+    the FedAvg of its clients. The losses are (seeds, clients,
+    local_steps); with ``taps`` each tap stack (``step_taps`` of the
+    step, seed by seed) is laid out like them."""
+    per_seed = vmap(seed_loss)
+    seed_taps = vmap(lambda loss, g, up: step_taps(taps, loss=loss, g_c=g,
+                                                   up_c=up))
+
+    def global_round(global_params: dict, batches):
+        bx, by = batches
+        client_params, losses, tap_rows = [], [], []
+        for c in range(bx.shape[1]):
+            params, state = global_params, opt.init(global_params)
+            row, tap_row = [], []
+            for s in range(bx.shape[2]):
+                with torch.enable_grad():
+                    leaves = {k: v.detach().requires_grad_()
+                              for k, v in params.items()}
+                    loss = per_seed(leaves, bx[:, c, s], by[:, c, s])
+                    grads = dict(zip(leaves, torch.autograd.grad(
+                        loss.sum(), list(leaves.values()))))
+                loss = loss.detach()
+                up = {} if taps else None
+                params, state = opt.update(grads, state, params, updates=up)
+                row.append(loss)
+                if taps:
+                    tap_row.append(seed_taps(loss, grads, up))
+            client_params.append(params)
+            losses.append(torch.stack(row, dim=-1))
+            if taps:
+                tap_rows.append(stack_taps(tap_row, dim=-1))
+        mean = fedavg_mean({k: torch.stack([p[k] for p in client_params])
+                            for k in global_params})
+        out = (mean, torch.stack(losses, dim=1))
+        return out + (stack_taps(tap_rows, dim=1),) if taps else out
 
     return global_round
 

@@ -5,8 +5,10 @@ mission shape) rides on ``api.ExperimentSpec``; ``compile_experiment``
 lowers it, so channel draws re-bill the link each round and availability
 traces drive the fleet engines' client masks. ``run_monte_carlo`` sweeps
 scenario seeds, on the fleet engines as one program a local step for all
-seeds and clients. The deterministic corner (``degenerate_scenario``)
-reproduces the idealised campaign's records.
+seeds and clients, on the scan engines as one round shared by the seeds
+(on ``fl/scan`` under a population, whose seeds draw their own cohorts,
+one program a local step for all seeds). The deterministic corner
+(``degenerate_scenario``) reproduces the idealised campaign's records.
 """
 from .channel import (ChannelParams, deterministic_rate_bps, path_loss_db,
                       rates_from_draws, sample_rates_bps, slant_distance_m)

@@ -18,15 +18,32 @@ the mask stream, as the reference sweeps it.
 
 Modes:
 
-  * ``"vmap"`` (the fleet engines ``fl/vmap``, ``sl/vmap`` and their
-    ``shard_map`` forms, CNNs and the split LM): all seeds in one program
-    a local step, the engines' seed axis (``fleet.engine``: one more
-    ``vmap`` level over seeds, each seed its own server, the int8 and
-    flash kernels one launch for all seeds and clients; under shard_map
-    each rank its own clients of every seed, the collectives carrying all
-    seeds at once, as the reference's ``vmap`` over its shard_map round
-    does). The scan engines raise ``NotImplementedError``
-    (ROADMAP queue 1 item 26); nothing falls back to the loop.
+  * ``"vmap"`` (the default), on every single-engine plan, by one of two
+    paths. ``_Sweep.shared`` chooses, from the sweep's own fields:
+      - the shared round, on a sequential engine (``sl/scan``, ``fl/scan``)
+        that takes no mask while the sweep draws no cohort (no population,
+        or one the size of the fleet). Nothing drawn per seed then reaches
+        the engine: the scan engines refuse masks, and the seeds share the
+        plan's batch stream. So every seed trains the same trajectory, and
+        only the channel's bills differ. The plan's own engine round runs
+        once a round on one state and the round's one batch, every seed
+        takes its losses, taps and final state, and the state is evaluated
+        once. The result is the reference's ``vmap`` over seeds, at 1/N of
+        the device work: on ``sl/scan`` the int8 boundary runs once a
+        client step for all seeds.
+      - the seed axis, on the fleet engines (``fl/vmap``, ``sl/vmap`` and
+        their ``shard_map`` forms, CNNs and the split LM) and on ``fl/scan``
+        under a population, whose seeds draw their own cohorts: all seeds
+        in one program a local step. On the fleet engines that is one more
+        ``vmap`` level over seeds (``fleet.engine``: each seed its own
+        server, the int8 and flash kernels one launch for all seeds and
+        clients; under shard_map each rank its own clients of every seed,
+        the collectives carrying all seeds at once, as the reference's
+        ``vmap`` over its shard_map round does). On ``fl/scan`` it is
+        ``core.split.make_fl_seeds_round``: the clients one after another,
+        each local step one ``vmap`` over seeds.
+    A plan that fits neither path raises ``ValueError``; nothing falls back
+    to the loop.
   * ``"loop"``: seed after seed, round after round through the plan's own
     engine, on every single-engine plan the port compiles.
 
@@ -183,6 +200,11 @@ class _Sweep:
         self.plan = plan
         self.pop = plan.spec.clients.population
         self.weighted = self.pop is not None and scn.needs_mask
+        # the vmap mode's path (the module docstring): a sequential engine
+        # without a mask, and no cohort drawn, gives every seed one
+        # trajectory
+        self.shared = (not plan.spec.engine.is_fleet and not self.masked
+                       and self.pop in (None, plan.spec.clients.num_clients))
         self.mask_n = plan.avail_clients if self.avail.is_stochastic else 0
         if env_draws is not None and len(env_draws) != num_seeds:
             raise ValueError(f"env_draws holds {len(env_draws)} seeds, "
@@ -258,13 +280,17 @@ def _loop(sweep: _Sweep, rounds: int):
 
 
 def _vmap_round_inputs(sweep: _Sweep, r: int):
-    """Round ``r`` of a seed-axis sweep: each seed's host draws, and the
-    round's (seeds, clients, ...) batch and (seeds, clients) mask (None for
-    an unmasked engine) on the plan's device."""
+    """Round ``r`` of a vmap-mode sweep: each seed's host draws, and the
+    round's batch and mask (None for an unmasked engine) on the plan's
+    device: on the shared round the one (clients, ...) batch, on the seed
+    axis the (seeds, clients, ...) batch and (seeds, clients) mask."""
     plan = sweep.plan
     num_seeds = len(sweep.seeds)
     host = [sweep.host_round(i, r) for i in range(num_seeds)]
-    if sweep.pop is None:
+    if sweep.shared:
+        # no cohort is drawn: every seed's sample indices are seed 0's
+        batch = plan.gather_batches(host[0][3])
+    elif sweep.pop is None:
         batch = _tree_map(
             lambda v: v.expand((num_seeds,) + tuple(v.shape)),
             plan.gather_batches(sweep.indices[r]))
@@ -273,42 +299,65 @@ def _vmap_round_inputs(sweep: _Sweep, r: int):
     return host, batch, sweep.mask_tensor([h[1] for h in host])
 
 
-def _vmap_init(plan, num_seeds: int):
-    from ..fleet.engine import stack_seeds
-    return stack_seeds(plan._engine.init_state(plan.params0), num_seeds)
+def _vmap_round(sweep: _Sweep):
+    """The vmap mode's round and its initial state: the plan's own engine
+    round on one state when the seeds share it, else the engine's seed
+    axis on a seed-stacked state; ``ValueError`` for a plan with neither."""
+    plan = sweep.plan
+    engine = plan._engine
+    if sweep.shared:
+        return engine.run, engine.init_state(plan.params0)
+    if not hasattr(engine, "run_seeds"):
+        raise ValueError(
+            f"run_monte_carlo(mode='vmap') on {plan.engine_label}: its seeds "
+            f"train apart (a mask or a cohort a seed reaches the engine) "
+            f"and the engine has no seed axis; use mode='loop'")
+    return engine.run_seeds, engine.init_seeds(plan.params0,
+                                               len(sweep.seeds))
 
 
 def build_vmap_rollout(plan, num_seeds: int, *, seed: int = 0):
     """The round ``run_monte_carlo(plan, num_seeds, mode="vmap")`` runs,
     with its first round's arguments: ``(fn, (state, batch, mask))``, ``fn``
-    the engine's seed-axis round (``run_seeds``), ``state`` the
-    seed-stacked initial engine state, ``batch`` and ``mask`` round 0's
-    from the sweep's own draws. The sweep runs this same builder."""
-    _check_vmap(plan)
-    _, batch, mask = _vmap_round_inputs(_Sweep(plan, num_seeds, 1, seed,
-                                               None), 0)
-    return plan._engine.run_seeds, (_vmap_init(plan, num_seeds), batch, mask)
+    the plan's engine round on the shared path (``state`` its initial
+    state, ``batch`` round 0's) or the engine's seed-axis round
+    (``run_seeds``; ``state`` seed-stacked, ``batch`` and ``mask`` round
+    0's from the sweep's own draws). The sweep runs this same builder."""
+    sweep = _Sweep(plan, num_seeds, 1, seed, None)
+    fn, state = _vmap_round(sweep)
+    _, batch, mask = _vmap_round_inputs(sweep, 0)
+    return fn, (state, batch, mask)
 
 
 def _vmap(sweep: _Sweep, rounds: int):
-    """All seeds in one program a local step: the engine's seed axis.
-    Returns the per-seed rows, the accuracies and the engine state."""
+    """All seeds at once: the round they share (its losses, taps and final
+    state every seed's, the state evaluated once) or the engine's seed
+    axis. Returns the per-seed rows, the accuracies and the engine
+    state."""
     from ..api.plan import pull_round
     from ..fleet.engine import seed_row
     plan = sweep.plan
     num_seeds = len(sweep.seeds)
-    state = _vmap_init(plan, num_seeds)
+    fn, state = _vmap_round(sweep)
     outs = [[] for _ in range(num_seeds)]
     for r in range(rounds):
         host, batch, mask = _vmap_round_inputs(sweep, r)
-        state, losses, *taps = plan._engine.run_seeds(state, batch, mask)
+        state, losses, *taps = fn(state, batch, mask)
         losses, taps = pull_round(losses, taps[0] if taps else None)
         for i, (cohort, mask, ratio, _) in enumerate(host):
-            outs[i].append(sweep.outputs(
-                r, losses[i], cohort, mask, ratio,
-                None if taps is None else {k: v[i] for k, v in taps.items()}))
-    accs = [plan.evaluate_engine_state(seed_row(state, i))["accuracy"]
-            for i in range(num_seeds)]
+            if sweep.shared:
+                loss_i, taps_i = losses, taps
+            else:
+                loss_i = losses[i]
+                taps_i = (None if taps is None
+                          else {k: v[i] for k, v in taps.items()})
+            outs[i].append(sweep.outputs(r, loss_i, cohort, mask, ratio,
+                                         taps_i))
+    if sweep.shared:
+        accs = [plan.evaluate_engine_state(state)["accuracy"]] * num_seeds
+    else:
+        accs = [plan.evaluate_engine_state(seed_row(state, i))["accuracy"]
+                for i in range(num_seeds)]
     return outs, accs, state
 
 
@@ -316,17 +365,6 @@ def _tree_map(fn, batch):
     if isinstance(batch, dict):
         return {k: fn(v) for k, v in batch.items()}
     return type(batch)(fn(v) for v in batch)
-
-
-def _check_vmap(plan) -> None:
-    """Raise unless ``plan`` has one engine round with a seed axis."""
-    _sweep_context(plan)
-    if not hasattr(plan._engine, "run_seeds"):
-        raise NotImplementedError(
-            f"run_monte_carlo(mode='vmap') on {plan.engine_label}: the seed "
-            f"axis runs on the fleet engines (fl|sl/vmap, fl|sl/shard_map); "
-            f"the scan engines' is not ported yet (ROADMAP queue 1 item "
-            f"26); use mode='loop'")
 
 
 def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
@@ -345,8 +383,6 @@ def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
     if rounds < 1:
         raise ValueError("need at least one round")
     _sweep_context(plan)
-    if mode == "vmap":
-        _check_vmap(plan)
     run = _vmap if mode == "vmap" else _loop
     obs = plan.obs if obs is None else Obs.ensure(obs)
     scn = plan.spec.scenario or ScenarioSpec()

@@ -389,7 +389,7 @@ def test_mc_audit_runs_the_sweeps_builder():
     rep = audit_mc_round(plan, num_seeds=3)
     assert rep.findings == [], [str(f) for f in rep.findings]
     assert rep.calls["_StraightThroughInt8"] == 2 == expected_calls(
-        plan, seed_axis=True)["_StraightThroughInt8"]
+        plan)["_StraightThroughInt8"]
     with counting_calls(kernel_functions()) as calls:
         res = run_monte_carlo(plan, 3, rounds=2)
     assert res.stacks["loss"].shape == (3, 2)
@@ -397,3 +397,29 @@ def test_mc_audit_runs_the_sweeps_builder():
     assert np.isfinite(res.stacks["loss"]).all()
     # the raw round of the same plan: one call a local step for all clients
     assert audit_round(plan).calls["_StraightThroughInt8"] == 2
+
+
+@pytest.mark.parametrize("kind,pop", [("sl", None), ("fl", None),
+                                      ("fl", 6)])
+def test_mc_audit_of_the_scan_engines_is_clean(kind, pop):
+    """The Monte-Carlo round of a scan engine audits clean and calls the
+    kernel seams as its raw round does, whatever the seed count: on
+    ``sl/scan`` (the seeds' shared round) the fused int8 boundary once a
+    client step, on ``fl/scan`` none (shared, or the seed axis under a
+    population)."""
+    from repro_torch.analyze.audit import counting_calls, kernel_functions
+    spec = dataclasses.replace(
+        _tiny_spec(kind, "scan", pop=pop, compress="int8",
+                   link_kernel="fused" if kind == "sl" else "xla"),
+        local_steps=2)
+    plan = compile_experiment(spec, device="cpu")
+    rep = audit_mc_round(plan, num_seeds=3)
+    assert rep.findings == [], [str(f) for f in rep.findings]
+    want = 2 * 2 if kind == "sl" else 0          # clients x local steps
+    assert rep.calls["_StraightThroughInt8"] == want == expected_calls(
+        plan)["_StraightThroughInt8"]
+    assert audit_round(plan).calls["_StraightThroughInt8"] == want
+    with counting_calls(kernel_functions()) as calls:
+        res = run_monte_carlo(plan, 3, rounds=2)
+    assert calls["_StraightThroughInt8"] == want * (1 + 2)
+    assert np.isfinite(res.stacks["loss"]).all()

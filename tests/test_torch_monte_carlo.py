@@ -4,19 +4,27 @@ The port's versions of the reference's contracts (``tests/test_sim.py``),
 on tinycnn at 16x16 under the reference tests' ``STOCH`` scenario:
 
 - bitwise reproducible under a fixed sweep seed, and another seed differs;
-- ``mode="vmap"`` (the fleet engines' seed axis) equals ``mode="loop"``
-  seed by seed: masks, active clients, cohorts and bills exactly, losses
-  within ``FLEET_EQUIV_ATOL``, on ``sl/vmap`` (stacked and shared client
-  tiers), ``fl/vmap`` with a plain dropout rate, and a reduced split LM;
-  the int8 boundary one call a local step for all seeds and clients;
+- ``mode="vmap"`` equals ``mode="loop"`` seed by seed: masks, active
+  clients, cohorts and bills exactly, losses (and taps) within
+  ``FLEET_EQUIV_ATOL``. On the fleet engines' seed axis: ``sl/vmap``
+  (stacked and shared client tiers), ``fl/vmap`` with a plain dropout
+  rate, and a reduced split LM, the int8 boundary one call a local step
+  for all seeds and clients. On the scan engines under a channel-only
+  scenario: the shared round of ``sl/scan`` (the int8 boundary one call a
+  client step for all seeds) and of ``fl/scan``, whose seeds train one
+  trajectory, and the seed axis of ``fl/scan`` under a population, whose
+  seeds draw their own cohorts and train apart (taps too);
 - seed 0 replays ``plan.run(with_eval=False)``, and a shifted scenario
   seed shifts which realisation seed 0 is;
 - ``records_for_seed`` and ``summary``;
-- hetero-bucketed plans raise, ``mode="vmap"`` on a scan engine raises
-  ``NotImplementedError``, ``mode="loop"`` runs the scan engines;
+- hetero-bucketed plans raise, a plan whose seeds train apart on an
+  engine without a seed axis raises, ``mode="loop"`` runs the scan
+  engines;
 - a sweep on the reference's per-seed draws (``env_draws``) matches the
-  reference's own ``run_monte_carlo``.
+  reference's own ``run_monte_carlo`` on ``sl/vmap``, ``sl/scan`` and
+  ``fl/scan``.
 """
+import copy
 import dataclasses
 import functools
 
@@ -35,6 +43,9 @@ from repro_torch.configs import smollm_135m
 from repro_torch.convert import from_reference
 from repro_torch.core.energy import HardwareProfile, JETSON_AGX_ORIN
 from repro_torch.fleet.engine import FLEET_EQUIV_ATOL
+from repro_torch.obs import ObsConfig
+from repro_torch.obs.metrics import MetricsConfig
+from repro_torch.sim.monte_carlo import build_vmap_rollout
 
 NUM_CLASSES = 4
 N_TRAIN, N_TEST = 96, 24
@@ -47,6 +58,13 @@ def _stoch(S, seed=1):
         availability=S.AvailabilityParams(kind="markov", p_drop=0.4,
                                           p_recover=0.6),
         num_uavs=2, serve_mode="relay", seed=seed)
+
+
+def _channel(S):
+    """The scan engines' scenario: the ``a2g`` channel alone (they refuse
+    availability traces)."""
+    return S.ScenarioSpec(channel=S.ChannelParams(kind="a2g"), num_uavs=2,
+                          serve_mode="relay", seed=1)
 
 
 def _data():
@@ -74,13 +92,16 @@ def _spec(api, S, *, kind="sl", axis="vmap", scenario=_stoch, dropout=0.0,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(**kw):
-    return T.compile_experiment(_spec(T, TS, **kw), data=_data(),
-                                device="cpu")
+def _plan(metrics=False, **kw):
+    return T.compile_experiment(
+        _spec(T, TS, **kw), data=_data(), device="cpu",
+        obs=ObsConfig(enabled=False, metrics=MetricsConfig()) if metrics
+        else None)
 
 
 def _assert_stacks_agree(a, b, *, loss_atol=0.0):
-    """Masks, cohorts and bills exactly; losses within ``loss_atol``."""
+    """Masks, cohorts and bills exactly; losses within ``loss_atol``, the
+    per-step loss and tap stacks within it and a relative 2e-5."""
     assert set(a.stacks) == set(b.stacks)
     for k in a.stacks:
         if k in ("loss", "final_accuracy"):
@@ -88,6 +109,9 @@ def _assert_stacks_agree(a, b, *, loss_atol=0.0):
                                        atol=loss_atol if k == "loss" else
                                        1.0 / N_TEST + 1e-12, rtol=0,
                                        err_msg=k)
+        elif k == "loss_stack" or k.startswith("metrics/"):
+            np.testing.assert_allclose(a.stacks[k], b.stacks[k],
+                                       atol=loss_atol, rtol=2e-5, err_msg=k)
         else:
             np.testing.assert_array_equal(a.stacks[k], b.stacks[k],
                                           err_msg=k)
@@ -129,14 +153,24 @@ VMAP_CASES = {
                                           p_recover=0.3), seed=2)),
     "fl-dropout": dict(kind="fl", dropout=0.4, scenario=None),
     "lm": None,
+    "sl-scan": dict(axis="scan", scenario=_channel),
+    "fl-scan": dict(kind="fl", axis="scan", scenario=_channel),
+    "fl-scan-cohort": dict(kind="fl", axis="scan", pop=40,
+                           scenario=_channel),
+    "fl-scan-cohort+metrics": dict(kind="fl", axis="scan", pop=40,
+                                   scenario=_channel, metrics=True),
 }
 
 
 @pytest.mark.parametrize("case", list(VMAP_CASES))
 def test_monte_carlo_vmap_matches_loop(case, monkeypatch):
-    """The seed axis against the loop seed by seed; the int8 boundary is
-    one call a local step for all seeds and clients in ``vmap`` mode, one
-    a local step a seed in ``loop`` mode."""
+    """The vmap mode against the loop seed by seed. The int8 boundary is
+    one call a local step for all seeds and clients on the fleet engines'
+    seed axis and one a client step for all seeds on ``sl/scan``'s shared
+    round, against one a local step (a client step on ``sl/scan``) a seed
+    in ``loop`` mode. The shared round gives every seed one trajectory;
+    seeds that draw their own cohorts (``fl/scan`` under a population)
+    train apart."""
     plan = _lm_plan() if case == "lm" else _plan(**VMAP_CASES[case])
     calls = []
     real = quant_ops.quant_dequant
@@ -151,19 +185,41 @@ def test_monte_carlo_vmap_matches_loop(case, monkeypatch):
     l = TS.run_monte_carlo(plan, SEEDS, rounds=ROUNDS, mode="loop")
     l_calls = list(calls)
     _assert_stacks_agree(v, l, loss_atol=FLEET_EQUIV_ATOL)
-    steps = plan.spec.local_steps
-    if plan.spec.engine.kind == "sl":
-        # the warm-up round, then the sweep
+    steps, n = plan.spec.local_steps, plan.spec.clients.num_clients
+    scan = plan.spec.engine.client_axis == "scan"
+    if plan.spec.engine.kind == "fl":
+        assert v_calls == l_calls == []
+    elif scan:
+        # the warm-up round, then the sweep: one call a client step
+        assert len(v_calls) == (1 + ROUNDS) * steps * n
+        assert len(l_calls) == (1 + SEEDS * ROUNDS) * steps * n
+        assert v_calls[-1][0] == plan.spec.batch_size
+    else:
         assert len(v_calls) == steps + ROUNDS * steps
         assert len(l_calls) == steps + SEEDS * ROUNDS * steps
-        assert v_calls[-1][:2] == (SEEDS, plan.spec.clients.num_clients)
+        assert v_calls[-1][:2] == (SEEDS, n)
+    if scan:
+        # the sweep's path: the plan's own round, or the seed axis for
+        # seeds that draw their own cohorts
+        fn, _ = build_vmap_rollout(plan, SEEDS)
+        assert fn == (plan._engine.run_seeds if "cohort" in v.stacks
+                      else plan._engine.run)
+    if scan and "cohort" not in v.stacks:
+        # one trajectory: every seed's losses are seed 0's; the link's
+        # bills (SL's) are each seed's channel's
+        for k in ("loss", "final_accuracy"):
+            assert (v.stacks[k] == v.stacks[k][:1]).all(), k
+        if plan.spec.engine.kind == "sl":
+            assert np.std(v.stacks["link_time_s"][:, -1]) > 0
     else:
-        assert v_calls == l_calls == []
-    assert np.std(v.stacks["loss"][:, -1]) > 0      # the seeds differ
+        assert np.std(v.stacks["loss"][:, -1]) > 0      # the seeds differ
     if "cohort" in v.stacks:
         assert v.stacks["cohort"].shape == (SEEDS, ROUNDS, 4)
-    if case != "lm":
+    if case != "lm" and not scan:
         assert len(np.unique(v.stacks["active_clients"])) > 1
+    if plan.metrics_config is not None:
+        assert v.stacks["metrics/grad_norm_client"].shape == (
+            SEEDS, ROUNDS, n, steps)
 
 
 def test_monte_carlo_seed_zero_replays_the_plan():
@@ -228,8 +284,14 @@ def test_monte_carlo_refuses_what_it_cannot_sweep():
             TS.run_monte_carlo(hetero, 2, rounds=1, mode=mode)
     scan = _plan(axis="scan", scenario=lambda S: S.ScenarioSpec(
         channel=S.ChannelParams(kind="a2g"), num_uavs=2, seed=1))
-    with pytest.raises(NotImplementedError, match="item 26"):
-        TS.run_monte_carlo(scan, 2, rounds=1)
+    assert TS.run_monte_carlo(scan, 2, rounds=1).stacks["loss"].shape == (
+        2, 1)
+    # seeds that would train apart on an engine without a seed axis
+    apart = copy.copy(scan)
+    apart.spec = dataclasses.replace(scan.spec, clients=T.ClientSpec(
+        num_clients=4, population=40))
+    with pytest.raises(ValueError, match="no seed axis"):
+        TS.run_monte_carlo(apart, 2, rounds=1)
     with pytest.raises(ValueError, match="mode"):
         TS.run_monte_carlo(_plan(), 2, mode="scan")
     with pytest.raises(ValueError, match="env_draws"):
@@ -247,19 +309,40 @@ def test_monte_carlo_loop_runs_the_scan_engines(kind):
     assert (mc.stacks["active_clients"] == 4).all()
 
 
-def test_monte_carlo_matches_the_references_sweep():
+REFERENCE_SWEEPS = {
+    "sl-vmap": dict(),
+    "sl-scan": dict(axis="scan", scenario=_channel),
+    "fl-scan": dict(kind="fl", axis="scan", scenario=_channel),
+}
+
+
+@pytest.mark.parametrize("case", list(REFERENCE_SWEEPS))
+def test_monte_carlo_matches_the_references_sweep(case):
     """The reference's vmapped sweep and the port's, both modes, on the
-    reference's per-seed draws and parameters."""
+    reference's per-seed draws and parameters: the fleet engine's seed
+    axis under the stochastic scenario, and the scan engines' shared round
+    under the channel alone (the reference's ``EnvDraws`` carry no cohort,
+    so these run without a population)."""
+    kw = REFERENCE_SWEEPS[case]
     data = _data()
-    ref_plan = R.compile_experiment(_spec(R, RS), data=data)
-    port_plan = T.compile_experiment(_spec(T, TS), data=data, device="cpu")
+    ref_plan = R.compile_experiment(_spec(R, RS, **kw), data=data)
+    port_plan = T.compile_experiment(_spec(T, TS, **kw), data=data,
+                                     device="cpu")
     port_plan.params0 = from_reference(
         jax.tree_util.tree_map(np.asarray, ref_plan.params0), "tinycnn")
     ref_mc = RS.run_monte_carlo(ref_plan, SEEDS, rounds=ROUNDS, seed=5)
     scn = port_plan.spec.scenario
-    draws = [reference_env_draws(scn.seed + 5 + i, ROUNDS, mask_n=4,
+    draws = [reference_env_draws(scn.seed + 5 + i, ROUNDS,
+                                 mask_n=4 if scn.needs_mask else 0,
                                  rates_n=4) for i in range(SEEDS)]
-    k = port_plan.cut_of_client[0]
+    if port_plan.spec.engine.kind == "fl":
+        # FL's server time is its aggregation constant, which the
+        # reference's sweep bills in float32: a server ratio of 1 holds
+        # both server fields to a relative 1e-6
+        pairs = (ref_plan.flops["full"], 1.0), (port_plan.flops["full"], 1.0)
+    else:
+        k = port_plan.cut_of_client[0]
+        pairs = ref_plan.flops[k][:2], port_plan.flops[k][:2]
     for mode in ("vmap", "loop"):
         mc = TS.run_monte_carlo(port_plan, SEEDS, rounds=ROUNDS, mode=mode,
                                 seed=5, env_draws=draws)
@@ -268,10 +351,14 @@ def test_monte_carlo_matches_the_references_sweep():
         for i in range(SEEDS):
             assert_records_match(
                 ref_mc.records_for_seed(i), mc.records_for_seed(i),
-                ref_flops_pair=ref_plan.flops[k][:2],
-                port_flops_pair=port_plan.flops[k][:2], server_base_s=0.0,
-                n_test=N_TEST, loss_atol=FLEET_EQUIV_ATOL, link_rel=1e-6)
-    assert len(np.unique(ref_mc.stacks["active_clients"])) > 1
+                ref_flops_pair=pairs[0], port_flops_pair=pairs[1],
+                server_base_s=0.0, n_test=N_TEST,
+                loss_atol=FLEET_EQUIV_ATOL, link_rel=1e-6)
+    if scn.needs_mask:
+        assert len(np.unique(ref_mc.stacks["active_clients"])) > 1
+    elif port_plan.spec.engine.kind == "sl":
+        # the seeds' channels differ (FL has no link to bill)
+        assert np.std(ref_mc.stacks["link_time_s"][:, -1]) > 0
 
 
 def test_nested_vmap_rules_fold_seeds_and_clients():
