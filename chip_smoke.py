@@ -157,7 +157,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    the profiler) and host syncs, the raw rounds timed in turns beside the
    card's name and power limit; and SmolLM-135M ``sl/shard_map`` at batch
    8 with the flash kernel, 2 rounds, its flash and int8 launches and
-   peak memory;
+   peak memory; then ``[server-mesh]``: the MobileNetV2 ``sl/vmap`` round
+   rebuilt with its server state as DTensors on a (1, 1, 1)
+   ``DeviceMesh`` of a one-rank NCCL group, bit-equal to the plain run
+   under cuDNN's deterministic algorithms, and the ``[mc]`` sweep (its
+   plan, ``MC_SEEDS`` seeds x ``MC_ROUNDS`` rounds, both modes) on that
+   mesh, each seed bit-equal to the plain ``[mc]`` sweep of its mode, the
+   server state seed-stacked DTensors with shifted placements, the int8
+   launches of the vmap sweep ``(1 + MC_ROUNDS) x local steps``;
 9. the RWKV path: ``repro_torch.launch.train.train`` on rwkv6-7b at full
    width (d 4096, 64 heads of 64, d_ff 14336, vocab 65,536, bf16) cut to 4
    of its 32 layers, cut 1, batch 4 x 1024 tokens, AdamW, 3 steps, the
@@ -236,13 +243,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (remat off) on the same params and batch, wall time, peak memory and
     WKV launches (8 forward + 4 backward with remat, 4 + 4 without), the
     host syncs of a scheduled AdamW step and FunctionalAdamW update (0);
+    the dry run's per-rank bytes estimate (``launch.dryrun.
+    BytesEstimate``) of the remat step against ``torch.cuda.
+    max_memory_allocated`` over the same step, as a ratio;
     SmolLM-135M's built prefill and decode steps bit-equal to
     ``model_forward`` and ``model_decode_step``;
 15. the dry run (``[dryrun]``): ``python -m repro_torch.launch.dryrun``
     for smollm-135m x {train_4k, prefill_32k, decode_32k}, rwkv6-7b x
-    decode_32k and deepseek-moe-16b x decode_32k on the 16x16 fake mesh,
-    one process each, all started together: each record's status, global
-    FLOPs, rank 0's argument bytes, collectives and trace seconds;
+    {decode_32k, train_4k} and deepseek-moe-16b x decode_32k on the 16x16
+    fake mesh, one process each (rwkv6-7b x train_4k, whose WKV loops are
+    scaled from one settled step, started after the kernel build, the
+    others together at the phase): each record's status, global FLOPs,
+    rank 0's argument bytes and estimated peak, collectives, its
+    ``loops`` and trace seconds;
 16. the analysis passes (``[analyze]``): ``src/repro_torch`` through the
     AST lint; the variant matrix of ``repro_torch.analyze.variants`` (22
     entries: fl/sl x scan/vmap/shard_map, dropout, cohorts, the flash and
@@ -380,16 +393,17 @@ ENCDEC_CPU_TOL = 1e-4
 # with a checkpoint, restored into a fresh model on the card; the [steps]
 # phase: the built train step at that batch (an InputShape of its own:
 # train_4k's 256 x 4096 does not fit one card), the built prefill at
-# batch 4 x 1024 and 8 built decode steps; the [dryrun] phase's five
+# batch 4 x 1024 and 8 built decode steps; the [dryrun] phase's six
 # combinations, one process each, all started together (deepseek-moe-16b's
 # decode runs its MoE dispatch, whose scatters are out of place, on
-# DTensors)
+# DTensors; rwkv6-7b's train_4k, the longest, its WKV loops scaled)
 CKPT_TRAIN = {"steps": 2, "batch": 4, "seq": 1024}
 STEPS_SEQ, STEPS_BATCH = 1024, 4
 STEPS_DECODE = 8
-DRYRUN = (("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
-          ("smollm-135m", "decode_32k"), ("rwkv6-7b", "decode_32k"),
-          ("deepseek-moe-16b", "decode_32k"))
+DRYRUN = (("rwkv6-7b", "train_4k"), ("smollm-135m", "train_4k"),
+          ("smollm-135m", "prefill_32k"), ("smollm-135m", "decode_32k"),
+          ("rwkv6-7b", "decode_32k"), ("deepseek-moe-16b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 300
 # the [analyze] phase's transformer split through fleet.hetero's
 # stacked-block interface: SmolLM-135M's whole 30-layer stack in f32, cut
 # at 8, one split step at batch 8 x 1024 on the flash kernel against the
@@ -2214,7 +2228,8 @@ def run_mc_path(plan) -> dict:
     torch.cuda.empty_cache()
     return {"mc-vmap": out["vmap"][1], "wall": (v.wall_s, l.wall_s),
             "peak": (out["vmap"][2], out["loop"][2]),
-            "phase_s": (out["vmap"][3], out["loop"][3])}
+            "phase_s": (out["vmap"][3], out["loop"][3]),
+            "det": {mode: det[mode].stacks for mode in det}}
 
 
 def channel_scenario(sim):
@@ -3001,23 +3016,24 @@ def run_shard_map_path(api) -> dict:
 SERVER_MESH_SIZES = ((2, 1), (2, 2), (4, 1))
 
 
-def explicit_server_placements(params_s: dict) -> dict:
-    """Shard placements on both server axes wherever the reference's rule
-    would shard with axes of size > 1: a matrix-like leaf's reference dims
-    -2 over ``fsdp`` and -1 over ``tp``, a vector's channel over ``tp``
-    (``launch.steps.reference_dims`` maps them to the port's layout)."""
-    from torch.distributed.tensor import Replicate, Shard
-
+def explicit_server_pspecs(params_s: dict, mesh) -> dict:
+    """Specs that shard on both server axes wherever the reference's rule
+    would shard with axes of size > 1, whatever the axes' sizes
+    (``compile_experiment(server_pspecs=)``): a matrix-like leaf's
+    reference dims -2 over ``fsdp`` and -1 over ``tp``, a vector's channel
+    over ``tp`` (``launch.steps.reference_dims`` maps them to the port's
+    layout)."""
     from repro_torch.launch.steps import reference_dims
+    from repro_torch.parallel.sharding import P
     out = {}
     for k, v in params_s.items():
+        axes = [None] * v.dim()
         dims = reference_dims(v.dim())
+        if v.dim() >= 1:
+            axes[dims[-1]] = "tp"
         if v.dim() >= 2:
-            out[k] = (Shard(dims[-2]), Shard(dims[-1]))
-        elif v.dim() == 1:
-            out[k] = (Replicate(), Shard(0))
-        else:
-            out[k] = (Replicate(), Replicate())
+            axes[dims[-2]] = "fsdp"
+        out[k] = P(*axes)
     return out
 
 
@@ -3036,53 +3052,122 @@ def server_state_bytes(params_s: dict, fsdp: int, tp: int) -> int:
     return total + 4
 
 
-def run_server_mesh_path(api) -> dict:
+def server_mesh_sweep(api, mesh, mc_det: dict) -> dict:
+    """The ``[mc]`` sweep over the server sub-mesh: the ``[mc]`` plan (the
+    ``[scenario]`` spec under ``stoch_scenario``) compiled over ``mesh``
+    with its server placed by ``explicit_server_pspecs``, then
+    ``run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS)`` in both modes
+    under cuDNN's deterministic algorithms, through the engine's own
+    rounds. Gates: each mode's stacks (each seed's losses, masks, bytes,
+    bills and accuracy) bit-equal to the plain ``[mc]`` sweep's of that
+    mode (``mc_det``); the vmap sweep's ``final_state``: the server params
+    and both moments DTensors whose placements are the plain ones shifted
+    by the seed axis, the step counter a replicated (seeds,) tensor; the
+    vmap sweep's int8 launches ``(1 + MC_ROUNDS) x local steps``. Prints
+    each mode's fenced wall time and peak memory beside the card's name
+    and power limit."""
+    import numpy as np
+    from repro_torch import sim
+    from repro_torch.fleet.engine import shift_placements
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    from repro_torch.sim import run_monte_carlo
+    plan = api.compile_experiment(dataclasses.replace(
+        main_spec(api, "sl", 2, client_axis="vmap"),
+        scenario=stoch_scenario(sim)), mesh=mesh,
+        server_pspecs=explicit_server_pspecs)
+    placements = plan._engine.server_placements
+    res, peaks, launches = {}, {}, None
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("vmap", "loop"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            quant_dequant_int8.launches = 0
+            res[mode] = run_monte_carlo(plan, MC_SEEDS, rounds=MC_ROUNDS,
+                                        mode=mode)
+            peaks[mode] = torch.cuda.max_memory_allocated()
+            if mode == "vmap":
+                launches = quant_dequant_int8.launches
+    finally:
+        torch.backends.cudnn.deterministic = False
+    equal = {mode: set(r.stacks) == set(mc_det[mode]) and all(
+        np.array_equal(r.stacks[k], mc_det[mode][k]) for k in r.stacks)
+        for mode, r in res.items()}
+    _, ps, _, os_ = res["vmap"].final_state
+    shifted = all(
+        list(v.placements) == list(shift_placements(placements[k], 1))
+        and v.shape[0] == MC_SEEDS
+        for tree in (ps, os_.mu, os_.nu) for k, v in tree.items())
+    step_ok = (tuple(os_.step.shape) == (MC_SEEDS,)
+               and all(p.is_replicate() for p in os_.step.placements))
+    want = (1 + MC_ROUNDS) * plan.spec.local_steps
+    card = card_line()
+    v, l = res["vmap"], res["loop"]
+    v_wall, l_wall = v.wall_s, l.wall_s
+    print(f"[server-mesh] mc: the [mc] plan's {MC_SEEDS} seeds x "
+          f"{MC_ROUNDS} rounds over the sharded server, cuDNN deterministic:"
+          f" stacks bit-equal to the plain [mc] sweep's, vmap {equal['vmap']}"
+          f", loop {equal['loop']}; server params and moments seed-stacked "
+          f"DTensors with placements shifted by the seed axis {shifted}, "
+          f"step counter replicated (seeds,) {step_ok}; int8 launches of "
+          f"the vmap sweep {launches} (want {want}); losses "
+          f"{v.stacks['loss'].round(6).tolist()}")
+    print(f"[server-mesh] mc: fenced wall (after one warm-up round) vmap "
+          f"{v.wall_s:.4f} s, loop {l.wall_s:.4f} s (loop/vmap "
+          f"{l.wall_s / v.wall_s:.3f}); peak vmap "
+          f"{peaks['vmap'] / 2 ** 30:.2f} GiB ({peaks['vmap']} bytes), loop "
+          f"{peaks['loop'] / 2 ** 30:.2f} GiB ({peaks['loop']} bytes) "
+          f"({card})")
+    if not (all(equal.values()) and shifted and step_ok
+            and launches == want):
+        raise AssertionError("[server-mesh] mc checks failed")
+    del plan, res, v, l, ps, os_
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall": (v_wall, l_wall),
+            "peak": (peaks["vmap"], peaks["loop"])}
+
+
+def run_server_mesh_path(api, mc_det: dict) -> dict:
     """The ``[server-mesh]`` phase: MobileNetV2 ``sl/vmap`` as ``[sl-vmap]``
     runs it (``main_spec``, dropout ``FLEET_DROPOUT``, 2 rounds), then the
-    same plan with its round built by ``make_fleet_sl_round(
-    server_placements=)`` over a ``(1, 1, 1)`` ``DeviceMesh`` on a one-rank
-    NCCL group, Shard placements on the size-1 ``(fsdp, tp)`` axes: the
-    server params and moments DTensors, gathered every local step. Both
-    runs under cuDNN's deterministic algorithms; records and final state
-    bit-equal, the int8 launches of the sharded run counted; the two runs
-    again in turns, timed. Prints each rank's server-state bytes at
-    ``SERVER_MESH_SIZES`` (arithmetic)."""
+    same spec compiled over a ``(1, 1, 1)`` ``DeviceMesh`` on a one-rank
+    NCCL group with its server placed by ``explicit_server_pspecs``
+    (``compile_experiment(mesh=, server_pspecs=)``): Shard placements on
+    the size-1 ``(fsdp, tp)`` axes, the server params and moments
+    DTensors, gathered every local step. Both runs under cuDNN's
+    deterministic algorithms; records and final state bit-equal, the int8
+    launches of the sharded run counted; the two runs again in turns,
+    timed. Prints each rank's server-state bytes at ``SERVER_MESH_SIZES``
+    (arithmetic). Then, on the same mesh, the ``[mc]`` sweep
+    (``server_mesh_sweep``, held to ``mc_det``, the plain ``[mc]`` sweep's
+    deterministic stacks by mode)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.fleet.engine import (gather_server_state,
-                                          make_fleet_sl_round)
+    from repro_torch.fleet.engine import gather_server_state
     from repro_torch.kernels.quant.int8 import quant_dequant_int8
     from repro_torch.launch.mesh import fleet_mesh_of
     tmp = nccl_group()
     try:
         mesh = fleet_mesh_of(init_device_mesh(
             "cuda", (1, 1, 1), mesh_dim_names=("data", "fsdp", "tp")))
-        plan = api.compile_experiment(main_spec(
-            api, "sl", 2, client_axis="vmap", dropout_rate=FLEET_DROPOUT))
-        eng = plan._engine
-        params_s = eng.params0_tiers(plan.params0)[1]
-        placements = explicit_server_placements(params_s)
-        layouts = {"plain": (eng.round_fn, eng.mesh, None),
-                   "server-mesh": (make_fleet_sl_round(
-                       eng.loss, eng.opt_c, eng.opt_s,
-                       local_rounds=plan.spec.local_steps,
-                       server_reduce=plan.spec.engine.server_reduce,
-                       client_dropout=eng.masked,
-                       client_tier=eng.client_tier, client_axis="vmap",
-                       mesh=mesh, server_placements=placements), mesh,
-                       placements)}
+        spec = main_spec(api, "sl", 2, client_axis="vmap",
+                         dropout_rate=FLEET_DROPOUT)
+        plans = {"plain": api.compile_experiment(spec),
+                 "server-mesh": api.compile_experiment(
+                     spec, mesh=mesh, server_pspecs=explicit_server_pspecs)}
+        plan = plans["server-mesh"]
+        params_s = plan._engine.params0_tiers(plan.params0)[1]
+        placements = plan._engine.server_placements
         runs, walls = {}, {"plain": [], "server-mesh": []}
         torch.backends.cudnn.deterministic = True
         try:
             # in turns: the first run of each is the one compared
             for label in ("plain", "server-mesh", "server-mesh", "plain"):
-                eng.round_fn, eng.mesh, eng.server_placements = \
-                    layouts[label]
                 quant_dequant_int8.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = plan.run()
+                out = plans[label].run()
                 torch.cuda.synchronize()
                 walls[label].append(time.perf_counter() - t0)
                 if label not in runs:
@@ -3130,12 +3215,14 @@ def run_server_mesh_path(api) -> dict:
         if not (dtensors and equal_recs and equal_state
                 and launches == want):
             raise AssertionError("[server-mesh] checks failed")
-        del plan, eng, runs, st_p, st_s, plain_state, gathered
+        del plan, plans, runs, st_p, st_s, plain_state, gathered
         torch.cuda.empty_cache()
+        sweep = server_mesh_sweep(api, mesh, mc_det)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"launches": launches, "bytes": sizes, "walls": walls}
+    return {"launches": launches, "bytes": sizes, "walls": walls,
+            "mc": sweep}
 
 
 def run_rwkv_path() -> int:
@@ -4199,6 +4286,8 @@ def steps_train_path(dev) -> dict:
                                           .abs().max())
                                     for k, g in grads_remat.items())
         del new_p, new_st, st, grads, metrics
+    out["estimate"] = steps_bytes_estimate(built[True].fn, params, batch,
+                                           dev)
     want_launches = {True: {"rwkv6_scan": 2 * RWKV_LAYERS,
                             "rwkv6_scan_bwd": RWKV_LAYERS},
                      False: {"rwkv6_scan": RWKV_LAYERS,
@@ -4229,6 +4318,15 @@ def steps_train_path(dev) -> dict:
     torch.cuda.synchronize()
     _, fsyncs = count_host_syncs(lambda: fopt.update(g_sub, fst, sub))
     torch.cuda.synchronize()
+    est = out["estimate"]
+    print(f"[steps] {cfg.name} built train step (remat) once more under the "
+          f"dry run's bytes estimate (launch.dryrun.BytesEstimate): "
+          f"estimated peak {est['estimate']} bytes (arguments "
+          f"{est['arguments']} + temporary {est['temp']}), "
+          f"torch.cuda.max_memory_allocated over the same step "
+          f"{est['measured']} bytes ({est['base']} allocated before it): "
+          f"estimate / measured {est['ratio']:.4f}, temporary estimate / "
+          f"(measured - before) {est['ratio_temp']:.4f} ({card_line()})")
     for remat in (True, False):
         r = out[remat]
         print(f"[steps] {cfg.name} ({cfg.n_layers} layers) built train "
@@ -4246,6 +4344,8 @@ def steps_train_path(dev) -> dict:
           f"FunctionalAdamW update {fsyncs}")
     bad = [remat for remat in (True, False)
            if out[remat]["launches"] != want_launches[remat]]
+    if not est["ratio"] > 0:
+        raise AssertionError(f"steps: bytes estimate {est}")
     if bad or not (loss_equal and grads_equal) or syncs or fsyncs:
         raise AssertionError(f"steps: launches off for remat {bad}, loss "
                              f"{loss_equal}, grads {grads_equal} "
@@ -4255,6 +4355,34 @@ def steps_train_path(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def steps_bytes_estimate(fn, params: dict, batch: dict, dev) -> dict:
+    """One more call of the built train step ``fn`` under the dry run's
+    bytes estimate (``launch.dryrun.BytesEstimate``, on real tensors of
+    the card): its peak (the arguments' bytes plus the most live during
+    the step) against ``torch.cuda.max_memory_allocated`` over the same
+    call, after a reset of the peak."""
+    import gc
+    from repro_torch.launch.dryrun import BytesEstimate, _rank0_bytes
+    gc.collect()
+    torch.cuda.synchronize()
+    st = _zero_opt_state(params, dev)
+    arguments = _rank0_bytes((params, st, batch))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    estimate = BytesEstimate()
+    with estimate:
+        res = fn(params, st, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated()
+    del res, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = arguments + estimate.peak
+    return {"estimate": total, "arguments": arguments, "temp": estimate.peak,
+            "measured": measured, "base": base, "ratio": total / measured,
+            "ratio_temp": estimate.peak / max(measured - base, 1)}
 
 
 def steps_serve_path(dev) -> dict:
@@ -4319,34 +4447,40 @@ def run_steps_path() -> dict:
 
 def run_dryrun_path() -> dict:
     """The ``[dryrun]`` phase: ``python -m repro_torch.launch.dryrun`` for
-    each combination of DRYRUN, one process each, all started together
-    (the dry run starts a fake process group of its own), writing to a
-    temporary directory; each record's status, global FLOPs, rank 0's
-    argument bytes, collectives, the ops resharded or run on an added
-    rule and the retries' own collectives, and trace seconds. A process
-    that exits non-zero, or a record not ``ok``, fails the phase."""
+    each combination of DRYRUN, one process each (the dry run starts a
+    fake process group of its own), all started together, each writing
+    its record and its output to a temporary directory; each record's
+    status, global FLOPs, rank 0's argument bytes and estimated peak and
+    temporary bytes, collectives, the ops resharded or run on an added
+    rule and the retries' own collectives, its scaled ``loops`` and trace
+    seconds. A process that exits non-zero or outlives
+    ``DRYRUN_TIMEOUT_S``, or a record not ``ok``, fails the phase."""
     import tempfile
     t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    outdir = tempfile.mkdtemp(prefix="dryrun_")
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     env = dict(os.environ, PYTHONPATH=src + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     procs = []
     try:
         for arch, shape in DRYRUN:
-            procs.append(((arch, shape), subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--outdir", tmp], env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            with open(os.path.join(outdir, f"{arch}__{shape}.log"),
+                      "w") as log:
+                procs.append(((arch, shape), subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--outdir", outdir],
+                    env=env, stdout=log, stderr=subprocess.STDOUT)))
         recs = {}
         for (arch, shape), proc in procs:
-            out, err = proc.communicate(timeout=600)
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            proc.wait(timeout=max(left, 1))
             if proc.returncode != 0:
+                with open(os.path.join(outdir, f"{arch}__{shape}.log")) as f:
+                    log = f.read()
                 raise AssertionError(f"dryrun {arch} x {shape} exited "
-                                     f"{proc.returncode}: {out[-2000:]} "
-                                     f"{err[-2000:]}")
-            with open(os.path.join(tmp, f"{arch}__{shape}__pod16x16.json")) \
-                    as f:
+                                     f"{proc.returncode}: {log[-4000:]}")
+            with open(os.path.join(outdir,
+                                   f"{arch}__{shape}__pod16x16.json")) as f:
                 rec = json.load(f)
             if rec["status"] != "ok":
                 raise AssertionError(f"dryrun {arch} x {shape}: {rec}")
@@ -4364,17 +4498,24 @@ def run_dryrun_path() -> dict:
                   f"{[(b['kind'], b['count'], b['flops_global']) for b in rec['bodies']]}"
                   f", arguments fit {rec['fits']['card']} "
                   f"({rec['fits']['card_from']}): "
-                  f"{rec['fits']['arguments_fit']}")
+                  f"{rec['fits']['arguments_fit']}; peak bytes rank 0 "
+                  f"estimate {rec['peak_bytes_rank0_estimate']} (temporary "
+                  f"{rec['temp_bytes_rank0_estimate']}), fits: "
+                  f"{rec['fits']['peak_fits_estimate']}")
+            if rec["loops"]:
+                print(f"[dryrun] {arch} x {shape} loops (one settled step "
+                      f"traced, counted once a step): {rec['loops']}; "
+                      f"trace {rec['trace_s']} s")
             recs[(arch, shape)] = rec
     finally:
         for _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(outdir, ignore_errors=True)
     wall = time.perf_counter() - t0
-    print(f"[dryrun] {len(DRYRUN)} combinations in {wall:.1f} s (one process "
-          f"each, started together)")
+    print(f"[dryrun] {len(procs)} combinations read in {wall:.1f} s (one "
+          f"process each, started together)")
     return {"recs": recs, "wall": wall}
 
 
@@ -4739,7 +4880,7 @@ def main() -> int:
     stamp("obs path")
     sm = run_shard_map_path(api)
     stamp("shard_map path")
-    srv = run_server_mesh_path(api)
+    srv = run_server_mesh_path(api, mc["det"])
     stamp("server-mesh path")
 
     rwkv_launches = run_rwkv_path()
@@ -4856,7 +4997,12 @@ def main() -> int:
     print(f"[paths] server-mesh on a (1, 1, 1) DeviceMesh: sl/vmap "
           f"MobileNetV2 {srv['launches']} int8 launches, bit-equal to the "
           f"plain run; server state bytes a rank by (fsdp x tp), "
-          f"arithmetic: {srv['bytes']}")
+          f"arithmetic: {srv['bytes']}; Monte-Carlo {MC_SEEDS} seeds x "
+          f"{MC_ROUNDS} rounds over it bit-equal to [mc], vmap "
+          f"{srv['mc']['launches']} int8 launches, wall vmap/loop "
+          f"{srv['mc']['wall'][0]:.4f}/{srv['mc']['wall'][1]:.4f} s, peak "
+          f"vmap/loop {srv['mc']['peak'][0] / 2 ** 30:.2f}/"
+          f"{srv['mc']['peak'][1] / 2 ** 30:.2f} GiB")
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), the int8 kernel's
@@ -4864,7 +5010,8 @@ def main() -> int:
     # (each count read over its own run, and the [obs] phase's sl/vmap and
     # Monte-Carlo runs with taps, the [shard_map] phase's MobileNetV2
     # sl/shard_map and SmolLM sl/shard_map runs and the [server-mesh]
-    # phase's sharded sl/vmap run; the flash kernel's with the SmolLM
+    # phase's sharded sl/vmap run and its vmap sweep; the flash kernel's
+    # with the SmolLM
     # sl/shard_map run's),
     # both with the [encdec] pixtral split LM's run added; over the RWKV
     # path's 3 steps, the [serve] phase's rwkv6-7b generation
@@ -4890,6 +5037,7 @@ def main() -> int:
                              + mc_scan["a"]["launches"]
                              + obs["launches"] + obs["mc"]["launches"]
                              + sm["sl"]["launches"] + srv["launches"]
+                             + srv["mc"]["launches"]
                              + sm["lm"]["launches"]["quant_dequant_int8"]
                              + encdec["lm"]["launches"]["quant_dequant_int8"]),
                 "max_abs_err": max_err,

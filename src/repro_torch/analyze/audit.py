@@ -26,9 +26,11 @@ plan's device for a masked engine. It checks:
 ``audit-f64``
     no float64/complex128 tensor made (the counterpart of ``jaxpr-f64``).
 ``audit-collective-group``
-    every collective (a c10d op, or a functional collective) runs on the
-    plan's ``FleetMesh`` group; a plan without a group issues none (the
-    counterpart of ``jaxpr-collective-axis``).
+    every collective (a c10d op, or a functional collective) runs on one
+    of the plan's ``FleetMesh`` groups: its ``data`` group, and over a
+    server sub-mesh (``EngineSpec.server_mesh``) the sub-mesh's ``fsdp``
+    and ``tp`` groups, which gather the server state; a plan without a
+    group issues none (the counterpart of ``jaxpr-collective-axis``).
 ``audit-launches``
     each custom ``autograd.Function`` of a kernel seam (``_StraightThroughInt8``,
     ``_FlashAttention``, ``_WKV``) runs as often as the engine's design
@@ -241,9 +243,10 @@ def audit_call(fn: Callable[[], Any], *, where: str, group=None,
                device=None) -> tuple[Any, RoundReport]:
     """``fn()`` once under ``RoundAudit`` (and, on a CUDA ``device``,
     ``count_host_syncs``), the kernel seams' Functions counted: ``(out,
-    RoundReport)``. ``group`` is the process group every collective must
-    run on (None: none may run); ``expected_calls`` / ``expected_launches``
-    (by Function / wrapper name) are checked where given."""
+    RoundReport)``. ``group`` is the process group, or a tuple of them,
+    every collective must run on (None or empty: none may run);
+    ``expected_calls`` / ``expected_launches`` (by Function / wrapper
+    name) are checked where given."""
     from ..obs.timeline import count_host_syncs
     on_card = device is not None and torch.device(device).type == "cuda"
     audit = RoundAudit()
@@ -271,13 +274,15 @@ def audit_call(fn: Callable[[], Any], *, where: str, group=None,
     findings += [Finding("audit-f64", where,
                          f"{f}: a silent promotion doubles device bytes")
                  for f in audit.f64]
-    want = None if group is None else group.group_name
+    groups = (() if group is None else tuple(group)
+              if isinstance(group, (tuple, list)) else (group,))
+    want = sorted(g.group_name for g in groups)
     for op, name in audit.collectives:
-        if name != want:
+        if name not in want:
             findings.append(Finding(
                 "audit-collective-group", where,
-                f"{op} runs on process group {name!r}, not the plan's fleet "
-                f"group ({want!r})"))
+                f"{op} runs on process group {name!r}, not one of the "
+                f"plan's fleet groups ({want})"))
     for what, got, expected in (("calls", calls, expected_calls),
                                 ("launches", launches, expected_launches)):
         for name, n in (expected or {}).items():
@@ -357,8 +362,18 @@ def expected_launches(plan, calls: dict) -> Optional[dict]:
             "rwkv6_scan": calls["_WKV"]}
 
 
-def _group(plan):
-    return None if plan.mesh is None else plan.mesh.group
+def _groups(plan) -> tuple:
+    """The process groups the plan's collectives run on: its fleet mesh's
+    ``data`` group and, over a server sub-mesh, the sub-mesh's own, one a
+    dim (the DTensor gathers of the server state)."""
+    mesh = plan.mesh
+    if mesh is None:
+        return ()
+    groups = [mesh.group]
+    sub = mesh.server_mesh
+    if sub is not None:
+        groups += [sub.get_group(d) for d in range(sub.ndim)]
+    return tuple(g for g in groups if g is not None)
 
 
 def _warm(plan, fn, args) -> None:
@@ -377,7 +392,7 @@ def audit_round(plan) -> RoundReport:
     calls = expected_calls(plan)
     _, rep = audit_call(lambda: plan.raw_round(*args),
                         where=f"round[{plan.spec.describe()}]",
-                        group=_group(plan), expected_calls=calls,
+                        group=_groups(plan), expected_calls=calls,
                         expected_launches=expected_launches(plan, calls),
                         device=plan.device)
     return rep
@@ -403,7 +418,7 @@ def audit_mc_round(plan, *, num_seeds: int = 2) -> RoundReport:
     calls = expected_calls(plan)
     _, rep = audit_call(lambda: fn(*args),
                         where=f"mc_vmap[{plan.spec.describe()}]",
-                        group=_group(plan), expected_calls=calls,
+                        group=_groups(plan), expected_calls=calls,
                         expected_launches=expected_launches(plan, calls),
                         device=plan.device)
     return rep

@@ -775,8 +775,9 @@ class _SLFleetEngine:
     ``server_pspecs_fn`` (``launch.steps.fleet_server_pspecs``, given for
     a mesh whose ``(fsdp, tp)`` sub-mesh has more than one rank): the
     server params and optimizer state are DTensors on that sub-mesh
-    (``server_placements``), gathered for evaluation; a Monte-Carlo seed
-    axis over them is refused."""
+    (``server_placements``), gathered for evaluation; under a
+    Monte-Carlo seed axis each rank holds its slices of every seed's
+    server, the placements shifted by the seed axis."""
 
     def __init__(self, spec, step: SplitStep, client: nn.Module,
                  server: nn.Module, *, params0_tiers, logits, taps=(),
@@ -807,12 +808,9 @@ class _SLFleetEngine:
                 client_dropout=self.masked, client_tier=self.client_tier,
                 seed_axis=seed_axis, taps=taps,
                 client_axis=spec.engine.client_axis, mesh=mesh,
-                server_placements=None if seed_axis
-                else self.server_placements)
+                server_placements=self.server_placements)
 
-        self.round_fn = build(False)
-        self.seeds_round_fn = (build(True) if self.server_placements is None
-                               else None)
+        self.round_fn, self.seeds_round_fn = build(False), build(True)
 
     def init_state(self, params0):
         params_c, params_s = self.params0_tiers(params0)
@@ -826,16 +824,13 @@ class _SLFleetEngine:
         return (out[:4], *out[4:])
 
     def init_seeds(self, params0, num_seeds: int):
+        """``init_state`` on a new leading seed axis; a placed server
+        state stays DTensors, each rank stacking its own slices."""
         return stack_seeds(self.init_state(params0), num_seeds)
 
     def run_seeds(self, st, batches, mask):
         """``run`` with a leading seed axis on every tensor (a
         Monte-Carlo sweep's seeds in one program a local step)."""
-        if self.seeds_round_fn is None:
-            raise NotImplementedError(
-                "run_monte_carlo(mode='vmap') over a sharded server suffix "
-                "is not ported to repro_torch yet (ROADMAP queue 1 item "
-                "16b); use mode='loop'")
         out = self.seeds_round_fn(*st, batches, *_mask_arg(mask))
         return (out[:4], *out[4:])
 
@@ -1252,7 +1247,7 @@ def _rank_obs(obs: Obs, mesh) -> Obs:
 
 
 def compile_experiment(spec: ExperimentSpec, *, mesh=None, data=None,
-                       device="cuda", obs=None) -> Plan:
+                       device="cuda", obs=None, server_pspecs=None) -> Plan:
     """Lower ``spec`` to a ``Plan`` on ``device`` (CUDA unless the caller
     asks for the CPU). ``data`` is an optional ``(x_train, y_train, x_test,
     y_test)`` tuple of numpy arrays: NHWC images and labels, or (for the
@@ -1269,7 +1264,11 @@ def compile_experiment(spec: ExperimentSpec, *, mesh=None, data=None,
     ``make_fleet_mesh(num_clients, fsdp=, tp=)``. With fsdp * tp > 1 the
     SL server suffix's params and AdamW moments are DTensors on the
     mesh's ``(fsdp, tp)`` sub-mesh (``launch.steps.fleet_server_pspecs``),
-    the clients sharded over ``data``.
+    the clients sharded over ``data``. ``server_pspecs`` (a function of
+    the server params and the mesh, as ``fleet_server_pspecs`` is) takes
+    that rule's place for a split CNN on the fleet engines, and places
+    the server suffix even on a sub-mesh of one rank (where the rule
+    places nothing): a one-card run of the placed path.
 
     ``obs`` opts into telemetry: a ``repro_torch.obs.ObsConfig`` (or a live
     ``Obs`` to share one run dir across plans). The lowering emits
@@ -1284,7 +1283,7 @@ def compile_experiment(spec: ExperimentSpec, *, mesh=None, data=None,
     obs = _rank_obs(Obs.ensure(obs), mesh)
     with obs.span("compile", spec=spec.describe()):
         plan = _compile_plan(spec, data=data, device=device, obs=obs,
-                             mesh=mesh)
+                             mesh=mesh, server_pspecs=server_pspecs)
     if obs:
         obs.manifest(plan={
             "spec": spec.describe(), "engine": plan.engine_label,
@@ -1301,10 +1300,17 @@ def compile_experiment(spec: ExperimentSpec, *, mesh=None, data=None,
 
 
 def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs,
-                  mesh=None) -> Plan:
+                  mesh=None, server_pspecs=None) -> Plan:
     """The lowering; every phase of it runs inside a ``compile/*`` span, so
     the spans account for the ``compile`` span's wall time."""
     n = spec.clients.num_clients
+    if server_pspecs is not None and not (
+            mesh is not None and spec.engine.is_fleet
+            and spec.engine.kind == "sl" and spec.model.family == "cnn"):
+        raise ValueError(
+            "server_pspecs places the server suffix of a split CNN on the "
+            "fleet engines over a fleet mesh (mesh=, or a server_mesh "
+            "spec); this plan has none to place")
     # the metrics bus: the tap channels, resolved here. No MetricsConfig ->
     # no taps -> every engine runs its tap-free operations;
     # ObsConfig(enabled=False, metrics=...) computes the taps with no sink
@@ -1449,7 +1455,9 @@ def _compile_plan(spec: ExperimentSpec, *, data, device, obs: Obs,
             # the server sub-mesh's specs: the reference shards the server
             # suffix only over a sub-mesh of more than one rank
             fsdp, tp = server_mesh_sizes(mesh)
-            pspecs_fn = fleet_server_pspecs if fsdp * tp > 1 else None
+            pspecs_fn = (server_pspecs if server_pspecs is not None
+                         else fleet_server_pspecs if fsdp * tp > 1
+                         else None)
             with obs.span("compile/lower"):
                 if len(flops) > 1:
                     engine = _HeteroSLEngine(spec, stages, params0,

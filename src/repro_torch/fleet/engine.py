@@ -93,7 +93,13 @@ take no DTensor): each local step gathers the server params
 is elementwise, so a shard's update is the slice of the unsharded one;
 every whole-tree reduction (the nonfinite guard, the norm taps) sees the
 whole gradient, before the slice. The compute is replicated over
-``fsdp * tp``; the state's memory a rank is the reference's.
+``fsdp * tp``; the state's memory a rank is the reference's. Under the
+seed axis every server leaf is seed-stacked: its placements shift by one
+dim (``shift_placements``: ``Shard(d)`` becomes ``Shard(d + 1)``, the seed
+axis unsharded, as the reference's ``vmap`` leaves it), the step counter
+is a replicated (seeds,) tensor, and each local step gathers every seed's
+server at once; the per-seed guards and taps see each seed's whole
+gradient before the slice.
 
 ``FLEET_EQUIV_ATOL`` is the reference's loosened bound for vmapped rounds
 against sequential ones (batched convolutions reassociate f32 sums); the
@@ -154,21 +160,53 @@ def _resolve_shard_map_mesh(mesh):
     return mesh
 
 
+def shift_placements(placements, by: int) -> tuple:
+    """A server leaf's placements with ``by`` leading dims added (or, for
+    ``by`` < 0, taken away): ``Shard(d)`` becomes ``Shard(d + by)``. A
+    seed axis is a new leading dim and never sharded, as the reference's
+    ``vmap`` over a sharded leaf leaves its new axis unsharded."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim + by) if p.is_shard() else p
+                 for p in placements)
+
+
+def _dtensor(local: torch.Tensor, sub, placements):
+    """A DTensor on ``sub`` of this rank's slice ``local`` (even shards:
+    each sharded dim is the local one times its mesh dim's size)."""
+    from torch.distributed.tensor import DTensor
+    shape = list(local.shape)
+    for mdim, p in enumerate(placements):
+        if p.is_shard():
+            shape[p.dim] *= sub.size(mdim)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, sub, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 class ServerShards:
     """The server suffix on ``mesh``'s ``(fsdp, tp)`` sub-mesh:
     ``placements`` a dict of DTensor placements (one a sub-mesh dim) by
-    parameter name. ``shard`` takes this rank's slices of whole tensors,
-    ``wrap`` makes DTensors of them and ``gather`` the whole tensors back;
-    an ``OptState``'s step counter is replicated. Every axis runs the same
-    code, of size 1 or not."""
+    parameter name, shifted by ``lead`` leading (seed) dims
+    (``shift_placements``). ``shard`` takes this rank's slices of whole
+    tensors, ``wrap`` makes DTensors of them and ``gather`` the whole
+    tensors back; an ``OptState``'s step counter (a (seeds,) tensor under
+    a seed axis) is replicated. Every axis runs the same code, of size 1
+    or not."""
 
-    def __init__(self, mesh, placements: dict):
+    def __init__(self, mesh, placements: dict, *, lead: int = 0):
         sub = None if mesh is None else mesh.server_mesh
         if sub is None:
             raise ValueError("server placements need a fleet mesh with a "
                              "(data, fsdp, tp) DeviceMesh (launch.mesh."
                              "make_fleet_mesh or fleet_mesh_of)")
-        self.sub, self.placements = sub, dict(placements)
+        self.sub = sub
+        self.placements = {k: shift_placements(pl, lead)
+                           for k, pl in placements.items()}
         self.coord = tuple(sub.get_coordinate())
         self.sizes = tuple(sub.shape)
 
@@ -187,20 +225,9 @@ class ServerShards:
         """This rank's slice of each whole tensor of ``tree``."""
         return {k: self._slice(v, k) for k, v in tree.items()}
 
-    def _dtensor(self, local: torch.Tensor, placements):
-        from torch.distributed.tensor import DTensor
-        shape = list(local.shape)
-        for mdim, p in enumerate(placements):
-            if p.is_shard():
-                shape[p.dim] *= self.sizes[mdim]
-        stride = torch.empty(shape, device="meta").stride()
-        return DTensor.from_local(local, self.sub, placements,
-                                  run_check=False, shape=torch.Size(shape),
-                                  stride=stride)
-
     def wrap(self, local: dict) -> dict:
         """DTensors of this rank's slices."""
-        return {k: self._dtensor(v, self.placements[k])
+        return {k: _dtensor(v, self.sub, self.placements[k])
                 for k, v in local.items()}
 
     def gather(self, local: dict) -> dict:
@@ -210,7 +237,7 @@ class ServerShards:
 
     def wrap_state(self, st: OptState) -> OptState:
         from torch.distributed.tensor import Replicate
-        return OptState(step=self._dtensor(st.step, (Replicate(),) * 2),
+        return OptState(step=_dtensor(st.step, self.sub, (Replicate(),) * 2),
                         mu=self.wrap(st.mu), nu=self.wrap(st.nu))
 
 
@@ -230,7 +257,8 @@ def shard_server_state(tree, mesh, placements: Optional[dict]):
     ``mesh``'s ``(fsdp, tp)`` sub-mesh as DTensors (the reference's
     ``shard_server_state``). Every rank holds the whole tensors (the same
     seed made them) and keeps its own slices: no collective. The tree as
-    it is without ``placements``."""
+    it is without ``placements``; its seed-stacked form is
+    ``stack_seeds`` of the placed tree."""
     if placements is None:
         return tree
     shards = ServerShards(mesh, placements)
@@ -407,7 +435,13 @@ def _replicate(params: dict, n: int, seed_axis: bool) -> dict:
 
 def stack_seeds(tree, num_seeds: int):
     """A fresh copy of an engine state (dicts, tuples, lists and
-    ``OptState``s of tensors) on a new leading seed axis."""
+    ``OptState``s of tensors) on a new leading seed axis. A DTensor of the
+    server suffix stays one: each rank stacks its own slices, and the
+    placements shift by the seed axis (``shift_placements``)."""
+    if _is_dtensor(tree):
+        return _dtensor(stack_seeds(tree.to_local(), num_seeds),
+                        tree.device_mesh, shift_placements(tree.placements,
+                                                           1))
     if isinstance(tree, torch.Tensor):
         return tree[None].expand((num_seeds,) + tuple(tree.shape)).clone()
     if isinstance(tree, OptState):
@@ -421,7 +455,11 @@ def stack_seeds(tree, num_seeds: int):
 
 
 def seed_row(tree, i: int):
-    """Seed ``i``'s slice of a seed-stacked engine state (views)."""
+    """Seed ``i``'s slice of a seed-stacked engine state (views; a
+    DTensor's local rows, its placements shifted back)."""
+    if _is_dtensor(tree):
+        return _dtensor(tree.to_local()[i], tree.device_mesh,
+                        shift_placements(tree.placements, -1))
     if isinstance(tree, torch.Tensor):
         return tree[i]
     if isinstance(tree, OptState):
@@ -602,7 +640,8 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
     ``server_placements`` (``launch.steps.server_placements`` of
     ``fleet_server_pspecs``; needs a ``mesh`` with a ``DeviceMesh``):
     ``params_s`` and ``os_`` come in and go out as DTensors on the mesh's
-    ``(fsdp, tp)`` sub-mesh (``shard_server_state``); each local step
+    ``(fsdp, tp)`` sub-mesh (``shard_server_state``; with ``seed_axis``
+    seed-stacked, the placements shifted by one dim); each local step
     gathers the params, and the rank updates its own slices on its slice
     of the whole reduced gradient (the module docstring).
     """
@@ -615,13 +654,9 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
     if client_axis == "shard_map":
         mesh = _resolve_shard_map_mesh(mesh)
     group = None if mesh is None else mesh.group
-    server = None
-    if server_placements is not None:
-        if seed_axis:
-            raise NotImplementedError(
-                "the seed axis over a sharded server suffix is not ported "
-                "to repro_torch yet (ROADMAP queue 1 item 16b)")
-        server = ServerShards(mesh, server_placements)
+    lead = 1 if seed_axis else 0
+    server = (None if server_placements is None
+              else ServerShards(mesh, server_placements, lead=lead))
     shared = client_tier == "shared"
     per_client = vmap(loss, in_dims=(None if shared else 0, None, 0))
     fedavg, fedavg_masked = fedavg_stack, fedavg_stack_masked
@@ -630,7 +665,6 @@ def make_fleet_sl_round(loss: Callable, opt_c, opt_s, *, local_rounds: int,
         # seed level, unbatched on the client level
         per_client = vmap(per_client)
         fedavg, fedavg_masked = vmap(fedavg_stack), vmap(fedavg_stack_masked)
-    lead = 1 if seed_axis else 0
 
     # per-client gradients a tap needs: {index into (params_c, params_s):
     # stacked}, by whether a mask is given (a masked row of the weighted

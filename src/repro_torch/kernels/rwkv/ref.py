@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..scan_loop import scan_loop
+
 # the state is kept every CHECKPOINT_EVERY steps for the backward, which
 # recomputes each segment from it: 268 MB a call at (4, 64, 1024, 64). The
 # kernels have the same number compiled in (csrc/rwkv6_scan.h).
@@ -43,21 +45,24 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, t, hd = rf.shape
     uu = u.float()[None, :, :, None]
     S = rf.new_zeros((b, h, hd, hd)) if state is None else state.float()
-    ys, ckpts = [], []
+
+    def step(S, x):                                       # (B,H,hd) each
+        r_t, k_t, v_t, w_t = x
+        kv = k_t[..., :, None] * v_t[..., None, :]            # (B,H,hd,hd)
+        y_t = torch.einsum("bhi,bhij->bhj", r_t, S + uu * kv)
+        return w_t[..., :, None] * S + kv, y_t
+
     # unbind, not indexing, along T: the backward of T index ops would
     # build and add a full (B, H, T, hd) gradient per step (O(T^2) bytes);
     # unbind's backward stacks the T slices once
-    steps = zip(*(a.unbind(2) for a in (rf, kf, vf, wf)))
-    for i, (r_t, k_t, v_t, w_t) in enumerate(steps):          # (B,H,hd) each
-        if checkpoints and i % CHECKPOINT_EVERY == 0:
-            ckpts.append(S)
-        kv = k_t[..., :, None] * v_t[..., None, :]            # (B,H,hd,hd)
-        ys.append(torch.einsum("bhi,bhij->bhj", r_t, S + uu * kv))
-        S = w_t[..., :, None] * S + kv
-    y = torch.stack(ys, dim=2) if ys else rf.new_zeros((b, h, 0, hd))
+    S, y, ck = scan_loop(step, S, (rf, kf, vf, wf), dim=2,
+                         site="rwkv6_scan_ref",
+                         keep_every=CHECKPOINT_EVERY if checkpoints else 0)
+    if y is None:
+        y = rf.new_zeros((b, h, 0, hd))
     if checkpoints:
-        ck = (torch.stack(ckpts, dim=2) if ckpts
-              else rf.new_zeros((b, h, 0, hd, hd)))
+        if not len(ck):
+            ck = rf.new_zeros((b, h, 0, hd, hd))
         return y, (S if return_state else None), ck
     return (y, S) if return_state else y
 
@@ -86,34 +91,43 @@ def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rf, kf, vf, wf, gyf = (a.float() for a in (r, k, v, w, gy))
     uf = u.float()[None]                                      # (1, H, hd)
     b, h, t, hd = rf.shape
-    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
     du = torch.zeros_like(u, dtype=torch.float64)     # a sum over B and T
     G = (gs.float().clone() if gs is not None
          else rf.new_zeros((b, h, hd, hd)))
     C = CHECKPOINT_EVERY
-    for c in reversed(range(-(-t // C))):
-        t0 = c * C
-        n = min(C, t - t0)
-        states = [checkpoints[:, :, c].float()]               # S^(t0 + s)
+
+    def segment(carry, x):
+        """One segment of n <= C steps, from its checkpoint ck (B, H, 1,
+        hd, hd), last step first: (dr, dk, dv, dw) (B, H, n, hd)."""
+        G, du = carry
+        r_s, k_s, v_s, w_s, gy_s, ck = x
+        n = r_s.shape[2]
+        states = [ck[:, :, 0].float()]                        # S^(t0 + s)
         for s in range(n - 1):
-            tt = t0 + s
-            states.append(wf[:, :, tt, :, None] * states[-1]
-                          + kf[:, :, tt, :, None] * vf[:, :, tt, None, :])
+            states.append(w_s[:, :, s, :, None] * states[-1]
+                          + k_s[:, :, s, :, None] * v_s[:, :, s, None, :])
+        rows = []
         for s in reversed(range(n)):
-            tt = t0 + s
             S = states[s]
-            r_t, k_t, v_t, w_t, gy_t = (a[:, :, tt]
-                                        for a in (rf, kf, vf, wf, gyf))
+            r_t, k_t, v_t, w_t, gy_t = (a[:, :, s]
+                                        for a in (r_s, k_s, v_s, w_s, gy_s))
             gv = (gy_t * v_t).sum(-1, keepdim=True)           # (B, H, 1)
-            dr[:, :, tt] = (torch.einsum("bhij,bhj->bhi", S, gy_t)
-                            + uf * k_t * gv)
-            dk[:, :, tt] = (torch.einsum("bhij,bhj->bhi", G, v_t)
-                            + uf * r_t * gv)
-            dv[:, :, tt] = (torch.einsum("bhij,bhi->bhj", G, k_t)
-                            + gy_t * (uf * r_t * k_t).sum(-1, keepdim=True))
-            dw[:, :, tt] = (G * S).sum(-1)
-            du += (r_t * k_t * gv).sum(0).double()
+            rows.append((
+                torch.einsum("bhij,bhj->bhi", S, gy_t) + uf * k_t * gv,
+                torch.einsum("bhij,bhj->bhi", G, v_t) + uf * r_t * gv,
+                torch.einsum("bhij,bhi->bhj", G, k_t)
+                + gy_t * (uf * r_t * k_t).sum(-1, keepdim=True),
+                (G * S).sum(-1)))
+            du = du + (r_t * k_t * gv).sum(0).double()
             G = w_t[..., :, None] * G + r_t[..., :, None] * gy_t[..., None, :]
+        rows.reverse()
+        return (G, du), tuple(torch.stack(col, dim=2) for col in zip(*rows))
+
+    (G, du), grads, _ = scan_loop(
+        segment, (G, du), (rf, kf, vf, wf, gyf, checkpoints), dim=2,
+        site="rwkv6_scan_bwd_ref", chunks=(C,) * 5 + (1,), reverse=True)
+    dr, dk, dv, dw = (grads if grads is not None
+                      else (torch.zeros_like(rf) for _ in range(4)))
     if want_gs0:
         return dr, dk, dv, dw, du.float(), G
     return dr, dk, dv, dw, du.float()

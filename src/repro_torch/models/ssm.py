@@ -21,7 +21,7 @@ dt, B and C, and the selective scan
     y_t = C_t . h_t + D x_t
 
 in f32, a plain loop over time as the reference's ``lax.scan`` is (no
-kernel: the reference has none). ``mamba_apply`` runs a sequence from the
+kernel: the reference has none), its backward a plain loop too. ``mamba_apply`` runs a sequence from the
 empty state or a carried ``{"h", "conv"}``; ``mamba_step`` is the decode
 step. Parameter names are the reference's pytree keys.
 """
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv.ops import wkv
+from ..kernels.scan_loop import scan_loop
 from . import modules as M
 
 
@@ -265,6 +266,56 @@ def _dt(p: Mamba, xi: torch.Tensor) -> torch.Tensor:
                       + p.dt_bias.to(xi.dtype)).float()
 
 
+def _scan_step(h, x):
+    dA_t, dBx_t = x
+    h = dA_t * h + dBx_t
+    return h, h
+
+
+def _scan_grad_step(g, x):
+    """One step of the scan's backward, last step first: ``g`` the
+    gradient reaching h_t from step t + 1, ``x`` (dL/dh_t from the stacked
+    states, dA_t). Returns the gradient reaching h_{t-1} and dL/d(dBx_t)."""
+    g_t, dA_t = x
+    g = g + g_t
+    return g * dA_t, g
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """``h_t = dA_t h_{t-1} + dBx_t`` over dim 1 of dA, dBx (B, S, di, N)
+    from h_0 (B, di, N): ``(hs, h_S)``, hs the stacked h_1 .. h_S. Both
+    directions are plain loops (``kernels.scan_loop``, a step a token):
+    the backward runs the recurrence's adjoint last step first,
+
+        g_t = dL/dh_t + dA_{t+1} g_{t+1},   d dBx_t = g_t,
+        d dA_t = g_t h_{t-1},               d h_0 = dA_1 g_1,
+
+    the products autograd forms for the loop, so the gradients are
+    autograd's, and the dry run scales it like the forward."""
+
+    @staticmethod
+    def forward(dA, dBx, h0):
+        h, hs, _ = scan_loop(_scan_step, h0, (dA, dBx), dim=1,
+                             site="mamba_inner")
+        return hs, h
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dA, _, h0 = inputs
+        ctx.save_for_backward(dA, output[0], h0)
+
+    @staticmethod
+    def backward(ctx, g_hs, g_h):
+        dA, hs, h0 = ctx.saved_tensors
+        if g_hs is None:
+            g_hs = torch.zeros_like(hs)
+        g0, g_dBx, _ = scan_loop(
+            _scan_grad_step, torch.zeros_like(h0) if g_h is None else g_h,
+            (g_hs, dA), dim=1, site="mamba_inner_bwd", reverse=True)
+        h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        return g_dBx * h_prev, g_dBx, g0
+
+
 def _mamba_inner(p: Mamba, x: torch.Tensor, state: dict):
     """x (B, S, d) from ``state``. Returns (y (B, S, d), new state).
 
@@ -273,7 +324,8 @@ def _mamba_inner(p: Mamba, x: torch.Tensor, state: dict):
     dtype and then cast to f32; the scan runs in f32. exp(dt A) and
     dt B x are formed for every step at once (the same products, element
     by element, as the reference's step body), so the loop over time is
-    one multiply-add a step; y = C . h is read off the stacked states."""
+    one multiply-add a step (``_SelectiveScan``, with its backward loop);
+    y = C . h is read off the stacked states."""
     xi, z = p.in_proj(x).chunk(2, dim=-1)                 # (B, S, d_inner)
     cw = p.conv_w.shape[0]
     ctx = torch.cat([state["conv"].to(xi.dtype), xi], dim=1)
@@ -285,12 +337,8 @@ def _mamba_inner(p: Mamba, x: torch.Tensor, state: dict):
     xf = xi.float()
     dA = torch.exp(dt[..., None] * A)                        # (B, S, di, N)
     dBx = dt[..., None] * Bm[:, :, None, :] * xf[..., None]
-    h = state["h"]
-    hs = []
-    for dA_t, dBx_t in zip(dA.unbind(1), dBx.unbind(1)):
-        h = dA_t * h + dBx_t
-        hs.append(h)
-    y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), Cm)
+    hs, h = _SelectiveScan.apply(dA, dBx, state["h"])
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cm)
     y = y + xf * p.D.float()
     out = p.out_proj(y.to(x.dtype) * M.silu(z))
     new_conv = ctx[:, ctx.shape[1] - (cw - 1):, :] if cw > 1 \

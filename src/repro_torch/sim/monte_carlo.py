@@ -39,7 +39,10 @@ Modes:
         server, the int8 and flash kernels one launch for all seeds and
         clients; under shard_map each rank its own clients of every seed,
         the collectives carrying all seeds at once, as the reference's
-        ``vmap`` over its shard_map round does). On ``fl/scan`` it is
+        ``vmap`` over its shard_map round does; over a server sub-mesh,
+        ``EngineSpec.server_mesh``, each rank holds its slices of every
+        seed's server, the placements shifted by the seed axis, gathered
+        once a local step for all seeds). On ``fl/scan`` it is
         ``core.split.make_fl_seeds_round``: the clients one after another,
         each local step one ``vmap`` over seeds.
     A plan that fits neither path raises ``ValueError``; nothing falls back
@@ -104,6 +107,10 @@ class MonteCarloResult:
     metrics_config: object = None
     kind: str = "sl"
     num_clients: int = 0
+    # the engine state the sweep ends on: in vmap mode the seed-stacked
+    # state (on the shared path the one state), in loop mode the last
+    # seed's
+    final_state: object = None
 
     def _round_metrics(self, i: int, r: int) -> dict:
         if self.metrics_config is None:
@@ -397,7 +404,8 @@ def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
     with obs.span("mc/compile", mode=mode):
         fenced(lambda: run(warm_sweep, 1))
     with obs.span("mc/execute", mode=mode):
-        (rows, accs, _), wall = fenced(lambda: run(sweep, rounds))
+        (rows, accs, final_state), wall = fenced(
+            lambda: run(sweep, rounds))
     with obs.span("mc/summarize"):
         stacks = {k: np.asarray([[out[k] for out in per_round]
                                  for per_round in rows])
@@ -420,4 +428,5 @@ def run_monte_carlo(plan, num_seeds: int, *, rounds: Optional[int] = None,
                             mode=mode, wall_s=wall,
                             metrics_config=plan.metrics_config,
                             kind=plan.spec.engine.kind,
-                            num_clients=plan.spec.clients.num_clients)
+                            num_clients=plan.spec.clients.num_clients,
+                            final_state=final_state)

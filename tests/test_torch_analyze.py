@@ -362,8 +362,16 @@ def test_whole_variant_matrix_audits_clean_on_the_cpu():
     assert "'_StraightThroughInt8': 1" in calls["sl/vmap+link_fused"]
 
 
-def test_shard_map_variants_audit_clean_on_two_ranks(tmp_path):
-    out = run_ranks(RC.analyze_shard_map, 2, str(tmp_path))
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The one 2-rank gloo spawn of ``torch_rank_cases.analyze_shard_map``
+    (rank 0's result)."""
+    return run_ranks(RC.analyze_shard_map, 2,
+                     str(tmp_path_factory.mktemp("analyze")))
+
+
+def test_shard_map_variants_audit_clean_on_two_ranks(two_ranks):
+    out = two_ranks
     assert not out["jax"]
     for rank in out["ranks"]:
         report = rank["report"]
@@ -374,6 +382,26 @@ def test_shard_map_variants_audit_clean_on_two_ranks(tmp_path):
         assert all("on groups ['0']" in c for c in report["checked"][1:])
         assert [r for r, _ in rank["foreign"]] == ["audit-collective-group"]
         assert rank["own"] == [] and len(rank["own_collectives"]) == 1
+
+
+def test_server_mesh_plan_and_its_sweep_audit_clean_on_two_ranks(two_ranks):
+    """An ``sl/vmap`` plan with its server suffix sharded over
+    ``server_mesh=(2, 1)`` on 2 gloo ranks: its raw round and its
+    Monte-Carlo seed-axis round audit with 0 findings; their collectives
+    (the sub-mesh's gathers of the server state) run on the plan's
+    groups, which are not its data group alone; one int8 call a local
+    step for all clients (and seeds)."""
+    out = two_ranks
+    assert not out["jax"]
+    for rank in out["ranks"]:
+        sm = rank["server_mesh"]
+        assert sm["mesh"] == {"data": 1, "fsdp": 2, "tp": 1}
+        for name, report in sm["reports"].items():
+            assert report["ok"], (name, report["findings"])
+        for name in ("plan", "mc"):
+            assert sm["groups"][name], name
+            assert set(sm["groups"][name]) - {sm["data_group"]}, name
+            assert sm["calls"][name]["_StraightThroughInt8"] == 2
 
 
 def test_mc_audit_runs_the_sweeps_builder():

@@ -30,6 +30,17 @@ is shard_map == vmap within ``FLEET_EQUIV_ATOL``.
   are the reference's ``fleet_server_pspecs`` leaf by leaf; each rank's
   shard of a moment is the slice of the whole moment, and of the
   unsharded run's.
+- The Monte-Carlo seed axis over the sharded server: the reference's
+  second subprocess also sweeps the (2, 1) plan under a stochastic
+  scenario with ``run_monte_carlo(mode="loop")`` (its vmap sweep of a
+  sharded plan fails under jax 0.9) and the unsharded plan with
+  ``mode="vmap"``, 2 seeds x 2 rounds; the port's spawn sweeps (2, 1),
+  (2, 2), ``shard_map`` at (2, 1) and the unsharded plan in ``vmap``
+  mode on the reference's per-seed draws. Each seed's records within
+  ``FLEET_EQUIV_ATOL`` of both reference sweeps; the server state after
+  the sweep seed-stacked DTensors, the reference's placements shifted by
+  the seed axis, each rank's shard the slice of the whole, each seed's
+  gathered state the unsharded sweep's; ``HeteroFleet`` plans refuse.
 
 The reference refuses ``sl/shard_map`` with fsdp * tp > 1 on its CPU
 backend only, for an abort of its XLA:CPU partitioner (``repro/api/
@@ -49,7 +60,8 @@ import pytest
 
 import torch_rank_cases as RC
 from test_torch_fleet import _flat, _tier
-from test_torch_harness import assert_records_match, reference_params
+from test_torch_harness import (assert_records_match, reference_env_draws,
+                                reference_params)
 
 from repro.core.split import init_stages as ref_init_stages
 from repro.launch.mesh import abstract_mesh as ref_abstract_mesh
@@ -84,14 +96,31 @@ PORT_CASES = {
     "odd21": dict(axis="vmap", server_mesh=(2, 1), edges=ODD),
     "sm21": dict(axis="shard_map", server_mesh=(2, 1)),
     "vmap-ranks": dict(axis="vmap", vmap_over_ranks=True),
+    "explicit-ranks": dict(axis="vmap", vmap_over_ranks=True,
+                           explicit=True),
     "hetero-sm21": dict(axis="shard_map", server_mesh=(2, 1), edges="jm"),
     "hetero-odd-sm21": dict(axis="shard_map", server_mesh=(2, 1),
                             edges=ODD),
 }
-AGAINST = {"sm21": "21", "vmap-ranks": "none", "hetero-sm21": "ad21",
-           "hetero-odd-sm21": "odd21"}
+AGAINST = {"sm21": "21", "vmap-ranks": "none", "explicit-ranks": "none",
+           "hetero-sm21": "ad21", "hetero-odd-sm21": "odd21"}
 MESHES = {"none": None, "21": (2, 2, 1), "12": (2, 1, 2), "22": (1, 2, 2),
-          "vmap-ranks": (4, 1, 1)}
+          "vmap-ranks": (4, 1, 1), "explicit-ranks": (4, 1, 1)}
+# the Monte-Carlo sweeps under the stochastic scenario, MC_SEEDS seeds x 2
+# rounds: the reference's loop sweep of the (2, 1) plan (its vmap sweep
+# of a sharded plan fails under jax 0.9) and its vmap sweep of the
+# unsharded plan; the port's vmap sweep on the reference's per-seed draws
+MC_SEEDS = 2
+REF_CASES.update({"mc21": dict(server_mesh=(2, 1), stoch=True, mc="loop"),
+                  "mcnone": dict(stoch=True, mc="vmap")})
+MC_CASES = {
+    "mc21": dict(axis="vmap", server_mesh=(2, 1), stoch=True),
+    "mc22": dict(axis="vmap", server_mesh=(2, 2), stoch=True),
+    "mcsm21": dict(axis="shard_map", server_mesh=(2, 1), stoch=True),
+    "mcnone": dict(axis="vmap", stoch=True),
+}
+MC_MESHES = {"mc21": (2, 2, 1), "mc22": (1, 2, 2), "mcsm21": (2, 2, 1),
+             "mcnone": None}
 
 REF_SCRIPT = textwrap.dedent("""
     import os
@@ -100,6 +129,7 @@ REF_SCRIPT = textwrap.dedent("""
     import jax
     import numpy as np
     import repro.api as R
+    import repro.sim as RS
     from repro.core.energy import JETSON_AGX_ORIN, HardwareProfile
 
     data_path, out_path, cases, mcu_fields = pickle.load(
@@ -124,8 +154,28 @@ REF_SCRIPT = textwrap.dedent("""
             engine=R.EngineSpec(kind="sl", client_axis="vmap",
                                 link_kernel="fused",
                                 server_mesh=case.get("server_mesh")),
+            mission=R.MissionSpec() if case.get("stoch") else None,
+            scenario=RS.ScenarioSpec(
+                channel=RS.ChannelParams(kind="a2g"),
+                availability=RS.AvailabilityParams(
+                    kind="markov", p_drop=0.4, p_recover=0.6),
+                num_uavs=2, serve_mode="relay", seed=1)
+            if case.get("stoch") else None,
             global_rounds=2, local_steps=2, batch_size=4)
         plan = R.compile_experiment(spec, data=data)
+        if case.get("mc"):
+            mc = RS.run_monte_carlo(plan, {mc_seeds}, rounds=2,
+                                    mode=case["mc"])
+            out[name] = {{
+                "records": [mc.records_for_seed(i)
+                            for i in range({mc_seeds})],
+                "stacks": {{k: np.asarray(v) for k, v in mc.stacks.items()}},
+                "cuts": list(plan.cut_of_client),
+                "flops": {{k: tuple(float(f) for f in v[:2])
+                          for k, v in plan.flops.items()}},
+                "mesh": (None if plan.mesh is None else
+                         tuple(int(s) for s in plan.mesh.devices.shape))}}
+            continue
         state, recs = plan.run()
         out[name] = {{
             "records": recs, "cuts": list(plan.cut_of_client),
@@ -140,7 +190,7 @@ REF_SCRIPT = textwrap.dedent("""
             "params0": jax.tree_util.tree_map(np.asarray, plan.params0)}}
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
-""").format(n_test=N_TEST)
+""").format(n_test=N_TEST, mc_seeds=MC_SEEDS)
 
 
 def _data():
@@ -157,9 +207,17 @@ def _ref_params0():
         jax.random.PRNGKey(0), REF_BUILDERS["tinycnn"](4)))
 
 
+def _mc_draws() -> list:
+    """The reference's environment draws of each sweep seed (scenario seed
+    1 + i), as the port's ``EnvDraws``."""
+    return [reference_env_draws(1 + i, 2, mask_n=8, rates_n=8)
+            for i in range(MC_SEEDS)]
+
+
 # the reference's plans run in two subprocesses side by side (each about
 # half of its compile time)
-REF_GROUPS = (("none", "21", "12", "22"), ("ad21", "odd21"))
+REF_GROUPS = (("none", "21", "12", "22"),
+              ("ad21", "odd21", "mc21", "mcnone"))
 
 
 @pytest.fixture(scope="module")
@@ -186,8 +244,9 @@ def runs(tmp_path_factory):
         params0 = [{k: v.numpy() for k, v in stage.items()}
                    for stage in from_reference(_ref_params0(), "tinycnn")]
         port = run_ranks(RC.server_mesh_cases, 4, str(tmp),
-                         args=(PORT_CASES, {"data": _data(),
-                                            "params0": params0}),
+                         args=(dict(PORT_CASES, **MC_CASES),
+                               {"data": _data(), "params0": params0,
+                                "mc_draws": _mc_draws()}),
                          timeout_s=240.0)
         reference = {}
         for proc, out_path in procs:
@@ -392,9 +451,129 @@ def test_unsharded_and_data_only_cases_keep_plain_server_state(runs):
                    for loc in rank["locals"])
 
 
+def test_server_pspecs_place_the_server_on_a_one_rank_sub_mesh(runs):
+    """``compile_experiment(server_pspecs=)`` places the server state by
+    the function given, even on a sub-mesh of one rank, where the
+    reference's rule places nothing: every rank holds DTensors sharded
+    on the size-1 ``fsdp`` axis, whole (the plan's records and state are
+    held to the reference's unsharded plan above). A plan with no fleet
+    mesh has no server to place and refuses the argument."""
+    import repro_torch.api as T
+    _, port = runs
+    for rank in port["explicit-ranks"]["ranks"]:
+        for local in rank["locals"]:
+            assert local is not None
+            assert local["step"] == [("R",), ("R",)]
+            for side in ("params", "mu", "nu"):
+                for key, leaf in local[side].items():
+                    assert leaf["sizes"] == (1, 1)
+                    assert leaf["placements"] == (
+                        [("S", 0), ("R",)] if leaf["local"].ndim
+                        else [("R",), ("R",)]), (side, key)
+    with pytest.raises(ValueError, match="server_pspecs"):
+        T.compile_experiment(RC.server_mesh_spec(dict(axis="vmap")),
+                             device="cpu", server_pspecs=RC.dim0_over_fsdp)
+
+
 def test_ranks_import_no_jax(runs):
     _, port = runs
     assert port["jax"] == [False] * 4
+
+
+# ---------------------------------------------------------------------------
+# the Monte-Carlo seed axis over the sharded server
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(MC_CASES))
+def test_sweep_matches_the_references_sweeps(runs, name):
+    """The port's ``run_monte_carlo(mode="vmap")`` on the reference's
+    per-seed draws, seed by seed, against the reference's loop sweep of
+    the (2, 1) plan and its vmap sweep of the unsharded plan: losses
+    within ``FLEET_EQUIV_ATOL``, wire bytes, active clients and cohort
+    ids exactly, the bills by the billing arithmetic; the masks equal the
+    unsharded sweep's; the meshes; ONE int8 call a local step for all
+    seeds and clients on every rank, the warm-up round's included."""
+    reference, port = runs
+    got = port[name]
+    label = f"sl/{MC_CASES[name]['axis']}"
+    k = got["cuts"][0]
+    for against in ("mc21", "mcnone"):
+        ref = reference[against]
+        assert got["cuts"] == ref["cuts"]
+        np.testing.assert_array_equal(got["stacks"]["active_clients"],
+                                      ref["stacks"]["active_clients"])
+        for i in range(MC_SEEDS):
+            assert all(r.engine == label for r in got["records"][i])
+            assert_records_match(
+                [dataclasses.replace(r, engine=label)
+                 for r in ref["records"][i]], got["records"][i],
+                ref_flops_pair=ref["flops"][k],
+                port_flops_pair=got["flops"][k], server_base_s=0.0,
+                n_test=N_TEST, loss_atol=FLEET_EQUIV_ATOL, link_rel=1e-6)
+    assert reference["mc21"]["mesh"] == (2, 2, 1)
+    assert reference["mcnone"]["mesh"] is None
+    assert len(np.unique(got["stacks"]["active_clients"])) > 1
+    np.testing.assert_array_equal(got["stacks"]["mask"],
+                                  port["mcnone"]["stacks"]["mask"])
+    want_mesh = MC_MESHES[name]
+    assert [r["mesh"] for r in got["ranks"]] == [
+        None if want_mesh is None
+        else dict(zip(("data", "fsdp", "tp"), want_mesh))] * 4
+    assert [len(r["calls"]) for r in got["ranks"]] == [(1 + 2) * 2] * 4
+
+
+SHARDED_MC = [n for n, c in MC_CASES.items() if c.get("server_mesh")]
+
+
+@pytest.mark.parametrize("name", SHARDED_MC)
+def test_sweep_server_state_is_seed_stacked_shards(runs, name):
+    """After the sweep the server params and both moments are DTensors
+    whose placements are the reference's ``fleet_server_pspecs`` shifted
+    by the seed axis (dim 0 never sharded), the step counter a replicated
+    (seeds,) tensor; each rank's shard of every seed's tensors is exactly
+    its slice of the whole, and each seed's gathered final state is the
+    unsharded sweep's within ``FLEET_EQUIV_ATOL``."""
+    _, port = runs
+    got = port[name]
+    f, t = MC_CASES[name]["server_mesh"]
+    ref_mesh = ref_abstract_mesh((1, f, t), ("data", "fsdp", "tp"))
+    k = got["cuts"][0]
+    want = {key: tuple(s) for key, s in _flat_specs(
+        ref_server_pspecs(_ref_params0()[k:], ref_mesh))}
+    for i in range(MC_SEEDS):
+        _close(got["state"][i], port["mcnone"]["state"][i],
+               f"{name} seed {i}")
+    def seeds(tree_of):
+        return {key: np.stack([tree_of(got["state"][i])[key]
+                               for i in range(MC_SEEDS)]) for key in want}
+    whole = {"params": seeds(lambda st: st[1]),
+             "mu": seeds(lambda st: st[3]["mu"]),
+             "nu": seeds(lambda st: st[3]["nu"])}
+    for rank in got["ranks"]:
+        (local,) = rank["locals"]
+        assert local["step"] == [("R",), ("R",)]
+        for side in ("params", "mu", "nu"):
+            assert set(local[side]) == set(want)
+            for key, leaf in local[side].items():
+                assert leaf["local"].shape[0] == MC_SEEDS
+                assert ("S", 0) not in leaf["placements"]
+                shifted = [(p[0], p[1] - 1) if p[0] == "S" else p
+                           for p in leaf["placements"]]
+                ndim = leaf["local"].ndim - 1
+                assert _ref_axes(shifted, ndim) == _padded(want[key], ndim), \
+                    (name, side, key)
+                np.testing.assert_array_equal(
+                    leaf["local"], _slice(whole[side][key], leaf),
+                    err_msg=f"{name} {side} {key}")
+
+
+def test_hetero_plans_refuse_the_sweep(runs):
+    """Plans of more than one cut bucket dispatch a program a bucket and
+    refuse ``run_monte_carlo``, as the reference does, on ``vmap`` and on
+    ``shard_map`` over the sub-mesh."""
+    _, port = runs
+    for name in ("ad21", "odd21", "hetero-sm21", "hetero-odd-sm21"):
+        assert "hetero-bucketed" in port[name]["mc_refusal"], name
 
 
 # ---------------------------------------------------------------------------

@@ -360,7 +360,8 @@ def test_dryrun_subprocess():
     assert {"arch", "shape", "mesh", "tag", "status", "meta", "trace_s",
             "flops_global", "flops_corrected", "collectives",
             "argument_bytes_rank0", "output_bytes_rank0", "fits",
-            "bodies"} <= set(rec)
+            "bodies", "loops", "peak_bytes_rank0_estimate",
+            "temp_bytes_rank0_estimate"} <= set(rec)
     assert rec["mesh"] == "2x4" and rec["meta"]["kind"] == "train"
     assert rec["flops_corrected"] == rec["flops_global"] > 0
     assert abs(rec["flops_global"] - got["plain"]) <= 0.01 * got["plain"]
@@ -388,6 +389,203 @@ def test_dryrun_subprocess():
     moe = got["moe"]
     assert moe["status"] == "ok", moe.get("error")
     assert moe["flops_global"] == got["plain_moe"] > 0
+
+
+LOOPS = textwrap.dedent("""
+    import dataclasses, json, sys, tempfile, time
+    import torch
+    from repro_torch.checkpoint.ckpt import (tree_flatten_with_paths,
+                                             tree_unflatten_like)
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import abstract_mesh, fake_mesh
+    # one fake group for the 2x2, the 1x1 and the production meshes
+    small = fake_mesh((2, 2), ("data", "model"), world=512)
+    one = fake_mesh((1, 1), ("data", "model"))
+    out = tempfile.mkdtemp()
+    trace = dryrun._trace
+
+    def run(arch, shape, cfg, mesh, scale):
+        dryrun._trace = lambda fn, args: trace(fn, args, scale_loops=scale)
+        try:
+            return dryrun.run_one(arch, shape, cfg=cfg, outdir=out,
+                                  mesh=mesh, tag=f"scaled{int(scale)}")
+        finally:
+            dryrun._trace = trace
+
+    part = sys.argv[1]
+    # the long recurrences at 32 tokens: scaled and unrolled
+    loops = {}
+    for arch, layers in (("rwkv6-7b", 2), ("jamba-1.5-large-398b", 8)):
+        if part != "loops":
+            break
+        cfg = dataclasses.replace(ARCHS[arch].reduced(), n_layers=layers)
+        for kind in ("train", "prefill"):
+            shape = InputShape("mini", 32, 4, kind)
+            loops[f"{arch} {kind}"] = [run(arch, shape, cfg, small, s)
+                                       for s in (True, False)]
+    # the bytes estimate of a prefill step: meta shards on a 1x1 mesh
+    # (unrolled and scaled) and real CPU tensors
+    est = {}
+    for arch in ("smollm-135m", "rwkv6-7b", "jamba-1.5-large-398b"):
+        if part != "est":
+            break
+        cfg = dataclasses.replace(ARCHS[arch].reduced(), vocab=512)
+        if arch.startswith("jamba"):
+            cfg = dataclasses.replace(cfg, n_layers=8)
+        shape = InputShape("mini", 16, 2, "prefill")
+        # unrolled, scaled, and unrolled again: the propagator's caches
+        # are warm by the third trace, which must count the same bytes
+        recs = [run(arch, shape, cfg, one, s) for s in (False, True, False)]
+        built = steps.build_prefill_step(
+            cfg, shape, abstract_mesh((1, 1), ("data", "model")),
+            attn_impl=dryrun.ATTN_IMPL)
+        g = torch.Generator().manual_seed(0)
+        real = {k: ((0.02 * torch.randn(tuple(a.shape), generator=g))
+                    if a.dtype.is_floating_point else
+                    torch.randint(0, 8, tuple(a.shape), generator=g)
+                    ).to(a.dtype)
+                for k, a in tree_flatten_with_paths(built.args_sds).items()}
+        estimate = dryrun.BytesEstimate()
+        with estimate:
+            built.fn(*tree_unflatten_like(built.args_sds, real))
+        est[arch] = [r["temp_bytes_rank0_estimate"] for r in recs] + [
+            estimate.peak]
+    # rwkv6-7b x train_4k on the production mesh, 2 of its 32 layers
+    full, t0 = None, time.time()
+    if part == "est":
+        full = dryrun.run_one(
+            "rwkv6-7b", "train_4k", outdir=out, tag="2layers",
+            cfg=dataclasses.replace(ARCHS["rwkv6-7b"], n_layers=2))
+    print(json.dumps({"loops": loops, "est": est, "full": full,
+                      "full_s": time.time() - t0}))
+""")
+
+
+@pytest.fixture(scope="module")
+def scaled_loops():
+    """The two halves of ``LOOPS``, each in a process of its own, side by
+    side: the loops' comparisons, and the estimates with rwkv6-7b x
+    train_4k."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", LOOPS, part], env=env,
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for part in ("loops", "est")]
+    halves = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-3000:]
+            halves.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    loops, est = halves
+    return dict(est, loops=loops["loops"])
+
+
+@pytest.mark.parametrize("case", ["rwkv6-7b train", "rwkv6-7b prefill",
+                                  "jamba-1.5-large-398b train",
+                                  "jamba-1.5-large-398b prefill"])
+def test_scaled_loops_count_as_the_unrolled_loops(scaled_loops, case):
+    """The WKV scan and Mamba's scan (in the train step their backward
+    loops too), traced one settled step and
+    scaled, count the FLOPs and collective bytes of the same trace with
+    every step unrolled, at 32 tokens on a 2x2 fake mesh; the record's
+    ``loops`` name each site."""
+    scaled, unrolled = scaled_loops["loops"][case]
+    assert scaled["status"] == unrolled["status"] == "ok", (
+        scaled.get("error"), unrolled.get("error"))
+    assert scaled["flops_global"] == unrolled["flops_global"] > 0
+    for key in ("collectives", "collectives_resharded"):
+        assert scaled[key] == unrolled[key], key
+    assert unrolled["loops"] == []
+    sites = {r["site"] for r in scaled["loops"]}
+    want = ({"rwkv6_scan_ref"} if case.startswith("rwkv")
+            else {"mamba_inner"})
+    if case == "rwkv6-7b train":
+        want.add("rwkv6_scan_bwd_ref")
+    elif case.endswith("train"):
+        want.add("mamba_inner_bwd")
+    assert sites == want
+    assert all(r["steps"] in (32, 2) and r["calls"] > 0
+               for r in scaled["loops"])
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "rwkv6-7b",
+                                  "jamba-1.5-large-398b"])
+def test_bytes_estimate_of_meta_shards_is_the_cpu_tensors(scaled_loops,
+                                                          arch):
+    """The per-rank bytes estimate of a prefill step on meta shards of a
+    1x1 fake mesh equals the estimate of the same step run on real CPU
+    tensors, byte for byte, with the loops unrolled; scaled, within 5%
+    (a scaled loop's traced steps and its repeats live at other times than
+    the plain loop's list). A second unrolled trace in the same process,
+    on DTensor's warm sharding caches, counts the same bytes: the
+    propagation's own tensors are left out on a cache miss."""
+    unrolled, scaled, again, cpu = scaled_loops["est"][arch]
+    assert unrolled == cpu > 0
+    assert again == unrolled
+    assert abs(scaled - unrolled) <= 0.05 * unrolled
+
+
+def test_rwkv_train_4k_ends_ok_with_its_loops(scaled_loops):
+    """rwkv6-7b x train_4k on the 16x16 fake mesh, cut to 2 of its 32
+    layers: ``ok`` in seconds, its WKV forward scaled over 4,096 steps (a
+    layer's forward, and again in the backward's remat) and its backward
+    over 256 segments of 16, each record carrying the per-rank bytes
+    estimate and its verdict."""
+    full = scaled_loops["full"]
+    assert full["status"] == "ok", full.get("error")
+    assert scaled_loops["full_s"] < 120
+    loops = {(r["site"], r["steps"]): r for r in full["loops"]}
+    assert set(loops) == {("rwkv6_scan_ref", 4096),
+                          ("rwkv6_scan_bwd_ref", 256)}
+    assert loops[("rwkv6_scan_ref", 4096)]["flops_step"] > 0
+    peak = full["peak_bytes_rank0_estimate"]
+    assert peak == (full["argument_bytes_rank0"]
+                    + full["temp_bytes_rank0_estimate"])
+    assert full["temp_bytes_rank0_estimate"] > 0
+    assert full["fits"]["peak_fits_estimate"] == (
+        peak <= full["fits"]["card_bytes"])
+
+
+@pytest.mark.parametrize("case", ["skipped", "timeout"])
+def test_dryrun_sweep_runs_each_combination_in_its_own_process(tmp_path,
+                                                               case):
+    """More than one combination (here both meshes) is a sweep: each in a
+    process of its own, its output kept beside its record, then the
+    status table. A skipped shape ends the sweep 0 with its records; a
+    process past ``--timeout`` is killed, its row ``not done``, and the
+    sweep exits 1."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    arch, shape, more = (("whisper-tiny", "long_500k", []) if case ==
+                         "skipped" else ("smollm-135m", "decode_32k",
+                                         ["--timeout", "0.5"]))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--both-meshes", "--outdir", str(tmp_path),
+         "--jobs", "2", *more], env=env, cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    rows = [ln for ln in out.stdout.splitlines()
+            if ln.startswith(f"| {arch} |")]
+    assert [ln.split(" | ")[2] for ln in rows] == ["pod16x16", "pod2x16x16"]
+    logs = sorted(p.name for p in tmp_path.glob("*.log"))
+    assert logs == [f"{arch}__{shape}__pod16x16.log",
+                    f"{arch}__{shape}__pod2x16x16.log"]
+    if case == "skipped":
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert all(ln.split(" | ")[3].startswith("skipped: ") for ln in rows)
+        assert len(list(tmp_path.glob("*.json"))) == 2
+        assert "done ok=0 err=0 skip=2 not_done=0" in out.stdout
+    else:
+        assert out.returncode == 1
+        assert all(ln.split(" | ")[3].startswith("not done") for ln in rows)
+        assert "not_done=2" in out.stdout
 
 
 NO_RULE = textwrap.dedent("""

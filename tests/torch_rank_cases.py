@@ -352,8 +352,38 @@ def analyze_shard_map() -> dict:
         "report": report.to_dict(),
         "foreign": [(f.rule, f.message) for f in foreign.findings],
         "own": [(f.rule, f.message) for f in own.findings],
-        "own_collectives": own.collectives}),
+        "own_collectives": own.collectives,
+        "server_mesh": analyze_server_mesh()}),
         "jax": "jax" in sys.modules}
+
+
+def analyze_server_mesh() -> dict:
+    """The runtime audit of an ``sl/vmap`` plan whose server suffix is
+    sharded over ``EngineSpec.server_mesh=(2, 1)`` on this 2-rank world
+    (tinycnn at 12 px, 4 clients, an int8 fused link, dropout 0.25), its
+    raw round and its Monte-Carlo seed-axis round: each report, the
+    collectives' groups and the mesh."""
+    import repro_torch.api as T
+    from repro_torch.analyze import audit_mc, audit_plan
+    from repro_torch.analyze.audit import audit_mc_round, audit_round
+    spec = T.ExperimentSpec(
+        model=T.ModelSpec(name="tinycnn", num_classes=4),
+        data=T.DataSpec(image_size=12, n_train=32, n_test=8),
+        clients=T.ClientSpec(num_clients=4, dropout_rate=0.25),
+        link_policy=T.LinkPolicy(compress="int8"),
+        engine=T.EngineSpec(kind="sl", client_axis="vmap",
+                            link_kernel="fused", server_mesh=(2, 1)),
+        global_rounds=1, local_steps=2, batch_size=4)
+    plan = T.compile_experiment(spec, device="cpu")
+    rounds = {"plan": audit_round(plan), "mc": audit_mc_round(plan)}
+    return {"mesh": plan.mesh.shape,
+            "reports": {"plan": audit_plan(plan).to_dict(),
+                        "mc": audit_mc(plan).to_dict()},
+            "groups": {k: sorted({g for _, g in r.collectives})
+                       for k, r in rounds.items()},
+            "calls": {k: r.calls for k, r in rounds.items()},
+            "data_group": (None if plan.mesh.group is None
+                           else plan.mesh.group.group_name)}
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +406,10 @@ def server_mesh_spec(case: dict):
     edges = tuple(JETSON_AGX_ORIN if e == "j" else mcu
                   for e in case.get("edges", "j"))
     adaptive = len(set(case.get("edges", "j"))) > 1
+    scenario = mission = None
+    if case.get("stoch"):
+        from repro_torch import sim
+        mission, scenario = T.MissionSpec(), stoch_scenario(sim)
     return T.ExperimentSpec(
         model=T.ModelSpec(name="tinycnn", num_classes=4),
         data=T.DataSpec(kind="arrays", image_size=16, classes_per_client=2),
@@ -387,7 +421,19 @@ def server_mesh_spec(case: dict):
         engine=T.EngineSpec(kind="sl", client_axis=case["axis"],
                             link_kernel="fused",
                             server_mesh=case.get("server_mesh")),
+        mission=mission, scenario=scenario,
         global_rounds=2, local_steps=2, batch_size=4)
+
+
+def stoch_scenario(S):
+    """The reference tests' stochastic scenario (``tests/test_sim.py``'s
+    ``STOCH``): the ``a2g`` channel, markov availability, two UAVs
+    relaying, seed 1; ``S`` the port's or the reference's ``sim``."""
+    return S.ScenarioSpec(
+        channel=S.ChannelParams(kind="a2g"),
+        availability=S.AvailabilityParams(kind="markov", p_drop=0.4,
+                                          p_recover=0.6),
+        num_uavs=2, serve_mode="relay", seed=1)
 
 
 def _placement(p) -> tuple:
@@ -412,31 +458,75 @@ def _server_locals(params_s: dict, os_) -> Optional[dict]:
             "step": [_placement(p) for p in os_.step.placements]}
 
 
+def dim0_over_fsdp(params_s: dict, mesh) -> dict:
+    """``compile_experiment(server_pspecs=)``: every server leaf's dim 0
+    over ``fsdp``, whatever its size."""
+    from repro_torch.parallel.sharding import P
+    return {k: P("fsdp") if v.dim() else P() for k, v in params_s.items()}
+
+
 def server_mesh_plan(case: dict, inputs: dict) -> dict:
     """A server-mesh case's plan on this rank (``vmap_over_ranks``: a
-    ``vmap`` plan given ``make_fleet_mesh`` over every rank): its records,
-    its final state with the server state gathered, each bucket's server
-    leaves as this rank holds them, the mesh, and the int8 calls."""
+    ``vmap`` plan given ``make_fleet_mesh`` over every rank; ``explicit``:
+    its server placed by ``dim0_over_fsdp``): its records, its final state
+    with the server state gathered, each bucket's server leaves as this
+    rank holds them, the mesh, and the int8 calls."""
     import repro_torch.api as T
     from repro_torch.fleet.engine import gather_server_state
     from repro_torch.launch.mesh import make_fleet_mesh
     mesh = (make_fleet_mesh(8, device="cpu")
             if case.get("vmap_over_ranks") else None)
-    plan = T.compile_experiment(server_mesh_spec(case), data=inputs["data"],
-                                device="cpu", mesh=mesh)
+    plan = T.compile_experiment(
+        server_mesh_spec(case), data=inputs["data"], device="cpu", mesh=mesh,
+        server_pspecs=dim0_over_fsdp if case.get("explicit") else None)
     plan.params0 = _t(inputs["params0"])
+    if case.get("stoch"):
+        return server_mesh_sweep(plan, inputs["mc_draws"])
     with _counting_int8() as calls:
         state, recs = plan.run()
     es = state.engine_state
     buckets = es if isinstance(es, list) else [es]
-    return {"records": recs, "cuts": list(plan.cut_of_client),
+    out = {"records": recs, "cuts": list(plan.cut_of_client),
+           "flops": {k: tuple(float(f) for f in v[:2])
+                     for k, v in plan.flops.items()},
+           "state": [_np((pc, gather_server_state(ps), oc,
+                          gather_server_state(os_)))
+                     for pc, ps, oc, os_ in buckets],
+           "locals": [_server_locals(ps, os_)
+                      for _, ps, _, os_ in buckets],
+           "mesh": None if plan.mesh is None else plan.mesh.shape,
+           "calls": list(calls)}
+    if len(buckets) > 1:
+        from repro_torch.sim import run_monte_carlo
+        try:
+            run_monte_carlo(plan, 2, rounds=1)
+        except ValueError as err:
+            out["mc_refusal"] = str(err)
+    return out
+
+
+def server_mesh_sweep(plan, draws: list) -> dict:
+    """``run_monte_carlo(plan, len(draws), mode="vmap")`` on the
+    reference's per-seed draws: each seed's records and the sweep's
+    stacks, the int8 calls, and the engine state the sweep ends on
+    (``final_state``), its server state gathered seed by seed and as this
+    rank holds it."""
+    from repro_torch.fleet.engine import gather_server_state, seed_row
+    from repro_torch.sim import run_monte_carlo
+    n = len(draws)
+    with _counting_int8() as calls:
+        res = run_monte_carlo(plan, n, rounds=2, mode="vmap",
+                              env_draws=draws)
+    pc, ps, oc, os_ = res.final_state
+    return {"records": [res.records_for_seed(i) for i in range(n)],
+            "stacks": {k: np.asarray(v) for k, v in res.stacks.items()},
+            "cuts": list(plan.cut_of_client),
             "flops": {k: tuple(float(f) for f in v[:2])
                       for k, v in plan.flops.items()},
-            "state": [_np((pc, gather_server_state(ps), oc,
-                           gather_server_state(os_)))
-                      for pc, ps, oc, os_ in buckets],
-            "locals": [_server_locals(ps, os_)
-                       for _, ps, _, os_ in buckets],
+            "state": [_np(seed_row((pc, gather_server_state(ps), oc,
+                                    gather_server_state(os_)), i))
+                      for i in range(n)],
+            "locals": [_server_locals(ps, os_)],
             "mesh": None if plan.mesh is None else plan.mesh.shape,
             "calls": list(calls)}
 
