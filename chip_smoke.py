@@ -396,13 +396,17 @@ ENCDEC_CPU_TOL = 1e-4
 # batch 4 x 1024 and 8 built decode steps; the [dryrun] phase's six
 # combinations, one process each, all started together (deepseek-moe-16b's
 # decode runs its MoE dispatch, whose scatters are out of place, on
-# DTensors; rwkv6-7b's train_4k, the longest, its WKV loops scaled)
+# DTensors; rwkv6-7b's train_4k, the longest, its WKV loops scaled), and
+# two of them again on the 2x16x16 mesh beside the six, each held to its
+# 16x16 record: equal global FLOPs, no more argument bytes on rank 0
 CKPT_TRAIN = {"steps": 2, "batch": 4, "seq": 1024}
 STEPS_SEQ, STEPS_BATCH = 1024, 4
 STEPS_DECODE = 8
 DRYRUN = (("rwkv6-7b", "train_4k"), ("smollm-135m", "train_4k"),
           ("smollm-135m", "prefill_32k"), ("smollm-135m", "decode_32k"),
           ("rwkv6-7b", "decode_32k"), ("deepseek-moe-16b", "decode_32k"))
+DRYRUN_MULTI_POD = (("smollm-135m", "decode_32k"),
+                    ("rwkv6-7b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 300
 # the [analyze] phase's transformer split through fleet.hetero's
 # stacked-block interface: SmolLM-135M's whole 30-layer stack in f32, cut
@@ -4447,46 +4451,54 @@ def run_steps_path() -> dict:
 
 def run_dryrun_path() -> dict:
     """The ``[dryrun]`` phase: ``python -m repro_torch.launch.dryrun`` for
-    each combination of DRYRUN, one process each (the dry run starts a
-    fake process group of its own), all started together, each writing
-    its record and its output to a temporary directory; each record's
+    each combination of DRYRUN on the 16x16 mesh and of DRYRUN_MULTI_POD
+    on the 2x16x16 one, one process each (the dry run starts a fake
+    process group of its own), all started together, each writing its
+    record and its output to a temporary directory; each record's mesh,
     status, global FLOPs, rank 0's argument bytes and estimated peak and
     temporary bytes, collectives, the ops resharded or run on an added
     rule and the retries' own collectives, its scaled ``loops`` and trace
     seconds. A process that exits non-zero or outlives
-    ``DRYRUN_TIMEOUT_S``, or a record not ``ok``, fails the phase."""
+    ``DRYRUN_TIMEOUT_S``, a record not ``ok``, or a 2x16x16 record whose
+    global FLOPs differ from its 16x16 record's or whose rank 0 holds more
+    argument bytes, fails the phase."""
     import tempfile
     t0 = time.perf_counter()
     outdir = tempfile.mkdtemp(prefix="dryrun_")
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     env = dict(os.environ, PYTHONPATH=src + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
+    combos = [(arch, shape, "pod16x16") for arch, shape in DRYRUN] + [
+        (arch, shape, "pod2x16x16") for arch, shape in DRYRUN_MULTI_POD]
     procs = []
     try:
-        for arch, shape in DRYRUN:
-            with open(os.path.join(outdir, f"{arch}__{shape}.log"),
+        for arch, shape, mesh in combos:
+            with open(os.path.join(outdir, f"{arch}__{shape}__{mesh}.log"),
                       "w") as log:
-                procs.append(((arch, shape), subprocess.Popen(
+                procs.append(((arch, shape, mesh), subprocess.Popen(
                     [sys.executable, "-m", "repro_torch.launch.dryrun",
-                     "--arch", arch, "--shape", shape, "--outdir", outdir],
+                     "--arch", arch, "--shape", shape, "--outdir", outdir,
+                     *(["--multi-pod"] if mesh == "pod2x16x16" else [])],
                     env=env, stdout=log, stderr=subprocess.STDOUT)))
         recs = {}
-        for (arch, shape), proc in procs:
+        for (arch, shape, mesh), proc in procs:
             left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
             proc.wait(timeout=max(left, 1))
+            name = f"{arch}__{shape}__{mesh}"
             if proc.returncode != 0:
-                with open(os.path.join(outdir, f"{arch}__{shape}.log")) as f:
+                with open(os.path.join(outdir, f"{name}.log")) as f:
                     log = f.read()
-                raise AssertionError(f"dryrun {arch} x {shape} exited "
-                                     f"{proc.returncode}: {log[-4000:]}")
-            with open(os.path.join(outdir,
-                                   f"{arch}__{shape}__pod16x16.json")) as f:
+                raise AssertionError(f"dryrun {arch} x {shape} on {mesh} "
+                                     f"exited {proc.returncode}: "
+                                     f"{log[-4000:]}")
+            with open(os.path.join(outdir, f"{name}.json")) as f:
                 rec = json.load(f)
             if rec["status"] != "ok":
-                raise AssertionError(f"dryrun {arch} x {shape}: {rec}")
+                raise AssertionError(f"dryrun {arch} x {shape} on {mesh}: "
+                                     f"{rec}")
             coll = {k: v for k, v in rec["collectives"].items()
                     if k != "total_bytes" and v["count"]}
-            print(f"[dryrun] {arch} x {shape} on pod16x16: {rec['status']}, "
+            print(f"[dryrun] {arch} x {shape} on {mesh}: {rec['status']}, "
                   f"flops_global {rec['flops_global']:.6e}, argument bytes "
                   f"rank 0 {rec['argument_bytes_rank0']}, output bytes rank 0 "
                   f"{rec['output_bytes_rank0']}, collectives {coll} (total "
@@ -4503,16 +4515,28 @@ def run_dryrun_path() -> dict:
                   f"{rec['temp_bytes_rank0_estimate']}), fits: "
                   f"{rec['fits']['peak_fits_estimate']}")
             if rec["loops"]:
-                print(f"[dryrun] {arch} x {shape} loops (one settled step "
-                      f"traced, counted once a step): {rec['loops']}; "
-                      f"trace {rec['trace_s']} s")
-            recs[(arch, shape)] = rec
+                print(f"[dryrun] {arch} x {shape} on {mesh} loops (one "
+                      f"settled step traced, counted once a step): "
+                      f"{rec['loops']}; trace {rec['trace_s']} s")
+            recs[(arch, shape, mesh)] = rec
     finally:
         for _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(outdir, ignore_errors=True)
+    for arch, shape in DRYRUN_MULTI_POD:
+        one, two = recs[(arch, shape, "pod16x16")], \
+            recs[(arch, shape, "pod2x16x16")]
+        print(f"[dryrun] {arch} x {shape} pod2x16x16 against pod16x16: "
+              f"flops_global {two['flops_global']:.6e} / "
+              f"{one['flops_global']:.6e}, argument bytes rank 0 "
+              f"{two['argument_bytes_rank0']} / "
+              f"{one['argument_bytes_rank0']}")
+        if two["flops_global"] != one["flops_global"] or \
+                two["argument_bytes_rank0"] > one["argument_bytes_rank0"]:
+            raise AssertionError(f"dryrun {arch} x {shape}: the 2x16x16 "
+                                 f"record breaks the mesh invariants")
     wall = time.perf_counter() - t0
     print(f"[dryrun] {len(procs)} combinations read in {wall:.1f} s (one "
           f"process each, started together)")

@@ -71,7 +71,9 @@ in-place write with routed indices, lands there) and, for ``ok``:
   and a chunk where a CUDA mesh would use an all-to-all.
 - ``resharded``: the ops DTensor refused on their placements and
   ``ReshardOnRefusal`` retried, by how each ran (``gather_changed``,
-  ``replicate``), and the calls of the ops that ran on a rule
+  ``replicate``; on the 2x16x16 mesh ``gather_strided``, a view it took
+  as refused, and ``strided_as_shard``, a view whose strided split it
+  named a plain one), and the calls of the ops that ran on a rule
   ``add_missing_rules`` gave (``rule_added``); ``collectives_resharded``
   the retries' gathers, in the form of ``collectives`` and not in it;
   ``rules_added`` the ops this torch had no rule for that were given one.
@@ -196,7 +198,25 @@ class ReshardOnRefusal(TorchDispatchMode):
     with no sharding rule) raises DTensor's refusal. ``retries`` counts
     each retried op by how it ran, and its calls through a rule
     ``add_missing_rules`` gave (``"rule_added"``); the retries' gathers
-    go to the counter's ``added``, apart from DTensor's own traffic."""
+    go to the counter's ``added``, apart from DTensor's own traffic.
+
+    A view that merges dims whose inner one is split (batch and heads,
+    as a batched matmul's view makes) is taken by newer torch with a
+    ``_StridedShard`` on the merged dim. Every later op on it is priced by
+    DTensor's graph-based redistribute planner, a search a candidate
+    placement: milliseconds on two mesh dims (16x16), where the layout
+    stays as DTensor chose it; on three (2x16x16) hundreds of candidates
+    an op at 0.2-1.4 s each, so one op takes minutes. There no view's
+    output keeps one (``_unstrided``). A split factor of 1 (the dims
+    outside the inner one split to one row a rank: the batch over 'pod'
+    and 'data', the heads over 'model') is a plain shard's layout and is
+    named so (``"strided_as_shard"``: nothing moves). Above 1 (heads over
+    'pod', batch over 'data', as ``models.attention.decode_attention``'s
+    view makes) the mode takes the view as refused and runs it again on
+    its input with the shards of the mesh dims that came out so gathered
+    (``"gather_strided"``), so that the merged dim is split plainly, as
+    older torch's refusal and ``"gather_changed"`` split it. The view that
+    came out strided kept its input's placements: it moved nothing."""
 
     def __init__(self, counter: "CollectiveCounter"):
         super().__init__()
@@ -207,6 +227,23 @@ class ReshardOnRefusal(TorchDispatchMode):
         rec = self.retries.setdefault(str(func), {})
         rec[how] = rec.get(how, 0) + 1
 
+    def _unstrided(self, func, args, kwargs, out):
+        """View ``out`` of ``func(*args, **kwargs)``, which holds a
+        ``_StridedShard``, without one: the view again on its input with
+        the shards of the mesh dims whose split factor is above 1 gathered,
+        until none is left; then each split factor of 1 named ``Shard``."""
+        how, x = "strided_as_shard", args[0]
+        with self.counter.adding():
+            while True:
+                wide = {i for i, f in _strided(out).items() if f != 1}
+                if not wide:
+                    break
+                x = _gathered(x, mesh_dims=wide)
+                out = func(x, *args[1:], **kwargs)
+                how = "gather_strided"
+        self._count(func, how)
+        return _as_shards(out)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
@@ -216,9 +253,14 @@ class ReshardOnRefusal(TorchDispatchMode):
         if str(func) in _RULES_ADDED:
             self._count(func, "rule_added")
         try:
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
         except (RuntimeError, NotImplementedError) as refusal:
             error = refusal
+        else:
+            if func in _RESHARDED and _strided(out) \
+                    and out.device_mesh.ndim > 2:
+                return self._unstrided(func, args, kwargs, out)
+            return out
         tries = []
         x = args[0] if args else None
         if isinstance(x, DTensor) and func in _RESHARDED:
@@ -255,19 +297,45 @@ def _changed_dims(func, x, args) -> set:
     return set(range(lead, x.dim()))
 
 
-def _gathered(x, dims=None):
-    """DTensor ``x`` with its shards of ``dims`` (all: None) replicated.
-    Below autograd (a retry runs inside a dispatch mode), so not through
-    ``DTensor.redistribute``'s autograd Function: under remat's
-    saved-tensor hooks, torch 2.11's would ``detach_`` its output, an op
-    DTensor has no rule for."""
+def _strided(t) -> dict:
+    """Mesh dim -> split factor of each ``_StridedShard`` of DTensor ``t``
+    (none for anything else)."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return {i: p.split_factor
+            for i, p in enumerate(getattr(t, "placements", ()))
+            if isinstance(p, _StridedShard)}
+
+
+def _as_shards(t):
+    """DTensor ``t`` with each ``_StridedShard`` of split factor 1 named
+    ``Shard``: one group, split over its mesh dim as placements are
+    applied, left to right, so the layout of a ``Shard``; the local shard
+    is kept."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    strided = _strided(t)
+    spec = DTensorSpec(t.device_mesh, tuple(
+        Shard(p.dim) if i in strided else p
+        for i, p in enumerate(t.placements)),
+        tensor_meta=t._spec.tensor_meta)
+    return DTensor(t._local_tensor, spec, requires_grad=t.requires_grad)
+
+
+def _gathered(x, dims=None, mesh_dims=None):
+    """DTensor ``x`` with its shards of ``dims`` on ``mesh_dims`` (all:
+    None) replicated. Below autograd (a retry runs inside a dispatch
+    mode), so not through ``DTensor.redistribute``'s autograd Function:
+    under remat's saved-tensor hooks, torch 2.11's would ``detach_`` its
+    output, an op DTensor has no rule for."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor._dtensor_spec import DTensorSpec
     from torch.distributed.tensor._redistribute import \
         redistribute_local_tensor
     spec = DTensorSpec(x.device_mesh, tuple(
         Replicate() if p.is_shard() and (dims is None or p.dim in dims)
-        else p for p in x.placements), tensor_meta=x._spec.tensor_meta)
+        and (mesh_dims is None or i in mesh_dims)
+        else p for i, p in enumerate(x.placements)),
+        tensor_meta=x._spec.tensor_meta)
     local = redistribute_local_tensor(x._local_tensor, x._spec, spec)
     return DTensor(local, spec, requires_grad=x.requires_grad)
 

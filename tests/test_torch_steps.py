@@ -20,7 +20,13 @@ reference (``repro.parallel.sharding``, ``repro.launch.steps``,
   gathers), a reduced deepseek-moe-16b prefill (the MoE routing table and
   combine, scattered out of place) ``ok`` with its FLOPs equal to the
   plain trace's, and whisper x long_500k skipped with the reference's
-  reason.
+  reason;
+- SmolLM-135M x decode_32k at its published widths, cut to 2 layers,
+  ends ``ok`` on both production meshes with equal global FLOPs and no
+  more argument bytes on rank 0 of the 2x16x16 mesh, and on a 2x2x2
+  fake mesh a strided view of batch and heads is gathered apart
+  (``ReshardOnRefusal``'s ``gather_strided``), so that the next op is
+  priced without the graph-based planner's search.
 
 No test starts a process group in the pytest process.
 """
@@ -634,3 +640,166 @@ def test_dryrun_records_an_op_without_a_rule():
     assert "aten.native_group_norm.default" in ok["rules_added"]
     assert ok["resharded"]["aten.native_group_norm.default"][
         "rule_added"] > 0
+
+
+MULTI_POD = textwrap.dedent("""
+    import dataclasses, json, tempfile
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    # SmolLM-135M at its published widths, 2 of its 30 layers, on both
+    # production meshes (one 512-rank fake group for the two)
+    cfg = dataclasses.replace(ARCHS["smollm-135m"], n_layers=2)
+    out = tempfile.mkdtemp()
+    recs = [dryrun.run_one("smollm-135m", "decode_32k", cfg=cfg, outdir=out,
+                           multi_pod=mp) for mp in (False, True)]
+    print(json.dumps(recs))
+""")
+
+
+def test_dryrun_multi_pod_ends_with_the_single_pod_invariants():
+    """SmolLM-135M x decode_32k, cut to 2 layers, ends ``ok`` on the
+    2x16x16 mesh as on the 16x16 one: the step's arithmetic does not
+    depend on the mesh (equal global FLOPs), and rank 0 holds no more
+    argument bytes on the larger mesh. There the heads' merge with the
+    batch is a strided view, which the dry run gathers apart; left
+    strided, the decode step's next matmul alone took minutes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", MULTI_POD], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    one, two = json.loads(out.stdout.strip().splitlines()[-1])
+    assert (one["mesh"], two["mesh"]) == ("pod16x16", "pod2x16x16")
+    assert one["status"] == two["status"] == "ok", (one.get("error"),
+                                                    two.get("error"))
+    assert two["flops_global"] == one["flops_global"] > 0
+    assert two["argument_bytes_rank0"] <= one["argument_bytes_rank0"]
+    assert not any(r.get("gather_strided") for r in one["resharded"].values())
+    assert any(r.get("gather_strided") for r in two["resharded"].values())
+
+
+STRIDED_VIEW = textwrap.dedent("""
+    import json
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor._redistribute import \\
+        DTensorRedistributePlanner
+    from torch.distributed.tensor.placement_types import _StridedShard
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    mesh = fake_mesh((2, 2, 2), ("pod", "data", "model"))
+
+    def dt(shape, placements):
+        return distribute_tensor(torch.empty(shape, device="meta"), mesh,
+                                 placements)
+
+    # (batch 4, heads 2, 3), heads split over 'pod' and batch over
+    # 'data', merged as a batched matmul merges them
+    x = dt((4, 2, 3), [Shard(1), Shard(0), Replicate()])
+    strided = x.view(8, 3)
+    # batch 2 over 'pod', one row a rank, heads over 'data': a split
+    # factor of 1
+    one = dt((2, 2, 3), [Shard(0), Shard(1), Replicate()])
+    strided_one = one.view(4, 3)
+    counter = dryrun.CollectiveCounter()
+    reshard = dryrun.ReshardOnRefusal(counter)
+    with counter, reshard:
+        y = x.view(8, 3)
+        # the batch outer on both axes: a plain merge, let through
+        outer = dt((4, 2, 3), [Shard(0), Shard(0), Replicate()]).view(8, 3)
+    gathered = counter.record_added()
+    with counter, reshard:
+        y_one = one.view(4, 3)
+        # on two mesh dims DTensor's layout is kept
+        flat = distribute_tensor(
+            torch.empty((4, 2, 3), device="meta"),
+            fake_mesh((2, 2), ("data", "model")), [Shard(1), Shard(0)])
+        kept = flat.view(8, 3)
+
+    searches = []
+
+    def search(self, *args, **kwargs):
+        searches.append(1)
+        raise RuntimeError("searched")
+
+    # a graph-based planner's search is noted and fails the op that prices
+    # with it
+    DTensorRedistributePlanner.generate_graph_based_transform_infos = search
+    w = dt((3, 5), [Replicate()] * 3)
+    searched = []
+    for v in (strided, y):
+        searches.clear()
+        try:
+            torch.mm(v, w)
+        except RuntimeError:
+            pass
+        searched.append(bool(searches))
+    print(json.dumps({
+        "strided": [isinstance(p, _StridedShard) for p in strided.placements],
+        "y": [str(p) for p in y.placements], "shape": list(y.shape),
+        "local": list(y.to_local().shape),
+        "outer": [str(p) for p in outer.placements],
+        "one": [str(p) for p in strided_one.placements],
+        "y_one": [str(p) for p in y_one.placements],
+        "kept": [str(p) for p in kept.placements],
+        "locals_one": [list(strided_one.to_local().shape),
+                       list(y_one.to_local().shape)],
+        "retries": reshard.retries, "gathered": gathered,
+        "added": counter.record_added(), "ops": counter.record(),
+        "searched": searched}))
+""")
+
+
+def _local_shard(t, placements, sizes, coord):
+    """Rank ``coord``'s shard of ``t``, the placements applied left to
+    right, as DTensor lays a tensor out."""
+    for size, at, p in zip(sizes, coord, placements):
+        t = p._split_tensor(t, size, with_padding=False)[0][at]
+    return t
+
+
+def test_a_strided_view_is_gathered_apart():
+    """On a 2x2x2 fake mesh, a view merging batch (split over 'data') with
+    heads (split over 'pod') comes out of DTensor with a ``_StridedShard``
+    on 'pod' of split factor 4; under ``ReshardOnRefusal`` it runs again
+    on its input with the 'pod' shard gathered: the merged dim split over
+    'data' alone, the gather counted apart (``gather_strided``, one
+    all-gather of rank 0's gathered shard, 2 x 2 x 3 f32), DTensor's own
+    collectives none. The next matmul prices the strided layout with the
+    graph-based planner's search, and the plain one without it. A merge
+    whose outer dim holds every shard is let through, and one whose
+    strided split has a split factor of 1 (the batch one row a rank) is
+    named a ``Shard``, which lays it out alike on every rank, and moves
+    nothing (``strided_as_shard``). On a 2x2 mesh the strided view is
+    kept as DTensor made it."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", STRIDED_VIEW], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["strided"] == [True, False, False]
+    assert got["y"] == ["R", "S(0)", "R"]
+    assert (got["shape"], got["local"]) == ([8, 3], [4, 3])
+    assert got["outer"] == ["S(0)", "S(0)", "R"]
+    assert got["retries"] == {"aten.view.default": {
+        "gather_strided": 1, "strided_as_shard": 1}}
+    assert got["gathered"]["all-gather"] == {"count": 1,
+                                             "bytes": 2 * 2 * 3 * 4}
+    assert got["added"]["total_bytes"] == 48
+    assert got["ops"]["total_bytes"] == 0
+    assert got["searched"] == [True, False]
+    assert got["one"] == ["S(0)", "_S(0, 1)", "R"]
+    assert got["y_one"] == ["S(0)", "S(0)", "R"]
+    assert got["locals_one"] == [[1, 3], [1, 3]]
+    assert got["kept"] == ["_S(0, 4)", "S(0)"]
+    t = torch.arange(4 * 3).reshape(4, 3)
+    for sf, same in ((1, True), (2, False)):
+        strided = [Shard(0), _StridedShard(0, split_factor=sf), Shard(1)]
+        plain = [Shard(0), Shard(0), Shard(1)]
+        assert same == all(
+            torch.equal(_local_shard(t, strided, (2, 2, 2), c),
+                        _local_shard(t, plain, (2, 2, 2), c))
+            for c in np.ndindex(2, 2, 2))
