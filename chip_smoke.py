@@ -54,7 +54,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels that take the device's time), and a tinycnn run on the card held
    against the same run on the CPU;
 6. ``fl/scan`` on the same spec for one round (and one profiled): SL's
-   client energy per round must be below FL's;
+   client energy per round must be below FL's; then the paper's experiment
+   (``[paper]``): the link kernel at the (rows, D) of the paper's cuts that
+   no other phase runs (10 shapes, D 24 to 832), its launch plan from the
+   library equal to the Python copy's and its result bit-equal to the
+   plain version, and 4 of them timed L2 cold against their bytes bound;
+   ``core.paper_train.paper_spec`` of ResNet-18, GoogLeNet and MobileNetV2
+   under FL, SL_75_25, SL_40_60, SL_25_75 and SL_15_85 (15 cases: 224x224,
+   4 clients, batch 16, 2 local steps, 2 rounds, 12 classes, the port's
+   ``SyntheticPestImages``, int8 link on the fused kernel), each case's
+   cut and smashed shape, rounds, held-out metrics, energy sums and int8
+   launches (16 on each SL case, 0 on each FL case), one profiled
+   SL_25_75 round of ResNet-18 and of GoogLeNet, every setting's client
+   energy against FL's in the form of the paper's Table III beside its
+   "up to 86%" headline, and ResNet-18 SL_15_85 and GoogLeNet SL_40_60 at
+   32x32 on the card (cuDNN's deterministic algorithms) held against the
+   CPU;
 7. the split-LM path: SmolLM-135M at full width (30 layers, d 576,
    vocab 49,152), sequences of 1024 tokens, batch 8, 4 clients, cut 8/30,
    int8 link on the fused kernel, attention on the flash kernel, 2 rounds;
@@ -439,6 +454,38 @@ MC_SEEDS = 4
 MC_ROUNDS = 2
 MC_INT8_SHAPE = (MC_SEEDS, FLEET, 16, 28, 28, MAIN_D)
 MC_INT8 = (math.prod(MC_INT8_SHAPE[:-1]), MAIN_D)
+# the [paper] phase: the paper's three backbones through its FL and SL_{a,b}
+# specs (Fig. 3 / Table III) at 224x224, 4 clients, batch 16, 2 local
+# steps, 12 classes, int8 link on the fused kernel
+PAPER_BACKBONES = ("resnet18", "googlenet", "mobilenetv2")
+PAPER_SETTINGS = (("FL", "fl", None), ("SL_75_25", "sl", 0.75),
+                  ("SL_40_60", "sl", 0.40), ("SL_25_75", "sl", 0.25),
+                  ("SL_15_85", "sl", 0.15))
+PAPER_ROUNDS = 2
+PAPER_IMAGE = 224
+PAPER_N_TRAIN, PAPER_N_TEST = 480, 96
+# each SL setting's cut (the last client stage) and smashed (N, H, W, C)
+PAPER_SMASHED = {
+    ("resnet18", 0.75): ("block6", (16, 7, 7, 512)),
+    ("resnet18", 0.40): ("block3", (16, 28, 28, 128)),
+    ("resnet18", 0.25): ("block1", (16, 56, 56, 64)),
+    ("resnet18", 0.15): ("block0", (16, 56, 56, 64)),
+    ("googlenet", 0.75): ("inc4e", (16, 7, 7, 832)),
+    ("googlenet", 0.40): ("inc4a", (16, 14, 14, 512)),
+    ("googlenet", 0.25): ("inc3b", (16, 14, 14, 480)),
+    ("googlenet", 0.15): ("inc3a", (16, 28, 28, 256)),
+    ("mobilenetv2", 0.75): ("ir5_0", (16, 7, 7, 160)),
+    ("mobilenetv2", 0.40): ("ir3_0", (16, 14, 14, 64)),
+    ("mobilenetv2", 0.25): ("ir2_0", (16, 28, 28, 32)),
+    ("mobilenetv2", 0.15): ("ir1_0", (16, 56, 56, 24)),
+}
+# the link kernel's (rows, D) at those cuts that no earlier phase runs
+PAPER_INT8 = tuple(sorted({(math.prod(s[:-1]), s[-1])
+                           for _, s in PAPER_SMASHED.values()}
+                          - {(MAIN_M, MAIN_D)}))
+PAPER_INT8_TIMED = ((50176, 24), (784, 832), (3136, 480), (50176, 64))
+# the paper's headline: SL cuts on-device energy by up to 86% against FL
+PAPER_SAVING_HEADLINE = 0.86
 
 
 def card_line() -> str:
@@ -1459,31 +1506,210 @@ def profile_call(fn, label: str, what: str, top: int = 12, cpu=True):
               f"{100 * t_us / busy_us:5.1f}%  x{count:<5d} {key[:90]}")
 
 
-def check_against_cpu(api):
-    """tinycnn on the card (fused kernel) vs the same plan on the CPU (its
+def check_against_cpu(api, spec=None, label="tinycnn sl/scan int8",
+                      data=None, deterministic=False):
+    """A plan on the card (fused kernel) vs the same plan on the CPU (its
     plain version): same params and data; losses agree within 1e-3, wire
-    bytes and the contraction FLOP counts exactly."""
-    spec = api.ExperimentSpec(
+    bytes and the contraction FLOP counts exactly. ``spec`` defaults to
+    tinycnn ``sl/scan`` with the int8 link; ``data`` is handed to both
+    compiles; ``deterministic`` runs the card under cuDNN's deterministic
+    algorithms (restored after)."""
+    spec = spec or api.ExperimentSpec(
         model=api.ModelSpec(name="tinycnn"),
         data=api.DataSpec(image_size=16, n_train=96, n_test=24),
         clients=api.ClientSpec(num_clients=3),
         link_policy=api.LinkPolicy(compress="int8"),
         engine=api.EngineSpec(kind="sl", link_kernel="fused"),
         global_rounds=2, batch_size=4)
-    gpu = api.compile_experiment(spec)
-    cpu = api.compile_experiment(spec, device="cpu")
-    _, rec_gpu = gpu.run()
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic or was
+    try:
+        gpu = api.compile_experiment(spec, data=data)
+        _, rec_gpu = gpu.run()
+    finally:
+        torch.backends.cudnn.deterministic = was
+    cpu = api.compile_experiment(spec, data=data, device="cpu")
     _, rec_cpu = cpu.run()
     for g, c in zip(rec_gpu, rec_cpu):
         if abs(g.loss - c.loss) > 1e-3 or g.link_bytes != c.link_bytes:
-            raise AssertionError(f"card vs CPU records differ: {g} vs {c}")
+            raise AssertionError(f"{label}: card vs CPU records differ: {g} "
+                                 f"vs {c}")
     k = gpu.cut_of_client[0]
     if [f.contraction for f in gpu.flops[k][:2]] != \
             [f.contraction for f in cpu.flops[k][:2]]:
-        raise AssertionError("card vs CPU contraction FLOP counts differ")
-    print(f"[check] tinycnn sl/scan int8 on the card == on the CPU "
+        raise AssertionError(f"{label}: card vs CPU contraction FLOP counts "
+                             f"differ")
+    print(f"[check] {label} on the card == on the CPU "
           f"(losses {[round(r.loss, 6) for r in rec_gpu]} vs "
-          f"{[round(r.loss, 6) for r in rec_cpu]})")
+          f"{[round(r.loss, 6) for r in rec_cpu]}, link bytes "
+          f"{[r.link_bytes for r in rec_gpu]}, contractions "
+          f"{[f.contraction for f in gpu.flops[k][:2]]})")
+
+
+def paper_data(image_size: int, n_train: int, n_test: int):
+    """``(x_train, y_train, x_test, y_test)`` from the port's
+    ``SyntheticPestImages`` (12 classes, NHWC float32), seed 0."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import SyntheticPestImages
+    gen = SyntheticPestImages(num_classes=12, image_size=image_size)
+    x, y = gen.sample(np.random.default_rng(0), n_train + n_test)
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
+def paper_spec_fused(model: str, kind: str, fraction, **fields):
+    """``paper_spec`` of ``model`` with the int8 link on the fused kernel
+    (``paper_spec`` keeps the reference's ``"xla"`` seam)."""
+    from repro_torch.core.paper_train import PaperTrainConfig, paper_spec
+    cfg = PaperTrainConfig(model=model, compress_link=True,
+                           client_fraction=fraction or 0.25, **fields)
+    spec = paper_spec(cfg, kind)
+    return dataclasses.replace(spec, engine=dataclasses.replace(
+        spec.engine, link_kernel="fused"))
+
+
+def check_paper_int8_shapes(dev) -> dict:
+    """The link kernel at the paper's cuts' (rows, D) that no earlier
+    phase runs (``PAPER_INT8``): its launch plan from the library equal to
+    the Python copy's, and bit-equal to its plain version in f32 (NaN, inf
+    and zero rows, with and without a residual); then timed L2 cold at
+    ``PAPER_INT8_TIMED``. Returns the largest |kernel - plain| and the
+    times by shape."""
+    from repro_torch.kernels.quant.int8 import (quant_dequant_int8,
+                                                quant_dequant_int8_plain,
+                                                quant_int8_device_plan,
+                                                quant_int8_launch_plan)
+    g = torch.Generator(device=dev).manual_seed(1)
+    max_err = 0.0
+    for m, d in PAPER_INT8:
+        plan = quant_int8_device_plan(m, d, torch.float32)
+        want = quant_int8_launch_plan(m, d, torch.float32)
+        if any(plan[key] != want[key] for key in want):
+            raise AssertionError(f"[paper] int8 launch plan at ({m}, {d}): "
+                                 f"library {plan}, Python copy {want}")
+        x = int8_input(m, d, torch.float32, dev, g, special=True)
+        for r in (None, torch.randn(m, d, device=dev, generator=g)):
+            got = quant_dequant_int8(x, residual=r)
+            ref = quant_dequant_int8_plain(x, residual=r)
+            torch.cuda.synchronize()
+            if not same(got, ref):
+                raise AssertionError(f"[paper] quant_dequant_int8 kernel != "
+                                     f"plain at ({m}, {d}) f32 residual="
+                                     f"{r is not None}")
+            max_err = max(max_err, float(
+                (got - ref).nan_to_num(0.0).abs().max()))
+        print(f"[paper] int8 link ({m}, {d}) f32: {plan['path']} path, "
+              f"G={plan['lanes_per_row']} V={plan['chunks_per_lane']}, "
+              f"{plan['blocks']} blocks of {plan['rows_per_block']} rows, "
+              f"{plan['blocks_per_sm']} resident an SM; bit-equal to the "
+              f"plain version with and without a residual")
+    times = {shape: time_quant_kernel(dev, *shape)
+             for shape in PAPER_INT8_TIMED}
+    return {"max_err": max_err, "times": times}
+
+
+def paper_case(api, model: str, setting: str, kind: str, fraction,
+               data) -> dict:
+    """One case of the grid: compile, run ``PAPER_ROUNDS`` rounds,
+    print the cut, each round, the held-out metrics, the energy sums and
+    the int8 launches; SL launches one a client step, FL none."""
+    from repro_torch.kernels.quant.int8 import quant_dequant_int8
+    label = f"paper {model} {setting}"
+    t0 = time.perf_counter()
+    plan = api.compile_experiment(paper_spec_fused(
+        model, kind, fraction, image_size=PAPER_IMAGE, num_clients=4,
+        batch_size=16, global_rounds=PAPER_ROUNDS, local_steps=2),
+        data=data)
+    if kind == "sl":
+        k = plan.cut_of_client[0]
+        cut = (plan.stages[k - 1].name, tuple(plan.flops[k][2].shape))
+        if cut != PAPER_SMASHED[(model, fraction)]:
+            raise AssertionError(f"[{label}] cut {cut}, want "
+                                 f"{PAPER_SMASHED[(model, fraction)]}")
+        where = f"cut after {cut[0]} (stage {k}), smashed {cut[1]}"
+    else:
+        where = "the full model on every client"
+    print(f"[{label}] compiled in {time.perf_counter() - t0:.2f} s: {where}")
+    quant_dequant_int8.launches = 0
+    state, recs = run_plan(plan, label)
+    launches = quant_dequant_int8.launches
+    spec = plan.spec
+    want = (plan.num_rounds * spec.local_steps * spec.clients.num_clients
+            if kind == "sl" else 0)
+    sums = {f: sum(getattr(r, f) for r in recs)
+            for f in ("client_time_s", "client_energy_j", "server_time_s",
+                      "server_energy_j", "link_energy_j", "link_bytes")}
+    print(f"[{label}] last_metrics "
+          f"{ {key: round(v, 6) for key, v in state.last_metrics.items()} }; "
+          f"sums over {plan.num_rounds} rounds {sums}; quant_dequant_int8 "
+          f"launches {launches} (want {want}); case "
+          f"{time.perf_counter() - t0:.2f} s")
+    if launches != want:
+        raise AssertionError(f"[{label}] launched the int8 kernel "
+                             f"{launches} times, want {want}")
+    if model != "mobilenetv2" and setting == "SL_25_75":
+        profile_call(lambda: plan.run_round(state), label, "round",
+                     cpu=False)
+    return {"launches": launches, "rounds": plan.num_rounds, **sums,
+            "metrics": dict(state.last_metrics)}
+
+
+def run_paper_path(api, dev) -> dict:
+    """The paper's experiment (``[paper]``): ``paper_spec`` of ResNet-18,
+    GoogLeNet and MobileNetV2 under FL and SL_75_25 ... SL_15_85 at
+    224x224 (``paper_case``), the link kernel at the new cut shapes, the
+    client energy of each SL setting against FL in Table III's form, and
+    ResNet-18 and GoogLeNet at 32x32 on the card against the CPU. Returns
+    the int8 launches over the grid and the kernel's check and times."""
+    import gc
+    kernel = check_paper_int8_shapes(dev)
+    data = paper_data(PAPER_IMAGE, PAPER_N_TRAIN, PAPER_N_TEST)
+    cases = {}
+    for model in PAPER_BACKBONES:
+        for setting, kind, fraction in PAPER_SETTINGS:
+            cases[(model, setting)] = paper_case(api, model, setting, kind,
+                                                 fraction, data)
+            gc.collect()
+            torch.cuda.empty_cache()
+    del data
+    print(f"[paper] Table III form, the port's bill (summed over each "
+          f"case's rounds; per round below), against the paper's headline "
+          f"SL client-energy saving of up to "
+          f"{100 * PAPER_SAVING_HEADLINE:.0f}% over FL:")
+    best = 0.0
+    for model in PAPER_BACKBONES:
+        fl = cases[(model, "FL")]
+        fl_round = fl["client_energy_j"] / fl["rounds"]
+        for setting, _, _ in PAPER_SETTINGS:
+            c = cases[(model, setting)]
+            per_round = c["client_energy_j"] / c["rounds"]
+            saving = 1.0 - per_round / fl_round
+            if setting != "FL":
+                best = max(best, saving)
+            print(f"[paper] table {model:11s} {setting:8s} client "
+                  f"{c['client_time_s'] / c['rounds']:.6g} s "
+                  f"{per_round:.6g} J, server "
+                  f"{c['server_time_s'] / c['rounds']:.6g} s "
+                  f"{c['server_energy_j'] / c['rounds']:.6g} J, link "
+                  f"{c['link_energy_j'] / c['rounds']:.6g} J "
+                  f"{c['link_bytes'] / c['rounds']:.0f} B a round; client "
+                  f"energy SL/FL {per_round / fl_round:.4f} (saving "
+                  f"{100 * saving:.1f}%); accuracy "
+                  f"{c['metrics']['accuracy']:.4f} f1 "
+                  f"{c['metrics']['f1']:.4f} mcc {c['metrics']['mcc']:.4f}")
+    print(f"[paper] largest SL client-energy saving over FL in the port's "
+          f"bill: {100 * best:.1f}% (paper: up to "
+          f"{100 * PAPER_SAVING_HEADLINE:.0f}%)")
+    small = paper_data(32, 96, 24)
+    for model, fraction in (("resnet18", 0.15), ("googlenet", 0.40)):
+        check_against_cpu(api, paper_spec_fused(
+            model, "sl", fraction, image_size=32, num_clients=2,
+            global_rounds=1, local_steps=1, batch_size=4),
+            f"{model} SL_{round(100 * fraction)}_"
+            f"{round(100 * (1 - fraction))} 32x32 int8 (cudnn "
+            f"deterministic)", data=small, deterministic=True)
+    return {"launches": sum(c["launches"] for c in cases.values()),
+            **kernel}
 
 
 def lm_spec(api, arch, attn_impl: str, *, seq_len=1024, n_train=96,
@@ -4872,6 +5098,8 @@ def main() -> int:
         raise AssertionError("SL client energy is not below FL's")
 
     stamp("CNN paths")
+    paper = run_paper_path(api, dev)
+    stamp("paper path")
     lm_launches = run_lm_path(api)
     stamp("split-LM path")
 
@@ -5030,7 +5258,8 @@ def main() -> int:
 
     # launches: the counts over the split-LM path's run for the two kernels
     # on it (the CNN path's int8 count is checked above), the int8 kernel's
-    # with the [hetero], [scenario], [mc] and [mc-scan] vmap runs added
+    # with the [paper] grid's 15 runs (each read over its own run), the
+    # [hetero], [scenario], [mc] and [mc-scan] vmap runs added
     # (each count read over its own run, and the [obs] phase's sl/vmap and
     # Monte-Carlo runs with taps, the [shard_map] phase's MobileNetV2
     # sl/shard_map and SmolLM sl/shard_map runs and the [server-mesh]
@@ -5055,6 +5284,7 @@ def main() -> int:
                 "source": "src/repro_torch/csrc/quant_int8.cu",
                 "replaces": "src/repro/kernels/quant/int8.py:40",
                 "launches": (lm_launches["quant_dequant_int8"]
+                             + paper["launches"]
                              + analyze["launches"]["quant_dequant_int8"]
                              + hetero["hetero"]["quant_dequant_int8"]
                              + scenario_launches + mc["mc-vmap"]
@@ -5064,7 +5294,7 @@ def main() -> int:
                              + srv["mc"]["launches"]
                              + sm["lm"]["launches"]["quant_dequant_int8"]
                              + encdec["lm"]["launches"]["quant_dequant_int8"]),
-                "max_abs_err": max_err,
+                "max_abs_err": max(max_err, paper["max_err"]),
                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                 "bound_ms": timing["bound_ms"], "bound_by": "bytes",
                 "library_ms": None},

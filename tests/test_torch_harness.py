@@ -162,6 +162,50 @@ def assert_records_match(ref_recs, port_recs, *, ref_flops_pair,
                                                       rel=1e-12)
 
 
+def plan_flops_pair(plan):
+    """(client, server) FLOPs a plan bills a step at: the full model's and 0
+    on FL, the first client's cut's on SL."""
+    if plan.spec.engine.kind == "fl":
+        return plan.flops["full"], 0.0
+    c, s, _ = plan.flops[plan.cut_of_client[0]]
+    return c, s
+
+
+PAPER_N_TRAIN, PAPER_N_TEST = 96, 24
+
+
+def paper_plans_both(model: str, kind: str, *, fraction: float = 0.25,
+                     compress: bool = False, image_size: int = 32):
+    """One ``paper_spec`` (2 clients, 1 round, 1 local step, batch 4) through
+    both packages' ``compile_experiment`` on the same numpy arrays (seed 0,
+    12 classes), the port on the CPU with the reference plan's ``params0``
+    (through ``convert.from_reference``). Returns (reference plan, port
+    plan, reference records, port records)."""
+    from repro.api import compile_experiment as ref_compile
+    from repro.core.paper_train import PaperTrainConfig as RefConfig
+    from repro.core.paper_train import paper_spec as ref_paper_spec
+    from repro_torch.api import compile_experiment as port_compile
+    from repro_torch.core.paper_train import PaperTrainConfig, paper_spec
+
+    fields = dict(model=model, image_size=image_size, num_clients=2,
+                  global_rounds=1, local_steps=1, batch_size=4,
+                  client_fraction=fraction, compress_link=compress)
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0, 1, (PAPER_N_TRAIN, image_size, image_size, 3)).astype(
+        np.float32)
+    y = rng.randint(0, 12, size=(PAPER_N_TRAIN,))
+    data = (x, y, x[:PAPER_N_TEST], y[:PAPER_N_TEST])
+    ref_plan = ref_compile(ref_paper_spec(RefConfig(**fields), kind),
+                           data=data)
+    port_plan = port_compile(paper_spec(PaperTrainConfig(**fields), kind),
+                             data=data, device="cpu")
+    port_plan.params0 = from_reference(
+        jax.tree_util.tree_map(np.asarray, ref_plan.params0), model)
+    _, ref_recs = ref_plan.run()
+    _, port_recs = port_plan.run()
+    return ref_plan, port_plan, ref_recs, port_recs
+
+
 def reference_env_draws(env_seed: int, rounds: int, *, mask_n: int = 0,
                         rates_n: int = 0) -> list:
     """The reference's environment draws of ``rounds`` rounds, as the

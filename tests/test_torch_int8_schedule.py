@@ -48,8 +48,18 @@ PLAN_TABLE = {
     32: (("vector", 8, 1), ("vector", 4, 1)),
     33: (GENERIC, GENERIC),
     36: (("vector", 16, 1), GENERIC),
+    # the paper's cut widths at its SL splits (ResNet-18, GoogLeNet and
+    # MobileNetV2): D 24 leaves 2 lanes of each group of 8 idle, D 832 is
+    # the longest row of the link (7 chunks a lane)
+    24: (("vector", 8, 1), ("vector", 4, 1)),
+    64: (("vector", 16, 1), ("vector", 8, 1)),
+    128: (("vector", 32, 1), ("vector", 16, 1)),
+    160: (("vector", 32, 2), ("vector", 32, 1)),
     256: (("vector", 32, 2), ("vector", 32, 1)),
+    480: (("vector", 32, 4), ("vector", 32, 2)),
+    512: (("vector", 32, 4), ("vector", 32, 2)),
     576: (("vector", 32, 5), ("vector", 32, 3)),
+    832: (("vector", 32, 7), ("vector", 32, 4)),
     1000: (("vector", 32, 8), ("vector", 32, 4)),
     1024: (("vector", 32, 8), ("vector", 32, 4)),
     1028: (GENERIC, GENERIC),
@@ -109,7 +119,8 @@ def lane_map(m, d, dtype):
 
 
 # the link shapes, and widths on every lane-group size and on V > 1
-MAP_SHAPES = [(12544, 32, "float32"), (8192, 576, "float32")] + [
+MAP_SHAPES = [(12544, 32, "float32"), (8192, 576, "float32"),
+              (50176, 24, "float32"), (784, 832, "float32")] + [
     (m, d, dt) for m in (1, 7, 509)
     for d, dt in ((4, "float32"), (8, "float32"), (36, "float32"),
                   (32, "bfloat16"), (1000, "float32"), (2048, "bfloat16"))]
@@ -258,7 +269,7 @@ def _torch(a):
 
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [8, 32, 576])
+@pytest.mark.parametrize("d", [8, 24, 32, 576, 832])
 @pytest.mark.parametrize("m", [7, 509])
 def test_emulated_fused_kernel_is_bit_equal(m, d, dtype, residual):
     x, r = _rows(m, d, dtype, seed=0)
@@ -277,7 +288,7 @@ def test_emulated_fused_kernel_is_bit_equal(m, d, dtype, residual):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [8, 32, 576])
+@pytest.mark.parametrize("d", [8, 24, 32, 576, 832])
 @pytest.mark.parametrize("m", [7, 509])
 def test_emulated_packed_codes_are_bit_equal(m, d, dtype):
     x, _ = _rows(m, d, dtype, seed=1)

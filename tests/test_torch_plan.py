@@ -14,7 +14,7 @@ import jax
 import numpy as np
 import pytest
 
-from test_torch_harness import assert_records_match
+from test_torch_harness import assert_records_match, plan_flops_pair
 
 import repro.api as R
 import repro_torch.api as T
@@ -57,13 +57,6 @@ def _run_both(kind, **kw):
     return ref_plan, port_plan, ref_recs, port_recs
 
 
-def _flops_pair(plan):
-    if plan.spec.engine.kind == "fl":
-        return plan.flops["full"], 0.0
-    c, s, _ = plan.flops[plan.cut_of_client[0]]
-    return c, s
-
-
 CASES = {
     "sl-fp32": dict(kind="sl"),
     "sl-int8-fused": dict(kind="sl", compress="int8", link_kernel="fused"),
@@ -80,8 +73,8 @@ def test_record_streams_match_reference(case):
     assert port_plan.rounds_budget == ref_plan.rounds_budget
     assert port_plan.cut_of_client == ref_plan.cut_of_client
     assert_records_match(
-        ref_recs, port_recs, ref_flops_pair=_flops_pair(ref_plan),
-        port_flops_pair=_flops_pair(port_plan),
+        ref_recs, port_recs, ref_flops_pair=plan_flops_pair(ref_plan),
+        port_flops_pair=plan_flops_pair(port_plan),
         server_base_s=FL_SERVER_AGG_S if kw["kind"] == "fl" else 0.0,
         n_test=N_TEST)
     if kw.get("mission"):
